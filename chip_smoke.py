@@ -13,16 +13,25 @@ Phases, each printing a line with its wall time:
               from a seed, int8 per-channel: a teacher-forced prefill and
               decode steps through the kernels, held against the plain
               versions on the same weights (on the CPU)
-  5. serve    the scheduler and the HTTP server in-process on 127.0.0.1,
-              8 concurrent /api/v1/generate requests, greedy; every
-              kernel's launch count must grow
-Then one JSON line with every kernel's numbers and, last, the result line
-{"ok": true, "device": {...}}.
+  5. paged path  the same through the paged KV cache (pages scattered in a
+              pool whose unwritten rows hold NaN), against the plain path
+              on the CPU
+  6. serve    the scheduler and the HTTP server in-process on 127.0.0.1,
+              8 concurrent /api/v1/generate requests, greedy, contiguous
+              KV; prompts over 512 tokens prefill in chunks; every
+              contiguous-path kernel's launch count must grow
+  7. paged serve  12 requests over a paged pool too small for them (lazy
+              reservation, prefix cache, chunked prefill): preemption,
+              prefix hits and multi-chunk prompts must all occur, the paged
+              kernels must launch and the contiguous ones must not
+Each serve phase sets every launch count to 0 just before it and reads the
+counts just after. Then one JSON line with every kernel's numbers and,
+last, the result line {"ok": true, "device": {...}}.
 
 Any failed check raises: the error goes to stderr and the exit code is 1.
 Without a CUDA device, or without the deeppowers_tpu_torch package beside
 it, the script exits non-zero and prints no result. A watchdog ends the
-process with exit code 1 if the run passes 8 minutes. It starts no child
+process with exit code 1 if the run passes 10 minutes. It starts no child
 process but nvcc and nvidia-smi, and writes only under build/.
 """
 
@@ -36,7 +45,7 @@ import threading
 import time
 import traceback
 
-WATCHDOG_S = 480
+WATCHDOG_S = 600
 SEED = 0
 H100_BYTES_PER_S = 3.35e12        # HBM3, NVIDIA data sheet (SXM)
 H100_BF16_FLOPS = 989e12          # dense bf16 tensor-core peak
@@ -257,13 +266,19 @@ def check_kernels(torch, cfg):
                                                         pos)], 50, graph=False)
     nb = 2 * 2 * 7 * f * 2                      # 7 rows written, K and V
     bd, by = bound_ms(nb + b * 4, 0)
+    keep = pos < s_cache
+    flat_rows = (torch.arange(b, device=dev) * s_cache + pos.long())[keep]
+    kf, vf = kc2.view(-1, f), vc2.view(-1, f)
+    kr_k, vr_k = kr[keep], vr[keep]
+    t_l = cuda_ms(torch, [lambda: (kf.index_copy_(0, flat_rows, kr_k),
+                                   vf.index_copy_(0, flat_rows, vr_k))], 200)
     log(f"  scatter_rows B={b} S={s_cache} F={f}: exact, kernel {t_k:.4f} ms,"
-        f" plain {t_p:.4f} ms, bound {bd:.6f} ms")
+        f" plain {t_p:.4f} ms, index_copy_ {t_l:.4f} ms, bound {bd:.6f} ms")
     rows.append({"name": "scatter_rows", "route": "cuda",
                  "source": "deeppowers_tpu_torch/csrc/kv_append.cu",
                  "replaces": "deeppowers_tpu/ops/pallas/kv_append.py:104",
                  "max_abs_err": 0.0, "ms": t_k, "plain_ms": t_p,
-                 "bound_ms": bd, "bound_by": by, "library_ms": None})
+                 "bound_ms": bd, "bound_by": by, "library_ms": t_l})
 
     # -- 3. decode_attention over the serve phase's lengths ----------------
     hq, d, kh = cfg.num_heads, cfg.dim_head, cfg.kv_heads
@@ -301,44 +316,141 @@ def check_kernels(torch, cfg):
                  "replaces": "deeppowers_tpu/ops/pallas/decode_attention.py:470",
                  "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
                  "bound_ms": bd, "bound_by": by, "library_ms": t_l})
+    contiguous_attn_ms = t_k
 
-    # -- 4. flash_attention_prefill: the 600- and 900-token prompts --------
-    s = 1024
-    plen = [600, 900]
-    qp, kp, vp = rn(2, s, hq, d), rn(2, s, kh, d), rn(2, s, kh, d)
-    ln = torch.tensor(plen, device=dev, dtype=torch.int32)
-    out = fa.flash_attention_prefill(qp, kp, vp, ln)
-    ref = fa.flash_attention_plain(qp, kp, vp, ln)
-    torch.cuda.synchronize()
-    errs = [row_errors(out[i, :n], ref[i, :n]) for i, n in enumerate(plen)]
-    err, worst = max(e for e, _ in errs), max(w for _, w in errs)
-    if not (torch.isfinite(out).all() and worst <= 1e-2):
-        fail(f"flash_attention_prefill: a valid (token, head) row's error is "
-             f"{worst:.3g} of its max|ref| (limit 1e-2)")
-    t_k = cuda_ms(torch, [lambda: fa.flash_attention_prefill(qp, kp, vp,
-                                                             ln)], 20)
-    t_p = cuda_ms(torch, [lambda: fa.flash_attention_plain(qp, kp, vp,
-                                                           ln)], 5,
-                  graph=False)
-    pos = torch.arange(s, device=dev)
-    fmask = ((pos[None, :] <= pos[:, None])[None]
-             & (pos[None, None, :] < ln[:, None, None].long()))[:, None]
-    qt, kt, vt = (t.transpose(1, 2) for t in (qp, kp, vp))
-    kt, vt = kt.repeat_interleave(rep, 1), vt.repeat_interleave(rep, 1)
-    t_l = cuda_ms(torch, [lambda: sdpa(qt, kt, vt, attn_mask=fmask)], 20)
-    # only rows below each length are needed (the rest only come out
-    # finite): q, out, k and v over those rows, keys j <= i < n per row
-    rows_n, keys = sum(plen), sum(n * (n + 1) // 2 for n in plen)
-    bd, by = bound_ms(rows_n * (2 * hq + 2 * kh) * d * 2, 4 * keys * hq * d)
-    log(f"  flash_attention_prefill B=2 S={s} lengths={plen}: max_abs_err="
-        f"{err:.3e} worst_row_ratio={worst:.3e}, kernel {t_k:.4f} ms, plain "
-        f"{t_p:.4f} ms, sdpa {t_l:.4f} ms, bound {bd:.6f} ms")
+    # -- 4. flash_attention_prefill: at the serve phase's shape, the 300-
+    # and 450-token prompts batched in bucket 512 (longer prompts prefill
+    # in chunks, through attention_chunk); and at bucket 1024 with 600 and
+    # 900 tokens, the shape it was first held at. The line reports bucket 512.
+    def flash_case(s, plen):
+        qp, kp, vp = rn(2, s, hq, d), rn(2, s, kh, d), rn(2, s, kh, d)
+        ln = torch.tensor(plen, device=dev, dtype=torch.int32)
+        out = fa.flash_attention_prefill(qp, kp, vp, ln)
+        ref = fa.flash_attention_plain(qp, kp, vp, ln)
+        torch.cuda.synchronize()
+        errs = [row_errors(out[i, :n], ref[i, :n]) for i, n in enumerate(plen)]
+        err, worst = max(e for e, _ in errs), max(w for _, w in errs)
+        if not (torch.isfinite(out).all() and worst <= 1e-2):
+            fail(f"flash_attention_prefill S={s}: a valid (token, head) row's "
+                 f"error is {worst:.3g} of its max|ref| (limit 1e-2)")
+        t_k = cuda_ms(torch, [lambda: fa.flash_attention_prefill(qp, kp, vp,
+                                                                 ln)], 20)
+        t_p = cuda_ms(torch, [lambda: fa.flash_attention_plain(qp, kp, vp,
+                                                               ln)], 5,
+                      graph=False)
+        pos = torch.arange(s, device=dev)
+        fmask = ((pos[None, :] <= pos[:, None])[None]
+                 & (pos[None, None, :] < ln[:, None, None].long()))[:, None]
+        qt, kt, vt = (t.transpose(1, 2) for t in (qp, kp, vp))
+        kt, vt = kt.repeat_interleave(rep, 1), vt.repeat_interleave(rep, 1)
+        t_l = cuda_ms(torch, [lambda: sdpa(qt, kt, vt, attn_mask=fmask)], 20)
+        # only rows below each length are needed (the rest only come out
+        # finite): q, out, k and v over those rows, keys j <= i < n per row
+        rows_n, keys = sum(plen), sum(n * (n + 1) // 2 for n in plen)
+        bd, by = bound_ms(rows_n * (2 * hq + 2 * kh) * d * 2,
+                          4 * keys * hq * d)
+        log(f"  flash_attention_prefill B=2 S={s} lengths={plen}: max_abs_err"
+            f"={err:.3e} worst_row_ratio={worst:.3e}, kernel {t_k:.4f} ms, "
+            f"plain {t_p:.4f} ms, sdpa {t_l:.4f} ms, bound {bd:.6f} ms")
+        return err, t_k, t_p, t_l, bd, by
+
+    err, t_k, t_p, t_l, bd, by = flash_case(512, [300, 450])
+    err = max(err, flash_case(1024, [600, 900])[0])
     rows.append({"name": "flash_attention_prefill", "route": "cuda",
                  "source": "deeppowers_tpu_torch/csrc/flash_attention.cu",
                  "replaces": "deeppowers_tpu/ops/pallas/flash_attention.py:140",
                  "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
                  "bound_ms": bd, "bound_by": by, "library_ms": t_l})
-    del kc, vc, kc2, vc2, qp, kp, vp, kt, vt, qt, k4, v4
+    del kc, vc, kc2, vc2, k4, v4
+    torch.cuda.empty_cache()
+
+    # -- 6. scatter_pool_rows: one decode token per slot into the pools ----
+    page, n_pages = 128, 65                     # full reservation's pool
+    kpool, vpool = rn(n_pages, page, f), rn(n_pages, page, f)
+    kpool2, vpool2 = kpool.clone(), vpool.clone()
+    prow = torch.tensor([130, 7 * page + 5, 300, 64 * page + 127, 1000, 42,
+                         2 * page, 5 * page + 77], device=dev,
+                        dtype=torch.int32)
+    pvalid = torch.tensor([1, 1, 0, 1, 1, 1, 0, 1], device=dev,
+                          dtype=torch.bool)       # row 300 is a live row
+    ka.scatter_pool_rows(kpool, vpool, kr, vr, prow, pvalid)
+    ka.scatter_pool_rows_plain(kpool2, vpool2, kr, vr, prow, pvalid)
+    torch.cuda.synchronize()
+    if not (torch.equal(kpool, kpool2) and torch.equal(vpool, vpool2)):
+        fail("scatter_pool_rows differs from its plain version")
+    untouched = kpool.view(-1, f)[[300, 2 * page]]
+    if not torch.equal(untouched, kpool2.view(-1, f)[[300, 2 * page]]) or \
+            torch.equal(kpool.view(-1, f)[300], kr[2]):
+        fail("scatter_pool_rows wrote an invalid row")
+    t_k = cuda_ms(torch, [lambda: ka.scatter_pool_rows(
+        kpool, vpool, kr, vr, prow, pvalid)], 200)
+    t_p = cuda_ms(torch, [lambda: ka.scatter_pool_rows_plain(
+        kpool2, vpool2, kr, vr, prow, pvalid)], 50, graph=False)
+    vrows = prow.long()[pvalid]
+    kpf, vpf = kpool2.view(-1, f), vpool2.view(-1, f)
+    kr_v, vr_v = kr[pvalid], vr[pvalid]
+    t_l = cuda_ms(torch, [lambda: (kpf.index_copy_(0, vrows, kr_v),
+                                   vpf.index_copy_(0, vrows, vr_v))], 200)
+    n_valid = int(pvalid.sum())
+    bd, by = bound_ms(2 * 2 * n_valid * f * 2 + b * 5, 0)
+    log(f"  scatter_pool_rows B={b} pool=({n_pages}, {page}, {f}) "
+        f"valid={n_valid}: exact, kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+        f"index_copy_ {t_l:.4f} ms, bound {bd:.6f} ms")
+    rows.append({"name": "scatter_pool_rows", "route": "cuda",
+                 "source": "deeppowers_tpu_torch/csrc/kv_append.cu",
+                 "replaces": "deeppowers_tpu/ops/pallas/kv_append.py:207",
+                 "max_abs_err": 0.0, "ms": t_k, "plain_ms": t_p,
+                 "bound_ms": bd, "bound_by": by, "library_ms": t_l})
+
+    # -- 5. decode_attention_paged: the lengths of phase 3, through a table
+    # of pages scattered over the pool; rows past each length are stale:
+    # random, and every third one NaN
+    wp = 1024 // page
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(
+        SEED + 3))[:b * wp] + 1
+    table = perm.reshape(b, wp).to(device=dev, dtype=torch.int32)
+    pos_all = torch.arange(wp * page, device=dev)
+    stale = pos_all[None, :] >= lens[:, None].long()              # (B, S)
+    nan_rows = stale & (pos_all[None, :] % 3 == 0)
+    vrow = (table.long()[:, pos_all // page] * page + pos_all % page)
+    for pool in (kpool, vpool):
+        pool.view(-1, f)[vrow[nan_rows]] = float("nan")
+    out = da.decode_attention_paged(q, kpool, vpool, table, lens)
+    ref = da.decode_attention_paged_plain(q, kpool, vpool, table, lens)
+    torch.cuda.synchronize()
+    err, worst = row_errors(out, ref)
+    if not (torch.isfinite(out).all() and worst <= 1e-2):
+        fail(f"decode_attention_paged: a (slot, head) row's error is "
+             f"{worst:.3g} of its max|ref| (limit 1e-2), or not finite")
+    t_k = cuda_ms(torch, [lambda: da.decode_attention_paged(
+        q, kpool, vpool, table, lens)], 200)
+    t_p = cuda_ms(torch, [lambda: da.decode_attention_paged_plain(
+        q, kpool, vpool, table, lens)], 20, graph=False)
+    live_pages = int(((lens.long() + page - 1) // page).sum())
+    bd, by = bound_ms(2 * live * f * 2 + 2 * q.numel() * 2
+                      + live_pages * 4 + b * 4, 4 * live * hq * d)
+    log(f"  decode_attention_paged B={b} page={page} WP={wp} live={live}: "
+        f"max_abs_err={err:.3e} worst_row_ratio={worst:.3e}, kernel "
+        f"{t_k:.4f} ms (contiguous kernel #3 at the same lengths "
+        f"{contiguous_attn_ms:.4f} ms), plain {t_p:.4f} ms, no single "
+        f"library call reads through a table, bound {bd:.6f} ms")
+    rows.append({"name": "decode_attention_paged", "route": "cuda",
+                 "source": "deeppowers_tpu_torch/csrc/decode_attention.cu",
+                 "replaces": "deeppowers_tpu/ops/pallas/decode_attention.py:780",
+                 "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+                 "bound_ms": bd, "bound_by": by, "library_ms": None,
+                 "contiguous_ms": contiguous_attn_ms})
+    del kpool, vpool, kpool2, vpool2
+
+    # chunked prefill's attention_chunk: plain PyTorch on every device (the
+    # JAX package computes it with XLA, not in a Pallas kernel); one layer,
+    # a 512-token chunk at start 512 over its slot's 1024-row view
+    from deeppowers_tpu_torch.ops.attention import attention_chunk
+    qc, kc1, vc1 = rn(1, 512, hq, d), rn(1, 1024, kh, d), rn(1, 1024, kh, d)
+    t_c = cuda_ms(torch, [lambda: attention_chunk(qc, kc1, vc1, 512)], 20)
+    log(f"  attention_chunk (plain PyTorch, not a kernel) C=512 start=512 "
+        f"view=1024: {t_c:.4f} ms per layer")
+    del qc, kc1, vc1
     torch.cuda.empty_cache()
     return rows
 
@@ -347,8 +459,16 @@ def check_kernels(torch, cfg):
 # phase 4: teacher-forced path check
 # ---------------------------------------------------------------------------
 
-def forced_logits(torch, T, kvcache, params, cfg, ids, forced, device):
-    """Prefill `ids` then decode the forced tokens; every step's logits."""
+PAGED_TABLE = (9, 4, 0, 0, 0, 0, 0, 0)     # slot 0's pages in a 12-page pool
+
+
+def forced_logits(torch, T, kvcache, params, cfg, ids, forced, device,
+                  paged=False):
+    """Prefill `ids` then decode the forced tokens; every step's logits.
+    With `paged`, the K/V go to pages 9 and 4 of a 12-page pool whose
+    other rows hold NaN, through the paged kernels."""
+    import numpy as np
+    from deeppowers_tpu_torch.runtime import kvcache_paged
     n = len(ids)
     x = torch.tensor([ids], device=device)
     lens = torch.tensor([n], device=device, dtype=torch.int32)
@@ -357,10 +477,22 @@ def forced_logits(torch, T, kvcache, params, cfg, ids, forced, device):
         last, kv = T.forward_prefill(params, cfg, x, lens,
                                      dtype=torch.bfloat16, logits_at=lens - 1)
         out.append(last[0].float().cpu())
-        caches = kvcache.init_cache(cfg.num_layers, 1, 128, cfg.kv_heads,
-                                    cfg.dim_head, device=device)
-        for c, (k, v) in zip(caches, kv):
-            kvcache.write_prompts(c, k, v, torch.tensor([0], device=device))
+        if paged:
+            caches = kvcache_paged.init_paged_cache(
+                cfg.num_layers, 1, 1024, cfg.kv_heads, cfg.dim_head,
+                page_size=128, total_pages=12, device=device)
+            for c in caches:
+                c.k_pool.fill_(float("nan"))
+                c.v_pool.fill_(float("nan"))
+            kvcache_paged.with_table(caches, np.array([PAGED_TABLE],
+                                                      dtype=np.int32))
+            for c, (k, v) in zip(caches, kv):
+                kvcache.write_prompt(c, k[0], v[0], 0)
+        else:
+            caches = kvcache.init_cache(cfg.num_layers, 1, 128, cfg.kv_heads,
+                                        cfg.dim_head, device=device)
+            for c, (k, v) in zip(caches, kv):
+                kvcache.write_prompts(c, k, v, torch.tensor([0], device=device))
         for t in forced:
             lg, caches = T.forward_decode(
                 params, cfg, torch.tensor([t], device=device), caches, lens,
@@ -426,46 +558,40 @@ def profile_decode(torch, engine, tok, steps: int = 5):
                     for e in top]}
 
 
-def serve(torch, params, cfg, counters):
-    from deeppowers_tpu_torch.config import GenerationConfig, RuntimeConfig
-    from deeppowers_tpu_torch.runtime.engine import InferenceEngine
+def run_requests(torch, engine, prompts, max_tokens, counters, tok,
+                 on_engine=None):
+    """Serve `prompts` as concurrent greedy HTTP requests through the
+    scheduler and the server, in-process. Every launch count is set to 0
+    just before and read just after. Returns (results, launches, wall s,
+    scheduler)."""
     from deeppowers_tpu_torch.serving.scheduler import Scheduler
     from deeppowers_tpu_torch.serving.server import APIServer
-    from deeppowers_tpu_torch.serving.tokenizer import ByteTokenizer
 
-    tok = ByteTokenizer()
-    engine = InferenceEngine(
-        params, cfg, device="cuda", eos_token_id=tok.eos_token_id,
-        runtime=RuntimeConfig(max_batch_size=8, max_seq_len=1024,
-                              prefill_buckets=(64, 128, 256, 512, 1024)))
-    # warm-up outside the measured run: first launches and allocator
-    engine.generate(tok.encode("warm up"), GenerationConfig(
-        max_tokens=2, temperature=0.0))
     sched = Scheduler(engine, encode=tok.encode, decode=tok.decode)
     server = APIServer(sched, host="127.0.0.1", port=0)
     for fn in counters.values():
         fn.launches = 0
     sched.start()
     server.start()
-    results = [None] * len(PROMPT_BYTES)
+    results = [None] * len(prompts)
     errors = []
 
     def one(i):
         try:
             results[i] = post(server.port, {
-                "prompt": prompt_text(PROMPT_BYTES[i], i),
-                "max_tokens": MAX_TOKENS, "temperature": 0.0})
+                "prompt": prompts[i], "max_tokens": max_tokens,
+                "temperature": 0.0}, timeout=240.0)
         except Exception as e:           # reported below, fails the run
             errors.append(f"request {i}: {e!r}")
 
     t0 = time.perf_counter()
     try:
         threads = [threading.Thread(target=one, args=(i,), daemon=True)
-                   for i in range(len(PROMPT_BYTES))]
+                   for i in range(len(prompts))]
         for t in threads:
             t.start()
         for t in threads:
-            t.join(150)
+            t.join(250)
         wall = time.perf_counter() - t0
         hung = [t.name for t in threads if t.is_alive()]
     finally:
@@ -481,18 +607,18 @@ def serve(torch, params, cfg, counters):
     if alive:
         fail(f"serve: threads still alive after stop: {alive}")
     for i, r in enumerate(results):
-        want = len(tok.encode(prompt_text(PROMPT_BYTES[i], i)))
+        want = len(tok.encode(prompts[i]))
         if r["usage"]["prompt_tokens"] != want:
             fail(f"request {i}: prompt tokens {r['usage']['prompt_tokens']}")
         if r["stop_reason"] == "max_tokens":
-            if r["usage"]["completion_tokens"] != MAX_TOKENS:
+            if r["usage"]["completion_tokens"] != max_tokens:
                 fail(f"request {i}: {r['usage']} for max_tokens")
         elif r["stop_reason"] != "eos" or r["tokens"][-1] != tok.eos_token_id:
             fail(f"request {i}: stop_reason {r['stop_reason']}")
-    zero = [name for name, n in launches.items() if n <= 0]
-    if zero:
-        fail(f"serve: kernels never launched on the main path: {zero}")
-    prof = profile_decode(torch, engine, tok)
+    return results, launches, wall, sched
+
+
+def summary(results, wall, sched, launches):
     gen = sum(r["usage"]["completion_tokens"] for r in results)
     ttft = sorted(r["timing"]["ttft_ms"] for r in results)
     step = sched.monitor.latency("decode_step")
@@ -500,7 +626,113 @@ def serve(torch, params, cfg, counters):
             "ttft_ms_p50": ttft[len(ttft) // 2], "ttft_ms_max": ttft[-1],
             "decode_step_ms_p50": step.p50_ms, "steps": step.count,
             "stop_reasons": [r["stop_reason"] for r in results],
-            "launches": launches, "profile": prof}
+            "launches": launches}
+
+
+def serve(torch, params, cfg, counters):
+    """Phase 6: contiguous KV, default prefill_chunk_size 512, so the 600-
+    and 900-byte prompts prefill in chunks and the 450-byte one takes the
+    flash kernel in bucket 512."""
+    from deeppowers_tpu_torch.config import GenerationConfig, RuntimeConfig
+    from deeppowers_tpu_torch.runtime.engine import InferenceEngine
+    from deeppowers_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    engine = InferenceEngine(
+        params, cfg, device="cuda", eos_token_id=tok.eos_token_id,
+        runtime=RuntimeConfig(max_batch_size=8, max_seq_len=1024,
+                              prefill_buckets=(64, 128, 256, 512, 1024)))
+    # warm-up outside the measured run: first launches and allocator
+    engine.generate(tok.encode("warm up"), GenerationConfig(
+        max_tokens=2, temperature=0.0))
+    prompts = [prompt_text(n, i) for i, n in enumerate(PROMPT_BYTES)]
+    results, launches, wall, sched = run_requests(
+        torch, engine, prompts, MAX_TOKENS, counters, tok)
+    want = ("dequant_matmul", "scatter_rows", "decode_attention",
+            "flash_attention_prefill")
+    zero = [name for name in want if launches[name] <= 0]
+    if zero:
+        fail(f"serve: kernels never launched on the main path: {zero}")
+    out = summary(results, wall, sched, launches)
+    out["profile"] = profile_decode(torch, engine, tok)
+    return out
+
+
+# phase 7: 8 requests share a 300-byte system prompt (two full pages of
+# 128 tokens), two are long, two short; 96 tokens each
+SYSTEM_PROMPT = prompt_text(300, 99)
+SUFFIX_BYTES = (20, 45, 70, 95, 120, 145, 170, 200)
+PAGED_TOTAL_PAGES = 16     # full reservation would take 8 * 8 + 1 = 65
+PAGED_MAX_TOKENS = 96
+
+
+def paged_prompts():
+    shared = [SYSTEM_PROMPT + prompt_text(n, 200 + i)
+              for i, n in enumerate(SUFFIX_BYTES)]
+    return shared + [prompt_text(700, 300), prompt_text(900, 301),
+                     prompt_text(16, 302), prompt_text(40, 303)]
+
+
+def paged_engine(params, cfg, device, eos_token_id):
+    """Phase 7's engine: 8 slots of 1024 tokens over PAGED_TOTAL_PAGES
+    pages of 128, lazy reservation (slack 64), prefix cache, chunks of
+    512. Its continue_prefill counts chunks per request id in
+    `engine.chunks`."""
+    import collections
+    from deeppowers_tpu_torch.config import RuntimeConfig
+    from deeppowers_tpu_torch.runtime.engine import InferenceEngine
+
+    engine = InferenceEngine(
+        params, cfg, device=device, eos_token_id=eos_token_id,
+        kv_layout="paged", kv_total_pages=PAGED_TOTAL_PAGES,
+        runtime=RuntimeConfig(max_batch_size=8, max_seq_len=1024,
+                              prefill_buckets=(64, 128, 256, 512, 1024),
+                              kv_page_size=128, kv_reserve="lazy",
+                              kv_lazy_slack=64, enable_prefix_cache=True,
+                              prefill_chunk_size=512))
+    engine.chunks = collections.Counter()
+    real = engine.continue_prefill
+
+    def counted(slot):
+        engine.chunks[engine._slots[slot].request_id] += 1
+        return real(slot)
+
+    engine.continue_prefill = counted
+    return engine
+
+
+def serve_paged(torch, params, cfg, counters):
+    """Phase 7: oversubscribed serving with shared system prompts."""
+    from deeppowers_tpu_torch.config import GenerationConfig
+    from deeppowers_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    engine = paged_engine(params, cfg, "cuda", tok.eos_token_id)
+    engine.generate(tok.encode("warm up"), GenerationConfig(
+        max_tokens=2, temperature=0.0))
+    engine.chunks.clear()
+    hits0 = engine.prefix_cache_stats["hits"]
+    results, launches, wall, sched = run_requests(
+        torch, engine, paged_prompts(), PAGED_MAX_TOKENS, counters, tok)
+    out = summary(results, wall, sched, launches)
+    out.update(preempted=sched.preempted_requests,
+               prefix=engine.prefix_cache_stats,
+               hits=engine.prefix_cache_stats["hits"] - hits0,
+               max_chunks=max(engine.chunks.values(), default=0),
+               chunked_requests=len(engine.chunks))
+    if out["preempted"] < 1:
+        fail("paged serve: no request was preempted")
+    if out["hits"] < 1:
+        fail("paged serve: no prefix-cache hit")
+    if out["max_chunks"] < 2:
+        fail("paged serve: no request went through 2 or more chunks")
+    if launches["decode_attention_paged"] <= 0 or \
+            launches["scatter_pool_rows"] <= 0:
+        fail(f"paged serve: the paged kernels did not launch: {launches}")
+    if launches["decode_attention"] or launches["scatter_rows"]:
+        fail(f"paged serve: contiguous-layout kernels launched: {launches}")
+    out["profile"] = profile_decode(torch, engine, tok)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -515,15 +747,19 @@ def main() -> int:
     from deeppowers_tpu_torch.models import transformer as T
     from deeppowers_tpu_torch.models.presets import TINYLLAMA_1_1B as cfg
     from deeppowers_tpu_torch.ops.kernels import _build
-    from deeppowers_tpu_torch.ops.kernels.decode_attention import decode_attention
+    from deeppowers_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention, decode_attention_paged)
     from deeppowers_tpu_torch.ops.kernels.dequant_matmul import dequant_matmul
     from deeppowers_tpu_torch.ops.kernels.flash_attention import flash_attention_prefill
-    from deeppowers_tpu_torch.ops.kernels.kv_append import scatter_rows
+    from deeppowers_tpu_torch.ops.kernels.kv_append import (scatter_pool_rows,
+                                                            scatter_rows)
     from deeppowers_tpu_torch.runtime import kvcache
 
     counters = {"dequant_matmul": dequant_matmul, "scatter_rows": scatter_rows,
                 "decode_attention": decode_attention,
-                "flash_attention_prefill": flash_attention_prefill}
+                "flash_attention_prefill": flash_attention_prefill,
+                "scatter_pool_rows": scatter_pool_rows,
+                "decode_attention_paged": decode_attention_paged}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -575,7 +811,23 @@ def main() -> int:
                steps=f"prefill({len(ids)})+decode({len(forced)})",
                logits_rel_l2=f"{rel:.3e}")
 
-    # 5. serve
+    # 5. paged path: the same through the paged cache
+    t0 = time.perf_counter()
+    got_p = forced_logits(torch, T, kvcache, params, cfg, ids, forced, "cuda",
+                          paged=True)
+    ref_p = forced_logits(torch, T, kvcache, tree_to(params, "cpu"), cfg, ids,
+                          forced, "cpu", paged=True)
+    rel_p = max(((g - r).norm() / r.norm()).item()
+                for g, r in zip(got_p, ref_p))
+    rel_pc = max(((g - r).norm() / r.norm()).item()
+                 for g, r in zip(ref_p, ref))
+    if not all(torch.isfinite(g).all() for g in got_p) or not rel_p <= 5e-2:
+        fail(f"paged path: kernel vs plain logits rel L2 error {rel_p} > 5e-2")
+    phase_line("paged_path", t0, logits_rel_l2=f"{rel_p:.3e}",
+               plain_paged_vs_plain_contiguous=f"{rel_pc:.3e}",
+               pages=list(PAGED_TABLE[:2]))
+
+    # 6. serve, contiguous KV
     t0 = time.perf_counter()
     srv = serve(torch, params, cfg, counters)
     phase_line("serve", t0, requests=len(PROMPT_BYTES),
@@ -591,8 +843,31 @@ def main() -> int:
         f"{pr['idle_share']:.3f}; top device time per step (ms): "
         + json.dumps([[k, round(v, 4)] for k, v in pr["top"]]))
 
+    # 7. paged serve
+    t0 = time.perf_counter()
+    psrv = serve_paged(torch, params, cfg, counters)
+    phase_line("paged_serve", t0, requests=len(paged_prompts()),
+               pool_pages=PAGED_TOTAL_PAGES, tokens=psrv["tokens"],
+               tok_per_s=f"{psrv['tok_per_s']:.1f}",
+               ttft_ms_p50=psrv["ttft_ms_p50"],
+               ttft_ms_max=psrv["ttft_ms_max"],
+               decode_step_ms_p50=f"{psrv['decode_step_ms_p50']:.3f}",
+               steps=psrv["steps"], preempted=psrv["preempted"],
+               prefix_hits=psrv["hits"], max_chunks=psrv["max_chunks"],
+               card=repr(smi_line))
+    log("paged serve stop_reasons " + json.dumps(psrv["stop_reasons"]))
+    log("paged serve prefix cache " + json.dumps(psrv["prefix"]))
+    log("paged serve launches " + json.dumps(psrv["launches"]))
+    pr = psrv["profile"]
+    log(f"paged decode step under torch.profiler (8 slots): wall "
+        f"{pr['wall_ms']:.3f} ms, device busy {pr['busy_ms']:.3f} ms, idle "
+        f"share {pr['idle_share']:.3f}; top device time per step (ms): "
+        + json.dumps([[k, round(v, 4)] for k, v in pr["top"]]))
+
+    paged_kernels = ("scatter_pool_rows", "decode_attention_paged")
     for row in rows:
-        row["launches"] = srv["launches"][row["name"]]
+        launched = psrv if row["name"] in paged_kernels else srv
+        row["launches"] = launched["launches"][row["name"]]
     log(f"total {time.perf_counter() - T0:.2f}s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -10,21 +10,25 @@ dequant-matmul kernel exactly where the JAX package folds them into its
 Pallas kernel (`_qkv_norm` :1435, `_attn_tail` :1453). Dense (non-MoE)
 layers only in this slice.
 
-The KV cache is always the unrolled per-layer layout: the JAX package's
-stacked scan-over-layers layout exists to cut XLA compile time, which an
-eager PyTorch program does not have.
+The KV cache is the unrolled per-layer layout, contiguous or paged: the
+JAX package's stacked scan-over-layers layout exists to cut XLA compile
+time, which an eager PyTorch program does not have. Decode over a paged
+cache calls the table-walking attention kernel on the pools directly and
+never gathers (JAX `_decode_attn` :1288-1301).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
 from ..config import QuantConfig, QuantMode
-from ..ops.attention import attention_decode_auto, attention_prefill
+from ..ops.attention import (attention_chunk, attention_decode_auto,
+                             attention_prefill)
+from ..ops.kernels.decode_attention import decode_attention_paged
 from ..ops.matmul import glu_matmul, matmul_residual, quantized_matmul, rms_matmul
 from ..ops.normalization import layer_norm, rms_norm
 from ..ops.rotary import apply_rope_tables, rope_tables
@@ -385,13 +389,45 @@ def forward_prefill(params: Params, cfg: TransformerConfig,
     return _logits(params, cfg, x), kv_out
 
 
+def forward_prefill_chunk(params: Params, cfg: TransformerConfig,
+                          input_ids: torch.Tensor, caches, slot: int,
+                          start: int, *, dtype=torch.bfloat16,
+                          logits_at: Optional[int] = None):
+    """One prefill chunk (C,) of one request (JAX :1060-1109): writes the
+    chunk's K/V into the slot's rows start..start+C and attends over the
+    slot's rows up to start + C with the causal frontier at start + i.
+    Returns (logits, caches): (C, V) f32, or (V,) at chunk index
+    `logits_at` when given. Positions past the prompt's length produce K/V
+    that decode never reads (it masks by length)."""
+    _dense_only(cfg)
+    c = input_ids.shape[0]
+    positions = start + torch.arange(c, device=input_ids.device)
+    x = _embed(params, cfg, input_ids[None], positions[None], dtype)
+    if cfg.positions == "rope":
+        rope = rope_tables(positions[None], cfg.dim_head, theta=cfg.rope_theta)
+    for layer, cache in zip(params["layers"], caches):
+        ap = layer["attn"]
+        q, k, v = _qkv(_norm(x, layer["ln1"], cfg), ap, cfg)
+        if cfg.positions == "rope":
+            q, k = apply_rope_tables(q, *rope), apply_rope_tables(k, *rope)
+        kvcache.write_chunk(cache, k[0], v[0], slot, start)
+        kc, vc = kvcache.slot_view(cache, slot, start + c, dtype)
+        attn = attention_chunk(q, kc, vc, start)
+        x = x + _dense(attn.reshape(1, c, cfg.q_size), ap["wo"])
+        x = x + _ffn(_norm(x, layer["ln2"], cfg), layer, cfg)
+    x = x[0] if logits_at is None else x[0, logits_at]
+    return _logits(params, cfg, x), tuple(caches)
+
+
 def forward_decode(params: Params, cfg: TransformerConfig,
-                   token_ids: torch.Tensor,
-                   caches: Sequence[kvcache.LayerKVCache],
-                   lengths: torch.Tensor, *, dtype=torch.bfloat16):
+                   token_ids: torch.Tensor, caches, lengths: torch.Tensor, *,
+                   dtype=torch.bfloat16, active: Optional[torch.Tensor] = None):
     """One decode step for all slots: appends each slot's token K/V at
     position lengths[b] (in place) and attends over lengths + 1 entries.
-    Returns (logits (B, V) f32, caches)."""
+    With `active` (B,) bool, an inactive slot neither writes nor reads its
+    cache: its rows may belong to a prompt in chunked prefill or to a
+    retired prompt kept for prefix reuse (the JAX engine writes them at
+    row lengths[b] = 0). Returns (logits (B, V) f32, caches)."""
     _dense_only(cfg)
     b = token_ids.shape[0]
     positions = lengths.long()
@@ -400,13 +436,24 @@ def forward_decode(params: Params, cfg: TransformerConfig,
         rope = rope_tables(positions[:, None], cfg.dim_head,
                            theta=cfg.rope_theta)
     attn_lengths = lengths + 1
+    write_pos = positions
+    if active is not None:
+        write_pos = torch.where(active, positions,
+                                torch.full_like(positions, -1))
+        attn_lengths = torch.where(active, attn_lengths,
+                                   torch.zeros_like(attn_lengths))
+    rows = kvcache.decode_rows(caches[0], write_pos)
     for layer, cache in zip(params["layers"], caches):
         ap = layer["attn"]
         q, k, v = _qkv_norm(x, layer, cfg)
         if cfg.positions == "rope":
             q, k = apply_rope_tables(q, *rope), apply_rope_tables(k, *rope)
-        kvcache.append_token(cache, k[:, 0], v[:, 0], positions)
-        attn = attention_decode_auto(q[:, 0], *kvcache.read(cache, dtype),
-                                     attn_lengths)
+        kvcache.append_token(cache, k[:, 0], v[:, 0], write_pos, rows)
+        if kvcache._is_paged(cache):
+            attn = decode_attention_paged(q[:, 0], cache.k_pool, cache.v_pool,
+                                          cache.table, attn_lengths)
+        else:
+            attn = attention_decode_auto(q[:, 0], *kvcache.read(cache, dtype),
+                                         attn_lengths)
         x = _attn_tail(x, attn.reshape(b, 1, cfg.q_size), ap, layer, cfg)
     return _logits(params, cfg, x)[:, 0], tuple(caches)

@@ -1,5 +1,6 @@
 """Attention ops, ported from deeppowers_tpu/ops/attention.py
-(`attention_prefill` :44, `attention_decode`, `attention_decode_auto` :265).
+(`attention_prefill` :44, `attention_chunk` :93, `attention_decode`,
+`attention_decode_auto` :265).
 
 Dispatch tests the tensor's device where the JAX package tested
 `jax.default_backend() == "tpu"`: CUDA tensors take the hand-written
@@ -46,6 +47,31 @@ def attention_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkrqs,bskd->bqkrd", probs, v.float())
     return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def attention_chunk(q: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, start: int, *,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Chunked-prefill attention: the chunk's queries q (B, C, H, D) at
+    positions start..start+C over a cache view (B, S, Kh, D) that holds
+    this chunk's keys, with the causal frontier at start + i. Returns
+    (B, C, H, D). Plain PyTorch on every device: the JAX package computes it
+    with XLA, not in a Pallas kernel. Callers pass the view cut at
+    start + C, the last key any query sees."""
+    b, c, h, d = q.shape
+    s, kh = k_cache.shape[1], k_cache.shape[2]
+    rep = h // kh
+    scale = scale if scale is not None else d ** -0.5
+    qg = (q.reshape(b, c, kh, rep, d) * scale).float()
+    scores = torch.einsum("bqkrd,bskd->bkrqs", qg, k_cache.float())
+    q_idx = start + torch.arange(c, device=q.device)
+    k_idx = torch.arange(s, device=q.device)
+    mask = k_idx[None, :] <= q_idx[:, None]                   # (C, S)
+    scores = torch.where(mask[None, None, None], scores,
+                         torch.full((), NEG_INF, device=q.device))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkrqs,bskd->bqkrd", probs, v_cache.float())
+    return out.reshape(b, c, h, d).to(q.dtype)
 
 
 def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,

@@ -11,12 +11,28 @@ Eager PyTorch needs none of the JAX engine's compile machinery (jit caches,
 donation, multi-step dispatch, pipelined harvests, window buckets): each
 step() runs one decode forward over all slots and one host transfer of the
 per-slot results. Decode attention bounds its reads per slot by length in
-the kernel. Prompts prefill whole, padded to a bucket; within a
-deferred-admission round the prompts of one bucket prefill as one batch.
-The KV cache is always the unrolled per-layer layout
-(RuntimeConfig.scan_layers is accepted and gives the same outputs).
-Not ported yet (ROADMAP.md): chunked prefill, paged KV, quantized KV,
-prefix caching, speculative and structured decoding, meshes.
+the kernel. The KV cache is the unrolled per-layer layout
+(RuntimeConfig.scan_layers is accepted and gives the same outputs), either
+contiguous or paged (`kv_layout="paged"`, JAX engine.py:635-665).
+
+Admission, as in the JAX engine (`begin_request` :941-987): a prompt
+longer than `prefill_chunk_size`, or one whose prefix is found in the
+prefix cache, enters chunked prefill: the slot is reserved and the caller
+(the scheduler) runs one chunk at a time through `continue_prefill`,
+interleaved with decode steps. Other prompts prefill whole, padded to a
+bucket; within a deferred-admission round the prompts of one bucket
+prefill as one batch (contiguous layout only). On the paged layout each
+admission reserves pages for its whole token budget (`kv_reserve="full"`)
+or for prompt + slack (`"lazy"`), growing page by page before each
+decode step and preempting the youngest request when the pool runs dry;
+a reservation the pool cannot cover raises NoFreePages. Prefix caching
+maps shared full pages (paged) or copies a retired slot's rows
+(contiguous). One deliberate difference: an inactive slot neither writes
+nor reads its cache in a decode step, where the JAX engine writes its
+row lengths = 0, over a prompt in chunked prefill or a retired prompt kept
+for prefix reuse.
+Not ported yet (ROADMAP.md): quantized KV, speculative and structured
+decoding, meshes.
 """
 
 from __future__ import annotations
@@ -33,11 +49,19 @@ import torch
 from ..config import GenerationConfig, RuntimeConfig
 from ..device import resolve_device
 from ..models.transformer import (TransformerConfig, forward_decode,
-                                  forward_prefill, fuse_params)
+                                  forward_prefill, forward_prefill_chunk,
+                                  fuse_params)
 from ..ops.sampling import SamplingParams, logprobs_of, sample
-from . import kvcache
+from . import kvcache, kvcache_paged
+from .prefix_index import SlotPrefixIndex
 
 NEG_INF = -1e30
+
+
+class NoFreePages(RuntimeError):
+    """The paged-KV pool cannot cover a request's token budget right now;
+    retry after running requests release pages (transient, not a request
+    error)."""
 
 
 @dataclass
@@ -75,6 +99,16 @@ def init_state(batch_slots: int, vocab_size: int, device) -> DecodeState:
 
 
 @dataclass
+class _PendingPrefill:
+    """Host-side state of an in-progress chunked prefill."""
+
+    ids: np.ndarray
+    gen: GenerationConfig
+    request_id: str
+    pos: int = 0
+
+
+@dataclass
 class SlotResult:
     """Accumulates one request's output on the host."""
 
@@ -105,7 +139,11 @@ class InferenceEngine:
                  runtime: Optional[RuntimeConfig] = None,
                  eos_token_id: Optional[int] = None,
                  kv_cache_dtype: str = "bf16", act_dtype=torch.bfloat16,
-                 seed: int = 0, fuse_projections: bool = True, device=None):
+                 seed: int = 0, fuse_projections: bool = True, device=None,
+                 kv_layout: str = "contiguous",
+                 kv_total_pages: Optional[int] = None):
+        if kv_layout not in ("contiguous", "paged"):
+            raise ValueError(f"unknown kv_layout {kv_layout!r}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.runtime = runtime or RuntimeConfig()
@@ -120,10 +158,17 @@ class InferenceEngine:
         self.scan_layers = False
         b = self.runtime.max_batch_size
         self.max_seq = min(self.runtime.max_seq_len, cfg.max_seq_len)
-        self.caches = kvcache.init_cache(
-            cfg.num_layers, b, self.max_seq, cfg.kv_heads, cfg.dim_head,
-            dtype=act_dtype, kv_cache_dtype=kv_cache_dtype,
-            device=self.device)
+        self.kv_layout = kv_layout
+        self.kv_total_pages = kv_total_pages
+        self._page_alloc = None
+        self._table_host: Optional[np.ndarray] = None
+        self.caches = self._new_caches()
+        # prefix caching on the contiguous layout: retired slots' rows stay
+        # resident until the slot is reused and are copied on a match; the
+        # paged layout maps shared pages instead (PrefixCachingAllocator)
+        self._prefix_idx = (SlotPrefixIndex(b) if self.runtime.enable_prefix_cache
+                            and kv_layout != "paged" else None)
+        self._prefilling: Dict[int, _PendingPrefill] = {}
         self.state = init_state(b, cfg.vocab_size, self.device)
         self._rng = torch.Generator(device=self.device).manual_seed(seed)
         self._lengths_host = np.zeros((b,), dtype=np.int64)
@@ -135,6 +180,32 @@ class InferenceEngine:
         self._defer_admission = False
         self._pending_batch: List[Dict] = []
         self.steps = 0
+
+    def _new_caches(self):
+        """Zeroed caches of the engine's layout; on the paged layout also a
+        fresh allocator and host table (the JAX engine's init :635-665)."""
+        cfg, b = self.cfg, self.runtime.max_batch_size
+        if self.kv_layout != "paged":
+            return kvcache.init_cache(
+                cfg.num_layers, b, self.max_seq, cfg.kv_heads, cfg.dim_head,
+                dtype=self.act_dtype, kv_cache_dtype=self.kv_cache_dtype,
+                device=self.device)
+        ps = self.runtime.kv_page_size
+        if self.max_seq % ps or self.runtime.prefill_chunk_size % ps:
+            raise ValueError(
+                f"max_seq {self.max_seq} and prefill_chunk_size must be "
+                f"multiples of kv_page_size {ps}")
+        max_pages = self.max_seq // ps
+        pages = self.kv_total_pages or (b * max_pages + 1)
+        alloc_cls = (kvcache_paged.PrefixCachingAllocator
+                     if self.runtime.enable_prefix_cache
+                     else kvcache_paged.PageAllocator)
+        self._page_alloc = alloc_cls(pages, b, max_pages)
+        self._table_host = np.zeros((b, max_pages), dtype=np.int32)
+        return kvcache_paged.init_paged_cache(
+            cfg.num_layers, b, self.max_seq, cfg.kv_heads, cfg.dim_head,
+            page_size=ps, total_pages=pages, dtype=self.act_dtype,
+            kv_cache_dtype=self.kv_cache_dtype, device=self.device)
 
     # -- slot management ----------------------------------------------------
     @property
@@ -151,8 +222,22 @@ class InferenceEngine:
 
     @property
     def prefilling_slots(self) -> List[int]:
-        """Slots in chunked prefill: none, prompts prefill whole here."""
-        return []
+        """Slots in chunked prefill, in admission order."""
+        return list(self._prefilling)
+
+    @property
+    def prefix_cache_stats(self) -> Dict[str, int]:
+        """{hits, hit_tokens, cached_pages}, zeros when prefix caching is
+        off; cached_pages counts on the paged layout only."""
+        a = self._page_alloc
+        if a is not None and hasattr(a, "hits"):
+            return {"hits": a.hits, "hit_tokens": a.hit_tokens,
+                    "cached_pages": a.cached_pages}
+        if self._prefix_idx is not None:
+            return {"hits": self._prefix_idx.hits,
+                    "hit_tokens": self._prefix_idx.hit_tokens,
+                    "cached_pages": 0}
+        return {"hits": 0, "hit_tokens": 0, "cached_pages": 0}
 
     def _bucket(self, n: int) -> int:
         for b in self.runtime.prefill_buckets:
@@ -162,15 +247,21 @@ class InferenceEngine:
 
     def add_request(self, token_ids: Sequence[int], gen: GenerationConfig, *,
                     request_id: str = "") -> int:
-        """Prefill a prompt into a free slot; returns the slot index.
-        Raises RuntimeError when no slot is free."""
-        return self.begin_request(token_ids, gen, request_id=request_id)
+        """Prefill a prompt into a free slot (all its chunks, for a long
+        one); returns the slot index. Raises RuntimeError when no slot is
+        free, NoFreePages when the page pool cannot cover it."""
+        slot = self.begin_request(token_ids, gen, request_id=request_id)
+        while slot in self._prefilling:
+            self.continue_prefill(slot)
+        return slot
 
     def begin_request(self, token_ids: Sequence[int], gen: GenerationConfig,
                       *, request_id: str = "") -> int:
-        """Reserve a slot and prefill (now, or at the end of a
-        deferred-admission round, batched with the round's other prompts
-        of the same bucket)."""
+        """Reserve a slot and start prefill: a short prompt prefills now
+        (or at the end of a deferred-admission round, batched with the
+        round's other prompts of the same bucket); a long one, or a
+        prefix-cache hit, enters chunked prefill, driven one chunk at a time
+        by `continue_prefill` (JAX engine.py:900-998)."""
         gen.validate()
         if gen.guide is not None:
             raise NotImplementedError(
@@ -186,19 +277,88 @@ class InferenceEngine:
                 f"prompt length {n} exceeds max_seq_len {self.max_seq}")
         slot = free[0]
         t0 = time.perf_counter()
+        matched = 0
+        if self._prefix_idx is not None:
+            src, matched = self._prefix_idx.match(token_ids, exclude=-1)
+            if matched and src == slot:
+                # don't clobber the source: prefer another free slot
+                alt = [s for s in free if s != src]
+                if alt:
+                    slot = alt[0]
+                else:
+                    matched = 0
+            # this slot's rows are about to be overwritten: never a source
+            self._prefix_idx.invalidate(slot)
+            if matched:
+                for cache in self.caches:
+                    kvcache.copy_prefix(cache, src, slot, matched)
+                self._prefix_idx.record_hit(matched)
+        if self._page_alloc is not None:
+            ps = self.runtime.kv_page_size
+            if self.runtime.enable_prefix_cache:
+                # map shared pages for the longest cached full-page prefix;
+                # the suffix prefills in chunks from `matched`, so shared
+                # pages are never rewritten
+                matched = self._page_alloc.match_prefix(
+                    self._table_host, slot, token_ids, ps)
+            if self.runtime.kv_reserve == "lazy":
+                # prompt + slack; grown page by page before decode steps
+                budget = min(n + self.runtime.kv_lazy_slack, self.max_seq)
+            else:
+                # the whole token budget, and the padded prompt write
+                budget = min(n + gen.max_tokens + 1, self.max_seq)
+                budget = max(budget, self._bucket(n))
+            if not self._page_alloc.ensure(self._table_host, slot, budget, ps):
+                # ensure() is not transactional: release the partial
+                # allocation, or the empty slot strands pages
+                self._page_alloc.release(self._table_host, slot)
+                raise NoFreePages(
+                    f"no free KV pages ({self._page_alloc.free_pages} left, "
+                    f"need {-(-budget // ps)})")
+            self._sync_table()
         self._slots[slot] = SlotResult(request_id=request_id, prompt_len=n,
                                        start_time=t0)
+        if n - matched > self.runtime.prefill_chunk_size or matched:
+            self._prefilling[slot] = _PendingPrefill(
+                ids=np.asarray(token_ids, dtype=np.int32), gen=gen,
+                request_id=request_id, pos=matched)
+            return slot
         item = {"slot": slot, "ids": list(token_ids), "n": n, "gen": gen,
                 "rid": request_id, "t0": t0, "bucket": self._bucket(n)}
-        if self._defer_admission and self.runtime.batched_admission:
+        if (self._defer_admission and self.runtime.batched_admission
+                and self._page_alloc is None):
             self._pending_batch.append(item)
             return slot
         self._prefill_group([item])
         return slot
 
+    def continue_prefill(self, slot: int) -> bool:
+        """Run one prefill chunk of a reserved slot; returns True when the
+        prompt is fully prefilled (the slot is then active in the decode
+        batch). JAX engine.py:1010-1038."""
+        pp = self._prefilling[slot]
+        chunk = self.runtime.prefill_chunk_size
+        n = len(pp.ids)
+        piece = pp.ids[pp.pos:pp.pos + chunk]
+        c_ids = np.zeros((chunk,), dtype=np.int64)
+        c_ids[:len(piece)] = piece
+        with torch.no_grad():
+            last, _ = forward_prefill_chunk(
+                self.params, self.cfg, torch.from_numpy(c_ids).to(self.device),
+                self.caches, slot, pp.pos, dtype=self.act_dtype,
+                logits_at=len(piece) - 1)
+        pp.pos += len(piece)
+        if pp.pos < n:
+            return False
+        del self._prefilling[slot]
+        self._activate_slot({"slot": slot, "ids": pp.ids.tolist(), "n": n,
+                             "gen": pp.gen, "rid": pp.request_id}, last)
+        return True
+
     def _prefill_group(self, items: List[Dict]) -> None:
-        """Prefill prompts of one bucket as one batch, write their K/V into
-        their slots and activate them."""
+        """Prefill prompts of one bucket as one batch (one prompt on the
+        paged layout), write their K/V into their slots and activate
+        them."""
         bucket = items[0]["bucket"]
         ids = np.zeros((len(items), bucket), dtype=np.int64)
         for i, it in enumerate(items):
@@ -211,7 +371,10 @@ class InferenceEngine:
                 self.params, self.cfg, torch.from_numpy(ids).to(dev), lengths,
                 dtype=self.act_dtype, logits_at=lengths - 1)
             for cache, (k, v) in zip(self.caches, kv):
-                kvcache.write_prompts(cache, k, v, slots)
+                if self._page_alloc is not None:
+                    kvcache.write_prompt(cache, k[0], v[0], items[0]["slot"])
+                else:
+                    kvcache.write_prompts(cache, k, v, slots)
         for i, it in enumerate(items):
             self._activate_slot(it, last[i])
 
@@ -286,6 +449,11 @@ class InferenceEngine:
         self._penalty_host[slot] = bool(penalties)
         self._active_host[slot] = True
         self._lengths_host[slot] = n
+        if self._page_alloc is not None and self.runtime.enable_prefix_cache:
+            self._page_alloc.register_prefix(slot, it["ids"],
+                                             self.runtime.kv_page_size)
+        if self._prefix_idx is not None:
+            self._prefix_idx.register(slot, it["ids"])
         res = self._slots[slot]
         res.prompt_len = n
         res.max_tokens = gen.max_tokens
@@ -300,17 +468,28 @@ class InferenceEngine:
             res.stop_reason = "eos" if hit_stop else "max_tokens"
             self._retire(slot)
 
+    def synchronize(self) -> None:
+        """Wait for the work queued on the card (a prefill chunk returns
+        before its kernels end), so that a span timed after it holds only
+        its own work."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     # -- decode -------------------------------------------------------------
     def step(self) -> Dict[int, List[int]]:
         """One decode step for every active slot; returns {slot: [token]}.
         Retires finished slots (EOS / max_tokens / cache full)."""
         if not self._active_host.any():
             return {}
+        if self._page_alloc is not None and self.runtime.kv_reserve == "lazy":
+            self._grow_pages()
+            if not self._active_host.any():
+                return {}
         st = self.state
         with torch.no_grad():
             logits, self.caches = forward_decode(
                 self.params, self.cfg, st.tokens, self.caches, st.lengths,
-                dtype=self.act_dtype)
+                dtype=self.act_dtype, active=st.active)
             sp = st.sampling
             b = logits.shape[0]
             rows = torch.arange(b, device=logits.device)
@@ -387,13 +566,74 @@ class InferenceEngine:
                 self._retire(slot)
         return out
 
+    def _grow_pages(self) -> None:
+        """Lazy paged mode: before each decode step, extend every active
+        slot's pages to cover the step; when the pool is exhausted, preempt
+        the youngest other request (old requests never starve). A slot that
+        cannot grow and has no victim stops at its current length
+        (stop_reason "kv_pages"). JAX engine.py:1799-1834, one step per
+        dispatch."""
+        ps = self.runtime.kv_page_size
+        alloc = self._page_alloc
+        shared = getattr(alloc, "shared_per_slot", None)
+        changed = False
+        for slot in range(self.num_slots):
+            res = self._slots[slot]
+            if res is None or slot in self._prefilling:
+                continue
+            needed = min(int(self._lengths_host[slot]) + 2, self.max_seq)
+            have_pages = len(alloc.per_slot[slot]) + (
+                len(shared[slot]) if shared else 0)
+            if needed <= have_pages * ps:
+                continue
+            while not alloc.ensure(self._table_host, slot, needed, ps):
+                victim = self._pick_victim(exclude=slot)
+                if victim is None:
+                    self.state.active[slot] = False
+                    res.stop_reason = "kv_pages"
+                    self._retire(slot)
+                    break
+                self.preempt(victim)
+            else:
+                changed = True
+        if changed:
+            self._sync_table()
+
+    def _pick_victim(self, exclude: int) -> Optional[int]:
+        """The youngest other request, slots in chunked prefill included
+        (they are typically the youngest and release their pages
+        cleanly)."""
+        best, best_t = None, -1.0
+        for slot, res in enumerate(self._slots):
+            if res is None or slot == exclude:
+                continue
+            if res.start_time > best_t:
+                best, best_t = slot, res.start_time
+        return best
+
+    def preempt(self, slot: int) -> None:
+        """Evict a request under page-pool pressure: deactivate it, release
+        its pages and surface it through pop_finished with stop_reason
+        "preempted"; the scheduler requeues it and generation resumes by
+        prefilling prompt + generated prefix."""
+        if self._slots[slot] is None:
+            return
+        self._prefilling.pop(slot, None)
+        self.state.active[slot] = False
+        self._slots[slot].stop_reason = "preempted"
+        self._retire(slot)
+
     def cancel(self, slot: int) -> None:
         """Cancel a running request."""
         if self._slots[slot] is None:
             return
+        self._prefilling.pop(slot, None)
         self.state.active[slot] = False
         self._slots[slot].stop_reason = "cancelled"
         self._retire(slot)
+
+    def _sync_table(self) -> None:
+        kvcache_paged.with_table(self.caches, self._table_host)
 
     def _retire(self, slot: int) -> None:
         res = self._slots[slot]
@@ -405,19 +645,23 @@ class InferenceEngine:
         self._temp_host[slot] = 0.0
         self._penalty_host[slot] = False
         self.state.lengths[slot] = 0
+        if self._prefix_idx is not None and len(res.token_ids) > 1:
+            # rows [n, n + g - 1) hold the generated tokens but the last
+            # (never fed back): extend the resident claim for reuse
+            self._prefix_idx.extend(slot, res.token_ids[:-1])
+        if self._page_alloc is not None:
+            self._page_alloc.release(self._table_host, slot)
+            self._sync_table()
 
     def pop_finished(self) -> List[SlotResult]:
         done, self._finished = self._finished, []
         return done
 
     def reset(self) -> None:
-        """Drop all in-flight state: fresh caches and decode state, slots
-        freed (the scheduler's failure recovery)."""
+        """Drop all in-flight state: fresh caches (and page pool) and
+        decode state, slots freed (the scheduler's failure recovery)."""
         b = self.num_slots
-        self.caches = kvcache.init_cache(
-            self.cfg.num_layers, b, self.max_seq, self.cfg.kv_heads,
-            self.cfg.dim_head, dtype=self.act_dtype,
-            kv_cache_dtype=self.kv_cache_dtype, device=self.device)
+        self.caches = self._new_caches()
         self.state = init_state(b, self.cfg.vocab_size, self.device)
         self._active_host = np.zeros((b,), dtype=bool)
         self._lengths_host = np.zeros((b,), dtype=np.int64)
@@ -426,6 +670,9 @@ class InferenceEngine:
         self._slots = [None] * b
         self._finished = []
         self._pending_batch = []
+        self._prefilling = {}
+        if self._prefix_idx is not None:
+            self._prefix_idx = SlotPrefixIndex(b)   # fresh caches: no residents
 
     # -- one-shot APIs --------------------------------------------------------
     def generate(self, token_ids: Sequence[int],

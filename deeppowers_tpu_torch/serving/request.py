@@ -77,6 +77,9 @@ class Request:
     started_at: float = 0.0
     finished_at: float = 0.0
     result: RequestResult = field(default_factory=RequestResult)
+    # set by the scheduler when the engine preempts the request: the prompt
+    # ids and the tokens generated so far, from which it resumes
+    resume: Optional[dict] = field(default=None, repr=False)
     _done: threading.Event = field(default_factory=threading.Event, repr=False)
 
     # -- lifecycle ----------------------------------------------------------

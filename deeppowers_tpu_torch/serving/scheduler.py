@@ -2,23 +2,26 @@
 deeppowers_tpu/serving/scheduler.py (host-only).
 
 One daemon thread drives the engine: admission between decode steps
-(batched through engine.deferred_admission), per-request streaming with
-incremental detokenization and stop-string scanning, admission control
-(queue capacity + max active), and failure recovery (reset the engine and
-requeue in-flight requests; fail them after repeated failures). The JAX
-scheduler's preemption resume and chunked-prefill driving are not ported:
-the port's engine neither preempts nor prefills in chunks.
+(batched through engine.deferred_admission), one chunk of a chunked
+prefill per loop turn interleaved with decode (JAX :171-176), per-request
+streaming with incremental detokenization and stop-string scanning,
+admission control (queue capacity + max active), requeueing on an
+exhausted page pool (NoFreePages, :292-297), resumption of preempted
+requests from prompt + generated prefix (:273-285, :368), and failure
+recovery (reset the engine and requeue in-flight requests; fail them after
+repeated failures).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 import traceback
 from typing import Callable, Dict, List, Optional
 
 from ..config import SchedulerConfig
-from ..runtime.engine import InferenceEngine, SlotResult
+from ..runtime.engine import InferenceEngine, NoFreePages, SlotResult
 from .metrics import Monitor
 from .queue import QueueFullError, RequestQueue
 from .request import Request, RequestStatus, Span
@@ -47,6 +50,7 @@ class Scheduler:
         self._consecutive_failures = 0
         self.dropped_requests = 0
         self.recovered_requests = 0
+        self.preempted_requests = 0
         #: traceback text of the last engine failure the loop recovered from
         self.last_error: Optional[str] = None
 
@@ -132,6 +136,8 @@ class Scheduler:
             "free_slots": len(self.engine.free_slots),
             "dropped": self.dropped_requests,
             "recovered": self.recovered_requests,
+            "preempted": self.preempted_requests,
+            "prefix_cache": self.engine.prefix_cache_stats,
             "steps": self.engine.steps,
             "healthy": self.is_healthy(),
         }
@@ -143,15 +149,25 @@ class Scheduler:
                 self._drain_cancels()
                 self._admit()
                 self._finalize()   # requests can finish at admission time
+                # one prefill chunk per loop turn, interleaved with decode:
+                # a long prompt never stalls the running requests
+                for slot in self.engine.prefilling_slots[:1]:
+                    self.engine.continue_prefill(slot)
+                    self.engine.synchronize()   # decode_step times decode only
+                    self._stream({slot: None})
+                    self._finalize()
                 if self.engine.active_requests == 0:
-                    self._wake.wait(self.config.batch_timeout_ms / 1e3)
-                    self._wake.clear()
+                    if not self.engine.prefilling_slots:
+                        self._wake.wait(self.config.batch_timeout_ms / 1e3)
+                        self._wake.clear()
                     continue
                 t0 = time.monotonic()
+                steps = self.engine.steps
                 toks = self.engine.step()
                 step_ms = (time.monotonic() - t0) * 1e3
-                self.monitor.record_step(step_ms)
-                self.monitor.record_latency("decode_step", step_ms)
+                if self.engine.steps != steps:   # a decode step ran
+                    self.monitor.record_step(step_ms)
+                    self.monitor.record_latency("decode_step", step_ms)
                 self._stream(toks)
                 self._finalize()
                 self._consecutive_failures = 0
@@ -214,18 +230,41 @@ class Scheduler:
             self.monitor.queue_depth = len(self.queue)
             if req is None:
                 return
+            resume = req.resume
             try:
-                ids = self.encode(req.prompt)
+                if resume is not None:
+                    # preempted earlier: prefill prompt + generated prefix
+                    # with the remaining token budget
+                    ids = resume["prompt_ids"] + resume["tokens"]
+                    done = len(resume["tokens"])
+                    cfg = dataclasses.replace(
+                        req.config,
+                        max_tokens=max(1, req.config.max_tokens - done),
+                        min_tokens=max(0, req.config.min_tokens - done))
+                else:
+                    ids = self.encode(req.prompt)
+                    cfg = req.config
                 req.mark_running()
                 slot = self.engine.begin_request(
-                    ids, req.config, request_id=req.request_id)
+                    ids, cfg, request_id=req.request_id)
+            except NoFreePages:
+                # transient: running requests will release pages; requeue
+                # and stop admitting this round
+                req.status = RequestStatus.PENDING
+                self.queue.enqueue(req)
+                return
             except Exception as e:
                 req.mark_failed(str(e))
                 self.monitor.record_request(0, error="add_request")
                 continue
             self.monitor.active_requests = self.engine.active_requests
             self._by_slot[slot] = req
-            self._emitted_text[slot] = ""
+            self._emitted_text[slot] = (resume or {}).get("emitted", "")
+            res = self.engine._slots[slot]
+            if res is None or res.request_id != req.request_id:
+                # finished on its first token: complete it now, before the
+                # next admission of this round reuses the slot
+                self._finalize()
 
     def _stream(self, toks: Dict[int, Optional[List[int]]]) -> None:
         for slot in toks:
@@ -235,7 +274,9 @@ class Scheduler:
             res = self.engine._slots[slot]
             if res is None or res.request_id != req.request_id:
                 continue  # finished this step; handled in _finalize
-            text = self.decode(list(res.token_ids))
+            if not res.token_ids:
+                continue  # still in chunked prefill
+            text = self.decode(self._full_tokens(req, res.token_ids))
             if req.config.stop_tokens:
                 cut = _find_stop(text, req.config.stop_tokens)
                 if cut is not None:
@@ -268,11 +309,43 @@ class Scheduler:
                 continue
             req = self._by_slot.pop(slot)
             emitted = self._emitted_text.pop(slot, "")
-            self._complete(req, res, emitted)
+            if res.stop_reason == "preempted":
+                self._requeue_preempted(req, res, emitted)
+            else:
+                self._complete(req, res, emitted)
             self.monitor.active_requests = self.engine.active_requests
 
+    def _requeue_preempted(self, req: Request, res: SlotResult,
+                           emitted: str) -> None:
+        """A preempted request resumes from its generated prefix: keep this
+        segment's tokens and put the request back in the queue."""
+        st = req.resume
+        if st is None:
+            st = req.resume = {"prompt_ids": self.encode(req.prompt),
+                               "tokens": [], "logprobs": []}
+        st["tokens"] += list(res.token_ids)
+        st["logprobs"] += list(res.logprobs)
+        st["emitted"] = emitted
+        self.preempted_requests += 1
+        req.status = RequestStatus.PENDING
+        try:
+            self.queue.enqueue(req)
+        except QueueFullError:
+            req.mark_failed("queue full after preemption")
+            self.monitor.record_request(0, error="preempt_drop")
+
+    @staticmethod
+    def _full_tokens(req: Request, seg_tokens) -> List[int]:
+        st = req.resume
+        return list(seg_tokens) if st is None else st["tokens"] + list(seg_tokens)
+
     def _complete(self, req: Request, res: SlotResult, emitted: str) -> None:
-        text = self.decode(list(res.token_ids))
+        st = req.resume
+        all_tokens = self._full_tokens(req, res.token_ids)
+        all_logprobs = (st["logprobs"] if st else []) + list(res.logprobs)
+        if st is not None:
+            emitted = emitted or st.get("emitted", "")
+        text = self.decode(all_tokens)
         if req.config.stop_tokens:
             cut = _find_stop(text, req.config.stop_tokens)
             if cut is not None:
@@ -283,11 +356,11 @@ class Scheduler:
             req.stream_callback(text[len(emitted):])
         r = req.result
         r.text = text
-        r.token_ids = list(res.token_ids)
-        r.logprobs = list(res.logprobs)
+        r.token_ids = all_tokens
+        r.logprobs = all_logprobs
         r.stop_reason = req.result.stop_reason or res.stop_reason
-        r.prompt_tokens = res.prompt_len
-        r.completion_tokens = len(res.token_ids)
+        r.prompt_tokens = len(st["prompt_ids"]) if st else res.prompt_len
+        r.completion_tokens = len(all_tokens)
         r.ttft_ms = res.ttft_ms
         r.total_time_ms = res.generation_time * 1e3
         r.spans = [

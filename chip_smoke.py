@@ -24,9 +24,30 @@ Phases, each printing a line with its wall time:
               reservation, prefix cache, chunked prefill): preemption,
               prefix hits and multi-chunk prompts must all occur, the paged
               kernels must launch and the contiguous ones must not
-Each serve phase sets every launch count to 0 just before it and reads the
-counts just after. Then one JSON line with every kernel's numbers and,
-last, the result line {"ok": true, "device": {...}}.
+  8. serve[int8]  phase 6 over an int8 KV cache: the int8 variants of #2
+              and #3 must launch, the bf16 ones must not
+  9. paged_serve[k8v4]  phase 7 over a k8v4 KV pool (int8 K, packed int4
+              V, the deployed recipe): the k8v4 variants of #5 and #6 must
+              launch, the bf16 ones and the contiguous kernels must not
+Between 5 and 6, the path phase runs again through each quantized store
+(int8, int4, k8v4) on each layout; the card gates with the least room
+(#3's worst row ratio per store, the teacher-forced rel L2 of int4 and
+k8v4) are held again over three more seeds (margins[seed=...] lines), to
+show how close each sits to its limit; and the path runs once at the shape
+of the repo's trained checkpoint lm124_ckpt (path[lm124]: random weights,
+its untied 260-wide lm_head takes #1's instantiation for N % 8 != 0)
+through InferenceEngine.generate and teacher-forced. The kernels phase
+holds the quantized variants of #2, #3, #5 and #6 and #1 at widths no
+multiple of 8 too. Each serve phase, and each path run on the card that
+gives a row its launches, sets every launch count (per variant too) to 0
+just before it and reads the counts just after. Each serve phase also
+prints every request's TTFT, the host split of a profiled decode step
+(PyTorch ops, kernel launches, blocking calls, allocator calls); the
+contiguous ones also print each prompt's prefill alone on the warm engine
+with its host split, and serve the same traffic twice more: warm, and
+with the scheduler's thread under torch.profiler (the served run's host
+split). Then one JSON line with every kernel's numbers and, last,
+the result line {"ok": true, "device": {...}}.
 
 Any failed check raises: the error goes to stderr and the exit code is 1.
 Without a CUDA device, or without the deeppowers_tpu_torch package beside
@@ -248,6 +269,7 @@ def check_kernels(torch, cfg):
         f"kernel {t_k:.3f} ms, torch.matmul bf16 {t_l:.3f} ms, bound "
         f"{bd:.4f} ms ({by})")
     del q_big, wbf
+    rows += check_odd_n(torch)
 
     # -- 2. kv_append: one decode token per slot into a 1024-row cache -----
     s_cache, f = 1024, cfg.kv_size
@@ -279,6 +301,7 @@ def check_kernels(torch, cfg):
                  "replaces": "deeppowers_tpu/ops/pallas/kv_append.py:104",
                  "max_abs_err": 0.0, "ms": t_k, "plain_ms": t_p,
                  "bound_ms": bd, "bound_by": by, "library_ms": t_l})
+    bf16_ms = {"scatter_rows": t_k}
 
     # -- 3. decode_attention over the serve phase's lengths ----------------
     hq, d, kh = cfg.num_heads, cfg.dim_head, cfg.kv_heads
@@ -316,7 +339,7 @@ def check_kernels(torch, cfg):
                  "replaces": "deeppowers_tpu/ops/pallas/decode_attention.py:470",
                  "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
                  "bound_ms": bd, "bound_by": by, "library_ms": t_l})
-    contiguous_attn_ms = t_k
+    contiguous_attn_ms = bf16_ms["decode_attention"] = t_k
 
     # -- 4. flash_attention_prefill: at the serve phase's shape, the 300-
     # and 450-token prompts batched in bucket 512 (longer prompts prefill
@@ -401,6 +424,7 @@ def check_kernels(torch, cfg):
                  "replaces": "deeppowers_tpu/ops/pallas/kv_append.py:207",
                  "max_abs_err": 0.0, "ms": t_k, "plain_ms": t_p,
                  "bound_ms": bd, "bound_by": by, "library_ms": t_l})
+    bf16_ms["scatter_pool_rows"] = t_k
 
     # -- 5. decode_attention_paged: the lengths of phase 3, through a table
     # of pages scattered over the pool; rows past each length are stale:
@@ -440,7 +464,9 @@ def check_kernels(torch, cfg):
                  "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
                  "bound_ms": bd, "bound_by": by, "library_ms": None,
                  "contiguous_ms": contiguous_attn_ms})
+    bf16_ms["decode_attention_paged"] = t_k
     del kpool, vpool, kpool2, vpool2
+    rows += check_quantized_kernels(torch, cfg, rn, bf16_ms)
 
     # chunked prefill's attention_chunk: plain PyTorch on every device (the
     # JAX package computes it with XLA, not in a Pallas kernel); one layer,
@@ -455,6 +481,324 @@ def check_kernels(torch, cfg):
     return rows
 
 
+# #1 at widths no multiple of 8: the untied lm_head of the repo's trained
+# checkpoints (lm124_ckpt, moelm_ckpt: K = 768, N = 260) and a wide odd N
+ODD_N = ((768, 260), (2048, 4099))
+
+
+def check_odd_n(torch):
+    """#1's tail columns: the decode GEMV (M = 8) and the tiled prefill
+    path (M = 512) against the plain version, 2e-2 of max|ref|. Its inputs
+    come from a generator of their own, so the other checks' inputs do not
+    depend on it."""
+    from deeppowers_tpu_torch.ops.kernels import dequant_matmul as dm
+    from deeppowers_tpu_torch.quant.quantize import quantize
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+
+    def rn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=g, device="cuda")
+                * scale).to(dtype)
+
+    rows = []
+    for k, n in ODD_N:
+        qw = quantize(rn(k, n, scale=0.02, dtype=torch.float32))
+        err_max, times = 0.0, {}
+        for m in (8, 512):
+            x = rn(m, k)
+            got = dm.dequant_matmul(x, qw, out_dtype=torch.float32)
+            ref = dm.dequant_matmul_plain(x, qw.data, qw.scales,
+                                          out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            if not err <= 2e-2 * scale:
+                fail(f"dequant_matmul K={k} N={n} M={m}: error {err} > "
+                     f"2e-2 * {scale}")
+            err_max = max(err_max, err)
+            times[m] = (
+                cuda_ms(torch, [lambda: dm.dequant_matmul(
+                    x, qw, out_dtype=torch.float32)], 50),
+                cuda_ms(torch, [lambda: dm.dequant_matmul_plain(
+                    x, qw.data, qw.scales, out_dtype=torch.float32)], 10,
+                    graph=False),
+                cuda_ms(torch, [lambda w=qw.data.to(torch.bfloat16)
+                                * qw.scales.to(torch.bfloat16): torch.matmul(
+                                    x, w)], 50))
+            log(f"  dequant_matmul odd N: K={k} N={n} M={m}: max_abs_err="
+                f"{err:.3e} max|ref|={scale:.3e}, kernel {times[m][0]:.4f} "
+                f"ms, plain {times[m][1]:.4f} ms, torch.matmul bf16 "
+                f"{times[m][2]:.4f} ms")
+        t_k, t_p, t_l = times[8]
+        bd, by = bound_ms(k * n + 4 * n + 8 * k * 2 + 8 * n * 4, 2 * 8 * k * n)
+        rows.append({"name": f"dequant_matmul[N={n}]", "route": "cuda",
+                     "source": "deeppowers_tpu_torch/csrc/dequant_matmul.cu",
+                     "replaces": "deeppowers_tpu/ops/pallas/dequant_matmul.py:528",
+                     "max_abs_err": err_max, "ms": t_k, "plain_ms": t_p,
+                     "bound_ms": bd, "bound_by": by, "library_ms": t_l,
+                     "variant": dm.width_variant(n),
+                     "shape": f"M=8 K={k} N={n} (also held at M=512: "
+                              f"{times[512][0]:.4f} ms)"})
+    return rows
+
+
+ATTN_LENS = (48, 96, 132, 232, 332, 482, 632, 932)
+
+
+def check_quantized_kernels(torch, cfg, rn, bf16_ms):
+    """#2, #6, #3 and #5 in their quantized variants at the main path's
+    shapes: 8 slots, F = 256 (Kh = 4, D = 64), a 1024-row cache or a
+    65-page pool of 128 rows. The appends must equal their plain versions
+    exactly (bytes and scale bits), leaving dropped and invalid rows
+    untouched; attention must keep each (slot, head) row within 1e-2 of
+    its max|ref|, finite, with garbage in stale rows and NaN in stale
+    scale entries. No single PyTorch call reads or writes a quantized
+    cache, so library_ms is null; each row carries the bf16 kernel's time
+    at the same shapes as its yardstick."""
+    from deeppowers_tpu_torch.ops.kernels import (decode_attention as da,
+                                                  kv_append as ka)
+    from deeppowers_tpu_torch.quant.kvquant import STORE_BITS, quant_side
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    b, s_cache, page, n_pages = 8, 1024, 128, 65
+    hq, d, kh = cfg.num_heads, cfg.dim_head, cfg.kv_heads
+    f = kh * d
+    wp = s_cache // page
+    pos = torch.tensor([16, 64, 100, 200, 300, 450, 600, 1024], device=dev,
+                       dtype=torch.int32)                # last one dropped
+    prow = torch.tensor([130, 7 * page + 5, 300, 64 * page + 127, 1000, 42,
+                         2 * page, 5 * page + 77], device=dev,
+                        dtype=torch.int32)
+    pvalid = torch.tensor([1, 1, 0, 1, 1, 1, 0, 1], device=dev,
+                          dtype=torch.bool)
+    lens = torch.tensor(ATTN_LENS, device=dev, dtype=torch.int32)
+    live = int(lens.sum())
+    live_pages = int(((lens.long() + page - 1) // page).sum())
+    table = (torch.randperm(n_pages - 1, generator=torch.Generator()
+                            .manual_seed(SEED + 5))[:b * wp] + 1).reshape(
+        b, wp).to(device=dev, dtype=torch.int32)
+    q = rn(b, hq, d)
+    kr, vr = rn(b, f), rn(b, f)
+    rows = []
+
+    def row(name, src, ms, plain, bd, by, err, extra):
+        out = {"name": name, "route": "cuda",
+               "source": f"deeppowers_tpu_torch/csrc/{src}",
+               "replaces": {"scatter_rows": "deeppowers_tpu/ops/pallas/kv_append.py:104",
+                            "scatter_pool_rows": "deeppowers_tpu/ops/pallas/kv_append.py:207",
+                            "decode_attention": "deeppowers_tpu/ops/pallas/decode_attention.py:470",
+                            "decode_attention_paged": "deeppowers_tpu/ops/pallas/decode_attention.py:780",
+                            }[name.split("[")[0]],
+               "max_abs_err": err, "ms": ms, "plain_ms": plain,
+               "bound_ms": bd, "bound_by": by, "library_ms": None}
+        out.update(extra)
+        return out
+
+    def random_store(shape):
+        return torch.randint(-128, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+
+    for dtype in ("int8", "int4", "k8v4"):
+        kb, vb = STORE_BITS[dtype]
+        kw = dict(kv_bits=kb, v_bits=vb)
+        fk, fv = (f // 2 if kb == 4 else f), (f // 2 if vb == 4 else f)
+        rk, rv = kh * (2 if kb == 4 else 1), kh * (2 if vb == 4 else 1)
+
+        # -- #2: quantize-and-append into (B, S, F') stores, (B, R, S) scales
+        arrs = [random_store((b, s_cache, fk)), random_store((b, s_cache, fv)),
+                torch.rand((b, rk, s_cache), generator=g, device=dev),
+                torch.rand((b, rv, s_cache), generator=g, device=dev)]
+        before = [a.clone() for a in arrs]
+        refs = [a.clone() for a in arrs]
+        ka.scatter_rows(arrs[0], arrs[1], kr, vr, pos, k_scale=arrs[2],
+                        v_scale=arrs[3], **kw)
+        ka.scatter_rows_plain(refs[0], refs[1], kr, vr, pos, k_scale=refs[2],
+                              v_scale=refs[3], **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, r) for a, r in zip(arrs, refs)):
+            fail(f"scatter_rows[{dtype}] differs from its plain version")
+        if not (torch.equal(arrs[0][7], before[0][7])
+                and torch.equal(arrs[3][7], before[3][7])):
+            fail(f"scatter_rows[{dtype}] wrote a dropped position")
+        changed = (arrs[0] != before[0]).any(-1).sum().item()
+        if changed > 7:
+            fail(f"scatter_rows[{dtype}] wrote {changed} rows for 7")
+        t_k = cuda_ms(torch, [lambda: ka.scatter_rows(
+            arrs[0], arrs[1], kr, vr, pos, k_scale=arrs[2], v_scale=arrs[3],
+            **kw)], 200)
+        t_p = cuda_ms(torch, [lambda: ka.scatter_rows_plain(
+            refs[0], refs[1], kr, vr, pos, k_scale=refs[2], v_scale=refs[3],
+            **kw)], 50, graph=False)
+        nb = 7 * (2 * f * 2 + fk + fv + 4 * (rk + rv)) + b * 4
+        bd, by = bound_ms(nb, 0)
+        log(f"  scatter_rows[{dtype}] B={b} S={s_cache} F={f}: exact, kernel "
+            f"{t_k:.4f} ms (bf16 #2 {bf16_ms['scatter_rows']:.4f} ms), plain "
+            f"{t_p:.4f} ms, bound {bd:.6f} ms")
+        rows.append(row(f"scatter_rows[{dtype}]", "kv_append.cu", t_k, t_p,
+                        bd, by, 0.0, {"bf16_ms": bf16_ms["scatter_rows"]}))
+
+        # -- #6: the same into (P, page, F') pools, (P, R, page) scale pools
+        pools = [random_store((n_pages, page, fk)),
+                 random_store((n_pages, page, fv)),
+                 torch.rand((n_pages, rk, page), generator=g, device=dev),
+                 torch.rand((n_pages, rv, page), generator=g, device=dev)]
+        before = [a.clone() for a in pools]
+        prefs = [a.clone() for a in pools]
+        ka.scatter_pool_rows(pools[0], pools[1], kr, vr, prow, pvalid,
+                             k_scale=pools[2], v_scale=pools[3], **kw)
+        ka.scatter_pool_rows_plain(prefs[0], prefs[1], kr, vr, prow, pvalid,
+                                   k_scale=prefs[2], v_scale=prefs[3], **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, r) for a, r in zip(pools, prefs)):
+            fail(f"scatter_pool_rows[{dtype}] differs from its plain version")
+        if not (torch.equal(pools[0].view(-1, fk)[300],
+                            before[0].view(-1, fk)[300])
+                and torch.equal(pools[2][2, :, 300 % page],
+                                before[2][2, :, 300 % page])):
+            fail(f"scatter_pool_rows[{dtype}] wrote an invalid row")
+        t_k = cuda_ms(torch, [lambda: ka.scatter_pool_rows(
+            pools[0], pools[1], kr, vr, prow, pvalid, k_scale=pools[2],
+            v_scale=pools[3], **kw)], 200)
+        t_p = cuda_ms(torch, [lambda: ka.scatter_pool_rows_plain(
+            prefs[0], prefs[1], kr, vr, prow, pvalid, k_scale=prefs[2],
+            v_scale=prefs[3], **kw)], 50, graph=False)
+        n_valid = int(pvalid.sum())
+        nb = n_valid * (2 * f * 2 + fk + fv + 4 * (rk + rv)) + b * 5
+        bd, by = bound_ms(nb, 0)
+        log(f"  scatter_pool_rows[{dtype}] B={b} pool=({n_pages}, {page}) "
+            f"valid={n_valid}: exact, kernel {t_k:.4f} ms (bf16 #6 "
+            f"{bf16_ms['scatter_pool_rows']:.4f} ms), plain {t_p:.4f} ms, "
+            f"bound {bd:.6f} ms")
+        rows.append(row(f"scatter_pool_rows[{dtype}]", "kv_append.cu", t_k,
+                        t_p, bd, by, 0.0,
+                        {"bf16_ms": bf16_ms["scatter_pool_rows"]}))
+        del arrs, refs, pools, prefs, before
+
+        # -- #2 and #6 at a prefill's shapes: a (2, 512) prompt group's rows
+        # into slots 3 and 9 (past the cache: dropped), and a 512-row chunk
+        # into slot 0's first four pages. A generator of its own keeps the
+        # other checks' inputs as they were.
+        gp = torch.Generator(device=dev).manual_seed(SEED + 9)
+        pk, pv = (torch.randn(2 * 512, f, generator=gp, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        psl = torch.tensor([3, 9], device=dev,
+                           dtype=torch.int32).repeat_interleave(512)
+        ppos = torch.arange(512, device=dev, dtype=torch.int32).repeat(2)
+        prow_p = (table[0, :4, None] * page + torch.arange(
+            page, device=dev)).reshape(-1).to(torch.int32)
+        pval = torch.ones_like(prow_p, dtype=torch.bool)
+        cases = (
+            ("scatter_rows", lambda a: ka.scatter_rows(
+                a[0], a[1], pk, pv, ppos, slots=psl, k_scale=a[2],
+                v_scale=a[3], **kw), lambda a: ka.scatter_rows_plain(
+                a[0], a[1], pk, pv, ppos, slots=psl, k_scale=a[2],
+                v_scale=a[3], **kw), (b, s_cache), 1024),
+            ("scatter_pool_rows", lambda a: ka.scatter_pool_rows(
+                a[0], a[1], pk[:512], pv[:512], prow_p, pval, k_scale=a[2],
+                v_scale=a[3], **kw), lambda a: ka.scatter_pool_rows_plain(
+                a[0], a[1], pk[:512], pv[:512], prow_p, pval, k_scale=a[2],
+                v_scale=a[3], **kw), (n_pages, page), 512))
+        for kname, kern, plain, (lead, minor), n_rows in cases:
+            arrs = [torch.randint(-128, 128, (lead, minor, w), generator=gp,
+                                  device=dev, dtype=torch.int8)
+                    for w in (fk, fv)] + [
+                torch.rand((lead, r, minor), generator=gp, device=dev)
+                for r in (rk, rv)]
+            refs = [a.clone() for a in arrs]
+            kern(arrs)
+            plain(refs)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, r) for a, r in zip(arrs, refs)):
+                fail(f"{kname}[{dtype}] at prefill shapes differs from its "
+                     f"plain version")
+            t_k = cuda_ms(torch, [lambda: kern(arrs)], 50)
+            t_p = cuda_ms(torch, [lambda: plain(refs)], 10, graph=False)
+            log(f"  {kname}[{dtype}] {n_rows} prefill rows: exact, kernel "
+                f"{t_k:.4f} ms, plain {t_p:.4f} ms")
+            del arrs, refs
+
+        # -- #3: a cache quantized from random K/V; stale scales NaN
+        kc, ks = quant_side(rn(b, s_cache, kh, d, dtype=torch.float32), kb,
+                            2 if kb == 4 else 1)
+        vc, vs = quant_side(rn(b, s_cache, kh, d, dtype=torch.float32), vb,
+                            2 if vb == 4 else 1)
+        ks, vs = ks.transpose(1, 2).contiguous(), vs.transpose(1, 2).contiguous()
+        posn = torch.arange(s_cache, device=dev)
+        stale = posn[None, :] >= lens[:, None].long()
+        nan_at = stale & (posn[None, :] % 3 == 0)
+        for sc in (ks, vs):
+            sc.masked_fill_(nan_at[:, None, :], float("nan"))
+        out = da.decode_attention(q, kc, vc, lens, k_scale=ks, v_scale=vs, **kw)
+        ref = da.decode_attention_plain(q, kc, vc, lens, k_scale=ks,
+                                        v_scale=vs, **kw)
+        torch.cuda.synchronize()
+        err, worst = row_errors(out, ref)
+        if not (torch.isfinite(out).all() and worst <= 1e-2):
+            fail(f"decode_attention[{dtype}]: a (slot, head) row's error is "
+                 f"{worst:.3g} of its max|ref| (limit 1e-2), or not finite")
+        t_k = cuda_ms(torch, [lambda: da.decode_attention(
+            q, kc, vc, lens, k_scale=ks, v_scale=vs, **kw)], 200)
+        t_p = cuda_ms(torch, [lambda: da.decode_attention_plain(
+            q, kc, vc, lens, k_scale=ks, v_scale=vs, **kw)], 20, graph=False)
+        nb = live * (fk + fv + 4 * (rk + rv)) + 2 * q.numel() * 2
+        bd, by = bound_ms(nb, 4 * live * hq * d)
+        log(f"  decode_attention[{dtype}] B={b} S={s_cache} live={live}: "
+            f"max_abs_err={err:.3e} worst_row_ratio={worst:.3e}, kernel "
+            f"{t_k:.4f} ms (bf16 #3 {bf16_ms['decode_attention']:.4f} ms), "
+            f"plain {t_p:.4f} ms, bound {bd:.6f} ms")
+        rows.append(row(f"decode_attention[{dtype}]", "decode_attention.cu",
+                        t_k, t_p, bd, by, err,
+                        {"worst_row_ratio": worst,
+                         "bf16_ms": bf16_ms["decode_attention"]}))
+
+        # -- #5: the same rows scattered over the pool's pages; stale rows
+        # random bytes, stale scale entries NaN
+        def to_pool(store, width):
+            pool = random_store((n_pages, page, width))
+            pool[table.long()] = store.reshape(b, wp, page, width)
+            return pool
+
+        def to_scale_pool(sc):
+            r = sc.shape[1]
+            pool = torch.full((n_pages, r, page), float("nan"), device=dev)
+            pool[table.long()] = sc.reshape(b, r, wp, page).transpose(1, 2)
+            return pool
+
+        kstale = stale[:, :, None]
+        kp = to_pool(torch.where(kstale, random_store(kc.shape), kc), fk)
+        vp = to_pool(torch.where(kstale, random_store(vc.shape), vc), fv)
+        ksp = to_scale_pool(ks.masked_fill(stale[:, None, :], float("nan")))
+        vsp = to_scale_pool(vs.masked_fill(stale[:, None, :], float("nan")))
+        out = da.decode_attention_paged(q, kp, vp, table, lens, k_scale=ksp,
+                                        v_scale=vsp, **kw)
+        ref = da.decode_attention_paged_plain(q, kp, vp, table, lens,
+                                              k_scale=ksp, v_scale=vsp, **kw)
+        torch.cuda.synchronize()
+        err, worst = row_errors(out, ref)
+        if not (torch.isfinite(out).all() and worst <= 1e-2):
+            fail(f"decode_attention_paged[{dtype}]: a (slot, head) row's "
+                 f"error is {worst:.3g} of its max|ref| (limit 1e-2), or not "
+                 f"finite")
+        t_k = cuda_ms(torch, [lambda: da.decode_attention_paged(
+            q, kp, vp, table, lens, k_scale=ksp, v_scale=vsp, **kw)], 200)
+        t_p = cuda_ms(torch, [lambda: da.decode_attention_paged_plain(
+            q, kp, vp, table, lens, k_scale=ksp, v_scale=vsp, **kw)], 20,
+            graph=False)
+        bd, by = bound_ms(nb + live_pages * 4 + b * 4, 4 * live * hq * d)
+        log(f"  decode_attention_paged[{dtype}] B={b} page={page} "
+            f"live={live}: max_abs_err={err:.3e} worst_row_ratio="
+            f"{worst:.3e}, kernel {t_k:.4f} ms (bf16 #5 "
+            f"{bf16_ms['decode_attention_paged']:.4f} ms), plain {t_p:.4f} "
+            f"ms, bound {bd:.6f} ms")
+        rows.append(row(f"decode_attention_paged[{dtype}]",
+                        "decode_attention.cu", t_k, t_p, bd, by, err,
+                        {"worst_row_ratio": worst,
+                         "bf16_ms": bf16_ms["decode_attention_paged"]}))
+        del kc, vc, ks, vs, kp, vp, ksp, vsp
+    torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 4: teacher-forced path check
 # ---------------------------------------------------------------------------
@@ -463,10 +807,12 @@ PAGED_TABLE = (9, 4, 0, 0, 0, 0, 0, 0)     # slot 0's pages in a 12-page pool
 
 
 def forced_logits(torch, T, kvcache, params, cfg, ids, forced, device,
-                  paged=False):
+                  paged=False, kv_cache_dtype="bf16"):
     """Prefill `ids` then decode the forced tokens; every step's logits.
     With `paged`, the K/V go to pages 9 and 4 of a 12-page pool whose
-    other rows hold NaN, through the paged kernels."""
+    other rows hold NaN (a quantized pool: random bytes, and NaN in its
+    scale pools), through the paged kernels. `kv_cache_dtype` picks the
+    store of either layout."""
     import numpy as np
     from deeppowers_tpu_torch.runtime import kvcache_paged
     n = len(ids)
@@ -480,17 +826,26 @@ def forced_logits(torch, T, kvcache, params, cfg, ids, forced, device,
         if paged:
             caches = kvcache_paged.init_paged_cache(
                 cfg.num_layers, 1, 1024, cfg.kv_heads, cfg.dim_head,
-                page_size=128, total_pages=12, device=device)
+                page_size=128, total_pages=12, device=device,
+                kv_cache_dtype=kv_cache_dtype)
             for c in caches:
-                c.k_pool.fill_(float("nan"))
-                c.v_pool.fill_(float("nan"))
+                if c.quantized:
+                    for pool in (c.k_pool, c.v_pool):
+                        pool.copy_(torch.randint(-128, 128, pool.shape,
+                                                 dtype=torch.int8))
+                    c.k_scale.fill_(float("nan"))
+                    c.v_scale.fill_(float("nan"))
+                else:
+                    c.k_pool.fill_(float("nan"))
+                    c.v_pool.fill_(float("nan"))
             kvcache_paged.with_table(caches, np.array([PAGED_TABLE],
                                                       dtype=np.int32))
             for c, (k, v) in zip(caches, kv):
                 kvcache.write_prompt(c, k[0], v[0], 0)
         else:
             caches = kvcache.init_cache(cfg.num_layers, 1, 128, cfg.kv_heads,
-                                        cfg.dim_head, device=device)
+                                        cfg.dim_head, device=device,
+                                        kv_cache_dtype=kv_cache_dtype)
             for c, (k, v) in zip(caches, kv):
                 kvcache.write_prompts(c, k, v, torch.tensor([0], device=device))
         for t in forced:
@@ -500,6 +855,102 @@ def forced_logits(torch, T, kvcache, params, cfg, ids, forced, device,
             out.append(lg[0].float().cpu())
             lens = lens + 1
     return out
+
+
+def lm124_path(torch, T, kvcache, counters, device="cuda"):
+    """The LM124 preset (lm124_ckpt's config: 12 layers, hidden 768, GQA
+    12/6, an untied 260-wide lm_head) with random int8 weights from the
+    seed: eight greedy tokens through `InferenceEngine.generate` with every
+    launch count set to 0 just before and read just after (the head must
+    take #1's n4 instantiation), then the teacher-forced logits against the
+    plain path on the CPU, rel L2 <= 5e-2. Returns (launches, phase
+    info)."""
+    from deeppowers_tpu_torch.config import (GenerationConfig, QuantConfig,
+                                             RuntimeConfig)
+    from deeppowers_tpu_torch.models.presets import LM124 as lcfg
+    from deeppowers_tpu_torch.runtime.engine import InferenceEngine
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    params = T.fuse_params(T.quantize_params(T.init_params(
+        lcfg, gen, dtype=torch.bfloat16, device=device), QuantConfig()), lcfg)
+    rng = torch.Generator().manual_seed(SEED + 8)
+    ids = torch.randint(0, lcfg.vocab_size, (40,), generator=rng).tolist()
+    forced = torch.randint(0, lcfg.vocab_size, (3,), generator=rng).tolist()
+    engine = InferenceEngine(params, lcfg, device=device, runtime=RuntimeConfig(
+        max_batch_size=1, max_seq_len=512, prefill_buckets=(64, 128, 256, 512)))
+    reset_counts(counters)
+    res = engine.generate(ids, GenerationConfig(max_tokens=8, temperature=0.0))
+    engine.synchronize()
+    launches = read_counts(counters)
+    if len(res.token_ids) != 8 or launches.get("dequant_matmul[n4]", 0) < 1:
+        fail(f"path[lm124]: {len(res.token_ids)} tokens, launches {launches}")
+    got = forced_logits(torch, T, kvcache, params, lcfg, ids, forced, device)
+    ref = forced_logits(torch, T, kvcache, tree_to(params, "cpu"), lcfg, ids,
+                        forced, "cpu")
+    rel = max(((g - r).norm() / r.norm()).item() for g, r in zip(got, ref))
+    if not all(torch.isfinite(g).all() for g in got) or not rel <= 5e-2:
+        fail(f"path[lm124]: kernel vs plain logits rel L2 error {rel} > 5e-2")
+    return launches, {"head_n": lcfg.vocab_size,
+                      "launches_n4": launches["dequant_matmul[n4]"],
+                      "tokens": len(res.token_ids),
+                      "logits_rel_l2": f"{rel:.3e}"}
+
+
+MARGIN_SEEDS = 3
+
+
+def margins(torch, T, kvcache, cfg, params) -> None:
+    """The card gates with the least room, held again over MARGIN_SEEDS
+    other seeds so that the run shows how close each sits to its limit:
+    #3's worst (slot, head) row ratio against its plain version per store
+    at the kernels phase's shapes (limit 1e-2; #5 reads the same rows
+    through its table), and the teacher-forced logits' rel L2 against the
+    plain path on the CPU, contiguous layout, for the two stores closest
+    to its limit of 5e-2 (int4, k8v4). A seed picks the attention inputs
+    and the token ids; the weights stay seed 0's."""
+    from deeppowers_tpu_torch.ops.kernels import decode_attention as da
+    from deeppowers_tpu_torch.quant.kvquant import STORE_BITS, quant_side
+    dev = torch.device("cuda")
+    b, s_cache = 8, 1024
+    hq, d, kh = cfg.num_heads, cfg.dim_head, cfg.kv_heads
+    lens = torch.tensor(ATTN_LENS, device=dev, dtype=torch.int32)
+    cpu_params = tree_to(params, "cpu")
+    for seed in range(1, MARGIN_SEEDS + 1):
+        t0 = time.perf_counter()
+        g = torch.Generator(device=dev).manual_seed(1000 + seed)
+        q = torch.randn(b, hq, d, generator=g, device=dev).to(torch.bfloat16)
+        line = {}
+        for dtype in ("int8", "int4", "k8v4"):
+            kb, vb = STORE_BITS[dtype]
+            kc, ks = quant_side(torch.randn(b, s_cache, kh, d, generator=g,
+                                            device=dev), kb,
+                                2 if kb == 4 else 1)
+            vc, vs = quant_side(torch.randn(b, s_cache, kh, d, generator=g,
+                                            device=dev), vb,
+                                2 if vb == 4 else 1)
+            kw = dict(k_scale=ks.transpose(1, 2).contiguous(),
+                      v_scale=vs.transpose(1, 2).contiguous(), kv_bits=kb,
+                      v_bits=vb)
+            got = da.decode_attention(q, kc, vc, lens, **kw)
+            ref = da.decode_attention_plain(q, kc, vc, lens, **kw)
+            line[f"attn_row_ratio[{dtype}]"] = worst = row_errors(got,
+                                                                  ref)[1]
+            if not (torch.isfinite(got).all() and worst <= 1e-2):
+                fail(f"margins seed {seed}: decode_attention[{dtype}] row "
+                     f"error {worst:.3g} of its max|ref| (limit 1e-2)")
+        rng = torch.Generator().manual_seed(2000 + seed)
+        ids = torch.randint(0, cfg.vocab_size, (40,), generator=rng).tolist()
+        forced = torch.randint(0, cfg.vocab_size, (3,), generator=rng).tolist()
+        for dtype in ("int4", "k8v4"):
+            got = forced_logits(torch, T, kvcache, params, cfg, ids, forced,
+                                "cuda", kv_cache_dtype=dtype)
+            ref = forced_logits(torch, T, kvcache, cpu_params, cfg, ids,
+                                forced, "cpu", kv_cache_dtype=dtype)
+            line[f"path_rel_l2[{dtype}]"] = rel = max(
+                ((x - r).norm() / r.norm()).item() for x, r in zip(got, ref))
+            if not rel <= 5e-2:
+                fail(f"margins seed {seed}: path[{dtype}] rel L2 {rel} > 5e-2")
+        phase_line(f"margins[seed={seed}]", t0, **{
+            k: f"{v:.3e}" for k, v in line.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -525,9 +976,48 @@ def post(port: int, body: dict, timeout: float = 120.0) -> dict:
         return json.loads(r.read())
 
 
+#: CUDA runtime calls that block the host until the device catches up
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+ALLOC_CALLS = ("cudaMalloc", "cudaFree")
+
+
+def host_split(torch, prof, n: int) -> dict:
+    """The host's side of a profiled region, per unit (a decode step, a
+    prefill): device busy ms; top-level PyTorch ops issued from Python;
+    kernel launches; calls that block on the device (count and ms);
+    cudaMalloc and cudaFree calls (count and ms); and the host entries
+    with the most self time."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    avg = prof.key_averages()
+    by_key = {e.key: e for e in avg}
+
+    def count(keys):
+        return sum(by_key[k].count for k in keys if k in by_key) / n
+
+    def ms(keys):
+        return sum(by_key[k].cpu_time_total for k in keys
+                   if k in by_key) / 1e3 / n
+
+    busy = sum(e.self_device_time_total for e in avg
+               if e.device_type == cuda) / 1e3 / n
+    ops = sum(1 for e in prof.events() if e.device_type == cpu
+              and e.cpu_parent is None and e.name.startswith("aten::")) / n
+    top = sorted((e for e in avg if e.device_type == cpu),
+                 key=lambda e: -e.self_cpu_time_total)[:6]
+    return {"busy_ms": busy, "ops": ops, "launches": count(LAUNCH_CALLS),
+            "syncs": count(SYNC_CALLS), "sync_ms": ms(SYNC_CALLS),
+            "allocs": count(ALLOC_CALLS), "alloc_ms": ms(ALLOC_CALLS),
+            "host_top": [(e.key[:40], round(e.self_cpu_time_total / 1e3 / n,
+                                            4)) for e in top]}
+
+
 def profile_decode(torch, engine, tok, steps: int = 5):
-    """Device busy share of full-batch decode steps: 8 greedy requests,
-    two warm steps, then `steps` steps under torch.profiler."""
+    """Device busy share of full-batch decode steps and their host split:
+    8 greedy requests, two warm steps, then `steps` steps under
+    torch.profiler."""
     from deeppowers_tpu_torch.config import GenerationConfig
     from torch.profiler import ProfilerActivity, profile
     for i in range(engine.num_slots):
@@ -543,34 +1033,111 @@ def profile_decode(torch, engine, tok, steps: int = 5):
             engine.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    split = host_split(torch, prof, steps)
+    if split["busy_ms"] <= 0:
+        fail("profile: no device time recorded for the decode steps")
     dev = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3 / steps
-    if busy_ms <= 0:
-        fail("profile: no device time recorded for the decode steps")
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
     while engine.active_requests:
         engine.step()
     engine.pop_finished()
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
-            "idle_share": 1.0 - busy_ms / wall_ms,
-            "top": [(e.key[:60], e.self_device_time_total / 1e3 / steps)
-                    for e in top]}
+    split.update(wall_ms=wall_ms, idle_share=1.0 - split["busy_ms"] / wall_ms,
+                 top=[(e.key[:60], e.self_device_time_total / 1e3 / steps)
+                      for e in top])
+    return split
+
+
+def profile_prefill(torch, engine, tok, prompts):
+    """Each prompt prefilled alone on the idle, warm engine (whole or in
+    chunks, as the engine picks; max_tokens 1, so the slot retires at its
+    first token): the wall ms of each, synchronized, in a pass without the
+    profiler, then the host split of one prefill (the mean over the
+    prompts) in a pass under torch.profiler."""
+    from deeppowers_tpu_torch.config import GenerationConfig
+    from torch.profiler import ProfilerActivity, profile
+    gen = GenerationConfig(max_tokens=1, temperature=0.0)
+    ids = [tok.encode(p) for p in prompts]
+
+    def one(x):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.add_request(x, gen)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    walls = [one(x) for x in ids]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for x in ids:
+            one(x)
+    engine.pop_finished()
+    split = host_split(torch, prof, len(ids))
+    split["wall_ms"] = walls
+    return split
+
+
+def segments(torch) -> int:
+    """cudaMalloc calls PyTorch's caching allocator has made so far."""
+    return torch.cuda.memory_stats().get("segment.all.allocated", 0)
+
+
+def reset_counts(counters) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+        if hasattr(fn, "variant_launches"):
+            fn.variant_launches.clear()
+
+
+def read_counts(counters) -> dict:
+    """{kernel: launches} and, for a kernel with store variants,
+    {"kernel[variant]": launches} for each variant."""
+    out = {}
+    for name, fn in counters.items():
+        out[name] = fn.launches
+        for var, n in getattr(fn, "variant_launches", {}).items():
+            out[f"{name}[{var}]"] = n
+    return out
+
+
+def check_variants(phase, launches, want, zero) -> None:
+    """Every `want` kernel[variant] launched, every `zero` one did not."""
+    missing = [k for k in want if launches.get(k, 0) <= 0]
+    extra = [k for k in zero if launches.get(k, 0) > 0]
+    if missing or extra:
+        fail(f"{phase}: kernels that should launch but did not: {missing}; "
+             f"kernels that should not launch but did: {extra} "
+             f"({launches})")
 
 
 def run_requests(torch, engine, prompts, max_tokens, counters, tok,
-                 on_engine=None):
+                 on_engine=None, profiled=False):
     """Serve `prompts` as concurrent greedy HTTP requests through the
     scheduler and the server, in-process. Every launch count is set to 0
-    just before and read just after. Returns (results, launches, wall s,
-    scheduler)."""
+    just before and read just after. With `profiled`, the scheduler's
+    thread runs under torch.profiler (`sched.prof`). Returns (results,
+    launches, wall s, scheduler)."""
     from deeppowers_tpu_torch.serving.scheduler import Scheduler
     from deeppowers_tpu_torch.serving.server import APIServer
 
-    sched = Scheduler(engine, encode=tok.encode, decode=tok.decode)
+    cls = Scheduler
+    if profiled:
+        from torch.profiler import ProfilerActivity, profile
+
+        class ProfiledScheduler(Scheduler):
+            """Its loop runs under torch.profiler, which records only the
+            thread that starts it."""
+
+            def _loop(self):
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    super()._loop()
+                self.prof = prof
+
+        cls = ProfiledScheduler
+    sched = cls(engine, encode=tok.encode, decode=tok.decode)
     server = APIServer(sched, host="127.0.0.1", port=0)
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts(counters)
     sched.start()
     server.start()
     results = [None] * len(prompts)
@@ -597,7 +1164,7 @@ def run_requests(torch, engine, prompts, max_tokens, counters, tok,
     finally:
         server.stop()
         sched.stop()
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = read_counts(counters)
     if hung or errors:
         fail(f"serve: requests failed or hung: {errors} {hung}")
     if sched.last_error is not None or sched.recovered_requests:
@@ -624,37 +1191,69 @@ def summary(results, wall, sched, launches):
     step = sched.monitor.latency("decode_step")
     return {"wall_s": wall, "tokens": gen, "tok_per_s": gen / wall,
             "ttft_ms_p50": ttft[len(ttft) // 2], "ttft_ms_max": ttft[-1],
+            "ttft_ms": [r["timing"]["ttft_ms"] for r in results],
             "decode_step_ms_p50": step.p50_ms, "steps": step.count,
             "stop_reasons": [r["stop_reason"] for r in results],
             "launches": launches}
 
 
-def serve(torch, params, cfg, counters):
-    """Phase 6: contiguous KV, default prefill_chunk_size 512, so the 600-
-    and 900-byte prompts prefill in chunks and the 450-byte one takes the
-    flash kernel in bucket 512."""
+def serve(torch, params, cfg, counters, kv_cache_dtype="bf16"):
+    """Phase 6 (and 8 with int8 KV): contiguous KV, default
+    prefill_chunk_size 512, so the 600- and 900-byte prompts prefill in
+    chunks and the 450-byte one takes the flash kernel in bucket 512. The
+    store's variants of #2 and #3 must launch, no other store's."""
     from deeppowers_tpu_torch.config import GenerationConfig, RuntimeConfig
+    from deeppowers_tpu_torch.quant.kvquant import KV_CACHE_DTYPES
     from deeppowers_tpu_torch.runtime.engine import InferenceEngine
     from deeppowers_tpu_torch.serving.tokenizer import ByteTokenizer
 
     tok = ByteTokenizer()
     engine = InferenceEngine(
         params, cfg, device="cuda", eos_token_id=tok.eos_token_id,
+        kv_cache_dtype=kv_cache_dtype,
         runtime=RuntimeConfig(max_batch_size=8, max_seq_len=1024,
                               prefill_buckets=(64, 128, 256, 512, 1024)))
     # warm-up outside the measured run: first launches and allocator
     engine.generate(tok.encode("warm up"), GenerationConfig(
         max_tokens=2, temperature=0.0))
     prompts = [prompt_text(n, i) for i, n in enumerate(PROMPT_BYTES)]
+    seg0 = segments(torch)
     results, launches, wall, sched = run_requests(
         torch, engine, prompts, MAX_TOKENS, counters, tok)
-    want = ("dequant_matmul", "scatter_rows", "decode_attention",
-            "flash_attention_prefill")
-    zero = [name for name in want if launches[name] <= 0]
-    if zero:
-        fail(f"serve: kernels never launched on the main path: {zero}")
+    seg1 = segments(torch)
+    own = [f"{k}[{kv_cache_dtype}]" for k in ("scatter_rows",
+                                             "decode_attention")]
+    check_variants(
+        f"serve[{kv_cache_dtype}]", launches,
+        ["dequant_matmul", "flash_attention_prefill"] + own,
+        ["scatter_pool_rows", "decode_attention_paged"]
+        + [f"{k}[{v}]" for k in ("scatter_rows", "decode_attention")
+           for v in KV_CACHE_DTYPES if v != kv_cache_dtype])
     out = summary(results, wall, sched, launches)
+    out["segments"] = seg1 - seg0
+    out["kv_bytes"] = engine.kv_nbytes
+    # the profiler's first use in the process stays on the main thread
     out["profile"] = profile_decode(torch, engine, tok)
+    out["prefill"] = profile_prefill(torch, engine, tok, prompts)
+    seg1 = segments(torch)
+    # the same traffic again on the warm engine: the difference from the
+    # first pass is what that pass paid for first use of its shapes
+    # (kernel loads, allocator growth), not for its work
+    res2, _, wall2, sched2 = run_requests(torch, engine, prompts,
+                                          MAX_TOKENS, counters, tok)
+    warm = summary(res2, wall2, sched2, {})
+    out["warm"] = {k: warm[k] for k in ("ttft_ms_p50", "ttft_ms_max",
+                                        "ttft_ms", "decode_step_ms_p50")}
+    out["warm"]["segments"] = segments(torch) - seg1
+    # and once more with the scheduler's thread under the profiler: the
+    # host split of the whole served run (every prefill and decode step)
+    res3, _, wall3, sched3 = run_requests(torch, engine, prompts,
+                                          MAX_TOKENS, counters, tok,
+                                          profiled=True)
+    prof = summary(res3, wall3, sched3, {})
+    out["served_split"] = dict(
+        host_split(torch, sched3.prof, 1), ttft_ms_p50=prof["ttft_ms_p50"],
+        decode_step_ms_p50=prof["decode_step_ms_p50"], steps=prof["steps"])
     return out
 
 
@@ -673,11 +1272,11 @@ def paged_prompts():
                      prompt_text(16, 302), prompt_text(40, 303)]
 
 
-def paged_engine(params, cfg, device, eos_token_id):
-    """Phase 7's engine: 8 slots of 1024 tokens over PAGED_TOTAL_PAGES
-    pages of 128, lazy reservation (slack 64), prefix cache, chunks of
-    512. Its continue_prefill counts chunks per request id in
-    `engine.chunks`."""
+def paged_engine(params, cfg, device, eos_token_id, kv_cache_dtype="bf16"):
+    """Phase 7's engine (and 9's with k8v4 KV): 8 slots of 1024 tokens over
+    PAGED_TOTAL_PAGES pages of 128, lazy reservation (slack 64), prefix
+    cache, chunks of 512. Its continue_prefill counts chunks per request
+    id in `engine.chunks`."""
     import collections
     from deeppowers_tpu_torch.config import RuntimeConfig
     from deeppowers_tpu_torch.runtime.engine import InferenceEngine
@@ -685,6 +1284,7 @@ def paged_engine(params, cfg, device, eos_token_id):
     engine = InferenceEngine(
         params, cfg, device=device, eos_token_id=eos_token_id,
         kv_layout="paged", kv_total_pages=PAGED_TOTAL_PAGES,
+        kv_cache_dtype=kv_cache_dtype,
         runtime=RuntimeConfig(max_batch_size=8, max_seq_len=1024,
                               prefill_buckets=(64, 128, 256, 512, 1024),
                               kv_page_size=128, kv_reserve="lazy",
@@ -701,13 +1301,17 @@ def paged_engine(params, cfg, device, eos_token_id):
     return engine
 
 
-def serve_paged(torch, params, cfg, counters):
-    """Phase 7: oversubscribed serving with shared system prompts."""
+def serve_paged(torch, params, cfg, counters, kv_cache_dtype="bf16"):
+    """Phase 7 (and 9 with k8v4 KV): oversubscribed serving with shared
+    system prompts. The store's variants of #5 and #6 must launch, no other
+    store's and no contiguous-layout kernel."""
     from deeppowers_tpu_torch.config import GenerationConfig
+    from deeppowers_tpu_torch.quant.kvquant import KV_CACHE_DTYPES
     from deeppowers_tpu_torch.serving.tokenizer import ByteTokenizer
 
     tok = ByteTokenizer()
-    engine = paged_engine(params, cfg, "cuda", tok.eos_token_id)
+    engine = paged_engine(params, cfg, "cuda", tok.eos_token_id,
+                          kv_cache_dtype)
     engine.generate(tok.encode("warm up"), GenerationConfig(
         max_tokens=2, temperature=0.0))
     engine.chunks.clear()
@@ -726,13 +1330,55 @@ def serve_paged(torch, params, cfg, counters):
         fail("paged serve: no prefix-cache hit")
     if out["max_chunks"] < 2:
         fail("paged serve: no request went through 2 or more chunks")
-    if launches["decode_attention_paged"] <= 0 or \
-            launches["scatter_pool_rows"] <= 0:
-        fail(f"paged serve: the paged kernels did not launch: {launches}")
-    if launches["decode_attention"] or launches["scatter_rows"]:
-        fail(f"paged serve: contiguous-layout kernels launched: {launches}")
+    check_variants(
+        f"paged serve[{kv_cache_dtype}]", launches,
+        [f"{k}[{kv_cache_dtype}]" for k in ("scatter_pool_rows",
+                                            "decode_attention_paged")],
+        ["scatter_rows", "decode_attention"]
+        + [f"{k}[{v}]" for k in ("scatter_pool_rows", "decode_attention_paged")
+           for v in KV_CACHE_DTYPES if v != kv_cache_dtype])
+    out["kv_bytes"] = engine.kv_nbytes
     out["profile"] = profile_decode(torch, engine, tok)
     return out
+
+
+def report_serve(name, t0, out, smi_line, n_requests) -> None:
+    """The phase line of a serve phase and its launches, prefix and
+    profiler lines."""
+    extra = {}
+    if "preempted" in out:
+        extra = dict(pool_pages=PAGED_TOTAL_PAGES,
+                     preempted=out["preempted"], prefix_hits=out["hits"],
+                     max_chunks=out["max_chunks"])
+    phase_line(name, t0, requests=n_requests, tokens=out["tokens"],
+               tok_per_s=f"{out['tok_per_s']:.1f}",
+               ttft_ms_p50=out["ttft_ms_p50"], ttft_ms_max=out["ttft_ms_max"],
+               decode_step_ms_p50=f"{out['decode_step_ms_p50']:.3f}",
+               steps=out["steps"], kv_bytes=out["kv_bytes"], **extra,
+               card=repr(smi_line))
+    log(f"{name} stop_reasons " + json.dumps(out["stop_reasons"]))
+    if "prefix" in out:
+        log(f"{name} prefix cache " + json.dumps(out["prefix"]))
+    log(f"{name} launches " + json.dumps(out["launches"]))
+    log(f"{name} ttft_ms per request, in prompt order "
+        + json.dumps(out["ttft_ms"]))
+    pr = out["profile"]
+    log(f"{name} decode step under torch.profiler (8 slots): wall "
+        f"{pr['wall_ms']:.3f} ms, device busy {pr['busy_ms']:.3f} ms, idle "
+        f"share {pr['idle_share']:.3f}; top device time per step (ms): "
+        + json.dumps([[k, round(v, 4)] for k, v in pr["top"]]))
+    log(f"{name} decode step host split " + json.dumps(
+        {k: pr[k] for k in ("ops", "launches", "syncs", "sync_ms", "allocs",
+                            "alloc_ms", "host_top")}))
+    if "warm" in out:
+        log(f"{name} first pass: {out['segments']} cudaMalloc segments; the "
+            f"same traffic again on the warm engine " + json.dumps(out["warm"]))
+        log(f"{name} the same traffic with the scheduler's thread under "
+            f"torch.profiler, totals of the run " + json.dumps(
+                out["served_split"]))
+    if "prefill" in out:
+        log(f"{name} prefill of each prompt alone, warm engine " + json.dumps(
+            out["prefill"]))
 
 
 # ---------------------------------------------------------------------------
@@ -827,47 +1473,95 @@ def main() -> int:
                plain_paged_vs_plain_contiguous=f"{rel_pc:.3e}",
                pages=list(PAGED_TABLE[:2]))
 
+    # 5b. the same through each quantized store on each layout; the card
+    # run's launches are counted from 0
+    path_launches = {}
+    for kv_dtype in ("int8", "int4", "k8v4"):
+        for paged in (False, True):
+            t0 = time.perf_counter()
+            reset_counts(counters)
+            got_q = forced_logits(torch, T, kvcache, params, cfg, ids, forced,
+                                  "cuda", paged=paged,
+                                  kv_cache_dtype=kv_dtype)
+            torch.cuda.synchronize()
+            layout = "paged" if paged else "contiguous"
+            path_launches[(kv_dtype, layout)] = read_counts(counters)
+            ref_q = forced_logits(torch, T, kvcache, tree_to(params, "cpu"),
+                                  cfg, ids, forced, "cpu", paged=paged,
+                                  kv_cache_dtype=kv_dtype)
+            rel_q = max(((g - r).norm() / r.norm()).item()
+                        for g, r in zip(got_q, ref_q))
+            rel_qb = max(((g - r).norm() / r.norm()).item()
+                         for g, r in zip(ref_q, ref))
+            if not all(torch.isfinite(g).all() for g in got_q) or \
+                    not rel_q <= 5e-2:
+                fail(f"path[{kv_dtype}, {layout}]: kernel vs plain logits "
+                     f"rel L2 error {rel_q} > 5e-2")
+            phase_line(f"path[{kv_dtype},{layout}]", t0,
+                       logits_rel_l2=f"{rel_q:.3e}",
+                       plain_vs_plain_bf16_kv=f"{rel_qb:.3e}")
+
+    # 5c. the tightest gates again over other seeds
+    margins(torch, T, kvcache, cfg, params)
+
+    # 5d. the shape of the repo's trained checkpoint lm124_ckpt (untied
+    # lm_head, N = 260; random weights): #1's n4 instantiation on a model's
+    # path, through the engine, and teacher-forced against the plain path
+    t0 = time.perf_counter()
+    lm_launches, lm = lm124_path(torch, T, kvcache, counters)
+    phase_line("path[lm124]", t0, **lm)
+
     # 6. serve, contiguous KV
     t0 = time.perf_counter()
     srv = serve(torch, params, cfg, counters)
-    phase_line("serve", t0, requests=len(PROMPT_BYTES),
-               tokens=srv["tokens"], tok_per_s=f"{srv['tok_per_s']:.1f}",
-               ttft_ms_p50=srv["ttft_ms_p50"], ttft_ms_max=srv["ttft_ms_max"],
-               decode_step_ms_p50=f"{srv['decode_step_ms_p50']:.3f}",
-               steps=srv["steps"], card=repr(smi_line))
-    log("serve stop_reasons " + json.dumps(srv["stop_reasons"]))
-    log("serve launches " + json.dumps(srv["launches"]))
-    pr = srv["profile"]
-    log(f"decode step under torch.profiler (8 slots): wall {pr['wall_ms']:.3f} "
-        f"ms, device busy {pr['busy_ms']:.3f} ms, idle share "
-        f"{pr['idle_share']:.3f}; top device time per step (ms): "
-        + json.dumps([[k, round(v, 4)] for k, v in pr["top"]]))
+    report_serve("serve", t0, srv, smi_line, len(PROMPT_BYTES))
 
     # 7. paged serve
     t0 = time.perf_counter()
     psrv = serve_paged(torch, params, cfg, counters)
-    phase_line("paged_serve", t0, requests=len(paged_prompts()),
-               pool_pages=PAGED_TOTAL_PAGES, tokens=psrv["tokens"],
-               tok_per_s=f"{psrv['tok_per_s']:.1f}",
-               ttft_ms_p50=psrv["ttft_ms_p50"],
-               ttft_ms_max=psrv["ttft_ms_max"],
-               decode_step_ms_p50=f"{psrv['decode_step_ms_p50']:.3f}",
-               steps=psrv["steps"], preempted=psrv["preempted"],
-               prefix_hits=psrv["hits"], max_chunks=psrv["max_chunks"],
-               card=repr(smi_line))
-    log("paged serve stop_reasons " + json.dumps(psrv["stop_reasons"]))
-    log("paged serve prefix cache " + json.dumps(psrv["prefix"]))
-    log("paged serve launches " + json.dumps(psrv["launches"]))
-    pr = psrv["profile"]
-    log(f"paged decode step under torch.profiler (8 slots): wall "
-        f"{pr['wall_ms']:.3f} ms, device busy {pr['busy_ms']:.3f} ms, idle "
-        f"share {pr['idle_share']:.3f}; top device time per step (ms): "
-        + json.dumps([[k, round(v, 4)] for k, v in pr["top"]]))
+    report_serve("paged_serve", t0, psrv, smi_line, len(paged_prompts()))
 
+    # 8, 9. the serve phases again over quantized KV: int8 contiguous,
+    # k8v4 paged (the deployed recipe)
+    t0 = time.perf_counter()
+    qsrv = serve(torch, params, cfg, counters, kv_cache_dtype="int8")
+    report_serve("serve[int8]", t0, qsrv, smi_line, len(PROMPT_BYTES))
+    t0 = time.perf_counter()
+    qpsrv = serve_paged(torch, params, cfg, counters, kv_cache_dtype="k8v4")
+    report_serve("paged_serve[k8v4]", t0, qpsrv, smi_line,
+                 len(paged_prompts()))
+
+    # each row's launches: from the serve phase whose path runs it, else
+    # from the teacher-forced path run of its store and layout; #1 at an odd
+    # N from its width variant's count in the first run that launched it
+    # (the main path's serve phase when none did)
+    serves = {"serve": srv, "paged_serve": psrv, "serve[int8]": qsrv,
+              "paged_serve[k8v4]": qpsrv}
+    runs = {name: out["launches"] for name, out in serves.items()}
+    runs.update({f"path[{v},{lay}]": c for (v, lay), c in path_launches.items()})
+    runs["path[lm124]"] = lm_launches
     paged_kernels = ("scatter_pool_rows", "decode_attention_paged")
     for row in rows:
-        launched = psrv if row["name"] in paged_kernels else srv
-        row["launches"] = launched["launches"][row["name"]]
+        name = row["name"]
+        kernel, _, var = name.partition("[")
+        var = var.rstrip("]")
+        layout = "paged" if kernel in paged_kernels else "contiguous"
+        if "variant" in row:
+            key = f"{kernel}[{row['variant']}]"
+            phase = next((ph for ph, c in runs.items() if c.get(key, 0) > 0),
+                         "serve")
+        elif not var:
+            phase, key = ("paged_serve" if layout == "paged" else "serve"), name
+        elif (var, layout) in (("int8", "contiguous"), ("k8v4", "paged")):
+            phase = ("paged_serve" if layout == "paged" else "serve") + \
+                f"[{var}]"
+            key = name
+        else:
+            phase, key = f"path[{var},{layout}]", name
+        row["launches"] = runs[phase].get(key, 0)
+        row["launches_phase"] = phase
+        if "variant" in row and not row["launches"]:
+            row["note"] = "no model of the repo has a weight of this width"
     log(f"total {time.perf_counter() - T0:.2f}s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -1,84 +1,138 @@
-// GQA single-token decode attention over a bf16 KV cache, reading only the
-// first lengths[b] positions of each slot (flash-decoding), in two row
-// layouts that share one kernel template:
+// GQA single-token decode attention over a KV cache, reading only the first
+// lengths[b] positions of each slot (flash-decoding), in two row layouts
+// and four store variants that share one kernel template:
 //
-//   contiguous  flat (B, S, Kh*D) caches. Replaces the Pallas TPU kernel
+//   contiguous  flat (B, S, F) caches. Replaces the Pallas TPU kernel
 //               deeppowers_tpu/ops/pallas/decode_attention.py
 //               (`decode_attention_mxu` :341, body `_kernel_mxu` :123,
-//               pallas_call :470), bf16, tokens = 1, no `layer` operand.
-//   paged       (P, page, Kh*D) pools read through a (B, WP) page table.
+//               pallas_call :470), tokens = 1, no `layer` operand.
+//   paged       (P, page, F) pools read through a (B, WP) page table.
 //               Replaces `decode_attention_paged_mxu` :706 (body
-//               `_kernel_mxu_paged_db` :526, pallas_call :780), bf16,
-//               tokens = 1.
+//               `_kernel_mxu_paged_db` :526, pallas_call :780), tokens = 1.
 //
-// What bounds it on an H100: bytes, the live K and V rows,
-// 2 * sum_b(lengths[b]) * F * 2, read once (TinyLlama F = 256: 1 KB per
-// token per layer), plus q and the output.
+// Store variants (K bits, V bits): bf16 (16, 16); int8 (8, 8) with one f32
+// scale per (position, kv head); int4 (4, 4), packed two to a byte
+// half-split along D (low nibble feature j, high nibble feature j + D/2)
+// with two sub-block scales per (position, head), scale rows 2*head + half;
+// k8v4 (8, 4). Scales are head-major: (B, R, S) contiguous, (P, R, page)
+// paged, R = Kh or 2*Kh.
+//
+// What bounds it on an H100: bytes, the live K and V rows read once
+// (2 * sum_b(lengths[b]) * F * 2 for bf16; F and F/2 bytes a row for int8
+// and int4) plus their scales, q and the output.
 //
 // Design: the TPU grid walks S in order per slot (the paged kernel with a
 // double-buffered multi-page DMA), which on a GPU would give 8 slots x 4 kv
 // heads = 32 blocks for 132 SMs. Here the grid is (slot, kv head, S split):
 // each block owns `chunk` consecutive positions (64; a page of 128 rows is
 // two blocks) and serves all `rep` query heads of its kv head, so every K/V
-// row is read once per group. The template parameter is the row
-// addressing: a block first resolves the absolute offsets of its 32-row
-// tile (through the page table when paged, so a block looks up only the
-// page ids of its own rows), then stages the tile in shared memory (rows
-// past the length load as zero), warp r scores query head r against the
-// tile (lane = position), keeps an online softmax in f32 and accumulates
-// p.V. Positions at or past lengths[b] are excluded by a select, never by
-// multiplying by zero: pages are reused after release and hold a previous
-// occupant's rows, and padded prompt writes leave rows past the length, so
-// garbage or NaN there cannot leak. A block whose split starts at or past
-// the slot's length exits without reading anything. A second small kernel
-// combines the per-split (max, sum, acc) partials.
+// row is read once per group. The `Rows` template parameter maps a virtual
+// row to (major, minor): (slot, position) contiguous, (page id, row in
+// page) paged. A block first resolves its 32-row tile's rows (through the
+// page table when paged, once per tile, into shared memory) together with
+// their scales, then stages the tile's K and V in shared memory as f32
+// (int8 and nibbles converted exactly; rows past the length load as zero),
+// warp r scores query head r against the tile (lane = position), keeps an
+// online softmax in f32 and accumulates p.V. Quantized stores fold their
+// scales: score = (q . k_int) * ks[pos], summed over the two halves with
+// their own sub-scales for int4 K, and p * vs[pos] (per V half for int4)
+// goes into the p.V product while the softmax sums use p. The arithmetic
+// is f32 throughout: the TPU kernel's int8_dots branch, which requantizes q
+// and p to int8 for the MXU, is not carried over (int8 mma dots are a
+// later redesign). Positions at or past lengths[b] are excluded by a
+// select, never by multiplying by zero: pages are reused after release and
+// padded prompt writes leave rows past the length, so garbage or NaN
+// there, in values or in f32 scales, cannot leak (their values and scales
+// are staged as zero). A block whose split starts at or past the slot's
+// length exits without reading anything. A second small kernel combines
+// the per-split (max, sum, acc) partials.
 #include "common.cuh"
 
 namespace {
 
 constexpr int TS = 32;
 
-// Row addressing of the contiguous layout: slot b's rows at stride F from
-// b * c_sb.
+// Contiguous layout: virtual row s of slot b is (major b, minor s).
 struct ContiguousRows {
-  long long c_sb;
-  __device__ long long operator()(int b, int s, int F) const {
-    return (long long)b * c_sb + (long long)s * F;
+  __device__ void operator()(int b, int s, long long& major, int& minor) const {
+    major = b;
+    minor = s;
   }
 };
 
-// Row addressing of the paged layout: virtual row s of slot b lives in row
-// s % page of page tab[b, s / page] of the (P, page, F) pool.
+// Paged layout: virtual row s of slot b is row s % page of page
+// tab[b, s / page].
 struct PagedRows {
   const int* __restrict__ tab;
   int tab_sb, page;
-  __device__ long long operator()(int b, int s, int F) const {
-    const int pid = tab[(long long)b * tab_sb + s / page];
-    return ((long long)pid * page + s % page) * F;
+  __device__ void operator()(int b, int s, long long& major, int& minor) const {
+    major = tab[(long long)b * tab_sb + s / page];
+    minor = s % page;
   }
 };
 
+// One cache side. Row (major, minor) starts at element major * msb + minor
+// * width of `data` (bf16, int8 or packed bytes; width = the stored row
+// width). Its scale of group g is scale[major * ssb + g * srs + minor].
+struct Side {
+  const void* data;
+  long long msb;
+  int width;
+  const float* scale;
+  long long ssb, srs;
+};
+
+// Stored elements of one kv head in a row: D, or D/2 packed int4 bytes.
+template <int BITS, int D>
+__host__ __device__ constexpr int head_width() {
+  return BITS == 4 ? D / 2 : D;
+}
+
+// Feature d of the kv head whose stored elements start at `off`, as f32.
+template <int BITS, int D>
+__device__ __forceinline__ float load_val(const void* data, long long off,
+                                          int d) {
+  if constexpr (BITS == 16) {
+    return bf2f(((const bf16*)data)[off + d]);
+  } else if constexpr (BITS == 8) {
+    return (float)((const int8_t*)data)[off + d];
+  } else {
+    constexpr int HD = D / 2;
+    const int p = ((const int8_t*)data)[off + (d < HD ? d : d - HD)];
+    return (float)(d < HD ? ((p & 0xF) ^ 8) - 8 : p >> 4);
+  }
+}
+
+template <int BITS>
+__host__ __device__ constexpr int n_scales() {
+  return BITS == 16 ? 0 : (BITS == 4 ? 2 : 1);
+}
+
 // grid (B, Kh, nsplit), 32 * rep threads; dynamic shared memory
-// (rep*D + TS*(D+1) + TS*D + rep*TS) floats.
-template <int D, typename Rows>
+// (rep*D + TS*(D+1) + TS*D + 2*rep*TS) floats.
+template <int D, int KB, int VB, typename Rows>
 __global__ void partial_kernel(const bf16* __restrict__ q, long long q_sb,
-                               const bf16* __restrict__ kc,
-                               const bf16* __restrict__ vc, Rows rows,
+                               Side k, Side v, Rows rows,
                                const int* __restrict__ lens, int S, int Kh,
                                int rep, int chunk, int nsplit, float scale,
                                float* __restrict__ pm, float* __restrict__ pl,
                                float* __restrict__ pacc) {
   constexpr int DJ = D / 32;
+  constexpr int NK = n_scales<KB>(), NV = n_scales<VB>();
+  // K and V stores of one width share their row offsets (the callers pass
+  // equal strides then), so the staging loop reads one offset per element
+  constexpr bool SAME = KB == VB;
   extern __shared__ float sm[];
-  __shared__ long long rowoff[TS];
+  __shared__ long long koff[TS], voff[TS];
+  __shared__ float ksc[TS][2], vsc[TS][2];
   float* qs = sm;                  // [rep][D]
   float* ks = qs + rep * D;        // [TS][D + 1]
   float* vs = ks + TS * (D + 1);   // [TS][D]
-  float* ps = vs + TS * D;         // [rep][TS]
+  float* ps = vs + TS * D;         // [2][rep][TS]: p (times vs, half 0|1)
   const int b = blockIdx.x, kh = blockIdx.y, sp = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, r = tid >> 5;
   const int nthr = blockDim.x;
-  const int H = Kh * rep, F = Kh * D;
+  const int H = Kh * rep;
   const int len = min(lens[b], S);
   const int s0 = sp * chunk;
   const int s1 = min(s0 + chunk, len);
@@ -103,38 +157,77 @@ __global__ void partial_kernel(const bf16* __restrict__ q, long long q_sb,
   for (int j = 0; j < DJ; ++j) acc[j] = 0.f;
 
   for (int t0 = s0; t0 < s1; t0 += TS) {
-    if (tid < TS && t0 + tid < s1) rowoff[tid] = rows(b, t0 + tid, F) + kh * D;
+    if (tid < TS) {
+      float kq[2] = {0.f, 0.f}, vq[2] = {0.f, 0.f};
+      if (t0 + tid < s1) {
+        long long major;
+        int minor;
+        rows(b, t0 + tid, major, minor);
+        koff[tid] = major * k.msb + (long long)minor * k.width +
+                    kh * head_width<KB, D>();
+        if constexpr (!SAME)
+          voff[tid] = major * v.msb + (long long)minor * v.width +
+                      kh * head_width<VB, D>();
+#pragma unroll
+        for (int hf = 0; hf < NK; ++hf)
+          kq[hf] = k.scale[major * k.ssb + (kh * NK + hf) * k.srs + minor];
+#pragma unroll
+        for (int hf = 0; hf < NV; ++hf)
+          vq[hf] = v.scale[major * v.ssb + (kh * NV + hf) * v.srs + minor];
+      }
+      ksc[tid][0] = kq[0];
+      ksc[tid][1] = kq[1];
+      vsc[tid][0] = vq[0];
+      vsc[tid][1] = vq[1];
+    }
     __syncthreads();
     for (int i = tid; i < TS * D; i += nthr) {
       const int j = i / D, d = i - j * D;
-      const int s = t0 + j;
       float kv = 0.f, vv = 0.f;
-      if (s < s1) {
-        const long long off = rowoff[j] + d;
-        kv = bf2f(kc[off]);
-        vv = bf2f(vc[off]);
+      if (t0 + j < s1) {
+        const long long ko = koff[j];
+        kv = load_val<KB, D>(k.data, ko, d);
+        vv = load_val<VB, D>(v.data, SAME ? ko : voff[j], d);
       }
       ks[j * (D + 1) + d] = kv;
       vs[j * D + d] = vv;
     }
     __syncthreads();
     const bool valid = t0 + lane < s1;
-    float sc = 0.f;
+    float sc;
+    if constexpr (KB == 4) {
+      float a0 = 0.f, a1 = 0.f;
 #pragma unroll 16
-    for (int d = 0; d < D; ++d) sc = fmaf(qs[r * D + d], ks[lane * (D + 1) + d], sc);
+      for (int d = 0; d < D / 2; ++d)
+        a0 = fmaf(qs[r * D + d], ks[lane * (D + 1) + d], a0);
+#pragma unroll 16
+      for (int d = D / 2; d < D; ++d)
+        a1 = fmaf(qs[r * D + d], ks[lane * (D + 1) + d], a1);
+      sc = a0 * ksc[lane][0] + a1 * ksc[lane][1];
+    } else {
+      sc = 0.f;
+#pragma unroll 16
+      for (int d = 0; d < D; ++d)
+        sc = fmaf(qs[r * D + d], ks[lane * (D + 1) + d], sc);
+      if constexpr (KB == 8) sc *= ksc[lane][0];
+    }
     sc = valid ? sc : DPT_NEG_INF;
     const float mn = fmaxf(m, warp_max(sc));
     const float p = valid ? expf(sc - mn) : 0.f;
     const float alpha = expf(m - mn);
     l = l * alpha + warp_sum(p);
-    ps[r * TS + lane] = p;
+    float* p0 = ps + r * TS;
+    float* p1 = ps + (rep + r) * TS;
+    p0[lane] = NV ? p * vsc[lane][0] : p;
+    if constexpr (NV == 2) p1[lane] = p * vsc[lane][1];
     __syncwarp();
 #pragma unroll
     for (int jj = 0; jj < DJ; ++jj) {
       const int d = lane + 32 * jj;
+      const float* pp = (NV == 2 && jj >= DJ / 2) ? p1 : p0;
       float a = acc[jj] * alpha;
 #pragma unroll 8
-      for (int j = 0; j < TS; ++j) a = fmaf(ps[r * TS + j], vs[j * D + d], a);
+      for (int j = 0; j < TS; ++j) a = fmaf(pp[j], vs[j * D + d], a);
       acc[jj] = a;
     }
     m = mn;
@@ -169,71 +262,106 @@ __global__ void combine_kernel(const float* __restrict__ pm,
   out[bh * D + d] = f2bf(a / fmaxf(L, 1e-30f));
 }
 
-template <int D, typename Rows>
-int launch(const bf16* q, long long q_sb, const bf16* kc, const bf16* vc,
-           Rows rows, const int* lens, int B, int S, int Kh, int rep,
-           int chunk, float scale, float* pm, float* pl, float* pacc, bf16* out,
-           cudaStream_t st) {
-  const int nsplit = (S + chunk - 1) / chunk;
-  const size_t smem =
-      (size_t)(rep * D + TS * (D + 1) + TS * D + rep * TS) * sizeof(float);
-  const dim3 grid(B, Kh, nsplit);
-  partial_kernel<D, Rows><<<grid, 32 * rep, smem, st>>>(
-      q, q_sb, kc, vc, rows, lens, S, Kh, rep, chunk, nsplit, scale, pm, pl,
-      pacc);
+struct Args {
+  const bf16* q;
+  long long q_sb;
+  const int* lens;
+  int B, S, Kh, rep, chunk;
+  float scale;
+  float *pm, *pl, *pacc;
+  bf16* out;
+  cudaStream_t st;
+};
+
+template <int D, int KB, int VB, typename Rows>
+int launch(const Args& a, const Side& k, const Side& v, Rows rows) {
+  const int nsplit = (a.S + a.chunk - 1) / a.chunk;
+  const size_t smem = (size_t)(a.rep * D + TS * (D + 1) + TS * D +
+                               2 * a.rep * TS) * sizeof(float);
+  const dim3 grid(a.B, a.Kh, nsplit);
+  partial_kernel<D, KB, VB, Rows><<<grid, 32 * a.rep, smem, a.st>>>(
+      a.q, a.q_sb, k, v, rows, a.lens, a.S, a.Kh, a.rep, a.chunk, nsplit,
+      a.scale, a.pm, a.pl, a.pacc);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  combine_kernel<<<B * Kh * rep, D, 0, st>>>(pm, pl, pacc, nsplit, D, out);
+  combine_kernel<<<a.B * a.Kh * a.rep, D, 0, a.st>>>(a.pm, a.pl, a.pacc,
+                                                     nsplit, D, a.out);
   return (int)cudaGetLastError();
 }
 
-template <typename Rows>
-int dispatch(const void* q, long long q_sb, const void* kc, const void* vc,
-             Rows rows, const void* lens, int B, int S, int Kh, int rep, int D,
-             int chunk, float scale, void* pm, void* pl, void* pacc, void* out,
-             void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (D == 64)
-    return launch<64>((const bf16*)q, q_sb, (const bf16*)kc, (const bf16*)vc,
-                      rows, (const int*)lens, B, S, Kh, rep, chunk, scale,
-                      (float*)pm, (float*)pl, (float*)pacc, (bf16*)out, st);
-  if (D == 128)
-    return launch<128>((const bf16*)q, q_sb, (const bf16*)kc, (const bf16*)vc,
-                       rows, (const int*)lens, B, S, Kh, rep, chunk, scale,
-                       (float*)pm, (float*)pl, (float*)pacc, (bf16*)out, st);
+template <int D, typename Rows>
+int by_bits(const Args& a, const Side& k, const Side& v, Rows rows, int kb,
+            int vb) {
+  if (kb == 16 && vb == 16) return launch<D, 16, 16>(a, k, v, rows);
+  if (kb == 8 && vb == 8) return launch<D, 8, 8>(a, k, v, rows);
+  if (kb == 4 && vb == 4) return launch<D, 4, 4>(a, k, v, rows);
+  if (kb == 8 && vb == 4) return launch<D, 8, 4>(a, k, v, rows);
   return (int)cudaErrorInvalidValue;
+}
+
+template <typename Rows>
+int dispatch(const Args& a, const Side& k, const Side& v, Rows rows, int D,
+             int kb, int vb) {
+  if (D == 64) return by_bits<64>(a, k, v, rows, kb, vb);
+  if (D == 128) return by_bits<128>(a, k, v, rows, kb, vb);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Stored row width of a side: Kh*D (bf16, int8) or Kh*D/2 (packed int4).
+int store_width(int Kh, int D, int bits) {
+  return bits == 4 ? Kh * D / 2 : Kh * D;
+}
+
+// Scale rows of a side: Kh (int8), 2*Kh (int4), 0 (bf16).
+int scale_rows(int Kh, int bits) {
+  return bits == 16 ? 0 : (bits == 4 ? 2 * Kh : Kh);
 }
 
 }  // namespace
 
-// q: (B, H, D) bf16, heads contiguous, slot stride q_sb. kc, vc: (B, S, Kh*D)
-// bf16, rows contiguous, slot stride c_sb (a window view of a longer
-// cache). lens: (B,) int32 on the device. pm, pl: (B*H*nsplit) f32
-// and pacc: (B*H*nsplit*D) f32 scratch, nsplit = ceil(S / chunk).
-// out: (B, H, D) bf16 contiguous. D is 64 or 128; rep <= 16.
-extern "C" int dpt_decode_attention(const void* q, long long q_sb,
-                                    const void* kc, const void* vc,
-                                    long long c_sb, const void* lens, int B,
-                                    int S, int Kh, int rep, int D, int chunk,
-                                    float scale,
-                                    void* pm, void* pl, void* pacc, void* out,
-                                    void* stream) {
-  return dispatch(q, q_sb, kc, vc, ContiguousRows{c_sb}, lens, B, S, Kh, rep,
-                  D, chunk, scale, pm, pl, pacc, out, stream);
+// q: (B, H, D) bf16, heads contiguous, slot stride q_sb. kc, vc: (B, S, F')
+// stores per k_bits / v_bits (16 bf16, 8 int8, 4 packed int4), rows
+// contiguous, slot strides k_sb, v_sb in elements (a window view of a
+// longer cache; equal when k_bits == v_bits). ks, vs: (B, R, S') f32 head-major scales with slot and row
+// strides (ks_sb, ks_rs), (vs_sb, vs_rs), or null for bf16. lens: (B,)
+// int32 on the device. pm, pl: (B*H*nsplit) f32 and pacc: (B*H*nsplit*D)
+// f32 scratch, nsplit = ceil(S / chunk). out: (B, H, D) bf16 contiguous.
+// D is 64 or 128; rep <= 16.
+extern "C" int dpt_decode_attention(
+    const void* q, long long q_sb, const void* kc, long long k_sb,
+    const void* vc, long long v_sb, const void* ks, long long ks_sb,
+    long long ks_rs, const void* vs, long long vs_sb, long long vs_rs,
+    const void* lens, int B, int S, int Kh, int rep, int D, int k_bits,
+    int v_bits, int chunk, float scale, void* pm, void* pl, void* pacc,
+    void* out, void* stream) {
+  const Args a{(const bf16*)q, q_sb, (const int*)lens, B, S, Kh, rep, chunk,
+               scale, (float*)pm, (float*)pl, (float*)pacc, (bf16*)out,
+               (cudaStream_t)stream};
+  const Side k{kc, k_sb, store_width(Kh, D, k_bits), (const float*)ks, ks_sb,
+               ks_rs};
+  const Side v{vc, v_sb, store_width(Kh, D, v_bits), (const float*)vs, vs_sb,
+               vs_rs};
+  return dispatch(a, k, v, ContiguousRows{}, D, k_bits, v_bits);
 }
 
-// As dpt_decode_attention over paged pools: kp, vp: (P, page, Kh*D) bf16
-// contiguous; tab: (B, WP) int32 page ids, row stride tab_sb; the virtual
-// length is S = WP * page. Only page ids of rows below lens[b] are read.
-extern "C" int dpt_decode_attention_paged(const void* q, long long q_sb,
-                                          const void* kp, const void* vp,
-                                          const void* tab, int tab_sb,
-                                          int page, const void* lens, int B,
-                                          int WP, int Kh, int rep, int D,
-                                          int chunk, float scale, void* pm,
-                                          void* pl, void* pacc, void* out,
-                                          void* stream) {
-  return dispatch(q, q_sb, kp, vp, PagedRows{(const int*)tab, tab_sb, page},
-                  lens, B, WP * page, Kh, rep, D, chunk, scale, pm, pl, pacc,
-                  out, stream);
+// As dpt_decode_attention over paged pools: kp, vp: (P, page, F') stores,
+// contiguous; ks, vs: (P, R, page) f32 scale pools, contiguous, or null for
+// bf16; tab: (B, WP) int32 page ids, row stride tab_sb; the virtual length
+// is S = WP * page. Only page ids of rows below lens[b] are read.
+extern "C" int dpt_decode_attention_paged(
+    const void* q, long long q_sb, const void* kp, const void* vp,
+    const void* ks, const void* vs, const void* tab, int tab_sb, int page,
+    const void* lens, int B, int WP, int Kh, int rep, int D, int k_bits,
+    int v_bits, int chunk, float scale, void* pm, void* pl, void* pacc,
+    void* out, void* stream) {
+  const Args a{(const bf16*)q, q_sb, (const int*)lens, B, WP * page, Kh, rep,
+               chunk, scale, (float*)pm, (float*)pl, (float*)pacc,
+               (bf16*)out, (cudaStream_t)stream};
+  const int kw = store_width(Kh, D, k_bits), vw = store_width(Kh, D, v_bits);
+  const Side k{kp, (long long)page * kw, kw, (const float*)ks,
+               (long long)scale_rows(Kh, k_bits) * page, page};
+  const Side v{vp, (long long)page * vw, vw, (const float*)vs,
+               (long long)scale_rows(Kh, v_bits) * page, page};
+  return dispatch(a, k, v, PagedRows{(const int*)tab, tab_sb, page}, D,
+                  k_bits, v_bits);
 }

@@ -14,7 +14,18 @@ TINYLLAMA_1_1B = TransformerConfig(
     qkv_bias=False, attn_out_bias=False, mlp_bias=False, tie_embeddings=False,
 )
 
-PRESETS = {"tinyllama-1.1b": TINYLLAMA_1_1B}
+# The repo's trained byte-level checkpoint lm124_ckpt/ (its manifest's
+# config): GQA 12/6, SiLU-GLU, RoPE, and an untied 260-wide lm_head, a width
+# no multiple of 8
+LM124 = TransformerConfig(
+    vocab_size=260, hidden_size=768, num_layers=12, num_heads=12,
+    num_kv_heads=6, intermediate_size=2048, max_seq_len=512,
+    norm="rmsnorm", norm_eps=1e-5, activation="silu", glu=True,
+    positions="rope", rope_theta=10000.0, qkv_bias=False,
+    attn_out_bias=False, mlp_bias=False, tie_embeddings=False,
+)
+
+PRESETS = {"tinyllama-1.1b": TINYLLAMA_1_1B, "lm124": LM124}
 
 
 def tiny_test_config(**overrides) -> TransformerConfig:

@@ -10,11 +10,16 @@ dequant-matmul kernel exactly where the JAX package folds them into its
 Pallas kernel (`_qkv_norm` :1435, `_attn_tail` :1453). Dense (non-MoE)
 layers only in this slice.
 
-The KV cache is the unrolled per-layer layout, contiguous or paged: the
-JAX package's stacked scan-over-layers layout exists to cut XLA compile
-time, which an eager PyTorch program does not have. Decode over a paged
-cache calls the table-walking attention kernel on the pools directly and
-never gathers (JAX `_decode_attn` :1288-1301).
+The KV cache is the unrolled per-layer layout, contiguous or paged, bf16
+or quantized (int8, int4, k8v4): the JAX package's stacked
+scan-over-layers layout exists to cut XLA compile time, which an eager
+PyTorch program does not have. Decode over a paged cache calls the
+table-walking attention kernel on the pools directly and never gathers;
+decode over a quantized cache reads the raw stores and folds the scales in
+the kernel (JAX `_decode_attn` :1288-1330). Chunked prefill attends over
+the slot's dequantized rows, the chunk's own included (JAX :1103), and a
+whole-prompt prefill over its fresh K/V (JAX :1040-1046), so greedy
+streams follow JAX's.
 """
 
 from __future__ import annotations
@@ -419,6 +424,19 @@ def forward_prefill_chunk(params: Params, cfg: TransformerConfig,
     return _logits(params, cfg, x), tuple(caches)
 
 
+def _decode_attn(cache, q1, attn_lengths):
+    """Single-token decode attention over either layout and any store
+    (JAX `_decode_attn` :1288-1330): the paged layout walks its pools (and
+    scale pools) through the table in kernel #5; the contiguous layout
+    hands its raw bf16, int8 or packed int4 caches and their scales to
+    kernel #3, never a dequantized copy."""
+    store = kvcache.store_args(cache)
+    if kvcache._is_paged(cache):
+        return decode_attention_paged(q1, cache.k_pool, cache.v_pool,
+                                      cache.table, attn_lengths, **store)
+    return attention_decode_auto(q1, cache.k, cache.v, attn_lengths, **store)
+
+
 def forward_decode(params: Params, cfg: TransformerConfig,
                    token_ids: torch.Tensor, caches, lengths: torch.Tensor, *,
                    dtype=torch.bfloat16, active: Optional[torch.Tensor] = None):
@@ -449,11 +467,6 @@ def forward_decode(params: Params, cfg: TransformerConfig,
         if cfg.positions == "rope":
             q, k = apply_rope_tables(q, *rope), apply_rope_tables(k, *rope)
         kvcache.append_token(cache, k[:, 0], v[:, 0], write_pos, rows)
-        if kvcache._is_paged(cache):
-            attn = decode_attention_paged(q[:, 0], cache.k_pool, cache.v_pool,
-                                          cache.table, attn_lengths)
-        else:
-            attn = attention_decode_auto(q[:, 0], *kvcache.read(cache, dtype),
-                                         attn_lengths)
+        attn = _decode_attn(cache, q[:, 0], attn_lengths)
         x = _attn_tail(x, attn.reshape(b, 1, cfg.q_size), ap, layer, cfg)
     return _logits(params, cfg, x)[:, 0], tuple(caches)

@@ -1,5 +1,6 @@
 """Attention ops, ported from deeppowers_tpu/ops/attention.py
-(`attention_prefill` :44, `attention_chunk` :93, `attention_decode`,
+(`attention_prefill` :44, `attention_chunk` :93,
+`attention_decode_quantized` :192, `attention_decode`,
 `attention_decode_auto` :265).
 
 Dispatch tests the tensor's device where the JAX package tested
@@ -14,7 +15,11 @@ from typing import Optional
 
 import torch
 
-from .kernels.decode_attention import decode_attention
+# attention_decode_quantized (JAX :192-228) is the int8 store's plain
+# version of kernel #3 and lives beside it; it is importable from here as
+# from the JAX module
+from .kernels.decode_attention import (  # noqa: F401
+    attention_decode_quantized, decode_attention)
 from .kernels.flash_attention import flash_attention_prefill
 
 NEG_INF = -1e30
@@ -86,8 +91,18 @@ def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def attention_decode_auto(q: torch.Tensor, k_cache: torch.Tensor,
-                          v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                          v_cache: torch.Tensor, lengths: torch.Tensor,
+                          k_scale: Optional[torch.Tensor] = None,
+                          v_scale: Optional[torch.Tensor] = None, *,
+                          kv_bits: int = 8, v_bits: int = 0,
                           scale: Optional[float] = None) -> torch.Tensor:
-    """Kept to mirror the JAX module, where it picks among the quantized-KV
-    decode kernels; with only bf16 caches ported it is `attention_decode`."""
-    return attention_decode(q, k_cache, v_cache, lengths, scale=scale)
+    """Decode attention over (B, S, Kh, w) caches in any store: bf16, or
+    int8 / packed int4 (w = D or D/2) with (B, R, S) head-major scales and
+    JAX's `kv_bits` / `v_bits`. One kernel (#3) takes every variant on a
+    CUDA tensor, its plain version on the CPU (JAX's own CPU numerics per
+    variant, ops/kernels/decode_attention.py)."""
+    b, s = k_cache.shape[:2]
+    return decode_attention(q, k_cache.reshape(b, s, -1),
+                            v_cache.reshape(b, s, -1), lengths,
+                            k_scale=k_scale, v_scale=v_scale,
+                            kv_bits=kv_bits, v_bits=v_bits, scale=scale)

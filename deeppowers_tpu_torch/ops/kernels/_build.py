@@ -37,12 +37,16 @@ _P, _LL, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_flo
 SIGNATURES: Dict[str, list] = {
     "dpt_dequant_matmul": [_P, _LL, _P, _P, _P, _P, _P, _LL, _P, _I, _P,
                            _I, _I, _I, _I, _I, _I, _F, _P],
-    "dpt_kv_append": [_P, _P, _P, _LL, _P, _LL, _P, _I, _I, _I, _P],
-    "dpt_kv_append_pool": [_P, _P, _P, _LL, _P, _LL, _P, _P, _I, _LL, _I, _P],
-    "dpt_decode_attention": [_P, _LL, _P, _P, _LL, _P, _I, _I, _I, _I, _I, _I,
-                             _F, _P, _P, _P, _P, _P],
-    "dpt_decode_attention_paged": [_P, _LL, _P, _P, _P, _I, _I, _P, _I, _I, _I,
-                                   _I, _I, _I, _F, _P, _P, _P, _P, _P],
+    "dpt_kv_append": [_P, _P, _P, _P, _P, _LL, _P, _LL, _P, _P, _I, _I, _I,
+                      _I, _I, _I, _I, _P],
+    "dpt_kv_append_pool": [_P, _P, _P, _P, _P, _LL, _P, _LL, _P, _P, _I, _I,
+                           _I, _I, _I, _I, _I, _P],
+    "dpt_decode_attention": [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _LL, _P, _LL,
+                             _LL, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+                             _P, _P, _P, _P],
+    "dpt_decode_attention_paged": [_P, _LL, _P, _P, _P, _P, _P, _I, _I, _P, _I,
+                                   _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P,
+                                   _P, _P],
     "dpt_flash_attention": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P,
                             _I, _I, _I, _I, _I, _F, _P, _P],
 }

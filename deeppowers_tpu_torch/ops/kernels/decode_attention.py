@@ -1,29 +1,52 @@
-"""GQA decode attention over bf16 KV: wrappers, plain versions and launch
-counts for the contiguous and the paged layout. CUDA source:
-csrc/decode_attention.cu (one kernel template, two row addressings).
+"""GQA decode attention over bf16 or quantized KV: wrappers, plain
+versions and launch counts for the contiguous and the paged layout. CUDA
+source: csrc/decode_attention.cu (one kernel template, two row
+addressings, four store variants).
 
 `decode_attention` replaces the Pallas TPU kernel
 deeppowers_tpu/ops/pallas/decode_attention.py (`decode_attention_mxu`
-:341, pallas_call :470, body `_kernel_mxu` :123) over flat (B, S, F)
+:341, pallas_call :470, body `_kernel_mxu` :123) over flat (B, S, F')
 caches; `decode_attention_paged` replaces `decode_attention_paged_mxu`
 :706 (pallas_call :780, body `_kernel_mxu_paged_db` :526) over (P, page,
-F) pools read through a (B, WP) page table. Both: bf16, one token per
-slot, no stacked `layer` operand.
+F') pools read through a (B, WP) page table. Both: one token per slot, no
+stacked `layer` operand.
+
+Store variants, named as quant/kvquant.py's `store_variant` names them:
+"bf16" (no scales); with head-major f32 scales k_scale / v_scale ((B, R, S), or
+(P, R, page) paged) and `kv_bits` / `v_bits` as JAX takes them: "int8"
+(int8 K and V, R = Kh), "int4" (packed int4 K and V, two sub-block scales
+per head, R = 2*Kh), "k8v4" (int8 K, packed int4 V).
 
 out[b, h] = softmax(q[b, h] . K[b, :len, h // rep] * scale) @ V[b, :len,
-h // rep], with len = lengths[b] and K/V the slot's (virtual) rows. Bound
-on an H100: the live K/V bytes over 3.35 TB/s. The kernel splits the
-sequence across blocks (flash-decoding, 64 positions a block) and
-combines the partials in a second small kernel; positions at or past the
-length are excluded by a select, and blocks past it read nothing.
+h // rep], with len = lengths[b] and K/V the slot's (virtual) dequantized
+rows. Bound on an H100: the live K/V bytes and their scales over 3.35
+TB/s. The kernel splits the sequence across blocks (flash-decoding, 64
+positions a block), folds the scales into the scores and the
+probabilities, computes in f32, and combines the partials in a second
+small kernel; positions at or past the length are excluded by a select,
+and blocks past it read nothing.
+
+The plain versions follow the JAX package's CPU path for each variant, so
+that greedy streams match the JAX engine's: bf16 and int8 as
+`attention_decode` and `attention_decode_quantized` (bf16 q * scale and
+bf16 probabilities times the V scales, f32 sums), int4 and k8v4 by
+dequantizing and then `attention_decode`
+(deeppowers_tpu/models/transformer.py:1309-1330). JAX dequantizes into
+the activation dtype; the plain version dequantizes into f32, which is
+the same in the f32 parity tests. In bf16 that one rounding of K moves an
+output row by up to 1.2% of its max (random K and q, lengths 100-256),
+more than the kernel's whole limit against the plain version (1e-2).
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Optional
 
 import torch
 
+from ...quant.kvquant import (STORE_BITS, dequant_side, gather_scale,
+                              scale_heads, store_variant)
 from . import _build
 
 NEG_INF = -1e30
@@ -31,23 +54,18 @@ NEG_INF = -1e30
 SPLIT_CHUNK = 64
 
 
-def decode_attention_plain(q, k_cache, v_cache, lengths, *,
-                           scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B, H, D); caches: (B, S, Kh*D) flat; lengths: (B,). Same math as
-    deeppowers_tpu/ops/attention.py::attention_decode (f32 scores, -1e30
-    mask, softmax). Unread V rows are zeroed by a select first, so NaN
-    there cannot reach the output through a zero probability."""
+def _dense_plain(q, k, v, lengths, scale):
+    """attention_decode over (B, S, Kh, D) float K/V. Unread V rows are
+    zeroed by a select first, so NaN there cannot reach the output through
+    a zero probability."""
     b, h, d = q.shape
-    s = k_cache.shape[1]
-    kh = k_cache.shape[2] // d
+    s, kh = k.shape[1], k.shape[2]
     rep = h // kh
-    scale = scale if scale is not None else d ** -0.5
-    k = k_cache.reshape(b, s, kh, d).float()
-    v = v_cache.reshape(b, s, kh, d).float()
     valid = torch.arange(s, device=q.device)[None, :] < lengths[:, None].long()
-    v = torch.where(valid[:, :, None, None], v, torch.zeros((), device=v.device))
+    v = torch.where(valid[:, :, None, None], v.float(),
+                    torch.zeros((), device=v.device))
     qg = q.reshape(b, kh, rep, d).float() * scale
-    scores = torch.einsum("bkrd,bskd->bkrs", qg, k)
+    scores = torch.einsum("bkrd,bskd->bkrs", qg, k.float())
     scores = torch.where(valid[:, None, None, :], scores,
                          torch.full((), NEG_INF, device=q.device))
     probs = torch.softmax(scores, dim=-1)
@@ -55,102 +73,238 @@ def decode_attention_plain(q, k_cache, v_cache, lengths, *,
     return out.reshape(b, h, d).to(q.dtype)
 
 
+def attention_decode_quantized(q, k_q, v_q, k_scale, v_scale, lengths, *,
+                               scale: Optional[float] = None):
+    """JAX's `attention_decode_quantized` (ops/attention.py:192-228), the
+    int8 variant's plain version: q (B, H, D), k_q, v_q (B, S, Kh, D)
+    int8, scales (B, Kh, S) f32. bf16(q * scale)
+    against the int8 values, the K scales folded into the f32 scores, and
+    bf16(probs * v_scale) against the V values, f32 sums. Rows past each
+    length are selected away (values and scales), so a NaN scale there
+    cannot reach the output."""
+    b, h, d = q.shape
+    s, kh = k_q.shape[1], k_q.shape[2]
+    rep = h // kh
+    scale = scale if scale is not None else d ** -0.5
+    valid = torch.arange(s, device=q.device)[None, :] < lengths[:, None].long()
+    zero = torch.zeros((), device=q.device)
+    ks = torch.where(valid[:, None, :], k_scale.float(), zero)
+    vs = torch.where(valid[:, None, :], v_scale.float(), zero)
+    v = torch.where(valid[:, :, None, None], v_q.float(), zero)
+    # q * scale in q's dtype, as JAX multiplies by a weakly typed scalar
+    sc = torch.tensor(scale, dtype=q.dtype).float()
+    qg = (q.reshape(b, kh, rep, d).float() * sc).to(torch.bfloat16).float()
+    scores = torch.einsum("bkrd,bskd->bkrs", qg, k_q.float())
+    scores = scores * ks[:, :, None, :]
+    scores = torch.where(valid[:, None, None, :], scores,
+                         torch.full((), NEG_INF, device=q.device))
+    probs = torch.softmax(scores, dim=-1)
+    pw = (probs * vs[:, :, None, :]).to(torch.bfloat16).float()
+    out = torch.einsum("bkrs,bskd->bkrd", pw, v)
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def decode_attention_plain(q, k_cache, v_cache, lengths, *, k_scale=None,
+                           v_scale=None, kv_bits: int = 8, v_bits: int = 0,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, H, D); caches: (B, S, F') flat stores; scales (B, R, S) when
+    quantized; lengths: (B,). The JAX package's CPU numerics per variant
+    (module docstring)."""
+    b, h, d = q.shape
+    s = k_cache.shape[1]
+    scale = scale if scale is not None else d ** -0.5
+    name = store_variant(k_scale, kv_bits, v_bits)
+    kb, vb = STORE_BITS[name]
+    if name == "bf16":
+        kh = k_cache.shape[2] // d
+        return _dense_plain(q, k_cache.reshape(b, s, kh, d),
+                            v_cache.reshape(b, s, kh, d), lengths, scale)
+    kh = scale_heads(k_scale, kb)
+    k4 = k_cache.reshape(b, s, kh, -1)
+    v4 = v_cache.reshape(b, s, kh, -1)
+    if name == "int8":
+        return attention_decode_quantized(q, k4, v4, k_scale, v_scale,
+                                          lengths, scale=scale)
+    return _dense_plain(q, dequant_side(k4, k_scale, kb, torch.float32),
+                        dequant_side(v4, v_scale, vb, torch.float32), lengths,
+                        scale)
+
+
+def _count(fn, name: str) -> None:
+    fn.launches += 1
+    fn.variant_launches[name] += 1
+
+
+def _check_common(q, h, d, kh, name, caches, scales, wrapper):
+    if d not in (64, 128):
+        raise NotImplementedError(f"head_dim {d} not supported")
+    rep = h // max(kh, 1)
+    if kh < 1 or rep * kh != h or rep > 16:
+        raise NotImplementedError(f"{h} heads over {kh} kv heads")
+    if q.dtype != torch.bfloat16:
+        raise NotImplementedError(f"CUDA {wrapper} takes bf16 q")
+    want = torch.bfloat16 if name == "bf16" else torch.int8
+    if any(c.dtype != want for c in caches):
+        raise NotImplementedError(f"CUDA {wrapper} takes {want} stores for "
+                                  f"the {name} variant")
+    if name != "bf16" and any(s is None or s.dtype != torch.float32
+                              for s in scales):
+        raise NotImplementedError(f"CUDA {wrapper} takes f32 scales")
+    return rep
+
+
+def _scratch(q, b, h, d, nsplit):
+    pm = torch.empty((b * h * nsplit,), dtype=torch.float32, device=q.device)
+    pacc = torch.empty((b * h * nsplit * d,), dtype=torch.float32,
+                       device=q.device)
+    out = torch.empty((b, h, d), dtype=torch.bfloat16, device=q.device)
+    return pm, torch.empty_like(pm), pacc, out
+
+
+def _kv_heads(name, k_cache_width, k_scale, d):
+    if name == "bf16":
+        return k_cache_width // d
+    return scale_heads(k_scale, STORE_BITS[name][0])
+
+
+def _widths(kh, d, kb, vb):
+    return (kh * d // 2 if kb == 4 else kh * d,
+            kh * d // 2 if vb == 4 else kh * d)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None,
+                     kv_bits: int = 8, v_bits: int = 0,
                      scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B, H, D); k_cache, v_cache: (B, S, Kh*D); lengths: (B,) valid
-    positions per slot (including the current token). Returns (B, H, D).
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel or raises."""
+    """q: (B, H, D); k_cache, v_cache: (B, S, F') stores (bf16 F' = Kh*D;
+    int8 Kh*D; packed int4 Kh*D/2); k_scale, v_scale: (B, R, S) f32 when
+    quantized; lengths: (B,) valid positions per slot (including the
+    current token). Returns (B, H, D). A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises."""
+    name = store_variant(k_scale, kv_bits, v_bits)
     if not q.is_cuda:
         return decode_attention_plain(q, k_cache, v_cache, lengths,
+                                      k_scale=k_scale, v_scale=v_scale,
+                                      kv_bits=kv_bits, v_bits=v_bits,
                                       scale=scale)
     b, h, d = q.shape
-    s, f = k_cache.shape[1], k_cache.shape[2]
-    for t, name in ((k_cache, "k_cache"), (v_cache, "v_cache"),
-                    (lengths, "lengths")):
-        _build.require_cuda(t, name)
-    if d not in (64, 128) or f % d:
-        raise NotImplementedError(f"head_dim {d} (F={f}) not supported")
-    kh = f // d
-    rep = h // kh
-    if rep * kh != h or rep > 16:
-        raise NotImplementedError(f"{h} heads over {kh} kv heads")
-    if (q.dtype != torch.bfloat16 or k_cache.dtype != torch.bfloat16
-            or v_cache.dtype != torch.bfloat16):
-        raise NotImplementedError("CUDA decode_attention takes bf16 q and caches")
-    if (v_cache.shape != k_cache.shape or k_cache.stride() != v_cache.stride()
-            or k_cache.stride(2) != 1 or k_cache.stride(1) != f):
-        raise ValueError("caches must be (B, S, F) views of one shape with "
-                         "contiguous rows")
+    s = k_cache.shape[1]
+    kb, vb = STORE_BITS[name]
+    tensors = [k_cache, v_cache, lengths] + (
+        [k_scale, v_scale] if name != "bf16" else [])
+    for t in tensors:
+        _build.require_cuda(t, "decode_attention operand")
+    kh = _kv_heads(name, k_cache.shape[2], k_scale, d)
+    rep = _check_common(q, h, d, kh, name, (k_cache, v_cache),
+                        (k_scale, v_scale), "decode_attention")
+    kw, vw = _widths(kh, d, kb, vb)
+    for c, w in ((k_cache, kw), (v_cache, vw)):
+        if c.dim() != 3 or c.shape[:2] != (b, s) or c.shape[2] != w or \
+                c.stride(2) != 1 or c.stride(1) != w:
+            raise ValueError(f"caches must be (B, S, {w}) views with "
+                             f"contiguous rows, got {tuple(c.shape)}")
+    if kb == vb and k_cache.stride(0) != v_cache.stride(0):
+        raise ValueError("K and V caches of one store must share strides")
+    sc_args = [None, 0, 0, None, 0, 0]
+    if name != "bf16":
+        for sc, bits in ((k_scale, kb), (v_scale, vb)):
+            rows = kh * (2 if bits == 4 else 1)
+            if sc.dim() != 3 or sc.shape[:2] != (b, rows) or \
+                    sc.shape[2] < s or sc.stride(2) != 1:
+                raise ValueError(f"scales must be (B, {rows}, >= S) with "
+                                 f"contiguous positions, got "
+                                 f"{tuple(sc.shape)}")
+        sc_args = [k_scale.data_ptr(), k_scale.stride(0), k_scale.stride(1),
+                   v_scale.data_ptr(), v_scale.stride(0), v_scale.stride(1)]
     if q.stride(2) != 1 or q.stride(1) != d:
         q = q.contiguous()
     lens = lengths.to(torch.int32).contiguous()
     scale = scale if scale is not None else d ** -0.5
     nsplit = -(-s // SPLIT_CHUNK)
-    pm = torch.empty((b * h * nsplit,), dtype=torch.float32, device=q.device)
-    pl = torch.empty_like(pm)
-    pacc = torch.empty((b * h * nsplit * d,), dtype=torch.float32,
-                       device=q.device)
-    out = torch.empty((b, h, d), dtype=torch.bfloat16, device=q.device)
+    pm, pl, pacc, out = _scratch(q, b, h, d, nsplit)
     rc = _build.library().dpt_decode_attention(
-        q.data_ptr(), q.stride(0), k_cache.data_ptr(), v_cache.data_ptr(),
-        k_cache.stride(0), lens.data_ptr(), b, s, kh, rep, d, SPLIT_CHUNK, float(scale),
-        pm.data_ptr(), pl.data_ptr(), pacc.data_ptr(), out.data_ptr(),
-        _build.stream())
+        q.data_ptr(), q.stride(0), k_cache.data_ptr(), k_cache.stride(0),
+        v_cache.data_ptr(), v_cache.stride(0), *sc_args, lens.data_ptr(), b,
+        s, kh, rep, d, kb, vb, SPLIT_CHUNK, float(scale), pm.data_ptr(),
+        pl.data_ptr(), pacc.data_ptr(), out.data_ptr(), _build.stream())
     _build.check(rc, "decode_attention")
-    decode_attention.launches += 1
+    _count(decode_attention, name)
     return out
 
 
 decode_attention.launches = 0
+decode_attention.variant_launches = collections.Counter()
 
 
 def decode_attention_paged_plain(q, k_pool, v_pool, table, lengths, *,
+                                 k_scale=None, v_scale=None, kv_bits: int = 8,
+                                 v_bits: int = 0,
                                  scale: Optional[float] = None
                                  ) -> torch.Tensor:
-    """q: (B, H, D); pools: (P, page, Kh*D); table: (B, WP); lengths: (B,).
-    Gathers each slot's pages into its virtual (B, WP*page, F) view and
-    applies decode_attention_plain, whose selects keep stale rows (a
-    released page's previous occupant, NaN included) out of the output."""
+    """q: (B, H, D); pools: (P, page, F'); scale pools (P, R, page) when
+    quantized; table: (B, WP); lengths: (B,). Gathers each slot's pages
+    (and their scales) into its virtual (B, WP*page, F') view and applies
+    decode_attention_plain, whose selects keep stale rows and stale scales
+    (a released page's previous occupant, NaN included) out of the
+    output."""
     b, wp = table.shape
-    ps, f = k_pool.shape[1], k_pool.shape[2]
     ids = table.reshape(-1).long()
-    k = k_pool[ids].reshape(b, wp * ps, f)
-    v = v_pool[ids].reshape(b, wp * ps, f)
-    return decode_attention_plain(q, k, v, lengths, scale=scale)
+
+    def gather(pool):
+        return pool[ids].reshape(b, wp * pool.shape[1], pool.shape[2])
+
+    scales = {}
+    if k_scale is not None:
+        scales = dict(k_scale=gather_scale(k_scale, table),
+                      v_scale=gather_scale(v_scale, table))
+    return decode_attention_plain(q, gather(k_pool), gather(v_pool), lengths,
+                                  kv_bits=kv_bits, v_bits=v_bits, scale=scale,
+                                  **scales)
 
 
 def decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, table: torch.Tensor,
                            lengths: torch.Tensor, *,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None,
+                           kv_bits: int = 8, v_bits: int = 0,
                            scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B, H, D); k_pool, v_pool: (P, page, Kh*D); table: (B, WP) int32
-    page ids; lengths: (B,) valid positions per slot (including the current
+    """q: (B, H, D); k_pool, v_pool: (P, page, F') stores; k_scale,
+    v_scale: (P, R, page) f32 when quantized; table: (B, WP) int32 page
+    ids; lengths: (B,) valid positions per slot (including the current
     token), at most WP * page. Returns (B, H, D). A CPU tensor takes the
     plain version; a CUDA tensor launches the kernel or raises."""
+    name = store_variant(k_scale, kv_bits, v_bits)
     if not q.is_cuda:
-        return decode_attention_paged_plain(q, k_pool, v_pool, table, lengths,
-                                            scale=scale)
+        return decode_attention_paged_plain(
+            q, k_pool, v_pool, table, lengths, k_scale=k_scale,
+            v_scale=v_scale, kv_bits=kv_bits, v_bits=v_bits, scale=scale)
     b, h, d = q.shape
-    _, ps, f = k_pool.shape
+    p, ps = k_pool.shape[0], k_pool.shape[1]
     wp = table.shape[1]
-    for t, name in ((k_pool, "k_pool"), (v_pool, "v_pool"), (table, "table"),
-                    (lengths, "lengths")):
-        _build.require_cuda(t, name)
-    if d not in (64, 128) or f % d:
-        raise NotImplementedError(f"head_dim {d} (F={f}) not supported")
-    kh = f // d
-    rep = h // kh
-    if rep * kh != h or rep > 16:
-        raise NotImplementedError(f"{h} heads over {kh} kv heads")
-    if (q.dtype != torch.bfloat16 or k_pool.dtype != torch.bfloat16
-            or v_pool.dtype != torch.bfloat16):
-        raise NotImplementedError(
-            "CUDA decode_attention_paged takes bf16 q and pools")
-    if (v_pool.shape != k_pool.shape or not k_pool.is_contiguous()
-            or not v_pool.is_contiguous()):
-        raise ValueError("pools must be contiguous (P, page, F) of one shape")
+    kb, vb = STORE_BITS[name]
+    tensors = [k_pool, v_pool, table, lengths] + (
+        [k_scale, v_scale] if name != "bf16" else [])
+    for t in tensors:
+        _build.require_cuda(t, "decode_attention_paged operand")
+    kh = _kv_heads(name, k_pool.shape[2], k_scale, d)
+    rep = _check_common(q, h, d, kh, name, (k_pool, v_pool),
+                        (k_scale, v_scale), "decode_attention_paged")
+    kw, vw = _widths(kh, d, kb, vb)
+    for c, w in ((k_pool, kw), (v_pool, vw)):
+        if c.shape != (p, ps, w) or not c.is_contiguous():
+            raise ValueError(f"pools must be contiguous ({p}, {ps}, {w}), "
+                             f"got {tuple(c.shape)}")
+    ks_ptr = vs_ptr = None
+    if name != "bf16":
+        for sc, bits in ((k_scale, kb), (v_scale, vb)):
+            rows = kh * (2 if bits == 4 else 1)
+            if sc.shape != (p, rows, ps) or not sc.is_contiguous():
+                raise ValueError(f"scale pools must be contiguous ({p}, "
+                                 f"{rows}, {ps}), got {tuple(sc.shape)}")
+        ks_ptr, vs_ptr = k_scale.data_ptr(), v_scale.data_ptr()
     if table.dim() != 2 or table.shape[0] != b or table.stride(1) != 1:
         raise ValueError(f"table must be (B, WP) with contiguous rows, got "
                          f"{tuple(table.shape)}")
@@ -160,19 +314,16 @@ def decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
     lens = lengths.to(torch.int32).contiguous()
     scale = scale if scale is not None else d ** -0.5
     nsplit = -(-(wp * ps) // SPLIT_CHUNK)
-    pm = torch.empty((b * h * nsplit,), dtype=torch.float32, device=q.device)
-    pl = torch.empty_like(pm)
-    pacc = torch.empty((b * h * nsplit * d,), dtype=torch.float32,
-                       device=q.device)
-    out = torch.empty((b, h, d), dtype=torch.bfloat16, device=q.device)
+    pm, pl, pacc, out = _scratch(q, b, h, d, nsplit)
     rc = _build.library().dpt_decode_attention_paged(
         q.data_ptr(), q.stride(0), k_pool.data_ptr(), v_pool.data_ptr(),
-        tab.data_ptr(), tab.stride(0), ps, lens.data_ptr(), b, wp, kh, rep, d,
-        SPLIT_CHUNK, float(scale), pm.data_ptr(), pl.data_ptr(),
-        pacc.data_ptr(), out.data_ptr(), _build.stream())
+        ks_ptr, vs_ptr, tab.data_ptr(), tab.stride(0), ps, lens.data_ptr(), b,
+        wp, kh, rep, d, kb, vb, SPLIT_CHUNK, float(scale), pm.data_ptr(),
+        pl.data_ptr(), pacc.data_ptr(), out.data_ptr(), _build.stream())
     _build.check(rc, "decode_attention_paged")
-    decode_attention_paged.launches += 1
+    _count(decode_attention_paged, name)
     return out
 
 
 decode_attention_paged.launches = 0
+decode_attention_paged.variant_launches = collections.Counter()

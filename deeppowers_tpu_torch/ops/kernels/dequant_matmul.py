@@ -11,6 +11,11 @@ Computes y = a @ (W_int8 * s) [* rsqrt(mean(x^2) + eps)] [+ bias]
 bf16(x * g) with RMSNorm folded in (`rms_weight`), or bf16(act(gate) * up)
 for a GLU input x = gate | up. Symmetric int8 per-channel weights only.
 
+Any N: the kernel instantiation follows the alignment of W's rows, and
+`dequant_matmul.variant_launches` counts the launches of each: "n8" (N %
+8 == 0, whole vector loads), "n4" (N % 4 == 0 otherwise, 4-byte loads and
+a tail group), "n1" (any other N, byte loads in the tail group).
+
 Bound on an H100: at decode the int8 weight bytes over 3.35 TB/s; at
 prefill the 2*M*K*N operations. The CUDA design (split-K GEMV for M <= 16,
 a tensor-core (WMMA) tiled GEMM above) is described in the source.
@@ -18,6 +23,7 @@ a tensor-core (WMMA) tiled GEMM above) is described in the source.
 
 from __future__ import annotations
 
+import collections
 from typing import Optional
 
 import torch
@@ -63,6 +69,12 @@ def dequant_matmul_plain(x, data, scales, *, rms_weight=None, rms_eps=1e-6,
     return y.to(out_dtype)
 
 
+def width_variant(n: int) -> str:
+    """The alignment class of an N-column int8 weight, which picks the
+    kernel's load width (csrc/dequant_matmul.cu `row_align`)."""
+    return "n8" if n % 8 == 0 else "n4" if n % 4 == 0 else "n1"
+
+
 def _check_weight(qw: QuantizedTensor) -> None:
     if not isinstance(qw, QuantizedTensor):
         raise TypeError("dequant_matmul needs a QuantizedTensor weight")
@@ -101,8 +113,6 @@ def dequant_matmul(x: torch.Tensor, qw: QuantizedTensor, *,
             f"CUDA dequant_matmul takes bf16 x, got {x.dtype}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(f"unsupported out_dtype {out_dtype}")
-    if n % 8:
-        raise NotImplementedError(f"N={n} must be a multiple of 8")
     if act not in ("silu", "gelu"):
         raise ValueError(f"unknown activation {act!r}")
     data = qw.data
@@ -153,7 +163,9 @@ def dequant_matmul(x: torch.Tensor, qw: QuantizedTensor, *,
         kchunk, int(glu), int(act == "gelu"), float(rms_eps), _build.stream())
     _build.check(rc, "dequant_matmul")
     dequant_matmul.launches += 1
+    dequant_matmul.variant_launches[width_variant(n)] += 1
     return out.reshape(*lead, n)
 
 
 dequant_matmul.launches = 0
+dequant_matmul.variant_launches = collections.Counter()

@@ -31,8 +31,12 @@ maps shared full pages (paged) or copies a retired slot's rows
 nor reads its cache in a decode step, where the JAX engine writes its
 row lengths = 0, over a prompt in chunked prefill or a retired prompt kept
 for prefix reuse.
-Not ported yet (ROADMAP.md): quantized KV, speculative and structured
-decoding, meshes.
+The KV store is bf16 or quantized (`kv_cache_dtype` "int8", "int4" or
+"k8v4", JAX's layouts) on either layout; pages count rows, so the page
+budget does not depend on the store.
+Not ported yet (ROADMAP.md): speculative and structured decoding,
+multi-step dispatch, top logprobs, sequence-parallel prefill and meshes;
+the RuntimeConfig fields that ask for them raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -132,6 +136,22 @@ class SlotResult:
         return (self.end_time or time.perf_counter()) - self.start_time
 
 
+#: RuntimeConfig fields the JAX engine acts on and the port does not yet,
+#: with their defaults: a run that sets one raises instead of ignoring it
+UNPORTED_RUNTIME_DEFAULTS = {"speculative_tokens": 0, "emit_top_logprobs": 0,
+                             "decode_steps_per_dispatch": 1,
+                             "seq_parallel_prefill": False}
+
+
+def _require_ported(runtime: RuntimeConfig) -> None:
+    for name, default in UNPORTED_RUNTIME_DEFAULTS.items():
+        value = getattr(runtime, name)
+        if value != default:
+            raise NotImplementedError(
+                f"RuntimeConfig.{name}={value!r} is not ported yet "
+                f"(ROADMAP.md); the port runs with {name}={default!r}")
+
+
 class InferenceEngine:
     """Slot-based continuous-batching engine over one model."""
 
@@ -147,6 +167,7 @@ class InferenceEngine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.runtime = runtime or RuntimeConfig()
+        _require_ported(self.runtime)
         self.eos_token_id = eos_token_id
         self.act_dtype = act_dtype
         self.kv_cache_dtype = kv_cache_dtype
@@ -180,6 +201,11 @@ class InferenceEngine:
         self._defer_admission = False
         self._pending_batch: List[Dict] = []
         self.steps = 0
+
+    @property
+    def kv_nbytes(self) -> int:
+        """Device bytes of the KV caches (stores, scales, page table)."""
+        return kvcache.nbytes(self.caches)
 
     def _new_caches(self):
         """Zeroed caches of the engine's layout; on the paged layout also a

@@ -1,57 +1,91 @@
-"""KV cache: fixed-shape, slot-based, bf16, contiguous per layer, and the
-layout dispatch over it and the paged layout (runtime/kvcache_paged.py).
+"""KV cache: fixed-shape, slot-based, contiguous per layer, bf16 or
+quantized, and the layout dispatch over it and the paged layout
+(runtime/kvcache_paged.py).
 
-Ported from deeppowers_tpu/runtime/kvcache.py (`LayerKVCache` :38-190,
-`init_cache`, `_is_paged` :263, `write_prompt`/`write_prompts`,
-`write_chunk` :377, `append_token` :432, `slice_window` :506,
-`copy_prefix` :529, `read` :565), bf16 layout only. Chunked prefill reads
-one slot through `slot_view`, which stands for JAX's
-`read(slice_window(slice_slot(...)))`.
-One (B, S, F) buffer per layer and array, F = kv_heads * head_dim, flat on
-the feature axis as the decode kernels want it. Unlike the JAX version,
-which returns new (donated) buffers, writes here update the tensors IN
-PLACE; each function still returns the cache so call sites read the same.
+Ported from deeppowers_tpu/runtime/kvcache.py (`LayerKVCache` :38-113,
+`init_cache` :116-190, `_is_paged` :263,
+`write_prompt`/`write_prompts` :344, `write_chunk` :377, `append_token`
+:432, `slice_window` :506, `copy_prefix` :529, `read` :565, `nbytes`
+:603). Chunked prefill reads one slot through `slot_view`, which stands
+for JAX's `read(slice_window(slice_slot(...)))`.
+
+One (B, S, F') buffer per layer and array, flat on the feature axis as the
+decode kernels want it. `kv_cache_dtype` picks the store, with JAX's
+layout exactly (the quantizers are quant/kvquant.py):
+  bf16  k, v (B, S, Kh*D) in the activation dtype; no scales
+  int8  k, v (B, S, Kh*D) int8; k_scale, v_scale (B, Kh, S) f32
+  int4  k, v (B, S, Kh*D/2) packed int4; scales (B, 2*Kh, S), two
+        sub-block scales per head (rows 2*head + half)
+  k8v4  int8 K with (B, Kh, S) scales, packed int4 V with (B, 2*Kh, S)
+Scales are head-major, the orientation the decode kernel reads. The JAX
+package's chunk-transposed K mirror (`kt`) is not kept: it accelerates a
+TPU-only flat-loop kernel.
+
+Unlike the JAX version, which returns new (donated) buffers, writes here
+update the tensors IN PLACE; each function still returns the cache so call
+sites read the same.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ..ops.kernels.kv_append import scatter_rows
+from ..quant.kvquant import dequant_side, flat_heads, new_store, store_args
 from . import kvcache_paged
 
 
 @dataclass
 class LayerKVCache:
-    """KV storage for one layer: k, v (B, S, Kh*D) in the store dtype."""
+    """KV storage for one layer: k, v (B, S, F') stores and, when
+    quantized, k_scale, v_scale (B, R, S) f32. head_width is the STORED
+    per-head K width (D, or D/2 for packed int4); bits the K store bits
+    (8, or 4 packed; a bf16 cache keeps 8 and no scales, as in JAX);
+    v_bits the V store bits when they differ from K (0 = same)."""
 
     k: torch.Tensor
     v: torch.Tensor
     head_width: int
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+    bits: int = 8
+    v_bits: int = 0
 
-    def _view4(self, arr: torch.Tensor) -> torch.Tensor:
-        b, s, f = arr.shape
-        return arr.reshape(b, s, f // self.head_width, self.head_width)
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    @property
+    def vbits(self) -> int:
+        return self.v_bits or self.bits
+
+    @property
+    def head_dim(self) -> int:
+        return self.head_width * 2 if self.bits == 4 else self.head_width
+
+    @property
+    def v_width(self) -> int:
+        """Stored per-head width of the V tensor."""
+        return self.head_dim // 2 if self.vbits == 4 else self.head_dim
+
+    def _view4(self, arr: torch.Tensor, width: Optional[int] = None
+               ) -> torch.Tensor:
+        w = width or self.head_width
+        return arr.reshape(*arr.shape[:-1], arr.shape[-1] // w, w)
 
 
 def init_cache(num_layers: int, batch_slots: int, max_seq: int,
                num_kv_heads: int, head_dim: int, *, dtype=torch.bfloat16,
                kv_cache_dtype: str = "bf16", device=None
                ) -> Tuple[LayerKVCache, ...]:
-    """Zero-filled caches for all layers. Zeros, never torch.empty: a NaN
-    in a row no slot has written yet must not be able to reach attention
-    (0 * NaN = NaN)."""
-    if kv_cache_dtype != "bf16":
-        raise NotImplementedError(
-            f"kv_cache_dtype {kv_cache_dtype!r} is not ported yet (bf16 only)")
-    shape = (batch_slots, max_seq, num_kv_heads * head_dim)
+    """Zero-filled caches (and scales) for all layers."""
     return tuple(
-        LayerKVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                     v=torch.zeros(shape, dtype=dtype, device=device),
-                     head_width=head_dim)
+        LayerKVCache(**new_store(kv_cache_dtype, batch_slots, max_seq,
+                                 num_kv_heads, head_dim, dtype=dtype,
+                                 device=device))
         for _ in range(num_layers))
 
 
@@ -59,25 +93,30 @@ def _is_paged(cache) -> bool:
     return isinstance(cache, kvcache_paged.PagedLayerKVCache)
 
 
-def _flat(x: torch.Tensor) -> torch.Tensor:
-    """(..., K, D) -> (..., K*D)."""
-    return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
-
-
 def write_prompts(cache: LayerKVCache, k_new: torch.Tensor,
                   v_new: torch.Tensor, slots: torch.Tensor) -> LayerKVCache:
     """B prompts' K/V (B, S_pad, K, D) into the first S_pad rows of `slots`
-    (B,). Out-of-range slots are dropped, as JAX's scatter drops them.
+    (B,), quantized with their scale columns for a quantized cache (in the
+    kv_append kernel, one launch for K, V and both scale columns).
+    Out-of-range slots are dropped, as JAX's scatter drops them.
     Contiguous caches only (batched admission runs on that layout only)."""
     if _is_paged(cache):
         raise NotImplementedError("write_prompts: contiguous caches only")
-    s_pad = k_new.shape[1]
-    slots = slots.to(device=cache.k.device, dtype=torch.long)
+    b, s_pad = k_new.shape[:2]
+    slots = slots.to(device=cache.k.device, dtype=torch.int32)
+    if cache.quantized:
+        pos = torch.arange(s_pad, device=slots.device,
+                           dtype=torch.int32).repeat(b)
+        scatter_rows(cache.k, cache.v, k_new.reshape(b * s_pad, -1),
+                     v_new.reshape(b * s_pad, -1), pos,
+                     slots=slots.repeat_interleave(s_pad), **store_args(cache))
+        return cache
+    slots = slots.long()
     keep = (slots >= 0) & (slots < cache.k.shape[0])
     if not bool(keep.all()):
         slots, k_new, v_new = slots[keep], k_new[keep], v_new[keep]
-    cache.k[slots, :s_pad] = _flat(k_new).to(cache.k.dtype)
-    cache.v[slots, :s_pad] = _flat(v_new).to(cache.v.dtype)
+    cache.k[slots, :s_pad] = flat_heads(k_new).to(cache.k.dtype)
+    cache.v[slots, :s_pad] = flat_heads(v_new).to(cache.v.dtype)
     return cache
 
 
@@ -93,17 +132,28 @@ def write_prompt(cache, k_new: torch.Tensor, v_new: torch.Tensor,
 def write_chunk(cache, k_new: torch.Tensor, v_new: torch.Tensor, slot: int,
                 start: int):
     """A prefill chunk's K/V (C, K, D) at positions start..start+C of
-    `slot` (chunked prefill). Positions past the cache are dropped; paged
-    caches need a page-aligned start (the engine's chunk size is a page
+    `slot` (chunked prefill), quantized for a quantized cache (in the
+    kv_append kernel). Positions past the cache are dropped; paged caches
+    need a page-aligned start (the engine's chunk size is a page
     multiple)."""
     if _is_paged(cache):
         return kvcache_paged.write_chunk(cache, k_new, v_new, slot, start)
-    end = min(start + k_new.shape[0], cache.k.shape[1])
-    if end > start:
-        cache.k[int(slot), start:end] = _flat(k_new[:end - start]).to(
-            cache.k.dtype)
-        cache.v[int(slot), start:end] = _flat(v_new[:end - start]).to(
-            cache.v.dtype)
+    c = k_new.shape[0]
+    n = min(start + c, cache.k.shape[1]) - start
+    if n <= 0:
+        return cache
+    s = int(slot)
+    if cache.quantized:
+        dev = cache.k.device
+        scatter_rows(cache.k, cache.v, k_new.reshape(c, -1),
+                     v_new.reshape(c, -1),
+                     torch.arange(start, start + c, device=dev,
+                                  dtype=torch.int32),
+                     slots=torch.full((c,), s, device=dev, dtype=torch.int32),
+                     **store_args(cache))
+        return cache
+    cache.k[s, start:start + n] = flat_heads(k_new[:n]).to(cache.k.dtype)
+    cache.v[s, start:start + n] = flat_heads(v_new[:n]).to(cache.v.dtype)
     return cache
 
 
@@ -119,44 +169,85 @@ def decode_rows(cache, positions: torch.Tensor):
 def append_token(cache, k_new: torch.Tensor, v_new: torch.Tensor,
                  positions: torch.Tensor, rows=None):
     """One token's K/V (B, K, D) per slot at positions (B,), in place
-    through the kv_append kernels (their plain versions on the CPU). A
-    position outside the cache writes nothing. `rows` is
-    `decode_rows(cache, positions)`, or None to compute it here."""
+    through the kv_append kernels (their plain versions on the CPU), which
+    quantize the rows for a quantized cache. A position outside the cache
+    writes nothing. `rows` is `decode_rows(cache, positions)`, or None to
+    compute it here."""
     if _is_paged(cache):
         return kvcache_paged.append_token(cache, k_new, v_new, positions, rows)
-    scatter_rows(cache.k, cache.v, _flat(k_new), _flat(v_new), positions)
+    scatter_rows(cache.k, cache.v, flat_heads(k_new), flat_heads(v_new), positions,
+                 **store_args(cache))
     return cache
 
 
 def slice_window(cache: LayerKVCache, window: int) -> LayerKVCache:
     """View of the first `window` positions (no copy)."""
+    def cut(sc):
+        return None if sc is None else sc[:, :, :window]
+
     return LayerKVCache(k=cache.k[:, :window], v=cache.v[:, :window],
-                        head_width=cache.head_width)
+                        head_width=cache.head_width,
+                        k_scale=cut(cache.k_scale), v_scale=cut(cache.v_scale),
+                        bits=cache.bits, v_bits=cache.v_bits)
 
 
 def copy_prefix(cache: LayerKVCache, src: int, dst: int, n: int
                 ) -> LayerKVCache:
-    """Rows [0, n) of slot `src` into slot `dst`, in place: prefix-cache
-    reuse on the contiguous layout (the paged layout maps pages instead).
-    Exact: causal K/V rows depend only on the tokens [0, n)."""
-    cache.k[int(dst), :n] = cache.k[int(src), :n]
-    cache.v[int(dst), :n] = cache.v[int(src), :n]
+    """Rows [0, n) of slot `src` into slot `dst`, in place, with their
+    scale columns: prefix-cache reuse on the contiguous layout (the paged
+    layout maps pages instead). Exact: causal K/V rows depend only on the
+    tokens [0, n), and quantized rows and scales copy bit for bit."""
+    src, dst = int(src), int(dst)
+    cache.k[dst, :n] = cache.k[src, :n]
+    cache.v[dst, :n] = cache.v[src, :n]
+    if cache.quantized:
+        cache.k_scale[dst, :, :n] = cache.k_scale[src, :, :n]
+        cache.v_scale[dst, :, :n] = cache.v_scale[src, :, :n]
     return cache
+
+
+def _read4(cache: LayerKVCache, k, v, ks, vs, dtype):
+    """(…, S, F') stores (and (…, R, S) scales) -> (…, S, K, D) in dtype."""
+    if not cache.quantized:
+        return cache._view4(k).to(dtype), cache._view4(v).to(dtype)
+    return (dequant_side(cache._view4(k), ks, cache.bits, dtype),
+            dequant_side(cache._view4(v, cache.v_width), vs, cache.vbits,
+                         dtype))
 
 
 def slot_view(cache, slot: int, window: int, dtype=torch.bfloat16
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One slot's first `window` positions as (1, W, K, D) K/V in `dtype`
-    (chunked-prefill attention); a paged cache gathers the slot's pages."""
+    """One slot's first `window` positions as (1, W, K, D) K/V in `dtype`,
+    dequantized (chunked-prefill attention); a paged cache gathers the
+    slot's pages."""
     if _is_paged(cache):
         return kvcache_paged.slot_view(cache, slot, dtype, window)
     s = int(slot)
-    return (cache._view4(cache.k[s:s + 1, :window]).to(dtype),
-            cache._view4(cache.v[s:s + 1, :window]).to(dtype))
+
+    def cut(sc):
+        return None if sc is None else sc[s:s + 1, :, :window]
+
+    return _read4(cache, cache.k[s:s + 1, :window], cache.v[s:s + 1, :window],
+                  cut(cache.k_scale), cut(cache.v_scale), dtype)
 
 
 def read(cache, dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, S, K, D) K/V in `dtype`; a paged cache gathers its pages."""
+    """(B, S, K, D) K/V in `dtype`, dequantized; a paged cache gathers its
+    pages."""
     if _is_paged(cache):
         return kvcache_paged.read(cache, dtype)
-    return (cache._view4(cache.k).to(dtype), cache._view4(cache.v).to(dtype))
+    return _read4(cache, cache.k, cache.v, cache.k_scale, cache.v_scale, dtype)
+
+
+def nbytes(caches) -> int:
+    """Device bytes of the caches: stores, scales and (paged) the one
+    shared table, counted once."""
+    seen, total = set(), 0
+    for c in caches:
+        arrs = ((c.k_pool, c.v_pool, c.k_scale, c.v_scale, c.table)
+                if _is_paged(c) else (c.k, c.v, c.k_scale, c.v_scale))
+        for arr in arrs:
+            if arr is not None and id(arr) not in seen:
+                seen.add(id(arr))
+                total += arr.numel() * arr.element_size()
+    return total

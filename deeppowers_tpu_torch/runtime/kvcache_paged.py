@@ -5,13 +5,22 @@ Ported from deeppowers_tpu/runtime/kvcache_paged.py (`PagedLayerKVCache`
 :60, `init_paged_cache` :116, `write_prompt`/`write_chunk` :186/:192,
 `_row_ids` :233 (here `row_ids`), `append_token` :298, `_gather`/`read` :317/:361,
 `slot_view` :377, `with_table` :392, `PageAllocator` :405,
-`PrefixCachingAllocator` :518), bf16 pools only.
+`PrefixCachingAllocator` :518), with quantized pools (`_quant_side` :45,
+`init_paged_cache` :140-178, `write_chunk`'s `scatter_scale` :192-231,
+`_append` :254-296, `_dequant_gathered` :349).
 
 Layout per layer, flat on the feature axis like the contiguous cache:
-  k_pool, v_pool: (P, page, Kh*D), P pages shared by all slots
-  table:          (B, max_pages) int32, the page id of each (slot, virtual
-                  page); page 0 is a reserved scratch page that every
-                  unallocated entry points at and no slot ever reads.
+  k_pool, v_pool:   (P, page, F'), P pages shared by all slots; F' = Kh*D
+                    (bf16, int8) or Kh*D/2 (packed int4), per
+                    `kv_cache_dtype` as in runtime/kvcache.py
+  k_scale, v_scale: (P, R, page) f32 head-major when quantized, R = Kh
+                    (int8) or 2*Kh (int4); page p's scales live at index p,
+                    so a shared prefix page shares its scales by
+                    construction
+  table:            (B, max_pages) int32, the page id of each (slot,
+                    virtual page); page 0 is a reserved scratch page that
+                    every unallocated entry points at and no slot ever
+                    reads.
 
 One table tensor on the device serves every layer: all layers' caches
 hold the same tensor object. The JAX package keeps one copy per layer
@@ -41,16 +50,37 @@ import numpy as np
 import torch
 
 from ..ops.kernels.kv_append import scatter_pool_rows
+from ..quant.kvquant import (dequant_side, flat_heads, gather_scale, new_store,
+                              store_args)
 
 
 @dataclass
 class PagedLayerKVCache:
-    """KV pools of one layer and the (shared) page table."""
+    """KV pools of one layer and the (shared) page table. head_width,
+    bits and v_bits as in kvcache.LayerKVCache."""
 
-    k_pool: torch.Tensor                 # (P, page, Kh*D)
+    k_pool: torch.Tensor                 # (P, page, F')
     v_pool: torch.Tensor
     table: torch.Tensor                  # (B, max_pages) int32, all layers
     head_width: int
+    k_scale: Optional[torch.Tensor] = None   # (P, R, page) f32
+    v_scale: Optional[torch.Tensor] = None
+    bits: int = 8
+    v_bits: int = 0
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    @property
+    def vbits(self) -> int:
+        return self.v_bits or self.bits
+
+    @property
+    def v_width(self) -> int:
+        """Stored per-head width of the V pool."""
+        d = self.head_width * 2 if self.bits == 4 else self.head_width
+        return d // 2 if self.vbits == 4 else d
 
     @property
     def page_size(self) -> int:
@@ -64,9 +94,10 @@ class PagedLayerKVCache:
     def max_seq(self) -> int:
         return self.table.shape[1] * self.page_size
 
-    def _view4(self, arr: torch.Tensor) -> torch.Tensor:
-        return arr.reshape(*arr.shape[:-1], arr.shape[-1] // self.head_width,
-                           self.head_width)
+    def _view4(self, arr: torch.Tensor, width: Optional[int] = None
+               ) -> torch.Tensor:
+        w = width or self.head_width
+        return arr.reshape(*arr.shape[:-1], arr.shape[-1] // w, w)
 
 
 def init_paged_cache(num_layers: int, batch_slots: int, max_seq: int,
@@ -74,28 +105,23 @@ def init_paged_cache(num_layers: int, batch_slots: int, max_seq: int,
                      total_pages: Optional[int] = None, dtype=torch.bfloat16,
                      kv_cache_dtype: str = "bf16", device=None
                      ) -> Tuple[PagedLayerKVCache, ...]:
-    """Zero-filled pools for all layers over one shared table. total_pages
-    defaults to full reservation (B * max_seq / page + the scratch page);
-    size it smaller for oversubscribed serving."""
-    if kv_cache_dtype != "bf16":
-        raise NotImplementedError(
-            f"kv_cache_dtype {kv_cache_dtype!r} is not ported yet (bf16 only)")
+    """Zero-filled pools (and scale pools) for all layers over one shared
+    table. total_pages defaults to full reservation (B * max_seq / page +
+    the scratch page); size it smaller for oversubscribed serving."""
     if max_seq % page_size:
         raise ValueError(f"max_seq {max_seq} % page_size {page_size} != 0")
     max_pages = max_seq // page_size
     pages = total_pages or (batch_slots * max_pages + 1)
-    shape = (pages, page_size, num_kv_heads * head_dim)
     table = torch.zeros((batch_slots, max_pages), dtype=torch.int32,
                         device=device)
-    return tuple(
-        PagedLayerKVCache(k_pool=torch.zeros(shape, dtype=dtype, device=device),
-                          v_pool=torch.zeros(shape, dtype=dtype, device=device),
-                          table=table, head_width=head_dim)
-        for _ in range(num_layers))
 
+    def layer():
+        st = new_store(kv_cache_dtype, pages, page_size, num_kv_heads,
+                       head_dim, dtype=dtype, device=device)
+        return PagedLayerKVCache(k_pool=st.pop("k"), v_pool=st.pop("v"),
+                                 table=table, **st)
 
-def _flat(x: torch.Tensor) -> torch.Tensor:
-    return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+    return tuple(layer() for _ in range(num_layers))
 
 
 def write_prompt(cache: PagedLayerKVCache, k_new: torch.Tensor,
@@ -123,15 +149,27 @@ def write_chunk(cache: PagedLayerKVCache, k_new: torch.Tensor,
         return cache
     page_ids = cache.table[int(slot), first:first + n_pages].long()
 
-    def pages_of(x):
-        rows = _flat(x)[:n_pages * ps]
-        pad = n_pages * ps - rows.shape[0]
+    def padded(x):                       # (n_pages * ps, Kh, D), zero tail
+        x = x[:n_pages * ps]
+        pad = n_pages * ps - x.shape[0]
         if pad:
-            rows = torch.cat([rows, rows.new_zeros((pad, rows.shape[1]))])
-        return rows.reshape(n_pages, ps, rows.shape[1])
+            x = torch.cat([x, x.new_zeros((pad, *x.shape[1:]))])
+        return x
 
-    cache.k_pool[page_ids] = pages_of(k_new).to(cache.k_pool.dtype)
-    cache.v_pool[page_ids] = pages_of(v_new).to(cache.v_pool.dtype)
+    if cache.quantized:
+        # the scatter_pool_rows kernel quantizes the rows, the zero-padded
+        # tail too (scale 1e-8 / qmax), as JAX does
+        rows = (page_ids[:, None] * ps + torch.arange(
+            ps, device=page_ids.device)).reshape(-1).to(torch.int32)
+        scatter_pool_rows(cache.k_pool, cache.v_pool,
+                          flat_heads(padded(k_new)), flat_heads(padded(v_new)),
+                          rows, torch.ones_like(rows, dtype=torch.bool),
+                          **store_args(cache))
+        return cache
+    for pool, x in ((cache.k_pool, k_new), (cache.v_pool, v_new)):
+        rows = flat_heads(padded(x))
+        pool[page_ids] = rows.reshape(n_pages, ps, rows.shape[1]).to(
+            pool.dtype)
     return cache
 
 
@@ -162,8 +200,8 @@ def append_token(cache: PagedLayerKVCache, k_new: torch.Tensor,
     An invalid position writes nothing. `rows` is `row_ids(cache,
     positions)` when the caller has it already."""
     rows, valid = row_ids(cache, positions) if rows is None else rows
-    scatter_pool_rows(cache.k_pool, cache.v_pool, _flat(k_new), _flat(v_new),
-                      rows, valid)
+    scatter_pool_rows(cache.k_pool, cache.v_pool, flat_heads(k_new),
+                      flat_heads(v_new), rows, valid, **store_args(cache))
     return cache
 
 
@@ -174,22 +212,35 @@ def _gather(pool: torch.Tensor, table_slice: torch.Tensor) -> torch.Tensor:
     return g.reshape(b, wp * pool.shape[1], pool.shape[2])
 
 
+def _dequant_gathered(cache: PagedLayerKVCache, tab: torch.Tensor, dtype
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gather both sides through `tab` into (B, W, Kh, D) in `dtype`,
+    dequantizing a quantized cache (JAX `_dequant_gathered` :349)."""
+    k4 = cache._view4(_gather(cache.k_pool, tab))
+    v4 = cache._view4(_gather(cache.v_pool, tab), cache.v_width)
+    if not cache.quantized:
+        return k4.to(dtype), v4.to(dtype)
+    return (dequant_side(k4, gather_scale(cache.k_scale, tab), cache.bits,
+                         dtype),
+            dequant_side(v4, gather_scale(cache.v_scale, tab), cache.vbits,
+                         dtype))
+
+
 def read(cache: PagedLayerKVCache, dtype=torch.bfloat16
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The virtual (B, max_seq, Kh, D) K/V view, gathered through the
-    table."""
-    return (cache._view4(_gather(cache.k_pool, cache.table)).to(dtype),
-            cache._view4(_gather(cache.v_pool, cache.table)).to(dtype))
+    table and dequantized."""
+    return _dequant_gathered(cache, cache.table, dtype)
 
 
 def slot_view(cache: PagedLayerKVCache, slot: int, dtype=torch.bfloat16,
               window: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One slot's virtual K/V (1, W, Kh, D) for chunked-prefill attention."""
+    """One slot's virtual K/V (1, W, Kh, D) for chunked-prefill attention,
+    dequantized."""
     wp = cache.table.shape[1] if window is None else -(-window // cache.page_size)
-    tab = cache.table[int(slot):int(slot) + 1, :wp]
-    return (cache._view4(_gather(cache.k_pool, tab)).to(dtype),
-            cache._view4(_gather(cache.v_pool, tab)).to(dtype))
+    return _dequant_gathered(cache, cache.table[int(slot):int(slot) + 1, :wp],
+                             dtype)
 
 
 def with_table(caches: Tuple[PagedLayerKVCache, ...],

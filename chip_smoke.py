@@ -2,10 +2,19 @@
 """Smoke run of deeppowers_tpu_torch on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --step-ms CHECKOUT
+
+The second form only times the TinyLlama int8 decode step's 89 matmuls
+and its w_gu at a 1024-token prefill through #1 with the package of
+another checkout of the repo (its root first on sys.path; it builds that
+checkout's kernels), three times each, and prints them as JSON: run it
+for two checkouts in turn (parent, change, change, parent) to pair them
+on one card.
 
 Phases, each printing a line with its wall time:
   1. device   the card's name and power limit (nvidia-smi), torch and CUDA
-  2. build    the one nvcc call that builds every CUDA kernel of the port
+  2. build    the nvcc calls (one per source, in parallel, and a link)
+              that build every CUDA kernel of the port
   3. kernels  each kernel at the main path's shapes against its plain
               PyTorch version on the card, timed beside its bound and one
               PyTorch library call
@@ -29,6 +38,12 @@ Phases, each printing a line with its wall time:
   9. paged_serve[k8v4]  phase 7 over a k8v4 KV pool (int8 K, packed int4
               V, the deployed recipe): the k8v4 variants of #5 and #6 must
               launch, the bf16 ones and the contiguous kernels must not
+ 10. serve[llama2-7b]  Llama-2-7B at full width and depth (BASELINE
+              config 3): W4A8 g128 weights drawn in quantized form from the
+              seed, k8v4 KV, serve's traffic once; the W4A8 g128 variant of
+              #1 and the activation quantizer must launch, no other weight
+              variant; then a profiled decode step and the TTFT of a
+              512-token prompt alone on the warm engine
 Between 5 and 6, the path phase runs again through each quantized store
 (int8, int4, k8v4) on each layout; the card gates with the least room
 (#3's worst row ratio per store, the teacher-forced rel L2 of int4 and
@@ -36,11 +51,14 @@ k8v4) are held again over three more seeds (margins[seed=...] lines), to
 show how close each sits to its limit; and the path runs once at the shape
 of the repo's trained checkpoint lm124_ckpt (path[lm124]: random weights,
 its untied 260-wide lm_head takes #1's instantiation for N % 8 != 0)
-through InferenceEngine.generate and teacher-forced. The kernels phase
-holds the quantized variants of #2, #3, #5 and #6 and #1 at widths no
-multiple of 8 too. Each serve phase, and each path run on the card that
-gives a row its launches, sets every launch count (per variant too) to 0
-just before it and reads the counts just after. Each serve phase also
+through InferenceEngine.generate and teacher-forced; then path[llama2-7b],
+Llama-2-7B at full width cut to 4 layers, W4A8 g128 + k8v4, teacher-forced
+against the plain path on the CPU. The kernels phase holds the quantized
+variants of #2, #3, #5 and #6, #1 at widths no multiple of 8, and #1's
+int4, grouped and a8 weight variants and the activation quantizer at
+Llama-2-7B's matrices (M = 8 and 512) too. Each serve phase, and each path
+run on the card that gives a row its launches, sets every launch count
+(per variant too) to 0 just before it and reads the counts just after. Each serve phase also
 prints every request's TTFT, the host split of a profiled decode step
 (PyTorch ops, kernel launches, blocking calls, allocator calls); the
 contiguous ones also print each prompt's prefill alone on the warm engine
@@ -70,6 +88,7 @@ WATCHDOG_S = 600
 SEED = 0
 H100_BYTES_PER_S = 3.35e12        # HBM3, NVIDIA data sheet (SXM)
 H100_BF16_FLOPS = 989e12          # dense bf16 tensor-core peak
+H100_INT8_OPS = 1979e12           # dense int8 tensor-core peak
 
 T0 = time.perf_counter()
 
@@ -133,9 +152,9 @@ def cuda_ms(torch, fns, iters: int, graph: bool = True) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, int8: bool = False):
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_BF16_FLOPS * 1e3
+    t_ops = flops / (H100_INT8_OPS if int8 else H100_BF16_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -163,6 +182,69 @@ def tree_to(tree, device):
 # phase 3: kernels at the main path's shapes
 # ---------------------------------------------------------------------------
 
+def randn_on(torch, seed):
+    """rn(*shape, scale, dtype): normal values on the card from a
+    generator seeded with `seed`."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=g, device="cuda")
+                * scale).to(dtype)
+    return rn
+
+
+def int8_step(torch, cfg, rn, b=8):
+    """The int8 per-channel decode step's five matmuls at M = b slots, one
+    at a time: (name, K, N, launches per step, weight copies (enough to
+    stream 200 MB, past the 50 MB L2, as on the path), x, fusion kwargs,
+    out dtype)."""
+    from deeppowers_tpu_torch.quant.quantize import quantize
+    h, ffn, L = cfg.hidden_size, cfg.ffn_size, cfg.num_layers
+    for name, k, n, mode, per_step in (
+            ("wqkv+rms", h, cfg.q_size + 2 * cfg.kv_size, "rms", L),
+            ("wo+res", cfg.q_size, h, "res", L),
+            ("w_gu+rms", h, 2 * ffn, "rms", L),
+            ("w_out+glu+res", ffn, h, "glu", L),
+            ("lm_head f32", h, cfg.vocab_size, "f32", 1)):
+        qws = [quantize(rn(k, n, scale=0.02, dtype=torch.float32))
+               for _ in range(max(1, -(-200_000_000 // (k * n))))]
+        x = rn(b, 2 * k if mode == "glu" else k)
+        kw = {}
+        if mode == "rms":
+            kw["rms_weight"] = rn(k, scale=0.1) + 1.0
+        if mode in ("res", "glu"):
+            kw["residual"] = rn(b, n)
+        if mode == "glu":
+            kw["glu"] = True
+        yield (name, k, n, per_step, qws, x, kw,
+               torch.float32 if mode == "f32" else torch.bfloat16)
+
+
+STEP_REPS = 3
+
+
+def step_ms(torch, cfg) -> dict:
+    """ms of the TinyLlama int8 decode step's 89 matmuls through #1, and of
+    its w_gu at a 1024-token prefill (the tiled path), by CUDA-graph
+    replays as the kernels phase times them, STEP_REPS times each. Only
+    the wrapper's call is used, so any checkout's package can be timed
+    (`--step-ms ROOT`)."""
+    from deeppowers_tpu_torch.ops.kernels import dequant_matmul as dm
+    from deeppowers_tpu_torch.quant.quantize import quantize
+    rn = randn_on(torch, SEED + 1)
+    calls = [([lambda q=q, x=x, kw=kw, od=od: dm.dequant_matmul(
+        x, q, out_dtype=od, **kw) for q in qws], per)
+        for _, _, _, per, qws, x, kw, od in int8_step(torch, cfg, rn)]
+    q_big = quantize(rn(cfg.hidden_size, 2 * cfg.ffn_size, scale=0.02,
+                        dtype=torch.float32))
+    xp = rn(1024, cfg.hidden_size)
+    return {"step_matmuls_ms": [sum(per * cuda_ms(torch, fns, 50)
+                                    for fns, per in calls)
+                                for _ in range(STEP_REPS)],
+            "w_gu_prefill_ms": [cuda_ms(torch, [lambda: dm.dequant_matmul(
+                xp, q_big)], 20) for _ in range(STEP_REPS)]}
+
+
 def check_kernels(torch, cfg):
     from deeppowers_tpu_torch.ops.kernels import (decode_attention as da,
                                                   dequant_matmul as dm,
@@ -171,40 +253,17 @@ def check_kernels(torch, cfg):
     from deeppowers_tpu_torch.quant.quantize import quantize
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(SEED + 1)
-
-    def rn(*shape, scale=1.0, dtype=torch.bfloat16):
-        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
-
+    rn = randn_on(torch, SEED + 1)
     rows = []
-    h, ffn, v = cfg.hidden_size, cfg.ffn_size, cfg.vocab_size
-    qkv_n = cfg.q_size + 2 * cfg.kv_size
-    L = cfg.num_layers
+    h, ffn = cfg.hidden_size, cfg.ffn_size
     b = 8
 
     # -- 1. dequant_matmul: the five decode matmuls of one step, M = 8 -----
-    # (name, K, N, fusion, launches per decode step)
-    shapes = [("wqkv+rms", h, qkv_n, "rms", L), ("wo+res", cfg.q_size, h,
-              "res", L), ("w_gu+rms", h, 2 * ffn, "rms", L),
-              ("w_out+glu+res", ffn, h, "glu", L), ("lm_head f32", h, v,
-                                                     "f32", 1)]
     tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bytes": 0.0, "flops": 0.0}
     err_max = 0.0
-    for name, k, n, mode, per_step in shapes:
+    for name, k, n, per_step, qws, x, kw, out_dtype in int8_step(
+            torch, cfg, rn, b):
         w_bytes = k * n
-        copies = max(1, -(-200_000_000 // w_bytes))
-        qws = [quantize(rn(k, n, scale=0.02, dtype=torch.float32))
-               for _ in range(copies)]
-        kx = 2 * k if mode == "glu" else k
-        x = rn(b, kx)
-        kw = {}
-        if mode == "rms":
-            kw["rms_weight"] = rn(k, scale=0.1) + 1.0
-        if mode in ("res", "glu"):
-            kw["residual"] = rn(b, n)
-        if mode == "glu":
-            kw["glu"] = True
-        out_dtype = torch.float32 if mode == "f32" else torch.bfloat16
         got = dm.dequant_matmul(x, qws[0], out_dtype=out_dtype, **kw)
         ref = dm.dequant_matmul_plain(x, qws[0].data, qws[0].scales,
                                       out_dtype=out_dtype, **kw)
@@ -217,7 +276,7 @@ def check_kernels(torch, cfg):
             fail(f"dequant_matmul {name}: error {err} > 2e-2 * {scale}")
         err_max = max(err_max, err)
         wbf = [(q.data.to(torch.bfloat16) * q.scales.to(torch.bfloat16))
-               for q in qws[:copies]]
+               for q in qws]
         t_k = cuda_ms(torch, [lambda q=q: dm.dequant_matmul(
             x, q, out_dtype=out_dtype, **kw) for q in qws], 50)
         t_p = cuda_ms(torch, [lambda q=q: dm.dequant_matmul_plain(
@@ -493,12 +552,7 @@ def check_odd_n(torch):
     depend on it."""
     from deeppowers_tpu_torch.ops.kernels import dequant_matmul as dm
     from deeppowers_tpu_torch.quant.quantize import quantize
-    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
-
-    def rn(*shape, scale=1.0, dtype=torch.bfloat16):
-        return (torch.randn(*shape, generator=g, device="cuda")
-                * scale).to(dtype)
-
+    rn = randn_on(torch, SEED + 6)
     rows = []
     for k, n in ODD_N:
         qw = quantize(rn(k, n, scale=0.02, dtype=torch.float32))
@@ -539,6 +593,197 @@ def check_odd_n(torch):
                      "shape": f"M=8 K={k} N={n} (also held at M=512: "
                               f"{times[512][0]:.4f} ms)"})
     return rows
+
+
+# #1's weight variants at Llama-2-7B's shapes (hidden 4096, ffn 11008,
+# vocab 32000): (name, K, N, fusion); w_out's packed half (5504 rows) is no
+# multiple of 2048, the TPU kernel's ragged case
+LLAMA2_MATS = (("wqkv+rms", 4096, 12288, "rms"), ("wo+res", 4096, 4096, "res"),
+               ("w_gu+rms", 4096, 22016, "rms"),
+               ("w_out+glu+res", 11008, 4096, "glu"),
+               ("lm_head f32", 4096, 32000, "f32"))
+# (variant, bits, group, act_bits): the path's W4A8 g128 first
+WQ_VARIANTS = (("w4a8g", 4, 128, 8), ("w4g", 4, 128, 0), ("w4", 4, 0, 0),
+               ("w8g", 8, 128, 0), ("w8a8", 8, 0, 8))
+LLAMA2_LAYERS = 32
+
+
+def random_qw(torch, g, k, n, bits, group, act_bits):
+    """A QuantizedTensor of random ints and random positive scales (so that
+    a wrong scale row shows), made on the card."""
+    from deeppowers_tpu_torch.quant.qtypes import QuantizedTensor
+    data = torch.randint(-127, 128, (k // 2 if bits == 4 else k, n),
+                         generator=g, device="cuda", dtype=torch.int8)
+    base = 0.02 / (127 if bits == 8 else 7)
+    scales = base * (0.5 + torch.rand(k // group if group else 1, n,
+                                      generator=g, device="cuda"))
+    return QuantizedTensor(data, scales, None, bits, group, act_bits)
+
+
+def check_wquant_kernels(torch):
+    """#1's int4, grouped and a8 variants at Llama-2-7B's matrices, M = 8
+    (a decode step of 8 slots) and M = 512 (a 512-token prefill), each
+    against its plain version (2e-2 of max|ref|), timed beside its bound,
+    the plain version, torch.matmul on bf16 weights and, for a8 at M =
+    512, torch._int_mm on the int8 operands (timed only, never called by
+    the port). Then the activation quantizer at the path's shapes. Rows:
+    a decode step's 129 matmuls per variant, a prefill's 128 at M = 512,
+    and the quantizer. Inputs from a generator of their own."""
+    from deeppowers_tpu_torch.ops.kernels import dequant_matmul as dm
+    from deeppowers_tpu_torch.quant.qtypes import unpack_int4
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    rows = []
+    for var, bits, group, a8 in WQ_VARIANTS:
+        for m in (8, 512):
+            tot = dict(ms=0.0, plain=0.0, lib=0.0, int_mm=0.0, bytes=0.0,
+                       ops=0.0)
+            err_max = 0.0
+            for name, k, n, mode in LLAMA2_MATS:
+                per = 1 if mode == "f32" else LLAMA2_LAYERS
+                if m == 512 and mode == "f32":
+                    per = 0          # a prefill takes logits at one row
+                w_bytes = (k // 2 if bits == 4 else k) * n
+                copies = max(1, -(-200_000_000 // w_bytes)) if m == 8 else 1
+                qws = [random_qw(torch, g, k, n, bits, group, a8)
+                       for _ in range(copies)]
+                kx = 2 * k if mode == "glu" else k
+                x = rn(m, kx)
+                kw = {}
+                if mode == "rms":
+                    kw["rms_weight"] = rn(k, scale=0.1) + 1.0
+                if mode in ("res", "glu"):
+                    kw["residual"] = rn(m, n)
+                if mode == "glu":
+                    kw["glu"] = True
+                out_dtype = torch.float32 if mode == "f32" else torch.bfloat16
+                q0 = qws[0]
+
+                def plain(q=q0):
+                    return dm.dequant_matmul_plain(
+                        x, q.data, q.scales, bits=bits, act_bits=a8,
+                        out_dtype=out_dtype, **kw)
+
+                got = dm.dequant_matmul(x, q0, out_dtype=out_dtype, **kw)
+                ref = plain()
+                torch.cuda.synchronize()
+                err = (got.float() - ref.float()).abs().max().item()
+                scale = ref.float().abs().max().item()
+                if not (torch.isfinite(got).all() and err <= 2e-2 * scale):
+                    fail(f"dequant_matmul[{var}] {name} M={m}: error {err} > "
+                         f"2e-2 * {scale}")
+                err_max = max(err_max, err)
+                iters = 50 if m == 8 else 10
+                t_k = cuda_ms(torch, [lambda q=q: dm.dequant_matmul(
+                    x, q, out_dtype=out_dtype, **kw) for q in qws], iters)
+                t_p = cuda_ms(torch, [lambda q=q: plain(q) for q in qws],
+                              3, graph=False)
+                q_int = unpack_int4(q0.data) if bits == 4 else q0.data
+                wbf = [(unpack_int4(q.data) if bits == 4 else q.data).to(
+                    torch.bfloat16) for q in qws[:2]]
+                xa = x[:, :k]
+                t_l = cuda_ms(torch, [lambda w=w: torch.matmul(xa, w)
+                                      for w in wbf], iters)
+                t_i = 0.0
+                if a8 and m == 512:
+                    xq = torch.randint(-127, 128, (m, k), generator=g,
+                                       device="cuda", dtype=torch.int8)
+                    t_i = cuda_ms(torch, [lambda: torch._int_mm(xq, q_int)],
+                                  iters)
+                nbytes = (w_bytes + q0.scales.numel() * 4 + x.numel() * 2
+                          + m * n * (4 if mode == "f32" else 2)
+                          + (m * n * 2 if mode in ("res", "glu") else 0))
+                ops = 2 * m * k * n
+                bd, by = bound_ms(nbytes, ops, int8=bool(a8))
+                log(f"  dequant_matmul[{var}] {name} M={m} K={k} N={n}: "
+                    f"max_abs_err={err:.3e} max|ref|={scale:.3e}, kernel "
+                    f"{t_k:.4f} ms, plain {t_p:.4f} ms, torch.matmul bf16 "
+                    f"{t_l:.4f} ms" + (f", torch._int_mm {t_i:.4f} ms"
+                                       if t_i else "")
+                    + f", bound {bd:.4f} ms ({by}), x{per}")
+                tot["ms"] += per * t_k
+                tot["plain"] += per * t_p
+                tot["lib"] += per * t_l
+                tot["int_mm"] += per * t_i
+                tot["bytes"] += per * nbytes
+                tot["ops"] += per * ops
+                del qws, wbf, q_int
+            bd, by = bound_ms(tot["bytes"], tot["ops"], int8=bool(a8))
+            row = {"name": f"dequant_matmul[{var}, M={m}]", "route": "cuda",
+                   "source": "deeppowers_tpu_torch/csrc/dequant_matmul.cu",
+                   "replaces": "deeppowers_tpu/ops/pallas/dequant_matmul.py:528",
+                   "max_abs_err": err_max, "ms": tot["ms"],
+                   "plain_ms": tot["plain"], "bound_ms": bd, "bound_by": by,
+                   "library_ms": tot["lib"], "variant": var,
+                   "shape": ("Llama-2-7B decode step, 8 slots: 32 layers x "
+                             "(wqkv, wo, w_gu, w_out) + lm_head" if m == 8
+                             else "Llama-2-7B 512-token prefill: 32 layers x "
+                             "(wqkv, wo, w_gu, w_out)")}
+            if tot["int_mm"]:
+                row["int_mm_ms"] = tot["int_mm"]
+            rows.append(row)
+            torch.cuda.empty_cache()
+    rows.append(check_quantizer(torch, rn))
+    return rows
+
+
+def check_quantizer(torch, rn):
+    """The activation quantizer at the path's shapes, M = 8: the rows of
+    wqkv (RMSNorm, K = 4096) and of w_out (GLU, K = 11008), and plain rows.
+    Plain rows must equal the plain version's bytes and scales exactly;
+    with a norm or a GLU in front, a last-bit difference in the transform
+    may move a byte by one step (limit: one step, and at most 1e-3 of the
+    bytes)."""
+    from deeppowers_tpu_torch.ops.kernels import dequant_matmul as dm
+    times, err_max = [], 0.0
+    for k, mode in ((4096, "rms"), (11008, "glu"), (4096, "plain")):
+        x = rn(8, 2 * k if mode == "glu" else k)
+        kw = {"glu": True} if mode == "glu" else {}
+        if mode == "rms":
+            kw["rms_weight"] = rn(k, scale=0.1) + 1.0
+        q, xs = dm.quantize_activations(x, k, **kw)
+        qr, xr = dm.quantize_activations(x.cpu(), k, **{
+            a: (v.cpu() if torch.is_tensor(v) else v) for a, v in kw.items()})
+        diff = (q.cpu().int() - qr.int()).abs()
+        err = (q.cpu().float() * xs.cpu() - qr.float() * xr).abs().max().item()
+        if mode == "plain" and not (diff.max() == 0 and torch.equal(
+                xs.cpu(), xr)):
+            fail("quantize_activations differs from its plain version")
+        if diff.max() > 1 or (diff > 0).float().mean() > 1e-3:
+            fail(f"quantize_activations[{mode}]: bytes off by "
+                 f"{diff.max().item()} ({(diff > 0).sum().item()} of them)")
+        err_max = max(err_max, err)
+        t_k = cuda_ms(torch, [lambda: dm.quantize_activations(x, k, **kw)],
+                      100)
+        t_p = cuda_ms(torch, [lambda: dm.quantize_rows(
+            dm._unfused_input(x, k, kw.get("rms_weight"), 1e-6,
+                              kw.get("glu", False), "silu"))], 10,
+            graph=False)
+        nbytes = x.numel() * 2 + 8 * k + 8 * 4 + (2 * k if mode == "rms" else 0)
+        times.append((mode, k, t_k, t_p, nbytes))
+        log(f"  quantize_activations[{mode}] M=8 K={k}: bytes off "
+            f"{(diff > 0).sum().item()}, max dequant err {err:.3e}, kernel "
+            f"{t_k:.4f} ms, plain {t_p:.4f} ms")
+    # a decode step quantizes the rows of each layer's wqkv and w_gu (rms),
+    # w_out (glu) and wo, and the lm_head's (plain)
+    per = {"rms": 2 * LLAMA2_LAYERS, "glu": LLAMA2_LAYERS,
+           "plain": LLAMA2_LAYERS + 1}
+    ms = sum(per[md] * t for md, _, t, _, _ in times)
+    plain = sum(per[md] * t for md, _, _, t, _ in times)
+    nbytes = sum(per[md] * b for md, _, _, _, b in times)
+    bd, by = bound_ms(nbytes, 0)
+    return {"name": "quantize_activations", "route": "cuda",
+            "source": "deeppowers_tpu_torch/csrc/dequant_matmul.cu",
+            "replaces": "deeppowers_tpu/ops/pallas/dequant_matmul.py:198 "
+                        "(qdot's activation quantization, in #1's body)",
+            "max_abs_err": err_max, "ms": ms, "plain_ms": plain,
+            "bound_ms": bd, "bound_by": by, "library_ms": None,
+            "shape": "Llama-2-7B decode step, 8 slots: 32 layers x (wqkv "
+                     "rms, wo, w_gu rms, w_out glu) + lm_head"}
 
 
 ATTN_LENS = (48, 96, 132, 232, 332, 482, 632, 932)
@@ -893,6 +1138,136 @@ def lm124_path(torch, T, kvcache, counters, device="cuda"):
                       "launches_n4": launches["dequant_matmul[n4]"],
                       "tokens": len(res.token_ids),
                       "logits_rel_l2": f"{rel:.3e}"}
+
+
+# BASELINE config 3 (bench.py:311-331): Llama-2-7B, W4A8 g128 weights,
+# k8v4 KV; the path phase cuts the depth to LLAMA2_PATH_LAYERS
+LLAMA2_PATH_LAYERS = 4
+LLAMA2_KV = "k8v4"
+LLAMA2_ON_PATH = ["dequant_matmul[w4a8g]", "quantize_activations"]
+LLAMA2_OFF_PATH = [f"dequant_matmul[w{b}{a}{g}]" for b in (8, 4)
+                   for a in ("", "a8") for g in ("", "g")
+                   if (b, a, g) != (4, "a8", "g")]
+
+
+def llama2_params(torch, T, cfg, gen, device, dtype=None):
+    """Random W4A8 g128 weights drawn directly in quantized form
+    (init_quantized_params, as bench.py's direct_quant), fused."""
+    from deeppowers_tpu_torch.config import QuantConfig, QuantMode
+    qcfg = QuantConfig(mode=QuantMode.INT4, group_size=128, act_bits=8)
+    return T.fuse_params(T.init_quantized_params(
+        cfg, qcfg, gen, dtype=dtype or torch.bfloat16, device=device), cfg)
+
+
+def random_scales(torch, tree, gen):
+    """Each quantized weight's scales times random factors in [0.5, 1.5)
+    (init_quantized_params gives every scale one value, under which a wrong
+    scale row or nibble plane would not show in the logits)."""
+    from deeppowers_tpu_torch.quant.qtypes import QuantizedTensor
+    if isinstance(tree, dict):
+        return {k: random_scales(torch, v, gen) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [random_scales(torch, v, gen) for v in tree]
+    if isinstance(tree, QuantizedTensor):
+        tree.scales = tree.scales * (0.5 + torch.rand(
+            tree.scales.shape, generator=gen, device=tree.scales.device))
+    return tree
+
+
+def llama2_path(torch, T, kvcache, counters):
+    """Llama-2-7B at full width, LLAMA2_PATH_LAYERS layers, W4A8 g128 + k8v4
+    KV, random scales: the teacher-forced logits through the kernels (launch
+    counts from 0) against the plain path on the CPU, rel L2 <= 1e-2 (the
+    a8 products are exact integers on both, so the two differ only by bf16
+    rounding order and a quantized byte moved by one step). Returns
+    (launches, phase info)."""
+    import dataclasses
+    from deeppowers_tpu_torch.models.presets import LLAMA2_7B
+    cfg = dataclasses.replace(LLAMA2_7B, num_layers=LLAMA2_PATH_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    params = random_scales(torch, llama2_params(torch, T, cfg, gen, "cuda"),
+                           gen)
+    rng = torch.Generator().manual_seed(SEED + 11)
+    ids = torch.randint(0, cfg.vocab_size, (40,), generator=rng).tolist()
+    forced = torch.randint(0, cfg.vocab_size, (3,), generator=rng).tolist()
+    reset_counts(counters)
+    got = forced_logits(torch, T, kvcache, params, cfg, ids, forced, "cuda",
+                        kv_cache_dtype=LLAMA2_KV)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    check_variants("path[llama2-7b]", launches, LLAMA2_ON_PATH,
+                   LLAMA2_OFF_PATH)
+    ref = forced_logits(torch, T, kvcache, tree_to(params, "cpu"), cfg, ids,
+                        forced, "cpu", kv_cache_dtype=LLAMA2_KV)
+    rel = max(((g - r).norm() / r.norm()).item() for g, r in zip(got, ref))
+    if not all(torch.isfinite(g).all() for g in got) or not rel <= 1e-2:
+        fail(f"path[llama2-7b]: kernel vs plain logits rel L2 error {rel} > "
+             f"1e-2")
+    return launches, {"layers": cfg.num_layers, "hidden": cfg.hidden_size,
+                      "weights": "w4a8 g128", "kv": LLAMA2_KV,
+                      "logits_rel_l2": f"{rel:.3e}",
+                      "launches_w4a8g": launches["dequant_matmul[w4a8g]"],
+                      "launches_quantizer": launches["quantize_activations"]}
+
+
+TTFT_PROMPT = 512
+TTFT_REPS = 5
+
+
+def serve_llama2(torch, T, counters):
+    """Llama-2-7B, all 32 layers, W4A8 g128 + k8v4 contiguous KV: serve's
+    traffic (8 requests of 16..900 bytes, 32 tokens each) once through the
+    scheduler and the HTTP server, where the W4A8 g128 variant of #1 and
+    the quantizer must launch and no other weight variant; then a profiled
+    decode step of 8 slots; then a 512-token prompt alone on the warm
+    engine, TTFT_REPS times (TTFT as bench.py:324-330 measures it: the
+    prefill and the first token)."""
+    from deeppowers_tpu_torch.config import GenerationConfig, RuntimeConfig
+    from deeppowers_tpu_torch.models.presets import LLAMA2_7B as cfg
+    from deeppowers_tpu_torch.quant.kvquant import KV_CACHE_DTYPES
+    from deeppowers_tpu_torch.runtime.engine import InferenceEngine
+    from deeppowers_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    t0 = time.perf_counter()
+    params = llama2_params(torch, T, cfg, torch.Generator(
+        device="cuda").manual_seed(SEED + 12), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tok = ByteTokenizer()
+    engine = InferenceEngine(
+        params, cfg, device="cuda", eos_token_id=tok.eos_token_id,
+        kv_cache_dtype=LLAMA2_KV,
+        runtime=RuntimeConfig(max_batch_size=8, max_seq_len=1024,
+                              prefill_buckets=(64, 128, 256, 512, 1024)))
+    engine.generate(tok.encode("warm up"), GenerationConfig(
+        max_tokens=2, temperature=0.0))
+    prompts = [prompt_text(n, i) for i, n in enumerate(PROMPT_BYTES)]
+    results, launches, wall, sched = run_requests(
+        torch, engine, prompts, MAX_TOKENS, counters, tok)
+    check_variants(
+        "serve[llama2-7b]", launches,
+        LLAMA2_ON_PATH + ["flash_attention_prefill",
+                          f"scatter_rows[{LLAMA2_KV}]",
+                          f"decode_attention[{LLAMA2_KV}]"],
+        LLAMA2_OFF_PATH + ["scatter_pool_rows", "decode_attention_paged"]
+        + [f"{k}[{v}]" for k in ("scatter_rows", "decode_attention")
+           for v in KV_CACHE_DTYPES if v != LLAMA2_KV])
+    out = summary(results, wall, sched, launches)
+    out.update(kv_bytes=engine.kv_nbytes, param_bytes=T.param_nbytes(params),
+               init_s=init_s)
+    out["profile"] = profile_decode(torch, engine, tok)
+    gen = GenerationConfig(max_tokens=1, temperature=0.0)
+    ttft = []
+    for i in range(TTFT_REPS):
+        ids = [4 + (j * 7 + i) % 250 for j in range(TTFT_PROMPT)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        engine.add_request(ids, gen)
+        torch.cuda.synchronize()
+        ttft.append((time.perf_counter() - t1) * 1e3)
+    engine.pop_finished()
+    out["ttft_512_ms"] = ttft
+    return out
 
 
 MARGIN_SEEDS = 3
@@ -1383,11 +1758,24 @@ def report_serve(name, t0, out, smi_line, n_requests) -> None:
 
 # ---------------------------------------------------------------------------
 
-def main() -> int:
+def main(argv) -> int:
     threading.Thread(target=watchdog, daemon=True, name="watchdog").start()
     import torch
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: no CUDA device; nothing to run\n")
+        return 2
+    if argv[:1] == ["--step-ms"] and len(argv) == 2:
+        # #1's int8 decode step through the package of the checkout at
+        # argv[1], for a paired run of two checkouts on one card
+        sys.path.insert(0, os.path.abspath(argv[1]))
+        from deeppowers_tpu_torch.models.presets import TINYLLAMA_1_1B
+        from deeppowers_tpu_torch.ops.kernels import _build
+        _build.library()
+        log(json.dumps({"checkout": argv[1], **step_ms(torch,
+                                                       TINYLLAMA_1_1B)}))
+        return 0
+    if argv:
+        sys.stderr.write("usage: chip_smoke.py [--step-ms CHECKOUT]\n")
         return 2
     from deeppowers_tpu_torch.config import QuantConfig
     from deeppowers_tpu_torch.models import transformer as T
@@ -1395,13 +1783,16 @@ def main() -> int:
     from deeppowers_tpu_torch.ops.kernels import _build
     from deeppowers_tpu_torch.ops.kernels.decode_attention import (
         decode_attention, decode_attention_paged)
-    from deeppowers_tpu_torch.ops.kernels.dequant_matmul import dequant_matmul
+    from deeppowers_tpu_torch.ops.kernels.dequant_matmul import (
+        dequant_matmul, quantize_activations)
     from deeppowers_tpu_torch.ops.kernels.flash_attention import flash_attention_prefill
     from deeppowers_tpu_torch.ops.kernels.kv_append import (scatter_pool_rows,
                                                             scatter_rows)
     from deeppowers_tpu_torch.runtime import kvcache
 
-    counters = {"dequant_matmul": dequant_matmul, "scatter_rows": scatter_rows,
+    counters = {"dequant_matmul": dequant_matmul,
+                "quantize_activations": quantize_activations,
+                "scatter_rows": scatter_rows,
                 "decode_attention": decode_attention,
                 "flash_attention_prefill": flash_attention_prefill,
                 "scatter_pool_rows": scatter_pool_rows,
@@ -1425,11 +1816,14 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     phase_line("build", t0, nvcc_s=f"{_build.build_info['seconds']:.2f}",
-               cached=_build.build_info["cached"])
+               cached=_build.build_info["cached"],
+               per_source_s=json.dumps(_build.build_info.get("compile_s")),
+               link_s=_build.build_info.get("link_s"))
 
     # 3. kernels
     t0 = time.perf_counter()
     rows = check_kernels(torch, cfg)
+    rows += check_wquant_kernels(torch)
     phase_line("kernels", t0, checked=len(rows))
 
     # 4. path: full-width TinyLlama, teacher-forced against the plain path
@@ -1511,6 +1905,12 @@ def main() -> int:
     lm_launches, lm = lm124_path(torch, T, kvcache, counters)
     phase_line("path[lm124]", t0, **lm)
 
+    # 5e. Llama-2-7B at full width, W4A8 g128 + k8v4 (BASELINE config 3),
+    # at a cut depth, teacher-forced against the plain path
+    t0 = time.perf_counter()
+    l7_launches, l7 = llama2_path(torch, T, kvcache, counters)
+    phase_line("path[llama2-7b]", t0, **l7)
+
     # 6. serve, contiguous KV
     t0 = time.perf_counter()
     srv = serve(torch, params, cfg, counters)
@@ -1531,22 +1931,35 @@ def main() -> int:
     report_serve("paged_serve[k8v4]", t0, qpsrv, smi_line,
                  len(paged_prompts()))
 
+    # 10. Llama-2-7B, all 32 layers, W4A8 g128 + k8v4, serve's traffic once
+    t0 = time.perf_counter()
+    lsrv = serve_llama2(torch, T, counters)
+    report_serve("serve[llama2-7b]", t0, lsrv, smi_line, len(PROMPT_BYTES))
+    tt = sorted(lsrv["ttft_512_ms"])
+    log(f"serve[llama2-7b] params {lsrv['param_bytes']} bytes (drawn in "
+        f"{lsrv['init_s']:.2f} s); TTFT of a {TTFT_PROMPT}-token prompt "
+        f"alone on the warm engine: p50 {tt[len(tt) // 2]:.3f} ms, max "
+        f"{tt[-1]:.3f} ms, each " + json.dumps(lsrv["ttft_512_ms"]))
+
     # each row's launches: from the serve phase whose path runs it, else
     # from the teacher-forced path run of its store and layout; #1 at an odd
     # N from its width variant's count in the first run that launched it
     # (the main path's serve phase when none did)
     serves = {"serve": srv, "paged_serve": psrv, "serve[int8]": qsrv,
-              "paged_serve[k8v4]": qpsrv}
+              "paged_serve[k8v4]": qpsrv, "serve[llama2-7b]": lsrv}
     runs = {name: out["launches"] for name, out in serves.items()}
     runs.update({f"path[{v},{lay}]": c for (v, lay), c in path_launches.items()})
     runs["path[lm124]"] = lm_launches
+    runs["path[llama2-7b]"] = l7_launches
     paged_kernels = ("scatter_pool_rows", "decode_attention_paged")
     for row in rows:
         name = row["name"]
         kernel, _, var = name.partition("[")
         var = var.rstrip("]")
         layout = "paged" if kernel in paged_kernels else "contiguous"
-        if "variant" in row:
+        if kernel == "quantize_activations":
+            phase, key = "serve[llama2-7b]", kernel
+        elif "variant" in row:
             key = f"{kernel}[{row['variant']}]"
             phase = next((ph for ph, c in runs.items() if c.get(key, 0) > 0),
                          "serve")
@@ -1561,7 +1974,9 @@ def main() -> int:
         row["launches"] = runs[phase].get(key, 0)
         row["launches_phase"] = phase
         if "variant" in row and not row["launches"]:
-            row["note"] = "no model of the repo has a weight of this width"
+            row["note"] = ("no model of the repo has a weight of this width"
+                           if row["variant"].startswith("n") else
+                           "no phase of this run serves this weight variant")
     log(f"total {time.perf_counter() - T0:.2f}s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
@@ -1572,7 +1987,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        rc = main()
+        rc = main(sys.argv[1:])
     except BaseException:
         traceback.print_exc()
         sys.stderr.flush()

@@ -1,7 +1,7 @@
 // Shared helpers for the hand-written Hopper kernels of deeppowers_tpu_torch.
 //
 // Every kernel is reached through a plain `extern "C"` launcher that returns
-// cudaGetLastError(), so the library builds with one nvcc call and binds with
+// cudaGetLastError(), so the library builds with plain nvcc and binds with
 // ctypes (no PyTorch headers).
 #pragma once
 

@@ -6,10 +6,31 @@ from __future__ import annotations
 
 from .transformer import TransformerConfig
 
-# TinyLlama 1.1B (GQA 32/4, RMSNorm, SiLU-GLU, RoPE): the slice's main path
+# GPT-2 124M (learned positions, LayerNorm, GELU, tied embeddings)
+GPT2_SMALL = TransformerConfig(
+    vocab_size=50257, hidden_size=768, num_layers=12, num_heads=12,
+    max_seq_len=1024, norm="layernorm", activation="gelu", positions="learned",
+    qkv_bias=True, attn_out_bias=True, mlp_bias=True, tie_embeddings=True,
+)
+
+GPT2_MEDIUM = TransformerConfig(
+    vocab_size=50257, hidden_size=1024, num_layers=24, num_heads=16,
+    max_seq_len=1024, norm="layernorm", activation="gelu", positions="learned",
+)
+
+# TinyLlama 1.1B (GQA 32/4, RMSNorm, SiLU-GLU, RoPE): slice 1's main path
 TINYLLAMA_1_1B = TransformerConfig(
     vocab_size=32000, hidden_size=2048, num_layers=22, num_heads=32,
     num_kv_heads=4, intermediate_size=5632, max_seq_len=2048,
+    norm="rmsnorm", activation="silu", glu=True, positions="rope",
+    qkv_bias=False, attn_out_bias=False, mlp_bias=False, tie_embeddings=False,
+)
+
+# Llama-2-7B (MHA 32 heads, RMSNorm, SiLU-GLU, RoPE): BASELINE config 3,
+# served W4A8 g128 with a k8v4 KV cache
+LLAMA2_7B = TransformerConfig(
+    vocab_size=32000, hidden_size=4096, num_layers=32, num_heads=32,
+    intermediate_size=11008, max_seq_len=4096,
     norm="rmsnorm", activation="silu", glu=True, positions="rope",
     qkv_bias=False, attn_out_bias=False, mlp_bias=False, tie_embeddings=False,
 )
@@ -25,7 +46,9 @@ LM124 = TransformerConfig(
     attn_out_bias=False, mlp_bias=False, tie_embeddings=False,
 )
 
-PRESETS = {"tinyllama-1.1b": TINYLLAMA_1_1B, "lm124": LM124}
+PRESETS = {"gpt2": GPT2_SMALL, "gpt2-medium": GPT2_MEDIUM,
+           "tinyllama-1.1b": TINYLLAMA_1_1B, "llama2-7b": LLAMA2_7B,
+           "lm124": LM124}
 
 
 def tiny_test_config(**overrides) -> TransformerConfig:

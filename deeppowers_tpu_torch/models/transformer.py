@@ -148,14 +148,77 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator, *,
     return params
 
 
+def init_quantized_params(cfg: TransformerConfig, qcfg: QuantConfig,
+                          generator: torch.Generator, *,
+                          dtype=torch.bfloat16, device=None) -> Params:
+    """Random-init parameters directly in quantized form (JAX
+    `init_quantized_params`, deeppowers_tpu/models/transformer.py:188-295,
+    dense layers): int data uniform in [-127, 127] (packed bytes for
+    int4), scales 0.02 / qmax with K/g rows (1 per-channel), act_bits from
+    `qcfg`; no float copy of a weight is ever made. Drawn on the
+    generator's device. For models whose float weights would not fit
+    (7B on one card); a matmul's cost does not depend on the values."""
+    _dense_only(cfg)
+    device = device if device is not None else generator.device
+    bits = {QuantMode.INT8: 8, QuantMode.INT4: 4}[qcfg.mode]
+    gs = qcfg.group_size
+    scale = 0.02 / (127 if bits == 8 else 7)
+
+    def qdense(k, n, bias):
+        g = gs if (gs and k % gs == 0) else 0
+        data = torch.randint(-127, 128, (k // 2 if bits == 4 else k, n),
+                             generator=generator, device=device,
+                             dtype=torch.int8)
+        scales = torch.full((k // g if g else 1, n), scale,
+                            dtype=torch.float32, device=device)
+        d = {"w": QuantizedTensor(data, scales, None, bits, g,
+                                  qcfg.act_bits or 0)}
+        if bias:
+            d["b"] = torch.zeros(n, dtype=dtype, device=device)
+        return d
+
+    def norm_p(h):
+        p = {"w": torch.ones(h, dtype=dtype, device=device)}
+        if cfg.norm == "layernorm":
+            p["b"] = torch.zeros(h, dtype=dtype, device=device)
+        return p
+
+    def normal(*shape):
+        return (torch.randn(*shape, generator=generator, device=device,
+                            dtype=torch.float32) * 0.02).to(dtype)
+
+    h = cfg.hidden_size
+    params: Params = {"embedding": normal(cfg.vocab_size, h),
+                      "final_norm": norm_p(h), "layers": []}
+    if cfg.positions == "learned":
+        params["pos_embedding"] = normal(cfg.max_seq_len, h)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = qdense(h, cfg.vocab_size, bias=False)
+    for _ in range(cfg.num_layers):
+        mlp = {"w_in": qdense(h, cfg.ffn_size, cfg.mlp_bias),
+               "w_out": qdense(cfg.ffn_size, h, cfg.mlp_bias)}
+        if cfg.glu:
+            mlp["w_gate"] = qdense(h, cfg.ffn_size, cfg.mlp_bias)
+        params["layers"].append({
+            "ln1": norm_p(h), "ln2": norm_p(h),
+            "attn": {"wq": qdense(h, cfg.q_size, cfg.qkv_bias),
+                     "wk": qdense(h, cfg.kv_size, cfg.qkv_bias),
+                     "wv": qdense(h, cfg.kv_size, cfg.qkv_bias),
+                     "wo": qdense(cfg.q_size, h, cfg.attn_out_bias)},
+            "mlp": mlp})
+    return params
+
+
 _LAYER_KIND_BY_PATH = (("attn", "attention"), ("mlp", "mlp"),
                        ("moe", "mlp"), ("lm_head", "lm_head"))
 
 
 def quantize_params(params: Params, qcfg: QuantConfig) -> Params:
     """Quantize the weight matrices ("w" under attn / mlp / lm_head) per
-    QuantConfig; embeddings, norms and biases stay float. int8 per-channel
-    is the mode this slice serves end to end."""
+    QuantConfig; embeddings, norms and biases stay float. Every mode the
+    JAX package makes (int8 or int4, per-channel or per-group, act_bits 0
+    or 8, MIXED per layer kind) runs end to end; asymmetric weights are
+    made but the matmul raises on them."""
 
     def kind_of(path):
         for fragment, kind in _LAYER_KIND_BY_PATH:

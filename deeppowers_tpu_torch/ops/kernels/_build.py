@@ -1,10 +1,12 @@
-"""Build and bind the CUDA kernels: one nvcc call, one shared library.
+"""Build and bind the CUDA kernels: one shared library.
 
-All `csrc/*.cu` sources compile together with
-  nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-       -Xcompiler -fPIC -o libdpt_kernels.so csrc/*.cu
-into `build/deeppowers_tpu_torch/<hash>/` under the checkout, at first use.
-The hash covers the sources and the flags, so an unchanged tree loads the
+Each `csrc/*.cu` source compiles in an nvcc process of its own, all started
+together,
+  nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
+       -fPIC -Xptxas -v -c -o <source>.o csrc/<source>.cu
+and one more nvcc call links the objects into libdpt_kernels.so, in
+`build/deeppowers_tpu_torch/<hash>/` under the checkout, at first use. The
+hash covers the sources and the flags, so an unchanged tree loads the
 library it built before. Each kernel has a plain `extern "C"` launcher that
 returns cudaGetLastError(); `check` raises when that is not 0. Nothing here
 runs when the module is imported.
@@ -29,14 +31,16 @@ BUILD_ROOT = _PKG.parent / "build" / "deeppowers_tpu_torch"
 SOURCES = ("dequant_matmul.cu", "kv_append.cu", "decode_attention.cu",
            "flash_attention.cu")
 HEADERS = ("common.cuh",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 600
 
 _P, _LL, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 SIGNATURES: Dict[str, list] = {
-    "dpt_dequant_matmul": [_P, _LL, _P, _P, _P, _P, _P, _LL, _P, _I, _P,
-                           _I, _I, _I, _I, _I, _I, _F, _P],
+    "dpt_dequant_matmul": [_P, _LL, _P, _P, _P, _I, _I, _P, _P, _P, _LL, _P,
+                           _I, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    "dpt_quantize_rows": [_P, _LL, _P, _I, _I, _F, _I, _I, _P, _P, _P],
     "dpt_kv_append": [_P, _P, _P, _P, _P, _LL, _P, _LL, _P, _P, _I, _I, _I,
                       _I, _I, _I, _I, _P],
     "dpt_kv_append_pool": [_P, _P, _P, _P, _P, _LL, _P, _LL, _P, _P, _I, _I,
@@ -52,7 +56,8 @@ SIGNATURES: Dict[str, list] = {
 }
 
 _lib: Optional[ctypes.CDLL] = None
-#: what the last build did: {"seconds", "cached", "path", "log"}
+#: what the last build did: {"seconds", "cached", "path", "log",
+#: "compile_s" (each source's nvcc seconds), "link_s"}
 build_info: Dict[str, object] = {}
 
 
@@ -78,9 +83,30 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds, timeout):
+    """Run the commands as processes started together; [(rc, output,
+    seconds)] in order. A process past `timeout` is killed and raises."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    out = []
+    try:
+        for p in procs:
+            left = max(1.0, timeout - (time.perf_counter() - t0))
+            text = p.communicate(timeout=left)[0]
+            out.append((p.returncode, text, time.perf_counter() - t0))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
 def build() -> Path:
-    """Compile every source with one nvcc call unless this tree's library
-    already exists; returns the library path."""
+    """Compile every source (one nvcc process each, in parallel) and link
+    them, unless this tree's library already exists; returns its path."""
     out_dir = BUILD_ROOT / _digest()
     lib = out_dir / "libdpt_kernels.so"
     if lib.is_file():
@@ -88,19 +114,34 @@ def build() -> Path:
         return lib
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libdpt_kernels.{os.getpid()}.so"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *[str(CSRC / s) for s in SOURCES]]
+    tag = os.getpid()
+    objs = [out_dir / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+            for s, o in zip(SOURCES, objs)]
+    tmp = out_dir / f"libdpt_kernels.{tag}.so"
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True,
-                          timeout=NVCC_TIMEOUT_S)
+    compiled = _run(cmds, NVCC_TIMEOUT_S)
+    log = "".join(" ".join(c) + "\n" + text for c, (_, text, _) in
+                  zip(cmds, compiled))
+    failed = [(s, rc) for s, (rc, _, _) in zip(SOURCES, compiled) if rc]
+    linked = None
+    if not failed:
+        linked = _run([link], NVCC_TIMEOUT_S)[0]
+        log += " ".join(link) + "\n" + linked[1]
+        if linked[0]:
+            failed = [("link", linked[0])]
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    (out_dir / "nvcc.log").write_text(" ".join(cmd) + "\n" + log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log[-6000:]}")
+    (out_dir / "nvcc.log").write_text(log)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed {failed}:\n{log[-6000:]}")
     os.replace(tmp, lib)
-    build_info.update(seconds=seconds, cached=False, path=str(lib), log=log)
+    build_info.update(
+        seconds=seconds, cached=False, path=str(lib), log=log,
+        compile_s={s: round(t, 2) for s, (_, _, t) in zip(SOURCES, compiled)},
+        link_s=round(linked[2], 2))
     return lib
 
 

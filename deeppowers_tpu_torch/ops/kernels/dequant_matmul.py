@@ -1,67 +1,139 @@
-"""Fused int8 dequant matmul: wrapper, plain version and launch count.
+"""Fused dequant matmul: wrapper, plain versions and launch counts.
 
 Replaces the Pallas TPU kernel deeppowers_tpu/ops/pallas/dequant_matmul.py
 (`dequant_matmul` :554 and `dequant_matmul_fused` :582, both through
 `_dispatch` :351 to the pallas_call at :528, body `_make_kernel` :152);
 this one wrapper covers both entry points. CUDA source:
-csrc/dequant_matmul.cu.
+csrc/dequant_matmul.cu (one kernel family for every weight variant, the
+group size a runtime value, and the activation quantizer).
 
-Computes y = a @ (W_int8 * s) [* rsqrt(mean(x^2) + eps)] [+ bias]
-[+ residual] with f32 accumulation and one final cast, where a is x, or
-bf16(x * g) with RMSNorm folded in (`rms_weight`), or bf16(act(gate) * up)
-for a GLU input x = gate | up. Symmetric int8 per-channel weights only.
+Takes every symmetric 2-D weight the JAX package makes: int8 or int4
+(half-split nibbles, quant/qtypes.py), per-channel scales (1, N) or
+per-group scales (K/g, N), and act_bits 0 (bf16 activations) or 8
+(dynamic per-row int8 activations, W8A8 / W4A8). Asymmetric weights (zero
+points) raise, as they do in the Pallas kernel.
 
-Any N: the kernel instantiation follows the alignment of W's rows, and
-`dequant_matmul.variant_launches` counts the launches of each: "n8" (N %
-8 == 0, whole vector loads), "n4" (N % 4 == 0 otherwise, 4-byte loads and
-a tail group), "n1" (any other N, byte loads in the tail group).
+Weight-only (act_bits 0) computes y = a @ (q * s) [* rsqrt(mean(x^2) +
+eps)] [+ bias] [+ residual] with f32 accumulation and one final cast,
+where a is x, or bf16(x * g) with RMSNorm folded in (`rms_weight`), or
+bf16(act(gate) * up) for a GLU input x = gate | up; the scale of a
+weight row is that of its group, the group of unpacked row k being k // g
+(a group may straddle int4's two nibble planes).
 
-Bound on an H100: at decode the int8 weight bytes over 3.35 TB/s; at
-prefill the 2*M*K*N operations. The CUDA design (split-K GEMV for M <= 16,
-a tensor-core (WMMA) tiled GEMM above) is described in the source.
+W8A8 / W4A8 (act_bits 8) computes what the JAX package's XLA path
+computes (`_w8a8_matmul`, deeppowers_tpu/ops/matmul.py:44-72, behind
+`rms_matmul` / `glu_matmul` :134-197): the norm or the GLU first, as the
+unfused ops round it to the activation dtype, then per-row int8
+quantization over the whole K (quant/quantize.py `quantize_rows`), exact
+int32 products per group, each group's sum times its scale, the row scale
+last; bias and residual in the f32 epilogue. On the card the quantization
+is a kernel of its own (`quantize_activations`, counted apart): a row
+scale needs the whole row before any product.
+
+Launch counts: `dequant_matmul.launches`, and in
+`dequant_matmul.variant_launches` each launch under its width class ("n8"
+N % 8 == 0, "n4" N % 4 == 0 otherwise, "n1" any other N: the load width
+of the kernel's instantiation) and under its weight variant (`variant`:
+"w8", "w8g", "w8a8", "w8a8g", "w4", "w4g", "w4a8", "w4a8g").
+
+Bound on an H100: at decode the weight bytes (int4: half of int8's) over
+3.35 TB/s; at prefill the 2*M*K*N operations (int8 tensor cores for a8).
+The CUDA design (split-K GEMV for M <= 16, a WMMA tiled GEMM above) is
+described in the sources.
 """
 
 from __future__ import annotations
 
 import collections
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from ...quant.qtypes import QuantizedTensor
+from ...quant.qtypes import INT4_QMAX, QuantizedTensor, unpack_int4
+from ...quant.quantize import quantize_rows
+from ..normalization import rms_norm
 from . import _build
 
 #: rows at or below which the split-K GEMV runs (decode)
 GEMV_MAX_M = 16
-#: most K rows a GEMV block stages in shared memory
-_KCHUNK_MAX = 512
+#: most stored K rows a GEMV block stages (int4 stages two planes' rows)
+_KCHUNK_MAX = {8: 512, 4: 256}
 #: blocks the GEMV grid aims for (two per SM of an H100)
 _TARGET_BLOCKS = 264
+#: the CUDA kernels flush per-group sums at this K granularity
+GROUP_ALIGN = 32
 
 
 def _act(x: torch.Tensor, act: str) -> torch.Tensor:
     return F.silu(x) if act == "silu" else F.gelu(x, approximate="tanh")
 
 
-def dequant_matmul_plain(x, data, scales, *, rms_weight=None, rms_eps=1e-6,
-                         glu=False, act="silu", residual=None, bias=None,
-                         out_dtype=torch.bfloat16) -> torch.Tensor:
-    """The kernel's arithmetic in plain PyTorch. The activation block is
-    rounded to x's dtype before the product, as both kernels round it to
-    bf16; for f32 inputs everything stays f32."""
-    k = data.shape[0]
-    xf = x.float()
+def _groups(scales: torch.Tensor, k: int, n: int):
+    """(scale rows G, group length g) of a (G, N) scale table; G = 1 is
+    per-channel."""
+    rows = scales.numel() // n
+    return rows, k // rows
+
+
+def _unfused_input(x, k, rms_weight, rms_eps, glu, act):
+    """The a8 matmul's input before quantization, as the unfused ops
+    compute it in x's dtype: rms_norm(x), act(gate) * up, or x."""
     if glu:
-        a = _act(xf[..., :k], act) * xf[..., k:]
-    elif rms_weight is not None:
-        a = xf * rms_weight.float()
-    else:
-        a = xf
-    a = a.to(x.dtype).float()
-    y = (a @ data.float()) * scales.float().reshape(-1)
+        return _act(x[..., :k], act) * x[..., k:]
     if rms_weight is not None:
-        y = y * torch.rsqrt((xf * xf).sum(-1, keepdim=True) / k + rms_eps)
+        return rms_norm(x, rms_weight, eps=rms_eps)
+    return x
+
+
+def _int_dot(xq, q, scales, rows, bits):
+    """sum over groups of (xq_g @ q_g) * s_g with exact integer sums (f32
+    holds a group's sum exactly while it stays below 2^24, else f64); the
+    sums then round to f32 as JAX's int32 -> f32 cast rounds them."""
+    m, k = xq.shape
+    n = q.shape[1]
+    g = k // rows
+    wmax = INT4_QMAX + 1 if bits == 4 else 128
+    dt = torch.float32 if g * 127 * wmax <= 2 ** 24 else torch.float64
+    acc = torch.matmul(xq.to(dt).reshape(m, rows, g).transpose(0, 1),
+                       q.to(dt).reshape(rows, g, n)).float()   # (G, M, N)
+    return (acc * scales.reshape(rows, 1, n)).sum(0)
+
+
+def dequant_matmul_plain(x, data, scales, *, bits=8, act_bits=0,
+                         rms_weight=None, rms_eps=1e-6, glu=False, act="silu",
+                         residual=None, bias=None,
+                         out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The kernels' arithmetic in plain PyTorch, for weight data (K, N)
+    int8 or (K/2, N) packed int4 and scales (G, N). Weight-only: the
+    activation block is rounded to x's dtype before the product, as both
+    kernels round it to bf16; for f32 inputs everything stays f32. a8:
+    JAX's `_w8a8_matmul` behind its unfused norm or GLU."""
+    q = unpack_int4(data) if bits == 4 else data
+    k, n = q.shape
+    rows, g = _groups(scales, k, n)
+    s = scales.float().reshape(rows, n)
+    lead = x.shape[:-1]
+    xf = x.float()
+    if act_bits == 8:
+        xq, xs = quantize_rows(_unfused_input(x, k, rms_weight, rms_eps, glu,
+                                              act).reshape(-1, k))
+        y = (_int_dot(xq, q, s, rows, bits) * xs).reshape(*lead, n)
+    else:
+        if glu:
+            a = _act(xf[..., :k], act) * xf[..., k:]
+        elif rms_weight is not None:
+            a = xf * rms_weight.float()
+        else:
+            a = xf
+        a = a.to(x.dtype).float()
+        if rows == 1:
+            y = (a @ q.float()) * s
+        else:
+            y = a @ (q.float().reshape(rows, g, n) * s[:, None]).reshape(k, n)
+        if rms_weight is not None:
+            y = y * torch.rsqrt((xf * xf).sum(-1, keepdim=True) / k + rms_eps)
     if bias is not None:
         y = y + bias.float()
     if residual is not None:
@@ -70,19 +142,91 @@ def dequant_matmul_plain(x, data, scales, *, rms_weight=None, rms_eps=1e-6,
 
 
 def width_variant(n: int) -> str:
-    """The alignment class of an N-column int8 weight, which picks the
-    kernel's load width (csrc/dequant_matmul.cu `row_align`)."""
+    """The alignment class of an N-column weight, which picks the kernel's
+    load width (csrc/dequant_matmul.cu `row_align`)."""
     return "n8" if n % 8 == 0 else "n4" if n % 4 == 0 else "n1"
+
+
+def variant(qw: QuantizedTensor) -> str:
+    """The weight variant a launch is counted under: bits, "a8" for int8
+    activations, "g" for per-group scales."""
+    grouped = qw.scales.numel() > qw.data.shape[-1]
+    return (f"w{qw.bits}" + ("a8" if qw.act_bits == 8 else "")
+            + ("g" if grouped else ""))
 
 
 def _check_weight(qw: QuantizedTensor) -> None:
     if not isinstance(qw, QuantizedTensor):
         raise TypeError("dequant_matmul needs a QuantizedTensor weight")
-    if (qw.bits != 8 or qw.zero_points is not None or qw.group_size
-            or qw.act_bits or qw.data.dim() != 2):
+    if qw.zero_points is not None:
         raise NotImplementedError(
-            f"dequant_matmul takes symmetric per-channel int8 weights only, "
-            f"got {qw!r}")
+            f"dequant_matmul takes symmetric weights only, got {qw!r}")
+    if qw.bits not in (4, 8) or qw.act_bits not in (0, 8) \
+            or qw.data.dim() != 2:
+        raise ValueError(f"not a weight the JAX package makes: {qw!r}")
+
+
+def quantize_activations(x: torch.Tensor, k: int, *,
+                         rms_weight: Optional[torch.Tensor] = None,
+                         rms_eps: float = 1e-6, glu: bool = False,
+                         act: str = "silu"):
+    """(q, xs): the a8 matmul's input (x, rms_norm(x), or act(gate) * up
+    for x = gate | up) quantized per row to int8, x: (M, K or 2K) ->
+    ((M, K) int8, (M, 1) f32). A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel (csrc/dequant_matmul.cu), counted in
+    `quantize_activations.launches`."""
+    if not x.is_cuda:
+        return quantize_rows(_unfused_input(x, k, rms_weight, rms_eps, glu,
+                                            act))
+    if x.dtype != torch.bfloat16 or x.dim() != 2 or x.stride(-1) != 1:
+        raise ValueError("quantize_activations takes (M, K) bf16 rows")
+    m = x.shape[0]
+    g = None
+    if rms_weight is not None:
+        g = rms_weight.to(torch.bfloat16).contiguous()
+    q = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    xs = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+    rc = _build.library().dpt_quantize_rows(
+        x.data_ptr(), x.stride(0), None if g is None else g.data_ptr(),
+        int(glu), int(act == "gelu"), float(rms_eps), m, k, q.data_ptr(),
+        xs.data_ptr(), _build.stream())
+    _build.check(rc, "quantize_activations")
+    quantize_activations.launches += 1
+    return q, xs
+
+
+quantize_activations.launches = 0
+
+
+def _fit_chunk(kchunk: int, seg: int, rows: int, quads: bool) -> int:
+    """A GEMV K chunk (in stored rows) no longer than `kchunk` whose
+    boundaries include every multiple of `seg` (so no chunk crosses a
+    scale group in either nibble plane), a multiple of 4 when the a8 loop
+    takes rows four at a time."""
+    step = 4 if quads else 1
+    if seg >= rows:
+        return -(-kchunk // step) * step
+    return max(d for d in range(step, min(kchunk, seg) + 1, step)
+               if seg % d == 0)
+
+
+def gemv_chunk(m: int, k: int, n: int, bits: int, rows_g: int,
+               a8: bool) -> int:
+    """The split-K GEMV's chunk of stored weight rows for an (M, K) x
+    (K, N) product with `rows_g` scale rows."""
+    rows = k // 2 if bits == 4 else k
+    ct = 4 if (bits == 4 or m > 8) else 8
+    nb = -(-n // (32 * ct))
+    kmax = _KCHUNK_MAX[bits]
+    ksplit = max(-(-rows // kmax),
+                 min(-(-_TARGET_BLOCKS // nb), max(1, rows // 64)))
+    kchunk = -(-rows // ksplit)
+    if rows_g > 1:
+        g = k // rows_g
+        seg = math.gcd(g, rows) if bits == 4 else g
+    else:
+        seg = rows
+    return _fit_chunk(kchunk, seg, rows, a8)
 
 
 def dequant_matmul(x: torch.Tensor, qw: QuantizedTensor, *,
@@ -101,10 +245,10 @@ def dequant_matmul(x: torch.Tensor, qw: QuantizedTensor, *,
     _check_weight(qw)
     if not x.is_cuda:
         return dequant_matmul_plain(
-            x, qw.data, qw.scales, rms_weight=rms_weight, rms_eps=rms_eps,
-            glu=glu, act=act, residual=residual, bias=bias,
-            out_dtype=out_dtype)
-    k, n = qw.data.shape
+            x, qw.data, qw.scales, bits=qw.bits, act_bits=qw.act_bits,
+            rms_weight=rms_weight, rms_eps=rms_eps, glu=glu, act=act,
+            residual=residual, bias=bias, out_dtype=out_dtype)
+    k, n = qw.shape
     kx = 2 * k if glu else k
     if x.shape[-1] != kx:
         raise ValueError(f"x width {x.shape[-1]} != expected {kx}")
@@ -119,8 +263,21 @@ def dequant_matmul(x: torch.Tensor, qw: QuantizedTensor, *,
     if not data.is_contiguous() or data.data_ptr() % 16:
         raise ValueError("weight data must be contiguous and 16-byte aligned")
     scales = qw.scales.reshape(-1)
-    if scales.dtype != torch.float32 or scales.numel() != n:
-        raise ValueError("scales must be (1, N) f32")
+    rows_g, group = _groups(scales, k, n)
+    if scales.dtype != torch.float32 or rows_g * n != scales.numel() \
+            or rows_g * group != k:
+        raise ValueError("scales must be (1, N) or (K/g, N) f32")
+    name = variant(qw)
+    a8 = qw.act_bits == 8
+    rows = k // 2 if qw.bits == 4 else k
+    if rows_g > 1 and group % GROUP_ALIGN:
+        raise NotImplementedError(
+            f"CUDA dequant_matmul takes groups of a multiple of "
+            f"{GROUP_ALIGN} rows, got {group}")
+    if a8 and rows % 4:
+        raise NotImplementedError(
+            f"CUDA a8 dequant_matmul takes a multiple of 4 stored rows, "
+            f"got {rows}")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, kx)
     if x2.stride(-1) != 1:
@@ -139,31 +296,34 @@ def dequant_matmul(x: torch.Tensor, qw: QuantizedTensor, *,
             raise ValueError("residual must be bf16 (..., N) like the output")
         if res2.stride(-1) != 1:
             res2 = res2.contiguous()
+    for t, what in ((data, "weight"), (scales, "scales")):
+        _build.require_cuda(t, what)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     ws, kchunk = None, 0
     if m <= GEMV_MAX_M:
-        bn = 128 if m > 8 else 256
-        nb = -(-n // bn)
-        ksplit = max(-(-k // _KCHUNK_MAX),
-                     min(-(-_TARGET_BLOCKS // nb), max(1, k // 64)))
-        kchunk = -(-k // ksplit)
-        ksplit = -(-k // kchunk)
-        ws = torch.empty((ksplit, m, n), dtype=torch.float32, device=x.device)
-    for t, name in ((data, "weight"), (scales, "scales")):
-        _build.require_cuda(t, name)
+        kchunk = gemv_chunk(m, k, n, qw.bits, rows_g, a8)
+        ws = torch.empty((-(-rows // kchunk), m, n), dtype=torch.float32,
+                         device=x.device)
     lib = _build.library()
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    xs = None
+    if a8:
+        x2, xs = quantize_activations(x2, k, rms_weight=g, rms_eps=rms_eps,
+                                      glu=glu, act=act)
+        g, glu = None, False
     rc = lib.dpt_dequant_matmul(
-        x2.data_ptr(), x2.stride(0), data.data_ptr(), scales.data_ptr(),
-        ptr(g), ptr(bias_f), ptr(res2), 0 if res2 is None else res2.stride(0),
+        x2.data_ptr(), x2.stride(0), ptr(xs), data.data_ptr(),
+        scales.data_ptr(), qw.bits, group if rows_g > 1 else 0, ptr(g),
+        ptr(bias_f), ptr(res2), 0 if res2 is None else res2.stride(0),
         out.data_ptr(), int(out_dtype == torch.float32), ptr(ws), m, k, n,
         kchunk, int(glu), int(act == "gelu"), float(rms_eps), _build.stream())
     _build.check(rc, "dequant_matmul")
     dequant_matmul.launches += 1
     dequant_matmul.variant_launches[width_variant(n)] += 1
+    dequant_matmul.variant_launches[name] += 1
     return out.reshape(*lead, n)
 
 

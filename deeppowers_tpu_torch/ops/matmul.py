@@ -1,11 +1,17 @@
 """Quantized matmul and its decode-loop fusions, ported from
 deeppowers_tpu/ops/matmul.py:75-197.
 
-Quantized (int8 per-channel) weights go through the dequant-matmul kernel
-wrapper (ops/kernels/dequant_matmul.py): the CUDA kernel for CUDA tensors,
-its plain version for CPU tensors. There is no silent fallback: on CUDA a
-weight or shape the kernel does not take raises. Float weights take a
-plain f32-accumulated product.
+Quantized weights (int8 or int4, per-channel or per-group scales, bf16 or
+dynamic int8 activations) go through the dequant-matmul kernel wrapper
+(ops/kernels/dequant_matmul.py): the CUDA kernels for CUDA tensors, their
+plain versions for CPU tensors. There is no silent fallback: on CUDA a
+weight or shape the kernels do not take raises. Float weights take a plain
+f32-accumulated product.
+
+With act_bits = 8 (W8A8 / W4A8) `rms_matmul` and `glu_matmul` compute what
+the JAX package's XLA path computes: the norm or the GLU rounded to the
+activation dtype, then int8 per row over the whole K (ROADMAP.md,
+Decisions); residual and bias are added in f32 before the one cast.
 """
 
 from __future__ import annotations
@@ -43,7 +49,7 @@ def rms_matmul(x: torch.Tensor, rms_weight: torch.Tensor, w: Weight, *,
     kernel for quantized weights."""
     out_dtype = out_dtype or x.dtype
     if isinstance(w, QuantizedTensor):
-            return dequant_matmul(x, w, rms_weight=rms_weight, rms_eps=eps,
+        return dequant_matmul(x, w, rms_weight=rms_weight, rms_eps=eps,
                               bias=bias, out_dtype=out_dtype)
     y = _float_matmul(rms_norm(x, rms_weight, eps=eps), w, out_dtype)
     return y if bias is None else y + bias.to(y.dtype)
@@ -57,7 +63,7 @@ def glu_matmul(gu: torch.Tensor, w: Weight, *, act: str = "silu",
     axis, the GLU elementwise and the adds folded into the kernel."""
     out_dtype = out_dtype or gu.dtype
     if isinstance(w, QuantizedTensor):
-            return dequant_matmul(gu, w, glu=True, act=act, residual=residual,
+        return dequant_matmul(gu, w, glu=True, act=act, residual=residual,
                               bias=bias, out_dtype=out_dtype)
     gate, up = torch.chunk(gu, 2, dim=-1)
     a = F.silu(gate) if act == "silu" else F.gelu(gate, approximate="tanh")
@@ -75,7 +81,7 @@ def matmul_residual(x: torch.Tensor, w: Weight, residual: torch.Tensor, *,
     """x @ w (+ bias) + residual, the adds folded into the kernel."""
     out_dtype = out_dtype or x.dtype
     if isinstance(w, QuantizedTensor):
-            return dequant_matmul(x, w, residual=residual, bias=bias,
+        return dequant_matmul(x, w, residual=residual, bias=bias,
                               out_dtype=out_dtype)
     y = _float_matmul(x, w, out_dtype)
     if bias is not None:

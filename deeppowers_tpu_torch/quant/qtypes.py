@@ -1,8 +1,9 @@
 """Quantized tensor container, ported from deeppowers_tpu/quant/qtypes.py.
 
 A `QuantizedTensor` holds packed integer data with its scales (and optional
-zero points). int8 is the path this slice serves; the int4 half-split
-packing is carried over byte-identical:
+zero points). int8 and int4 weights, per-channel or per-group, with bf16 or
+int8 activations (`act_bits`), all take the dequant-matmul kernels; the
+int4 half-split packing is carried over byte-identical:
   packed[i, n] = (v[i + K/2, n] << 4) | (v[i, n] & 0x0F),  i in [0, K/2)
 """
 

@@ -7,6 +7,9 @@ torch.round, like jnp.round, rounds half to even, and every step runs in
 f32 as XLA runs it (it turns the division by the constant qmax into a
 product with the f32 reciprocal), so the int data and scales equal the JAX
 package's bit for bit.
+
+`quantize_rows` is the dynamic per-row int8 activation quantizer of the
+W8A8 / W4A8 matmuls (JAX `_w8a8_matmul`, deeppowers_tpu/ops/matmul.py:57-59).
 """
 
 from __future__ import annotations
@@ -29,6 +32,19 @@ def _qmin(bits: int) -> int:
 
 def _recip(q: int) -> torch.Tensor:
     return torch.tensor(1.0 / q, dtype=torch.float32)
+
+
+def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 per row of x (..., K): (q int8 (..., K), f32 row
+    scales (..., 1)) with xs = max(absmax, 1e-8) / 127 and q = clip(round(
+    x / xs), -127, 127), round half to even. Inside jit (where the JAX
+    engine runs it) XLA computes xs as a product with the f32 reciprocal
+    of 127 and q by IEEE division by xs; both are done so here, the
+    division by a tensor, which PyTorch divides on every device."""
+    xf = x.float()
+    xs = xf.abs().amax(-1, keepdim=True).clamp_min(1e-8) * _recip(INT8_QMAX)
+    q = torch.round(xf / xs).clamp(-INT8_QMAX, INT8_QMAX).to(torch.int8)
+    return q, xs
 
 
 def _grouped(w: torch.Tensor, group_size: int) -> torch.Tensor:

@@ -44,6 +44,13 @@ Phases, each printing a line with its wall time:
               #1 and the activation quantizer must launch, no other weight
               variant; then a profiled decode step and the TTFT of a
               512-token prompt alone on the warm engine
+ 11. serve[mixtral-8x7b]  Mixtral-8x7B whole (BASELINE config 5: 32
+              layers, 8 experts top-2, W4A8 g128 drawn quantized, int8 KV),
+              serve's traffic once: prefills of 256 tokens and more take
+              the grouped kernels #10 and #9, the rest and every decode
+              step the cat path through #1; only W4A8 g128 variants may
+              launch and every expert must take routed pairs; then a
+              profiled decode step and a 512-token TTFT
 Between 5 and 6, the path phase runs again through each quantized store
 (int8, int4, k8v4) on each layout; the card gates with the least room
 (#3's worst row ratio per store, the teacher-forced rel L2 of int4 and
@@ -53,10 +60,16 @@ of the repo's trained checkpoint lm124_ckpt (path[lm124]: random weights,
 its untied 260-wide lm_head takes #1's instantiation for N % 8 != 0)
 through InferenceEngine.generate and teacher-forced; then path[llama2-7b],
 Llama-2-7B at full width cut to 4 layers, W4A8 g128 + k8v4, teacher-forced
-against the plain path on the CPU. The kernels phase holds the quantized
+against the plain path on the CPU; then path[mixtral-8x7b], Mixtral-8x7B
+at full width cut to 2 layers, W4A8 g128 + int8 KV, a 320-token prompt
+(#10, #9) and three decode steps (#1), teacher-forced against the plain
+path on the CPU with every route recorded on both (at most 1% may flip a
+near-tie). The kernels phase holds the quantized
 variants of #2, #3, #5 and #6, #1 at widths no multiple of 8, and #1's
 int4, grouped and a8 weight variants and the activation quantizer at
-Llama-2-7B's matrices (M = 8 and 512) too. Each serve phase, and each path
+Llama-2-7B's matrices (M = 8 and 512), and the grouped kernels #10 and
+#9 of MoE at Mixtral-8x7B's experts (1024 routed rows) in four weight
+variants too. Each serve phase, and each path
 run on the card that gives a row its launches, sets every launch count
 (per variant too) to 0 just before it and reads the counts just after. Each serve phase also
 prints every request's TTFT, the host split of a profiled decode step
@@ -786,6 +799,121 @@ def check_quantizer(torch, rn):
                      "rms, wo, w_gu rms, w_out glu) + lm_head"}
 
 
+# Mixtral-8x7B's experts (BASELINE config 5): w_gu (hidden 4096 -> 2 x ffn
+# 14336 per expert, cat over 8 experts) through #10 and w_out (14336 ->
+# 4096, stacked) through #9, at a routed 512-token prompt: 1024 (token,
+# expert) pairs, skewed as a router skews them, one expert empty
+MIXTRAL_H, MIXTRAL_FFN, MIXTRAL_E = 4096, 14336, 8
+ROUTED_COUNTS = (300, 220, 160, 130, 100, 70, 44, 0)
+GROUPED_VARIANTS = (("w4a8g", 4, 128, 8), ("w4g", 4, 128, 0),
+                    ("w8g", 8, 128, 0), ("w8a8g", 8, 128, 8))
+
+
+def check_grouped_kernels(torch):
+    """#10 (grouped_dequant_matmul_ncat, w_gu) and #9 (grouped_dequant_matmul,
+    w_out) at Mixtral-8x7B's matrices over ROUTED_COUNTS, laid out in tiles
+    of 64 rows as the MoE layer lays them out (every expert's segment
+    padded to a tile, dead tail tiles), per weight variant (the path's
+    W4A8 g128 first): each against its plain version, every routed row
+    within 2e-2 of its own max|ref| (pad rows are never read), timed
+    beside its bound, the plain version and one torch.bmm of (E, max
+    rows, K) bf16 rows by the dequantized (E, K, N) bf16 weights (timed
+    only, never called by the port). Inputs from a generator of their
+    own."""
+    from deeppowers_tpu_torch.ops.kernels import grouped_matmul as gm
+    from deeppowers_tpu_torch.quant.qtypes import QuantizedTensor, unpack_int4
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    e, h, ffn = MIXTRAL_E, MIXTRAL_H, MIXTRAL_FFN
+    counts = torch.tensor(ROUTED_COUNTS, device=dev)
+    pairs = int(sum(ROUTED_COUNTS))
+    sorted_e = torch.repeat_interleave(torch.arange(e, device=dev), counts)
+    dest, te, m_pad = gm.expert_tiles(sorted_e, counts)
+    live_tiles = int((te >= 0).sum())
+    live_e = sum(1 for c in ROUTED_COUNTS if c)
+    xs = {}
+    for k in (h, ffn):
+        x = torch.zeros(m_pad, k, device=dev, dtype=torch.bfloat16)
+        x[dest] = torch.randn(pairs, k, generator=g, device=dev).to(
+            torch.bfloat16)
+        xs[k] = x
+    rows = []
+    for var, bits, group, a8 in GROUPED_VARIANTS:
+        for kernel, k, n in (("grouped_dequant_matmul_ncat", h, 2 * ffn),
+                             ("grouped_dequant_matmul", ffn, h)):
+            x = xs[k]
+            kst = k // 2 if bits == 4 else k
+            base = 0.02 / (127 if bits == 8 else 7)
+            if kernel == "grouped_dequant_matmul":
+                shape, sshape = (e, kst, n), (e, k // group, n)
+            else:
+                shape, sshape = (kst, e * n), (k // group, e * n)
+            qw = QuantizedTensor(
+                torch.randint(-127, 128, shape, generator=g, device=dev,
+                              dtype=torch.int8),
+                base * (0.5 + torch.rand(sshape, generator=g, device=dev)),
+                None, bits, group, a8)
+            if kernel == "grouped_dequant_matmul":
+                out_dtype = torch.float32
+                run = lambda: gm.grouped_dequant_matmul(x, qw, te)  # noqa
+                plain = lambda: gm.grouped_dequant_matmul_plain(  # noqa
+                    x, qw, te)
+                codes = unpack_int4(qw.data, dim=1) if bits == 4 else qw.data
+                wbf = (codes.to(torch.bfloat16)
+                       * qw.scales.repeat_interleave(group, 1).to(
+                           torch.bfloat16))                   # (E, K, N)
+            else:
+                out_dtype = torch.bfloat16
+                run = lambda: gm.grouped_dequant_matmul_ncat(  # noqa
+                    x, qw, te, n)
+                plain = lambda: gm.grouped_dequant_matmul_ncat_plain(  # noqa
+                    x, qw, te, n)
+                codes = unpack_int4(qw.data) if bits == 4 else qw.data
+                wbf = (codes.to(torch.bfloat16) * qw.scales.repeat_interleave(
+                    group, 0).to(torch.bfloat16)).view(k, e, n).transpose(
+                        0, 1).contiguous()
+            del codes
+            got, ref = run(), plain()
+            torch.cuda.synchronize()
+            err, worst = row_errors(got[dest], ref[dest])
+            if not (torch.isfinite(got[dest]).all() and worst <= 2e-2):
+                fail(f"{kernel}[{var}]: a routed row's error is {worst:.3g} "
+                     f"of its max|ref| (limit 2e-2)")
+            t_k = cuda_ms(torch, [run], 5)
+            t_p = cuda_ms(torch, [plain], 1, graph=False)
+            xb = torch.zeros(e, max(ROUTED_COUNTS), k, device=dev,
+                             dtype=torch.bfloat16)
+            t_l = cuda_ms(torch, [lambda: torch.bmm(xb, wbf)], 5)
+            del wbf, xb
+            w_bytes = qw.data.numel() * live_e // e
+            s_bytes = qw.scales.numel() * 4 * live_e // e
+            # the routed rows only, as the operations count them: the
+            # tiles' pad rows are the design's cost, not the function's
+            nbytes = (w_bytes + s_bytes + pairs * k * 2
+                      + pairs * n * (4 if out_dtype == torch.float32 else 2))
+            bd, by = bound_ms(nbytes, 2 * pairs * k * n, int8=bool(a8))
+            log(f"  {kernel}[{var}] {pairs} routed rows (M_pad={m_pad}, "
+                f"{live_tiles} live tiles) K={k} N={n}: max_abs_err="
+                f"{err:.3e} worst_row_ratio={worst:.3e}, kernel {t_k:.4f} ms,"
+                f" plain {t_p:.4f} ms, torch.bmm bf16 {t_l:.4f} ms, bound "
+                f"{bd:.4f} ms ({by})")
+            rows.append({
+                "name": f"{kernel}[{var}]", "route": "cuda",
+                "source": "deeppowers_tpu_torch/csrc/grouped_matmul.cu",
+                "replaces": ("deeppowers_tpu/ops/pallas/dequant_matmul.py:911"
+                             if kernel.endswith("ncat") else
+                             "deeppowers_tpu/ops/pallas/dequant_matmul.py:755"),
+                "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+                "bound_ms": bd, "bound_by": by, "library_ms": t_l,
+                "variant": var,
+                "shape": (f"Mixtral-8x7B {'w_gu' if n > h else 'w_out'}, "
+                          f"one layer of a 512-token prefill: {pairs} routed "
+                          f"rows over {live_e} of {e} experts")})
+            del qw, got, ref
+            torch.cuda.empty_cache()
+    return rows
+
+
 ATTN_LENS = (48, 96, 132, 232, 332, 482, 632, 932)
 
 
@@ -1054,6 +1182,7 @@ PAGED_TABLE = (9, 4, 0, 0, 0, 0, 0, 0)     # slot 0's pages in a 12-page pool
 def forced_logits(torch, T, kvcache, params, cfg, ids, forced, device,
                   paged=False, kv_cache_dtype="bf16"):
     """Prefill `ids` then decode the forced tokens; every step's logits.
+    The contiguous cache has 128 rows, or as many more as the tokens need.
     With `paged`, the K/V go to pages 9 and 4 of a 12-page pool whose
     other rows hold NaN (a quantized pool: random bytes, and NaN in its
     scale pools), through the paged kernels. `kv_cache_dtype` picks the
@@ -1088,7 +1217,8 @@ def forced_logits(torch, T, kvcache, params, cfg, ids, forced, device,
             for c, (k, v) in zip(caches, kv):
                 kvcache.write_prompt(c, k[0], v[0], 0)
         else:
-            caches = kvcache.init_cache(cfg.num_layers, 1, 128, cfg.kv_heads,
+            rows = max(128, -(-(n + len(forced)) // 128) * 128)
+            caches = kvcache.init_cache(cfg.num_layers, 1, rows, cfg.kv_heads,
                                         cfg.dim_head, device=device,
                                         kv_cache_dtype=kv_cache_dtype)
             for c, (k, v) in zip(caches, kv):
@@ -1249,12 +1379,225 @@ def serve_llama2(torch, T, counters):
         LLAMA2_ON_PATH + ["flash_attention_prefill",
                           f"scatter_rows[{LLAMA2_KV}]",
                           f"decode_attention[{LLAMA2_KV}]"],
-        LLAMA2_OFF_PATH + ["scatter_pool_rows", "decode_attention_paged"]
+        LLAMA2_OFF_PATH + ["scatter_pool_rows", "decode_attention_paged",
+                           "grouped_dequant_matmul",
+                           "grouped_dequant_matmul_ncat"]
         + [f"{k}[{v}]" for k in ("scatter_rows", "decode_attention")
            for v in KV_CACHE_DTYPES if v != LLAMA2_KV])
     out = summary(results, wall, sched, launches)
     out.update(kv_bytes=engine.kv_nbytes, param_bytes=T.param_nbytes(params),
                init_s=init_s)
+    out["profile"] = profile_decode(torch, engine, tok)
+    gen = GenerationConfig(max_tokens=1, temperature=0.0)
+    ttft = []
+    for i in range(TTFT_REPS):
+        ids = [4 + (j * 7 + i) % 250 for j in range(TTFT_PROMPT)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        engine.add_request(ids, gen)
+        torch.cuda.synchronize()
+        ttft.append((time.perf_counter() - t1) * 1e3)
+    engine.pop_finished()
+    out["ttft_512_ms"] = ttft
+    return out
+
+
+# BASELINE config 5 (bench.py:337-359): Mixtral-8x7B, W4A8 g128 weights,
+# int8 KV, 8 slots; the path phase cuts the depth to MIXTRAL_PATH_LAYERS
+MIXTRAL_PATH_LAYERS = 2
+MIXTRAL_KV = "int8"
+MIXTRAL_PROMPT = 320          # b·s >= 256: the prefill takes #10 and #9
+MIXTRAL_ON_PATH = ["grouped_dequant_matmul_ncat[w4a8g]",
+                   "grouped_dequant_matmul[w4a8g]", "dequant_matmul[w4a8g]",
+                   "quantize_activations"]
+MIXTRAL_OFF_PATH = (LLAMA2_OFF_PATH + [
+    f"{k}[{v}]" for k in ("grouped_dequant_matmul",
+                          "grouped_dequant_matmul_ncat")
+    for v in ("w8", "w8g", "w8a8", "w8a8g", "w4", "w4g", "w4a8")])
+FLIPPED_ROUTES_MAX = 1e-2
+
+
+def mixtral_params(torch, T, cfg, gen, device, dtype=None, scales=False):
+    """Random W4A8 g128 weights drawn directly in quantized form
+    (init_quantized_params, as bench.py's direct_quant; the router stays
+    float), with random scales when `scales` (drawn on the stacked
+    experts, so that the cat layout and its stacked w_out scales agree),
+    fused as the engine fuses them: the experts in the cat layout."""
+    from deeppowers_tpu_torch.config import QuantConfig, QuantMode
+    qcfg = QuantConfig(mode=QuantMode.INT4, group_size=128, act_bits=8)
+    tree = T.init_quantized_params(cfg, qcfg, gen,
+                                   dtype=dtype or torch.bfloat16,
+                                   device=device)
+    if scales:
+        tree = random_scales(torch, tree, gen)
+    return T.fuse_params(tree, cfg)
+
+
+class recorded_routes:
+    """Within the context every call of the model's routing (`T.route`)
+    appends its expert ids (T, k) to the list it yields, left on their
+    device (no host sync in the forward); the calls of one forward come
+    in layer order."""
+
+    def __init__(self, T):
+        self.T, self.routes = T, []
+
+    def __enter__(self):
+        route = self.orig = self.T.route
+
+        def recorded(*args):
+            idx, w = route(*args)
+            self.routes.append(idx)
+            return idx, w
+
+        self.T.route = recorded
+        return self.routes
+
+    def __exit__(self, *exc):
+        self.T.route = self.orig
+
+
+def flipped_routes(routes, ref_routes):
+    """(routes whose top-k expert set differs, all routes) between two
+    recordings of the same forwards: a (token, layer) near-tie of the
+    router that rounding tipped the other way."""
+    flipped = total = 0
+    for a, b in zip(routes, ref_routes):
+        a, b = a.cpu().sort(-1).values, b.cpu().sort(-1).values
+        flipped += int((a != b).any(-1).sum())
+        total += a.shape[0]
+    return flipped, total
+
+
+def mixtral_path(torch, T, kvcache, counters):
+    """Mixtral-8x7B at full width (hidden 4096, 32/8 heads, 8 experts of
+    ffn 14336, top-2), MIXTRAL_PATH_LAYERS layers, W4A8 g128 with random
+    scales + int8 KV: a MIXTRAL_PROMPT-token prompt (the prefill takes
+    #10 and #9) and three forced decode steps (the cat path through #1),
+    teacher-forced, launch counts from 0, against the plain path on the
+    CPU. The routes of every token and layer are recorded on both: at most
+    FLIPPED_ROUTES_MAX of them may pick another top-2 set (a near-tie that
+    bf16 rounding tipped), and every logits vector of a token whose own
+    routes agree is within 1e-2 rel L2, as path[llama2-7b]'s W4A8 (the
+    integer sums are exact; sound runs read 4.4e-4 to 1.6e-3, and one
+    wrong scale row of one expert must not pass). Returns (launches,
+    phase info)."""
+    import dataclasses
+    from deeppowers_tpu_torch.models.presets import MIXTRAL_8X7B
+    cfg = dataclasses.replace(MIXTRAL_8X7B, num_layers=MIXTRAL_PATH_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    params = mixtral_params(torch, T, cfg, gen, "cuda", scales=True)
+    rng = torch.Generator().manual_seed(SEED + 15)
+    ids = torch.randint(0, cfg.vocab_size, (MIXTRAL_PROMPT,),
+                        generator=rng).tolist()
+    forced = torch.randint(0, cfg.vocab_size, (3,), generator=rng).tolist()
+    reset_counts(counters)
+    with recorded_routes(T) as routes:
+        got = forced_logits(torch, T, kvcache, params, cfg, ids, forced,
+                            "cuda", kv_cache_dtype=MIXTRAL_KV)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    check_variants("path[mixtral-8x7b]", launches, MIXTRAL_ON_PATH,
+                   MIXTRAL_OFF_PATH)
+    t0 = time.perf_counter()
+    with recorded_routes(T) as ref_routes:
+        ref = forced_logits(torch, T, kvcache, tree_to(params, "cpu"), cfg,
+                            ids, forced, "cpu", kv_cache_dtype=MIXTRAL_KV)
+    cpu_s = time.perf_counter() - t0
+    flips, total = flipped_routes(routes, ref_routes)
+    # the tokens whose logits each vector is: the prompt's last, then each
+    # forced one; a vector is exempt when its own token's route flipped
+    layers = cfg.num_layers
+    own = [[r[-1:] for r in routes[:layers]]] + [
+        routes[layers * (i + 1):layers * (i + 2)] for i in range(len(forced))]
+    own_ref = [[r[-1:] for r in ref_routes[:layers]]] + [
+        ref_routes[layers * (i + 1):layers * (i + 2)]
+        for i in range(len(forced))]
+    rels, exempt = [], []
+    for i, (g, r) in enumerate(zip(got, ref)):
+        rel = ((g - r).norm() / r.norm()).item()
+        rels.append(rel)
+        if flipped_routes(own[i], own_ref[i])[0]:
+            exempt.append(i)
+    if not all(torch.isfinite(g).all() for g in got):
+        fail("path[mixtral-8x7b]: logits not finite")
+    if flips > FLIPPED_ROUTES_MAX * total:
+        fail(f"path[mixtral-8x7b]: {flips} of {total} routes flipped "
+             f"(limit {FLIPPED_ROUTES_MAX:.0%})")
+    bad = [r for i, r in enumerate(rels) if i not in exempt and not r <= 1e-2]
+    if bad:
+        fail(f"path[mixtral-8x7b]: kernel vs plain logits rel L2 {rels} "
+             f"(exempt: {exempt}) > 1e-2")
+    return launches, {
+        "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+        "experts": f"{cfg.num_experts} top-{cfg.num_experts_per_tok}",
+        "weights": "w4a8 g128", "kv": MIXTRAL_KV,
+        "steps": f"prefill({len(ids)})+decode({len(forced)})",
+        "logits_rel_l2": json.dumps([float(f"{r:.3e}") for r in rels]),
+        "flipped_routes": f"{flips}/{total}", "exempt": exempt,
+        "cpu_ref_s": f"{cpu_s:.1f}",
+        "launches_ncat_w4a8g": launches[MIXTRAL_ON_PATH[0]],
+        "launches_grouped_w4a8g": launches[MIXTRAL_ON_PATH[1]],
+        "launches_w4a8g": launches["dequant_matmul[w4a8g]"]}
+
+
+def serve_mixtral(torch, T, counters):
+    """Mixtral-8x7B whole (32 layers, 8 experts), W4A8 g128 + int8
+    contiguous KV (BASELINE config 5, bench.py:342-357): serve's traffic (8
+    requests of 16..900 bytes, 32 tokens each) once through the scheduler
+    and the HTTP server, its routes recorded; the W4A8 g128 variants of
+    #10, #9 and #1 and the quantizer must launch, no other weight variant,
+    and every expert must take routed pairs.
+    Then a profiled decode step of 8 slots and a 512-token prompt alone on
+    the warm engine, TTFT_REPS times."""
+    from deeppowers_tpu_torch.config import GenerationConfig, RuntimeConfig
+    from deeppowers_tpu_torch.models.presets import MIXTRAL_8X7B as cfg
+    from deeppowers_tpu_torch.quant.kvquant import KV_CACHE_DTYPES
+    from deeppowers_tpu_torch.runtime.engine import InferenceEngine
+    from deeppowers_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    t0 = time.perf_counter()
+    params = mixtral_params(torch, T, cfg, torch.Generator(
+        device="cuda").manual_seed(SEED + 16), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tok = ByteTokenizer()
+    engine = InferenceEngine(
+        params, cfg, device="cuda", eos_token_id=tok.eos_token_id,
+        kv_cache_dtype=MIXTRAL_KV,
+        runtime=RuntimeConfig(max_batch_size=8, max_seq_len=1024,
+                              prefill_buckets=(64, 128, 256, 512, 1024)))
+    engine.generate(tok.encode("warm up"), GenerationConfig(
+        max_tokens=2, temperature=0.0))
+    prompts = [prompt_text(n, i) for i, n in enumerate(PROMPT_BYTES)]
+    with recorded_routes(T) as routes:
+        results, launches, wall, sched = run_requests(
+            torch, engine, prompts, MAX_TOKENS, counters, tok)
+    check_variants(
+        "serve[mixtral-8x7b]", launches,
+        MIXTRAL_ON_PATH + ["flash_attention_prefill",
+                           f"scatter_rows[{MIXTRAL_KV}]",
+                           f"decode_attention[{MIXTRAL_KV}]"],
+        MIXTRAL_OFF_PATH + ["scatter_pool_rows", "decode_attention_paged"]
+        + [f"{k}[{v}]" for k in ("scatter_rows", "decode_attention")
+           for v in KV_CACHE_DTYPES if v != MIXTRAL_KV])
+    # random weights make every token's hidden state alike after a few
+    # layers (the JAX package's forward on the same draw does the same),
+    # so past layer 0 the routes crowd onto two or four experts; every
+    # expert must still take pairs over the run
+    pairs = torch.zeros(cfg.num_layers, cfg.num_experts, dtype=torch.long)
+    for i, idx in enumerate(routes):
+        pairs[i % cfg.num_layers] += torch.bincount(
+            idx.flatten().cpu(), minlength=cfg.num_experts)
+    if pairs.sum(0).min() < 1:
+        fail(f"serve[mixtral-8x7b]: an expert took no routed pair: "
+             f"{pairs.tolist()}")
+    out = summary(results, wall, sched, launches)
+    out.update(kv_bytes=engine.kv_nbytes, param_bytes=T.param_nbytes(params),
+               init_s=init_s, pairs_per_expert=pairs.sum(0).tolist(),
+               pairs_layer0=pairs[0].tolist(),
+               idle_layers=int((pairs == 0).any(1).sum()),
+               forwards=len(routes) // cfg.num_layers)
     out["profile"] = profile_decode(torch, engine, tok)
     gen = GenerationConfig(max_tokens=1, temperature=0.0)
     ttft = []
@@ -1786,6 +2129,8 @@ def main(argv) -> int:
     from deeppowers_tpu_torch.ops.kernels.dequant_matmul import (
         dequant_matmul, quantize_activations)
     from deeppowers_tpu_torch.ops.kernels.flash_attention import flash_attention_prefill
+    from deeppowers_tpu_torch.ops.kernels.grouped_matmul import (
+        grouped_dequant_matmul, grouped_dequant_matmul_ncat)
     from deeppowers_tpu_torch.ops.kernels.kv_append import (scatter_pool_rows,
                                                             scatter_rows)
     from deeppowers_tpu_torch.runtime import kvcache
@@ -1796,7 +2141,9 @@ def main(argv) -> int:
                 "decode_attention": decode_attention,
                 "flash_attention_prefill": flash_attention_prefill,
                 "scatter_pool_rows": scatter_pool_rows,
-                "decode_attention_paged": decode_attention_paged}
+                "decode_attention_paged": decode_attention_paged,
+                "grouped_dequant_matmul": grouped_dequant_matmul,
+                "grouped_dequant_matmul_ncat": grouped_dequant_matmul_ncat}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1824,6 +2171,7 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     rows = check_kernels(torch, cfg)
     rows += check_wquant_kernels(torch)
+    rows += check_grouped_kernels(torch)
     phase_line("kernels", t0, checked=len(rows))
 
     # 4. path: full-width TinyLlama, teacher-forced against the plain path
@@ -1911,6 +2259,12 @@ def main(argv) -> int:
     l7_launches, l7 = llama2_path(torch, T, kvcache, counters)
     phase_line("path[llama2-7b]", t0, **l7)
 
+    # 5f. Mixtral-8x7B at full width, W4A8 g128 + int8 KV (BASELINE config
+    # 5), 2 layers: a prefill through #10 and #9, decode through #1
+    t0 = time.perf_counter()
+    mx_launches, mx = mixtral_path(torch, T, kvcache, counters)
+    phase_line("path[mixtral-8x7b]", t0, **mx)
+
     # 6. serve, contiguous KV
     t0 = time.perf_counter()
     srv = serve(torch, params, cfg, counters)
@@ -1935,22 +2289,41 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     lsrv = serve_llama2(torch, T, counters)
     report_serve("serve[llama2-7b]", t0, lsrv, smi_line, len(PROMPT_BYTES))
+    l7_served = {"launches": lsrv["launches"]}
     tt = sorted(lsrv["ttft_512_ms"])
     log(f"serve[llama2-7b] params {lsrv['param_bytes']} bytes (drawn in "
         f"{lsrv['init_s']:.2f} s); TTFT of a {TTFT_PROMPT}-token prompt "
         f"alone on the warm engine: p50 {tt[len(tt) // 2]:.3f} ms, max "
         f"{tt[-1]:.3f} ms, each " + json.dumps(lsrv["ttft_512_ms"]))
+    del lsrv
+    torch.cuda.empty_cache()
+
+    # 11. Mixtral-8x7B whole, W4A8 g128 + int8 KV, serve's traffic once
+    t0 = time.perf_counter()
+    msrv = serve_mixtral(torch, T, counters)
+    report_serve("serve[mixtral-8x7b]", t0, msrv, smi_line, len(PROMPT_BYTES))
+    tt = sorted(msrv["ttft_512_ms"])
+    log(f"serve[mixtral-8x7b] params {msrv['param_bytes']} bytes (drawn and "
+        f"fused in {msrv['init_s']:.2f} s), KV {msrv['kv_bytes']} bytes; "
+        f"routed pairs per expert over {msrv['forwards']} forwards x 32 "
+        f"layers {json.dumps(msrv['pairs_per_expert'])} (layer 0: "
+        f"{json.dumps(msrv['pairs_layer0'])}; layers with an idle expert: "
+        f"{msrv['idle_layers']}); TTFT of a {TTFT_PROMPT}-token prompt "
+        f"alone on the warm engine: p50 {tt[len(tt) // 2]:.3f} ms, max "
+        f"{tt[-1]:.3f} ms, each " + json.dumps(msrv["ttft_512_ms"]))
 
     # each row's launches: from the serve phase whose path runs it, else
     # from the teacher-forced path run of its store and layout; #1 at an odd
     # N from its width variant's count in the first run that launched it
     # (the main path's serve phase when none did)
     serves = {"serve": srv, "paged_serve": psrv, "serve[int8]": qsrv,
-              "paged_serve[k8v4]": qpsrv, "serve[llama2-7b]": lsrv}
+              "paged_serve[k8v4]": qpsrv, "serve[llama2-7b]": l7_served,
+              "serve[mixtral-8x7b]": msrv}
     runs = {name: out["launches"] for name, out in serves.items()}
     runs.update({f"path[{v},{lay}]": c for (v, lay), c in path_launches.items()})
     runs["path[lm124]"] = lm_launches
     runs["path[llama2-7b]"] = l7_launches
+    runs["path[mixtral-8x7b]"] = mx_launches
     paged_kernels = ("scatter_pool_rows", "decode_attention_paged")
     for row in rows:
         name = row["name"]

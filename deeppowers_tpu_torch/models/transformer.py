@@ -7,8 +7,13 @@ w_out}}, lm_head), so a JAX tree converts leaf by leaf
 (models/convert.py). Any weight matrix may be a QuantizedTensor; the
 decode step folds RMSNorm, GLU and the residual adds into the
 dequant-matmul kernel exactly where the JAX package folds them into its
-Pallas kernel (`_qkv_norm` :1435, `_attn_tail` :1453). Dense (non-MoE)
-layers only in this slice.
+Pallas kernel (`_qkv_norm` :1435, `_attn_tail` :1453). MoE layers
+(Mixtral: top-k routing over stacked experts, JAX :404-799) take the JAX
+package's branches at the same token counts: the cat-fused experts
+(`fuse_params`) through two wide matmuls of kernel #1 below
+256 tokens and through the grouped kernels #9 and #10 from 256 on; stacked
+experts through #1 per expert or plain PyTorch. Expert parallelism is not
+ported (ROADMAP.md).
 
 The KV cache is the unrolled per-layer layout, contiguous or paged, bf16
 or quantized (int8, int4, k8v4): the JAX package's stacked
@@ -34,11 +39,14 @@ from ..config import QuantConfig, QuantMode
 from ..ops.attention import (attention_chunk, attention_decode_auto,
                              attention_prefill)
 from ..ops.kernels.decode_attention import decode_attention_paged
+from ..ops.kernels.grouped_matmul import (expert_tiles,
+                                         grouped_dequant_matmul,
+                                         grouped_dequant_matmul_ncat)
 from ..ops.matmul import glu_matmul, matmul_residual, quantized_matmul, rms_matmul
 from ..ops.normalization import layer_norm, rms_norm
 from ..ops.rotary import apply_rope_tables, rope_tables
-from ..quant.qtypes import QuantizedTensor
-from ..quant.quantize import quantize
+from ..quant.qtypes import QuantizedTensor, pack_int4, unpack_int4
+from ..quant.quantize import dequantize_stacked, quantize, quantize_stacked
 from ..runtime import kvcache
 
 Params = Dict[str, Any]
@@ -92,11 +100,6 @@ class TransformerConfig:
         return self.kv_heads * self.dim_head
 
 
-def _dense_only(cfg: TransformerConfig) -> None:
-    if cfg.num_experts > 0:
-        raise NotImplementedError("MoE layers are not ported yet (ROADMAP.md)")
-
-
 # ---------------------------------------------------------------------------
 # Initialization and quantization
 # ---------------------------------------------------------------------------
@@ -106,7 +109,6 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator, *,
     """Random-init parameters (normal * 0.02, norms at 1), drawn on the
     generator's device. The numbers differ from JAX's threefry streams;
     parity tests convert the JAX tree instead (models/convert.py)."""
-    _dense_only(cfg)
     device = device if device is not None else generator.device
 
     def normal(*shape):
@@ -134,17 +136,26 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator, *,
     if not cfg.tie_embeddings:
         params["lm_head"] = dense(h, cfg.vocab_size, bias=False)
     for _ in range(cfg.num_layers):
-        mlp = {"w_in": dense(h, cfg.ffn_size, cfg.mlp_bias),
-               "w_out": dense(cfg.ffn_size, h, cfg.mlp_bias)}
-        if cfg.glu:
-            mlp["w_gate"] = dense(h, cfg.ffn_size, cfg.mlp_bias)
-        params["layers"].append({
-            "ln1": norm_p(h), "ln2": norm_p(h),
-            "attn": {"wq": dense(h, cfg.q_size, cfg.qkv_bias),
-                     "wk": dense(h, cfg.kv_size, cfg.qkv_bias),
-                     "wv": dense(h, cfg.kv_size, cfg.qkv_bias),
-                     "wo": dense(cfg.q_size, h, cfg.attn_out_bias)},
-            "mlp": mlp})
+        layer = {"ln1": norm_p(h), "ln2": norm_p(h),
+                 "attn": {"wq": dense(h, cfg.q_size, cfg.qkv_bias),
+                          "wk": dense(h, cfg.kv_size, cfg.qkv_bias),
+                          "wv": dense(h, cfg.kv_size, cfg.qkv_bias),
+                          "wo": dense(cfg.q_size, h, cfg.attn_out_bias)}}
+        if cfg.num_experts > 0:
+            # experts stacked (E, K, N), as the JAX package keeps them
+            e = cfg.num_experts
+            layer["moe"] = {
+                "router": dense(h, e, bias=False),
+                "experts": {"w_in": {"w": normal(e, h, cfg.ffn_size)},
+                            "w_gate": {"w": normal(e, h, cfg.ffn_size)},
+                            "w_out": {"w": normal(e, cfg.ffn_size, h)}}}
+        else:
+            mlp = {"w_in": dense(h, cfg.ffn_size, cfg.mlp_bias),
+                   "w_out": dense(cfg.ffn_size, h, cfg.mlp_bias)}
+            if cfg.glu:
+                mlp["w_gate"] = dense(h, cfg.ffn_size, cfg.mlp_bias)
+            layer["mlp"] = mlp
+        params["layers"].append(layer)
     return params
 
 
@@ -152,24 +163,25 @@ def init_quantized_params(cfg: TransformerConfig, qcfg: QuantConfig,
                           generator: torch.Generator, *,
                           dtype=torch.bfloat16, device=None) -> Params:
     """Random-init parameters directly in quantized form (JAX
-    `init_quantized_params`, deeppowers_tpu/models/transformer.py:188-295,
-    dense layers): int data uniform in [-127, 127] (packed bytes for
-    int4), scales 0.02 / qmax with K/g rows (1 per-channel), act_bits from
-    `qcfg`; no float copy of a weight is ever made. Drawn on the
-    generator's device. For models whose float weights would not fit
-    (7B on one card); a matmul's cost does not depend on the values."""
-    _dense_only(cfg)
+    `init_quantized_params`, deeppowers_tpu/models/transformer.py:188-295):
+    int data uniform in [-127, 127] (packed bytes for int4), scales 0.02 /
+    qmax with K/g rows (1 per-channel), act_bits from `qcfg`; MoE experts
+    stacked (E, K[/2], N) with (E, G, N) scales and a float router; no
+    float copy of a weight is ever made. Drawn on the generator's device.
+    For models whose float weights would not fit (7B, Mixtral-8x7B on one
+    card); a matmul's cost does not depend on the values."""
     device = device if device is not None else generator.device
     bits = {QuantMode.INT8: 8, QuantMode.INT4: 4}[qcfg.mode]
     gs = qcfg.group_size
     scale = 0.02 / (127 if bits == 8 else 7)
 
-    def qdense(k, n, bias):
+    def qdense(k, n, bias, lead=()):
         g = gs if (gs and k % gs == 0) else 0
-        data = torch.randint(-127, 128, (k // 2 if bits == 4 else k, n),
+        data = torch.randint(-127, 128,
+                             (*lead, k // 2 if bits == 4 else k, n),
                              generator=generator, device=device,
                              dtype=torch.int8)
-        scales = torch.full((k // g if g else 1, n), scale,
+        scales = torch.full((*lead, k // g if g else 1, n), scale,
                             dtype=torch.float32, device=device)
         d = {"w": QuantizedTensor(data, scales, None, bits, g,
                                   qcfg.act_bits or 0)}
@@ -195,17 +207,25 @@ def init_quantized_params(cfg: TransformerConfig, qcfg: QuantConfig,
     if not cfg.tie_embeddings:
         params["lm_head"] = qdense(h, cfg.vocab_size, bias=False)
     for _ in range(cfg.num_layers):
-        mlp = {"w_in": qdense(h, cfg.ffn_size, cfg.mlp_bias),
-               "w_out": qdense(cfg.ffn_size, h, cfg.mlp_bias)}
-        if cfg.glu:
-            mlp["w_gate"] = qdense(h, cfg.ffn_size, cfg.mlp_bias)
-        params["layers"].append({
-            "ln1": norm_p(h), "ln2": norm_p(h),
-            "attn": {"wq": qdense(h, cfg.q_size, cfg.qkv_bias),
-                     "wk": qdense(h, cfg.kv_size, cfg.qkv_bias),
-                     "wv": qdense(h, cfg.kv_size, cfg.qkv_bias),
-                     "wo": qdense(cfg.q_size, h, cfg.attn_out_bias)},
-            "mlp": mlp})
+        layer = {"ln1": norm_p(h), "ln2": norm_p(h),
+                 "attn": {"wq": qdense(h, cfg.q_size, cfg.qkv_bias),
+                          "wk": qdense(h, cfg.kv_size, cfg.qkv_bias),
+                          "wv": qdense(h, cfg.kv_size, cfg.qkv_bias),
+                          "wo": qdense(cfg.q_size, h, cfg.attn_out_bias)}}
+        if cfg.num_experts > 0:
+            e = (cfg.num_experts,)
+            layer["moe"] = {
+                "router": {"w": normal(h, cfg.num_experts)},
+                "experts": {"w_in": qdense(h, cfg.ffn_size, False, e),
+                            "w_gate": qdense(h, cfg.ffn_size, False, e),
+                            "w_out": qdense(cfg.ffn_size, h, False, e)}}
+        else:
+            mlp = {"w_in": qdense(h, cfg.ffn_size, cfg.mlp_bias),
+                   "w_out": qdense(cfg.ffn_size, h, cfg.mlp_bias)}
+            if cfg.glu:
+                mlp["w_gate"] = qdense(h, cfg.ffn_size, cfg.mlp_bias)
+            layer["mlp"] = mlp
+        params["layers"].append(layer)
     return params
 
 
@@ -214,11 +234,13 @@ _LAYER_KIND_BY_PATH = (("attn", "attention"), ("mlp", "mlp"),
 
 
 def quantize_params(params: Params, qcfg: QuantConfig) -> Params:
-    """Quantize the weight matrices ("w" under attn / mlp / lm_head) per
-    QuantConfig; embeddings, norms and biases stay float. Every mode the
-    JAX package makes (int8 or int4, per-channel or per-group, act_bits 0
-    or 8, MIXED per layer kind) runs end to end; asymmetric weights are
-    made but the matmul raises on them."""
+    """Quantize the weight matrices ("w" under attn / mlp / moe / lm_head)
+    per QuantConfig; embeddings, norms and biases stay float. Every mode
+    the JAX package makes (int8 or int4, per-channel or per-group, act_bits
+    0 or 8, MIXED per layer kind) runs end to end; asymmetric weights are
+    made but the matmul raises on them. Stacked experts (E, K, N) quantize
+    per expert, always symmetric, and the router as an "mlp" matrix, as
+    JAX `quantize_params` (:297-343) does."""
 
     def kind_of(path):
         for fragment, kind in _LAYER_KIND_BY_PATH:
@@ -228,7 +250,7 @@ def quantize_params(params: Params, qcfg: QuantConfig) -> Params:
 
     def maybe_quantize(w, path):
         kind = kind_of(path)
-        if kind is None or w.dim() != 2:
+        if kind is None or w.dim() not in (2, 3):
             return w
         if any(s in "/".join(path) for s in qcfg.skip_layers):
             return w
@@ -236,11 +258,16 @@ def quantize_params(params: Params, qcfg: QuantConfig) -> Params:
         if mode in (QuantMode.NONE, QuantMode.FP16):
             return w
         bits = {QuantMode.INT8: 8, QuantMode.INT4: 4}[mode]
+        kdim = w.shape[-2]
         gs = qcfg.group_size if (qcfg.group_size
-                                 and w.shape[0] % qcfg.group_size == 0) else 0
-        if bits == 4 and w.shape[0] % 2:
+                                 and kdim % qcfg.group_size == 0) else 0
+        if bits == 4 and kdim % 2:
             return w
-        qt = quantize(w, bits=bits, group_size=gs, symmetric=qcfg.symmetric)
+        if w.dim() == 3:
+            qt = quantize_stacked(w, bits=bits, group_size=gs)
+        else:
+            qt = quantize(w, bits=bits, group_size=gs,
+                          symmetric=qcfg.symmetric)
         if qcfg.act_bits == 8 and qt.zero_points is None:
             qt.act_bits = 8
         return qt
@@ -282,7 +309,10 @@ def _concat_dense(nodes):
 
 def fuse_params(params: Params, cfg: TransformerConfig) -> Params:
     """Fuse q|k|v into wqkv and gate|up into w_gu: 4 matmul launches per
-    decode layer instead of 7."""
+    decode layer instead of 7; and lay quantized stacked experts out again
+    as the two wide matrices of `_cat_experts`, as JAX's
+    `fuse_params(fuse_moe=True)` (:872-910) does on one device (the JAX
+    engine without a mesh, engine.py:600-614; ep = 1)."""
     out = dict(params)
     out["layers"] = []
     for layer in params["layers"]:
@@ -299,7 +329,64 @@ def fuse_params(params: Params, cfg: TransformerConfig) -> Params:
             if fused is not None:
                 mlp = {"w_gu": fused, "w_out": mlp["w_out"]}
             layer["mlp"] = mlp
+        if ("moe" in layer and cfg.glu and cfg.moe_impl != "grouped"
+                and "experts_cat" not in layer["moe"]):
+            cat = _cat_experts(layer["moe"]["experts"])
+            if cat is not None:
+                layer["moe"] = {"router": layer["moe"]["router"],
+                                "experts_cat": cat}
         out["layers"].append(layer)
+    return out
+
+
+def _cat_experts(experts) -> Optional[Params]:
+    """Lay stacked symmetric per-group experts out again (JAX
+    `_cat_experts` :912-991, ep = 1), the same codes and scales:
+    - w_gu (K[/2], E·2I): expert-major columns [gate_e | up_e], int4
+      packed half-split over K as any 2-D weight;
+    - w_out (E·I[/2], H): int8 rows expert by expert; int4 packs each
+      expert apart (its I rows half-split), so the same bytes are the
+      stacked (E, I/2, H) planes of the grouped kernel, and its scales are
+      plane-major ([every expert's low-plane groups | high-plane groups]),
+      which the 2-D matmul reads as [all lo halves | all hi halves];
+    - w_out_scales_stacked: the original (E, I/g, H) scales, for #9.
+    None for float, asymmetric or per-channel experts (and int4 whose
+    group does not divide I/2): they keep the stacked layout."""
+    qts = [experts[k]["w"] for k in ("w_gate", "w_in", "w_out")]
+    if not all(isinstance(q, QuantizedTensor) and q.zero_points is None
+               and q.group_size > 0 for q in qts):
+        return None
+    qg, qi, qo = qts
+    if qo.bits == 4 and (qo.shape[1] // 2) % qo.group_size:
+        return None
+
+    def codes(qt):                       # (E, K, N) int8 codes
+        return unpack_int4(qt.data, dim=1) if qt.bits == 4 else qt.data
+
+    def replace(ref, data, scales):
+        return {"w": QuantizedTensor(data.contiguous(), scales.contiguous(),
+                                     None, ref.bits, ref.group_size,
+                                     ref.act_bits)}
+
+    cg, ci = codes(qg), codes(qi)
+    e, k_dim, i_dim = cg.shape
+    gu = torch.cat([cg, ci], dim=2).transpose(0, 1).reshape(k_dim,
+                                                             e * 2 * i_dim)
+    sgu = torch.cat([qg.scales, qi.scales], dim=2).transpose(0, 1).reshape(
+        qg.scales.shape[1], e * 2 * i_dim)
+    out = {"w_gu": replace(qg, pack_int4(gu) if qg.bits == 4 else gu, sgu)}
+    co = codes(qo)                       # (E, I, H)
+    h_dim = co.shape[2]
+    if qo.bits == 4:
+        half_g = i_dim // 2 // qo.group_size     # scale rows per half
+        data = pack_int4(co, dim=1).reshape(e * i_dim // 2, h_dim)
+        scales = torch.cat([qo.scales[:, :half_g].reshape(-1, h_dim),
+                            qo.scales[:, half_g:].reshape(-1, h_dim)])
+    else:
+        data = co.reshape(e * i_dim, h_dim)
+        scales = qo.scales.reshape(-1, h_dim)
+    out["w_out"] = replace(qo, data, scales)
+    out["w_out_scales_stacked"] = qo.scales
     return out
 
 
@@ -390,10 +477,205 @@ def _qkv_norm(x, layer, cfg: TransformerConfig):
     return _qkv(_norm(x, layer["ln1"], cfg), ap, cfg)
 
 
+# ---------------------------------------------------------------------------
+# Mixture of experts (JAX :404-799, ep_axis None)
+# ---------------------------------------------------------------------------
+
+#: tokens per forward (b·s) from which MoE takes the grouped branches
+#: (JAX `_MOE_GROUPED_MIN_TOKENS` :651)
+MOE_GROUPED_MIN_TOKENS = 256
+
+
+def route(x, router, cfg: TransformerConfig):
+    """Top-k routing of x (T, H): (expert ids (T, k) int64, weights (T, k)
+    f32). Router logits in f32 through `_dense`; the k largest with ties
+    to the lower expert index, as `lax.top_k` breaks them (a stable sort:
+    torch.topk promises no order among ties); a softmax over the k values
+    in f32."""
+    logits = _dense(x, router, out_dtype=torch.float32)
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    k = cfg.num_experts_per_tok
+    top = vals[:, :k]
+    ex = torch.exp(top - top.amax(-1, keepdim=True))
+    return idx[:, :k], ex / ex.sum(-1, keepdim=True)
+
+
+def _sort_pairs(idx):
+    """The T·k routed (token, expert) pairs sorted by expert, stably (token
+    order within an expert, as `jnp.argsort`): (order, token, expert)."""
+    flat_e = idx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    return order, order // idx.shape[1], flat_e[order]
+
+
+def _combine(contrib, order, t, k):
+    """out[t] = sum of its k contributions (P, H) f32, given in sorted
+    order, added from 0 in expert order as JAX's scatter-add adds them
+    (`.at[sort_t].add`): exact and the same on every run, with no atomics.
+    Returns (T, H) f32."""
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(order.numel(), device=order.device)
+    sel = torch.sort(pos.reshape(t, k), dim=1).values   # expert order
+    out = torch.zeros((t, contrib.shape[1]), dtype=torch.float32,
+                      device=contrib.device)
+    for j in range(k):
+        out = out + contrib[sel[:, j]]
+    return out
+
+
+def _expert(qt: QuantizedTensor, e: int) -> QuantizedTensor:
+    return QuantizedTensor(
+        qt.data[e], qt.scales[e],
+        None if qt.zero_points is None else qt.zero_points[e], qt.bits,
+        qt.group_size, qt.act_bits)
+
+
+def _stacked_w(node, dtype):
+    """Stacked expert weights (E, K, N) in the compute dtype."""
+    w = node["w"]
+    if isinstance(w, QuantizedTensor):
+        return dequantize_stacked(w, dtype)
+    return w.to(dtype)
+
+
+def _moe_quantized_dense(x, experts, cfg: TransformerConfig, weights):
+    """Quantized stacked experts, every expert on every token: #1 per
+    expert and projection, weighted and summed in expert order (JAX
+    `_moe_quantized_dense` :420-449)."""
+    acc = None
+    for e in range(weights.shape[1]):
+        up = quantized_matmul(x, _expert(experts["w_in"]["w"], e),
+                              out_dtype=torch.float32)
+        gate = _act(quantized_matmul(x, _expert(experts["w_gate"]["w"], e),
+                                     out_dtype=torch.float32), cfg)
+        y = quantized_matmul((gate * up).to(x.dtype),
+                             _expert(experts["w_out"]["w"], e),
+                             out_dtype=torch.float32)
+        contrib = y * weights[:, e:e + 1]
+        acc = contrib if acc is None else acc + contrib
+    return acc
+
+
+def _moe(x, p, cfg: TransformerConfig):
+    """Top-k MoE with every expert on every token, combined by the routing
+    weights (JAX `_moe` :457-545): the cat-fused experts as two wide
+    matmuls through #1, quantized stacked GLU experts through #1 per
+    expert, else a float einsum over the stacked weights."""
+    t = x.shape[0]
+    idx, top_w = route(x, p["router"], cfg)
+    weights = torch.zeros((t, cfg.num_experts), dtype=torch.float32,
+                          device=x.device).scatter_add_(1, idx, top_w)
+    if "experts_cat" in p:
+        cat, i_dim = p["experts_cat"], cfg.ffn_size
+        gu = quantized_matmul(x, cat["w_gu"]["w"], out_dtype=torch.float32)
+        gu = gu.reshape(t, -1, 2 * i_dim)
+        inter = _act(gu[..., :i_dim], cfg) * gu[..., i_dim:] \
+            * weights[:, :, None]                       # (T, E, I)
+        qo = cat["w_out"]["w"]
+        if qo.bits == 4:     # the per-expert packing's plane order
+            half = i_dim // 2
+            xo = torch.cat([inter[..., :half].reshape(t, -1),
+                            inter[..., half:].reshape(t, -1)], dim=1)
+        else:
+            xo = inter.reshape(t, -1)
+        y = quantized_matmul(xo.to(x.dtype), qo, out_dtype=torch.float32)
+        return y.to(x.dtype)
+    ex = p["experts"]
+    if cfg.glu and all(isinstance(ex[k]["w"], QuantizedTensor)
+                       for k in ("w_in", "w_gate", "w_out")):
+        return _moe_quantized_dense(x, ex, cfg, weights).to(x.dtype)
+    w_in = _stacked_w(ex["w_in"], x.dtype)               # (E, H, I)
+    w_gate = _stacked_w(ex["w_gate"], x.dtype)
+    w_out = _stacked_w(ex["w_out"], x.dtype)             # (E, I, H)
+    up = torch.einsum("th,ehi->tei", x, w_in)
+    gate = _act(torch.einsum("th,ehi->tei", x, w_gate), cfg)
+    y = torch.einsum("tei,eih->teh", gate * up, w_out)
+    return torch.einsum("teh,te->th", y.float(), weights).to(x.dtype)
+
+
+def _moe_grouped(x, p, cfg: TransformerConfig):
+    """Routed pairs only, over stacked float or dequantized experts (JAX
+    `_moe_grouped` :548-595, ep_axis None). The pairs sorted by expert go
+    through each expert's matmul in turn, a row keeping its own expert's
+    result (for `lax.ragged_dot`, which no Pallas kernel computes): the
+    sizes stay static and nothing is read back to the host, at E times
+    the routed rows' compute."""
+    t, k = x.shape[0], cfg.num_experts_per_tok
+    idx, top_w = route(x, p["router"], cfg)
+    order, sort_t, sort_e = _sort_pairs(idx)
+    ex = p["experts"]
+
+    def ragged(a, node):
+        w = _stacked_w(node, x.dtype)
+        out = None
+        for e in range(w.shape[0]):
+            y = torch.matmul(a, w[e])
+            out = y if out is None else torch.where(
+                (sort_e == e)[:, None], y, out)
+        return out
+
+    xs = x[sort_t]
+    up = ragged(xs, ex["w_in"])
+    gate = _act(ragged(xs, ex["w_gate"]), cfg)
+    y = ragged((gate * up).to(x.dtype), ex["w_out"])
+    contrib = y.float() * top_w.reshape(-1)[order][:, None]
+    return _combine(contrib, order, t, k).to(x.dtype)
+
+
+def _moe_grouped_cat(x, p, cfg: TransformerConfig):
+    """Routed pairs only, over the cat-fused experts: the prefill branch
+    (JAX `_moe_grouped_cat` :654-762, ep_axis None). The pairs sorted by
+    expert are scattered into a buffer whose every expert segment starts
+    on a tile of BLOCK_M rows (`expert_tiles`: static sizes, built on the
+    device), then #10 over w_gu's column blocks into bf16, act(gate) * up,
+    #9 over w_out viewed as stacked (E, I[/2], H) planes (a reshape, no
+    copy) into f32, and the weighted combine."""
+    t, k = x.shape[0], cfg.num_experts_per_tok
+    cat, i_dim = p["experts_cat"], cfg.ffn_size
+    qgu, qo = cat["w_gu"]["w"], cat["w_out"]["w"]
+    e = qgu.shape[1] // (2 * i_dim)
+    idx, top_w = route(x, p["router"], cfg)
+    order, sort_t, sort_e = _sort_pairs(idx)
+    flat_e = idx.reshape(-1)         # bincount would read its max back
+    counts = torch.zeros(e, dtype=torch.int64, device=x.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    dest, te, m_pad = expert_tiles(sort_e, counts)
+    xs = torch.zeros((m_pad, x.shape[1]), dtype=x.dtype, device=x.device)
+    xs[dest] = x[sort_t]
+    gu = grouped_dequant_matmul_ncat(xs, qgu, te, 2 * i_dim,
+                                     out_dtype=torch.bfloat16)
+    inter = (_act(gu[:, :i_dim].float(), cfg)
+             * gu[:, i_dim:].float()).to(x.dtype)
+    stacked = QuantizedTensor(qo.data.reshape(e, -1, qo.data.shape[1]),
+                              cat["w_out_scales_stacked"], None, qo.bits,
+                              qo.group_size, qo.act_bits)
+    y = grouped_dequant_matmul(inter, stacked, te, out_dtype=torch.float32)
+    contrib = y[dest] * top_w.reshape(-1)[order][:, None]
+    return _combine(contrib, order, t, k).to(x.dtype)
+
+
 def _ffn(x, layer, cfg: TransformerConfig):
-    if "moe" in layer:
-        raise NotImplementedError("MoE layers are not ported yet (ROADMAP.md)")
-    return _mlp(x, layer["mlp"], cfg)
+    """The layer's FFN. MoE takes the JAX package's branch for the
+    forward's flattened token count T = b·s (JAX `_ffn` :769-799): the
+    cat-fused experts go grouped from MOE_GROUPED_MIN_TOKENS on, else
+    dense-combine; stacked experts follow `cfg.moe_impl`. Under int8
+    activations the cat branches compute different functions (row-wide
+    against per-group quantization), so the branch is part of the
+    result."""
+    if "moe" not in layer:
+        return _mlp(x, layer["mlp"], cfg)
+    b, s, h = x.shape
+    moe = layer["moe"]
+    if "experts_cat" in moe:
+        grouped = (b * s >= MOE_GROUPED_MIN_TOKENS
+                   and "w_out_scales_stacked" in moe["experts_cat"])
+        fn = _moe_grouped_cat if grouped else _moe
+    else:
+        impl = cfg.moe_impl
+        if impl == "auto":
+            impl = "grouped" if b * s >= MOE_GROUPED_MIN_TOKENS else "dense"
+        fn = _moe_grouped if impl == "grouped" else _moe
+    return fn(x.reshape(b * s, h), moe, cfg).reshape(b, s, h)
 
 
 def _attn_tail(x, attn, ap, layer, cfg: TransformerConfig):
@@ -436,7 +718,6 @@ def forward_prefill(params: Params, cfg: TransformerConfig,
     (B,). Returns (logits, per-layer [(k, v)] each (B, S, Kh, D)); logits
     are (B, S, V) f32, or (B, V) at positions `logits_at` (B,) when given
     (the engine needs only each prompt's last position)."""
-    _dense_only(cfg)
     b, s = input_ids.shape
     positions = torch.arange(s, device=input_ids.device).expand(b, s)
     x = _embed(params, cfg, input_ids, positions, dtype)
@@ -467,7 +748,6 @@ def forward_prefill_chunk(params: Params, cfg: TransformerConfig,
     Returns (logits, caches): (C, V) f32, or (V,) at chunk index
     `logits_at` when given. Positions past the prompt's length produce K/V
     that decode never reads (it masks by length)."""
-    _dense_only(cfg)
     c = input_ids.shape[0]
     positions = start + torch.arange(c, device=input_ids.device)
     x = _embed(params, cfg, input_ids[None], positions[None], dtype)
@@ -509,7 +789,6 @@ def forward_decode(params: Params, cfg: TransformerConfig,
     cache: its rows may belong to a prompt in chunked prefill or to a
     retired prompt kept for prefix reuse (the JAX engine writes them at
     row lengths[b] = 0). Returns (logits (B, V) f32, caches)."""
-    _dense_only(cfg)
     b = token_ids.shape[0]
     positions = lengths.long()
     x = _embed(params, cfg, token_ids[:, None], positions[:, None], dtype)

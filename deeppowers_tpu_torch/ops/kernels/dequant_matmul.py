@@ -149,8 +149,8 @@ def width_variant(n: int) -> str:
 
 def variant(qw: QuantizedTensor) -> str:
     """The weight variant a launch is counted under: bits, "a8" for int8
-    activations, "g" for per-group scales."""
-    grouped = qw.scales.numel() > qw.data.shape[-1]
+    activations, "g" for per-group scales (of a 2-D or a stacked weight)."""
+    grouped = qw.scales.shape[-2] > 1
     return (f"w{qw.bits}" + ("a8" if qw.act_bits == 8 else "")
             + ("g" if grouped else ""))
 

@@ -1,0 +1,338 @@
+"""Grouped dequant matmuls for MoE: wrappers, plain versions, launch counts.
+
+Replaces the two grouped Pallas TPU kernels of
+deeppowers_tpu/ops/pallas/dequant_matmul.py, both built on the body
+`_make_kernel` :152:
+  #9  `grouped_dequant_matmul` :620 (pallas_call :755): rows times stacked
+      expert weights (E, K[/2], N) with scales (E, G, N);
+  #10 `grouped_dequant_matmul_ncat` :775 (pallas_call :911): rows times
+      the column block e·n_e .. (e+1)·n_e of one concatenated (K[/2],
+      E·n_e) weight, the cat-fused gate|up of every expert.
+CUDA source: csrc/grouped_matmul.cu (one kernel template, two launchers).
+
+The rows are routed (token, expert) pairs sorted by expert, each expert's
+segment padded to whole tiles of BLOCK_M rows, so every tile belongs to
+one expert: `tile_expert[i]` names it, and -1 marks a dead tail tile,
+which the kernels skip (its output rows are left undefined; the plain
+versions write zeros). Each output row depends only on its own input row.
+
+The function, per output row x of expert e (weights symmetric, int8 or
+int4 in half-split nibbles, any group g dividing K):
+- act_bits 0: y = sum over groups of (bf16(x)_g @ q_g) * s_g, f32
+  accumulation; what kernel #1 computes.
+- act_bits 8 (W8A8 / W4A8): what the Pallas body computes (`qdot` :198),
+  which is NOT the row-wide function #1 follows (ROADMAP Decisions). The
+  activations, rounded to bf16, are quantized per (row, nibble plane,
+  segment): qs = max(amax, 1e-30) * fl(1/127), codes round-half-even of
+  x / qs clipped to +-127; the products are exact int32 sums; each
+  segment adds (sum * qs) * s in one fused multiply-add, in the Pallas
+  body's order in the plain version (bit for bit with it on the CPU). The segment is the scale group when the
+  group divides the Pallas kernel's K block (its `pre` regime), else that
+  block (`_pick_block_k` :327, copied here). The CUDA kernel quantizes in
+  its staging of the activation tile and takes only weights whose
+  segments are their groups (`a8_per_group`); it raises on the others.
+
+Launch counts: `grouped_dequant_matmul.launches`,
+`grouped_dequant_matmul_ncat.launches`, and in each one's
+`variant_launches` the launch under its weight variant ("w4a8g", "w4g",
+"w8g", "w8a8g", ...; `dequant_matmul.variant`).
+
+Bound on an H100: at a prefill's row counts the 2·rows·K·N operations over
+the int8 (a8) or bf16 tensor-core peak; the weights of each expert with
+rows are read once. The design is described in the source.
+"""
+
+from __future__ import annotations
+
+import collections
+
+import torch
+import torch.nn.functional as F
+
+from ...quant.qtypes import QuantizedTensor, unpack_int4
+from . import _build
+from .dequant_matmul import variant
+
+#: rows of a tile: the routed layout's and the CUDA kernels' (64, an
+#: mma tile's row count; each output row depends only on its own input
+#: row, so it need not be the Pallas kernels' block)
+BLOCK_M = 64
+#: the CUDA kernels walk K in steps of this many unpacked rows
+K_STEP = 32
+
+# The Pallas kernel's measured stream rate by K block, relative to the
+# best (deeppowers_tpu/ops/pallas/dequant_matmul.py:324); with
+# `_pick_block_k` it decides the a8 quantization segment.
+_BK_RATE = {2048: 1.0, 1024: 1.0, 512: 0.80, 256: 0.62}
+_BLOCK_K = 1024
+
+
+def _round_up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def _pick_block_k(k: int, want: int) -> int:
+    """The Pallas kernel's K block for `k` stored rows (a copy of JAX
+    `_pick_block_k`, dequant_matmul.py:327-348)."""
+    best, best_score = min(want, 256), -1.0
+    d = want
+    while d >= 256:
+        score = _BK_RATE.get(d, 1.0) * k / _round_up(k, d)
+        if score > best_score + 1e-9:
+            best, best_score = d, score
+        d //= 2
+    return best
+
+
+def a8_segments(bits: int, k: int, group: int):
+    """(segment, keff, keff_pad, g_eff): the Pallas grouped kernels' a8
+    quantization segment for a (K, N) weight of `bits` and `group`
+    (0 = per-channel), the stored rows of a nibble plane keff and that
+    plane padded to whole K blocks. Raises NotImplementedError where the
+    Pallas dispatcher raises (dequant_matmul.py:655-681)."""
+    g_eff = group or k
+    keff = k // 2 if bits == 4 else k
+    bk = _pick_block_k(keff, _BLOCK_K)
+    keff_pad = _round_up(keff, bk)
+    whole = (k,) if bits == 8 else (k, k // 2)
+    if g_eff in whole or (g_eff % bk == 0 and keff % g_eff == 0):
+        pre = False
+    elif bk % g_eff == 0:
+        pre = True
+    else:
+        raise NotImplementedError(f"group {g_eff} vs K block {bk}")
+    if pre and keff_pad != keff and keff % g_eff:
+        raise NotImplementedError(
+            f"ragged K with group {g_eff} not dividing {keff}")
+    return (g_eff if pre else bk), keff, keff_pad, g_eff
+
+
+def a8_per_group(bits: int, k: int, group: int) -> bool:
+    """True when every a8 quantization segment of the Pallas kernels is
+    exactly one scale group (the sets the CUDA kernel quantizes)."""
+    seg, keff, _, g_eff = a8_segments(bits, k, group)
+    return keff % g_eff == 0 and (seg == g_eff or g_eff == keff <= seg)
+
+
+_RECIP_127 = torch.tensor(1.0 / 127.0, dtype=torch.float32)
+
+
+def _rows_product(a: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                  bits: int, group: int, act_bits: int) -> torch.Tensor:
+    """One expert's rows a (R, K) times its codes q (K, N) int8 with
+    scales s (G, N): (R, N) f32, the kernels' function."""
+    r, k = a.shape
+    n = q.shape[1]
+    rows_g = s.shape[0]
+    a = a.to(torch.bfloat16).float()
+    if act_bits != 8:
+        g = k // rows_g
+        part = torch.matmul(a.reshape(r, rows_g, g).transpose(0, 1),
+                            q.float().reshape(rows_g, g, n))   # (G, R, N)
+        return (part * s.reshape(rows_g, 1, n)).sum(0)
+    seg, keff, keff_pad, g_eff = a8_segments(bits, k, group)
+    planes = k // keff
+    nseg = keff_pad // seg
+    ap = F.pad(a.reshape(r, planes, keff), (0, keff_pad - keff))
+    ap = ap.reshape(r, planes, nseg, seg)
+    qp = F.pad(q.reshape(planes, keff, n), (0, 0, 0, keff_pad - keff))
+    qs = ap.abs().amax(-1).clamp_min(1e-30) * _RECIP_127   # (R, P, S)
+    ai = torch.round(ap / qs[..., None]).clamp(-127, 127)
+    # exact integer sums: f32 holds a segment's sum while below 2^24
+    dt = torch.float32 if seg * 127 * 128 <= 2 ** 24 else torch.float64
+    part = torch.matmul(ai.permute(1, 2, 0, 3).to(dt),
+                        qp.reshape(planes, nseg, seg, n).to(dt)).float()
+    srow = torch.tensor([[min((p * keff + j * seg) // g_eff, rows_g - 1)
+                          for j in range(nseg)] for p in range(planes)],
+                        device=s.device)
+    part = part * qs.permute(1, 2, 0)[..., None]             # (P, S, R, N)
+    sd = s[srow].double()                                    # (P, S, N)
+    # out = fma(sum * qs, s, out) from 0, in the Pallas body's order (K
+    # block, plane, segment), as XLA runs it on the CPU: the f64 product of
+    # two f32 values is exact, so one f32 rounding of it plus out is the
+    # fused op's (bar a double-rounding tie)
+    per_block = max(1, _pick_block_k(keff, _BLOCK_K) // seg)
+    out = torch.zeros((r, n), dtype=torch.float32, device=a.device)
+    for b0 in range(0, nseg, per_block):
+        for p in range(planes):
+            for j in range(b0, min(b0 + per_block, nseg)):
+                out = (part[p, j].double() * sd[p, j]
+                       + out.double()).float()
+    return out
+
+
+def _grouped_plain(xs, te, expert_weight, bits, group, act_bits, n,
+                   out_dtype):
+    """The plain version of both kernels: one expert at a time over the
+    rows of its tiles (peak memory: one expert's partial sums)."""
+    out = torch.zeros((xs.shape[0], n), dtype=torch.float32, device=xs.device)
+    tile_e = te.to(torch.int64).repeat_interleave(BLOCK_M)
+    for e in sorted(set(te.tolist()) - {-1}):
+        rows = torch.nonzero(tile_e == e).flatten()
+        q, s = expert_weight(e)
+        out[rows] = _rows_product(xs[rows], q, s.float(), bits, group,
+                                  act_bits)
+    return out.to(out_dtype)
+
+
+def grouped_dequant_matmul_plain(xs, qw: QuantizedTensor, tile_expert, *,
+                                 out_dtype=torch.float32) -> torch.Tensor:
+    """#9's arithmetic in plain PyTorch: xs (M_pad, K), stacked qw."""
+    def weight(e):
+        q = unpack_int4(qw.data[e]) if qw.bits == 4 else qw.data[e]
+        return q, qw.scales[e]
+    return _grouped_plain(xs, tile_expert, weight, qw.bits, qw.group_size,
+                          qw.act_bits, qw.data.shape[-1], out_dtype)
+
+
+def grouped_dequant_matmul_ncat_plain(xs, qw: QuantizedTensor, tile_expert,
+                                      n_per_expert: int, *,
+                                      out_dtype=torch.bfloat16) -> torch.Tensor:
+    """#10's arithmetic in plain PyTorch: xs (M_pad, K), cat qw."""
+    ne = n_per_expert
+
+    def weight(e):
+        d = qw.data[:, e * ne:(e + 1) * ne]
+        return (unpack_int4(d) if qw.bits == 4 else d), \
+            qw.scales[:, e * ne:(e + 1) * ne]
+    return _grouped_plain(xs, tile_expert, weight, qw.bits, qw.group_size,
+                          qw.act_bits, ne, out_dtype)
+
+
+def _check(xs, qw, te, k, out_dtype, name):
+    """What the CUDA kernels take; returns the effective group."""
+    if not isinstance(qw, QuantizedTensor) or qw.zero_points is not None:
+        raise NotImplementedError(f"{name} takes symmetric QuantizedTensor "
+                                  f"weights only, got {qw!r}")
+    if qw.bits not in (4, 8) or qw.act_bits not in (0, 8):
+        raise ValueError(f"not a weight the JAX package makes: {qw!r}")
+    if xs.dtype != torch.bfloat16 or xs.dim() != 2 \
+            or not xs.is_contiguous() or xs.data_ptr() % 16:
+        raise NotImplementedError(f"CUDA {name} takes contiguous, 16-byte "
+                                  f"aligned (M, K) bf16 rows, got {xs.dtype} "
+                                  f"{tuple(xs.shape)}")
+    if xs.shape[1] != k:
+        raise ValueError(f"xs width {xs.shape[1]} != K {k}")
+    if xs.shape[0] % BLOCK_M or te.numel() != xs.shape[0] // BLOCK_M:
+        raise ValueError(f"{te.numel()} tile experts for {xs.shape[0]} rows "
+                         f"in tiles of {BLOCK_M}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(f"unsupported out_dtype {out_dtype}")
+    data = qw.data
+    if not data.is_contiguous() or data.data_ptr() % 16 \
+            or not qw.scales.is_contiguous() \
+            or qw.scales.dtype != torch.float32:
+        raise ValueError("weight data must be contiguous and 16-byte aligned, "
+                         "scales contiguous f32")
+    rows_g = qw.scales.shape[-2]
+    g_eff = k // rows_g
+    if rows_g * g_eff != k or g_eff % K_STEP or (k // (2 if qw.bits == 4
+                                                       else 1)) % K_STEP:
+        raise NotImplementedError(
+            f"CUDA {name} takes groups and stored rows of a multiple of "
+            f"{K_STEP}, got K={k}, group {g_eff}, bits {qw.bits}")
+    if qw.act_bits == 8 and not a8_per_group(qw.bits, k, qw.group_size):
+        seg = a8_segments(qw.bits, k, qw.group_size)[0]
+        raise NotImplementedError(
+            f"CUDA {name}: a8 weight (bits {qw.bits}, K={k}, group "
+            f"{g_eff}) whose Pallas quantization segments ({seg} rows) are "
+            f"not its scale groups")
+    for t, what in ((data, "weight"), (qw.scales, "scales"), (te, "te")):
+        _build.require_cuda(t, what)
+    return g_eff
+
+
+def _count(fn, qw):
+    fn.launches += 1
+    fn.variant_launches[variant(qw)] += 1
+
+
+def grouped_dequant_matmul(xs: torch.Tensor, qw: QuantizedTensor,
+                           tile_expert: torch.Tensor, *,
+                           out_dtype=torch.float32) -> torch.Tensor:
+    """#9: xs (M_pad, K) rows, tile i of BLOCK_M rows times expert
+    tile_expert[i] of the stacked qw (data (E, K[/2], N), scales (E, G,
+    N)) -> (M_pad, N). A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel or raises."""
+    if not xs.is_cuda:
+        return grouped_dequant_matmul_plain(xs, qw, tile_expert,
+                                            out_dtype=out_dtype)
+    if qw.data.dim() != 3:
+        raise ValueError("grouped_dequant_matmul expects stacked (E, K, N)")
+    e, _, n = qw.data.shape
+    k = qw.shape[1]
+    g = _check(xs, qw, tile_expert, k, out_dtype, "grouped_dequant_matmul")
+    if n % 16:
+        raise NotImplementedError(f"CUDA grouped_dequant_matmul takes N % 16 "
+                                  f"== 0, got {n}")
+    te = tile_expert.to(torch.int32).contiguous()
+    out = torch.empty((xs.shape[0], n), dtype=out_dtype, device=xs.device)
+    rc = _build.library().dpt_grouped_matmul(
+        xs.data_ptr(), qw.data.data_ptr(), qw.scales.data_ptr(), te.data_ptr(),
+        qw.bits, g, int(qw.act_bits == 8), out.data_ptr(),
+        int(out_dtype == torch.float32), xs.shape[0], k, n, _build.stream())
+    _build.check(rc, "grouped_dequant_matmul")
+    _count(grouped_dequant_matmul, qw)
+    return out
+
+
+grouped_dequant_matmul.launches = 0
+grouped_dequant_matmul.variant_launches = collections.Counter()
+
+
+def grouped_dequant_matmul_ncat(xs: torch.Tensor, qw: QuantizedTensor,
+                                tile_expert: torch.Tensor, n_per_expert: int,
+                                *, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """#10: xs (M_pad, K) rows, tile i times the column block of expert
+    tile_expert[i] of the 2-D cat qw (K[/2], E·n_per_expert) -> (M_pad,
+    n_per_expert). A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel or raises."""
+    if not xs.is_cuda:
+        return grouped_dequant_matmul_ncat_plain(
+            xs, qw, tile_expert, n_per_expert, out_dtype=out_dtype)
+    if qw.data.dim() != 2:
+        raise ValueError("grouped_dequant_matmul_ncat expects a 2-D cat")
+    k, n_total = qw.shape
+    ne = n_per_expert
+    if n_total % ne:
+        raise ValueError(f"cat N {n_total} not a multiple of {ne}")
+    g = _check(xs, qw, tile_expert, k, out_dtype,
+               "grouped_dequant_matmul_ncat")
+    if ne % 16:
+        raise NotImplementedError(f"CUDA grouped_dequant_matmul_ncat takes "
+                                  f"n_per_expert % 16 == 0, got {ne}")
+    te = tile_expert.to(torch.int32).contiguous()
+    out = torch.empty((xs.shape[0], ne), dtype=out_dtype, device=xs.device)
+    rc = _build.library().dpt_grouped_matmul_ncat(
+        xs.data_ptr(), qw.data.data_ptr(), qw.scales.data_ptr(), te.data_ptr(),
+        qw.bits, g, int(qw.act_bits == 8), out.data_ptr(),
+        int(out_dtype == torch.float32), xs.shape[0], k, ne, n_total,
+        _build.stream())
+    _build.check(rc, "grouped_dequant_matmul_ncat")
+    _count(grouped_dequant_matmul_ncat, qw)
+    return out
+
+
+grouped_dequant_matmul_ncat.launches = 0
+grouped_dequant_matmul_ncat.variant_launches = collections.Counter()
+
+
+def expert_tiles(sorted_e: torch.Tensor, counts: torch.Tensor):
+    """The row layout of a grouped matmul over P routed pairs sorted by
+    expert (`sorted_e` (P,), `counts` (E,) pairs per expert): (dest (P,)
+    row of each pair, tile_expert (n_tiles,) int32 with -1 for dead tail
+    tiles, m_pad rows). Every expert's segment starts on a tile; m_pad =
+    round_up(P, BLOCK_M) + E·BLOCK_M covers any routing, so the sizes are
+    static and nothing is read back to the host."""
+    p, e = sorted_e.numel(), counts.numel()
+    m_pad = _round_up(p, BLOCK_M) + e * BLOCK_M
+    tiles = (counts + BLOCK_M - 1) // BLOCK_M
+    cum = torch.cumsum(tiles, 0)
+    starts = torch.cumsum(counts, 0) - counts
+    pad_starts = (cum - tiles) * BLOCK_M
+    j = torch.arange(p, device=sorted_e.device)
+    dest = pad_starts[sorted_e] + (j - starts[sorted_e])
+    tile = torch.arange(m_pad // BLOCK_M, device=sorted_e.device)
+    te = torch.where(tile < cum[-1], torch.searchsorted(cum, tile, right=True),
+                     torch.full_like(tile, -1))
+    return dest, te.to(torch.int32), m_pad

@@ -5,6 +5,7 @@ zero points). int8 and int4 weights, per-channel or per-group, with bf16 or
 int8 activations (`act_bits`), all take the dequant-matmul kernels; the
 int4 half-split packing is carried over byte-identical:
   packed[i, n] = (v[i + K/2, n] << 4) | (v[i, n] & 0x0F),  i in [0, K/2)
+Stacked MoE experts (E, K, N) pack each expert apart, along dim 1.
 """
 
 from __future__ import annotations
@@ -22,8 +23,9 @@ INT4_QMAX = 7
 class QuantizedTensor:
     """Packed quantized (K, N) array with quantization metadata.
 
-    data: int8, (K, N) for bits=8 or (K/2, N) packed for bits=4.
-    scales: f32, (1, N) per-channel or (G, N) per-group.
+    data: int8, (K, N) for bits=8 or (K/2, N) packed for bits=4; stacked
+        experts (E, K[/2], N).
+    scales: f32, (1, N) per-channel or (G, N) per-group; (E, G, N) stacked.
     zero_points: int32 like scales (asymmetric only) or None.
     """
 
@@ -72,18 +74,20 @@ class QuantizedTensor:
                 f"act_bits={self.act_bits})")
 
 
-def pack_int4(values: torch.Tensor) -> torch.Tensor:
-    """Pack int8-held int4 values (range [-8, 7]) half-split along axis 0."""
-    if values.shape[0] % 2 != 0:
-        raise ValueError(f"int4 packing needs even leading dim, got {tuple(values.shape)}")
-    half = values.shape[0] // 2
-    lo = values[:half].to(torch.uint8) & 0x0F
-    hi = values[half:].to(torch.uint8) & 0x0F
+def pack_int4(values: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Pack int8-held int4 values (range [-8, 7]) half-split along `dim`
+    (dim 1 packs each expert of a stacked (E, K, N) tensor apart)."""
+    if values.shape[dim] % 2 != 0:
+        raise ValueError(f"int4 packing needs an even dim {dim}, got {tuple(values.shape)}")
+    half = values.shape[dim] // 2
+    lo = values.narrow(dim, 0, half).to(torch.uint8) & 0x0F
+    hi = values.narrow(dim, half, half).to(torch.uint8) & 0x0F
     return ((hi << 4) | lo).view(torch.int8)
 
 
-def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
-    """Inverse of pack_int4: (K//2, ...) int8 -> (K, ...) int8 in [-8, 7]."""
+def unpack_int4(packed: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Inverse of pack_int4: (.., K//2, ..) int8 -> (.., K, ..) int8 in
+    [-8, 7] along `dim`."""
     lo = torch.bitwise_right_shift(torch.bitwise_left_shift(packed, 4), 4)
     hi = torch.bitwise_right_shift(packed, 4)
-    return torch.cat([lo, hi], dim=0)
+    return torch.cat([lo, hi], dim=dim)

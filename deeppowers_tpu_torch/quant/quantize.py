@@ -1,5 +1,5 @@
 """Quantize / dequantize primitives, ported from
-deeppowers_tpu/quant/quantize.py:43-158.
+deeppowers_tpu/quant/quantize.py:43-192 (stacked MoE experts included).
 
 Weights are (K, N) with K the contraction axis. Symmetric scale = absmax /
 qmax per output channel (or per group of K rows), q = clip(round(w / s)).
@@ -129,3 +129,28 @@ def dequantize(qt: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
             q = q - zps.float()
         w = q * qt.scales
     return w.to(dtype)
+
+
+def quantize_stacked(w3: torch.Tensor, *, bits: int = 8,
+                     group_size: int = 0) -> QuantizedTensor:
+    """Quantize stacked (E, K, N) weights (MoE experts) one expert at a time,
+    symmetric, as JAX `quantize_stacked` (quant/quantize.py:160-183)
+    vmaps it: data (E, K, N) int8 or (E, K/2, N) packed int4 (each expert
+    packed apart), scales (E, G, N)."""
+    if w3.dim() != 3:
+        raise ValueError(f"quantize_stacked expects (E, K, N), got {tuple(w3.shape)}")
+    datas, scales = [], []
+    for w in w3.float():
+        s, zps = compute_scales(w, bits=bits, group_size=group_size)
+        q = _quantize_values(w, s, zps, bits=bits, group_size=group_size)
+        datas.append(pack_int4(q) if bits == 4 else q)
+        scales.append(s)
+    return QuantizedTensor(data=torch.stack(datas), scales=torch.stack(scales),
+                           zero_points=None, bits=bits, group_size=group_size)
+
+
+def dequantize_stacked(qt: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
+    """Inverse of quantize_stacked: -> (E, K, N) float."""
+    return torch.stack([dequantize(QuantizedTensor(d, s, None, qt.bits,
+                                                   qt.group_size), dtype)
+                        for d, s in zip(qt.data, qt.scales)])

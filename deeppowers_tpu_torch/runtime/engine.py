@@ -34,9 +34,14 @@ for prefix reuse.
 The KV store is bf16 or quantized (`kv_cache_dtype` "int8", "int4" or
 "k8v4", JAX's layouts) on either layout; pages count rows, so the page
 budget does not depend on the store.
+MoE models (Mixtral) run on the one device with their quantized experts
+in the cat layout, as the JAX engine runs them without a mesh; their
+batched prefills pad the batch as the JAX engine does, so each forward's
+token count, which picks an MoE layer's branch, is the JAX engine's.
 Not ported yet (ROADMAP.md): speculative and structured decoding,
-multi-step dispatch, top logprobs, sequence-parallel prefill and meshes;
-the RuntimeConfig fields that ask for them raise NotImplementedError.
+multi-step dispatch, top logprobs, sequence-parallel prefill and meshes
+(tensor and expert parallelism); the RuntimeConfig fields that ask for
+them raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -381,17 +386,22 @@ class InferenceEngine:
                              "gen": pp.gen, "rid": pp.request_id}, last)
         return True
 
-    def _prefill_group(self, items: List[Dict]) -> None:
-        """Prefill prompts of one bucket as one batch (one prompt on the
-        paged layout), write their K/V into their slots and activate
+    def _prefill_group(self, items: List[Dict], rows: int = 0) -> None:
+        """Prefill prompts of one bucket as one batch of `rows` (default
+        len(items); padding rows hold id 0 and length 1) and one prompt on
+        the paged layout, write their K/V into their slots and activate
         them."""
         bucket = items[0]["bucket"]
-        ids = np.zeros((len(items), bucket), dtype=np.int64)
+        rows = max(rows, len(items))
+        ids = np.zeros((rows, bucket), dtype=np.int64)
+        lens = np.ones((rows,), dtype=np.int64)
         for i, it in enumerate(items):
             ids[i, :it["n"]] = it["ids"]
+            lens[i] = it["n"]
         dev = self.device
-        lengths = torch.tensor([it["n"] for it in items], device=dev)
+        lengths = torch.from_numpy(lens).to(dev)
         slots = torch.tensor([it["slot"] for it in items], device=dev)
+        n = len(items)
         with torch.no_grad():
             last, kv = forward_prefill(
                 self.params, self.cfg, torch.from_numpy(ids).to(dev), lengths,
@@ -400,11 +410,17 @@ class InferenceEngine:
                 if self._page_alloc is not None:
                     kvcache.write_prompt(cache, k[0], v[0], items[0]["slot"])
                 else:
-                    kvcache.write_prompts(cache, k, v, slots)
+                    kvcache.write_prompts(cache, k[:n], v[:n], slots)
         for i, it in enumerate(items):
             self._activate_slot(it, last[i])
 
     def _flush_batch_prefills(self) -> None:
+        """The round's prompts, one batch per bucket. An MoE model's go in
+        batches of at most 8 padded to a power of two rows, as the JAX
+        engine batches them (engine.py:1209-1221): a forward's token count
+        b·s, which picks an MoE layer's branch, is then the JAX engine's.
+        A dense model's rows do not depend on their batch, so it pads
+        none."""
         pend, self._pending_batch = self._pending_batch, []
         groups: Dict[int, List[Dict]] = {}
         for it in pend:
@@ -413,15 +429,23 @@ class InferenceEngine:
                 continue                      # cancelled while pending
             groups.setdefault(it["bucket"], []).append(it)
         for bucket in sorted(groups):
-            try:
-                self._prefill_group(groups[bucket])
-            except Exception:
-                # free the group's reserved slots before propagating
-                for it in groups[bucket]:
-                    res = self._slots[it["slot"]]
-                    if res is not None and res.request_id == it["rid"]:
-                        self._slots[it["slot"]] = None
-                raise
+            items = groups[bucket]
+            while items:
+                rows = len(items)
+                if self.cfg.num_experts:
+                    rows = 1
+                    while rows < min(len(items), 8):
+                        rows *= 2
+                take, items = items[:rows], items[rows:]
+                try:
+                    self._prefill_group(take, rows)
+                except Exception:
+                    # free the bucket's reserved, not yet active slots
+                    for it in take + items:
+                        res = self._slots[it["slot"]]
+                        if res is not None and res.request_id == it["rid"]:
+                            self._slots[it["slot"]] = None
+                    raise
 
     @contextmanager
     def deferred_admission(self):

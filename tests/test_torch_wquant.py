@@ -447,11 +447,31 @@ def test_presets_equal_jax(name):
         jax_presets.PRESETS[name])
 
 
-def test_init_quantized_params_refuses_experts():
-    cfg = presets.tiny_llama_config(num_experts=4)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        T.init_quantized_params(cfg, QuantConfig(),
-                                torch.Generator().manual_seed(0))
+def test_init_quantized_params_moe_tree_matches_jax():
+    """tiny-moe W4A8 g32 (MoE layers are ported): the same tree as JAX's,
+    stacked experts (E, K/2, N) with (E, K/g, N) scales and a float
+    router, with the same keys, shapes, dtypes, scale values, bits, group
+    sizes and act_bits."""
+    qc = dict(group_size=32, act_bits=8)
+    jt = JT.init_quantized_params(jax_presets.tiny_moe_config(),
+                                  JQuant(mode=JMode.INT4, **qc),
+                                  jax.random.PRNGKey(0), dtype=jnp.float32)
+    tt = T.init_quantized_params(presets.tiny_moe_config(),
+                                 QuantConfig(mode=QuantMode.INT4, **qc),
+                                 torch.Generator().manual_seed(0),
+                                 dtype=torch.float32)
+    jl = jax.tree_util.tree_leaves_with_path(jt)
+    tl = _leaves(tt)
+    assert [jax.tree_util.keystr(p) for p, _ in jl] == list(tl)
+    for (_, a), (path, b) in zip(jl, tl.items()):
+        assert (tuple(a.shape), str(a.dtype)) == (
+            tuple(b.shape), str(b.dtype).replace("torch.", "")), path
+        if path.endswith("[<flat index 1>]"):
+            np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    assert tt["layers"][0]["moe"]["experts"]["w_out"]["w"].data.shape == (
+        4, 64, 64)
+    assert {(q.bits, q.group_size, q.act_bits) for q in _qleaves(tt)} == {
+        (4, 32, 8)}
 
 
 @pytest.fixture

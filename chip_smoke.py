@@ -51,6 +51,27 @@ Phases, each printing a line with its wall time:
               step the cat path through #1; only W4A8 g128 variants may
               launch and every expert must take routed pairs; then a
               profiled decode step and a 512-token TTFT
+ 12. spec_serve  phase 6 with prompt-lookup speculation (K = 4 drafts,
+              n-gram 3): serve's 8 greedy requests and one at temperature
+              0.8; the bf16 verify variant of #3 (tokens = 5) and #2 must
+              launch, the one-token #3 must not; the share of tokens equal
+              to phase 6's stream, the acceptance stats, a profiled step
+ 13. spec_paged_serve[k8v4]  phase 9 with K = 4: preemption, prefix hits
+              and multi-chunk prompts must still occur, the k8v4 verify
+              variant of #5 and #6 must launch, no contiguous kernel
+ 14. spec_serve[llama2-7b+draft]  phase 10's Llama-2-7B weights verifying
+              drafts of the main path's TinyLlama-1.1B int8 (shared
+              vocabulary), serve's traffic once: acceptance, tok/s and step
+              p50 beside phase 10's, the draft's share of a step; then
+              TinyLlama drafting for itself must accept at least 3 of 5
+              tokens a window
+(12 runs after 6, 13 after 9, 14 after 10.) The kernels phase also holds
+#3 and #5 at tokens = 5 in every store (and #3 k8v4 at Llama-2-7B's
+heads), the window appends of #2 and #6 (8 slots x 5 rows), and #1 at a
+verify step's M = 40 (TinyLlama w8, Llama-2-7B w4a8g); after the path
+phases, spec_path[store,layout] verifies a forced window of 5 tokens in
+one forward_verify through each store on each layout, against the plain
+path on the CPU and five sequential decode steps on the card.
 Between 5 and 6, the path phase runs again through each quantized store
 (int8, int4, k8v4) on each layout; the card gates with the least room
 (#3's worst row ratio per store, the teacher-forced rel L2 of int4 and
@@ -73,8 +94,8 @@ variants too. Each serve phase, and each path
 run on the card that gives a row its launches, sets every launch count
 (per variant too) to 0 just before it and reads the counts just after. Each serve phase also
 prints every request's TTFT, the host split of a profiled decode step
-(PyTorch ops, kernel launches, blocking calls, allocator calls); the
-contiguous ones also print each prompt's prefill alone on the warm engine
+(PyTorch ops, kernel launches, blocking calls, allocator calls); phase
+6 also prints each prompt's prefill alone on the warm engine
 with its host split, and serve the same traffic twice more: warm, and
 with the scheduler's thread under torch.profiler (the served run's host
 split). Then one JSON line with every kernel's numbers and, last,
@@ -539,6 +560,7 @@ def check_kernels(torch, cfg):
     bf16_ms["decode_attention_paged"] = t_k
     del kpool, vpool, kpool2, vpool2
     rows += check_quantized_kernels(torch, cfg, rn, bf16_ms)
+    rows += check_verify_kernels(torch, cfg, bf16_ms)
 
     # chunked prefill's attention_chunk: plain PyTorch on every device (the
     # JAX package computes it with XLA, not in a Pallas kernel); one layer,
@@ -1172,6 +1194,365 @@ def check_quantized_kernels(torch, cfg, rn, bf16_ms):
     return rows
 
 
+# speculative verify windows: K = 4 drafts + the last token
+SPEC_K = 4
+SPEC_T = SPEC_K + 1
+STORES = ("bf16", "int8", "int4", "k8v4")
+
+
+def verify_bound(torch, lens, t, hq, d, kv_bytes, q_bytes):
+    """bound_ms of a verify window: the live K/V bytes (`kv_bytes`, read
+    once for all T rows, as for one token), q and the output, and 4 * D
+    operations per (query row, visible position): window token t of a
+    slot sees lens - (T - 1) + t positions."""
+    seen = sum(t * n - t * (t - 1) // 2 for n in lens.tolist())
+    return bound_ms(kv_bytes + 2 * q_bytes, 4 * seen * hq * d)
+
+
+def check_verify_kernels(torch, cfg, bf16_ms):
+    """#3 and #5 at tokens = 5 (a verify window of K = 4) in all four
+    stores at the decode rows' shapes (8 slots, the kernel's lengths
+    ATTN_LENS, 2,886 live rows: TinyLlama's 4 kv heads x 8 query heads x 5
+    tokens = 40 rows a kv head), #3 k8v4 at Llama-2-7B's heads (32 x 128,
+    rep 1: 5 rows a kv head), and the window appends of #2 and #6 (8 slots
+    x 5 rows) in all four stores. Each against its plain version with the
+    tokens = 1 limits (attention: each row within 1e-2 of its max|ref|,
+    finite over stale rows with NaN in stale scales; appends exact), timed
+    beside its bound and its plain version; the bf16 contiguous row also
+    beside one F.scaled_dot_product_attention call with an explicit
+    (B, H, T, S) boolean mask. Rows carry `launch_from`: the phase and
+    counter whose count becomes their launches."""
+    from deeppowers_tpu_torch.ops.kernels import (decode_attention as da,
+                                                  kv_append as ka)
+    from deeppowers_tpu_torch.quant.kvquant import STORE_BITS, quant_side
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    b, s_cache, page, n_pages, t = 8, 1024, 128, 65, SPEC_T
+    wp = s_cache // page
+    lens = torch.tensor(ATTN_LENS, device=dev, dtype=torch.int32)
+    cached = lens - t
+    live = int(lens.sum())
+    live_pages = int(((lens.long() + page - 1) // page).sum())
+    table = (torch.randperm(n_pages - 1, generator=torch.Generator()
+                            .manual_seed(SEED + 21))[:b * wp] + 1).reshape(
+        b, wp).to(device=dev, dtype=torch.int32)
+    pos = torch.arange(s_cache, device=dev)
+    stale = pos[None, :] >= lens[:, None].long()
+    rows = []
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    def row(name, src, pallas_line, ms, plain, bd, by, err, lib, frm, **kw):
+        out = {"name": name, "route": "cuda",
+               "source": f"deeppowers_tpu_torch/csrc/{src}",
+               "replaces": f"deeppowers_tpu/ops/pallas/{pallas_line}",
+               "max_abs_err": err, "ms": ms, "plain_ms": plain,
+               "bound_ms": bd, "bound_by": by, "library_ms": lib,
+               "tokens": t, "launch_from": frm}
+        out.update(kw)
+        return out
+
+    def store(dtype, kh, d):
+        """A cache of `dtype` over random K/V (B, S, Kh, D), stale scales
+        NaN: (k, v, kwargs)."""
+        kb, vb = STORE_BITS[dtype]
+        if dtype == "bf16":
+            return (rn(b, s_cache, kh * d).to(torch.bfloat16),
+                    rn(b, s_cache, kh * d).to(torch.bfloat16), {})
+        kc, ks = quant_side(rn(b, s_cache, kh, d), kb, 2 if kb == 4 else 1)
+        vc, vs = quant_side(rn(b, s_cache, kh, d), vb, 2 if vb == 4 else 1)
+        ks, vs = (a.transpose(1, 2).contiguous() for a in (ks, vs))
+        nan_at = stale & (pos[None, :] % 3 == 0)
+        for a in (ks, vs):
+            a.masked_fill_(nan_at[:, None, :], float("nan"))
+        return (kc.reshape(b, s_cache, -1), vc.reshape(b, s_cache, -1),
+                dict(k_scale=ks, v_scale=vs, kv_bits=kb, v_bits=vb))
+
+    def kv_bytes(dtype, kh, d):
+        kb, vb = STORE_BITS[dtype]
+        f = kh * d
+        per = {16: 2 * f, 8: f, 4: f // 2}
+        sc = 0 if dtype == "bf16" else 4 * kh * ((2 if kb == 4 else 1)
+                                                 + (2 if vb == 4 else 1))
+        return live * (per[kb] + per[vb] + sc)
+
+    def attention(dtype, hq, kh, d, layout, frm, shape):
+        q = rn(b, t, hq, d).to(torch.bfloat16)
+        kc, vc, kw = store(dtype, kh, d)
+        if layout == "paged":
+            def to_pool(x):
+                p = torch.zeros((n_pages, page, x.shape[-1]), dtype=x.dtype,
+                                device=dev)
+                p[table.long()] = x.reshape(b, wp, page, -1)
+                return p
+
+            def to_spool(x):
+                p = torch.full((n_pages, x.shape[1], page), float("nan"),
+                               device=dev)
+                p[table.long()] = x.reshape(b, x.shape[1], wp,
+                                            page).transpose(1, 2)
+                return p
+            kern_args = (q, to_pool(kc), to_pool(vc), table, cached)
+            kern_kw = dict(kw)
+            if "k_scale" in kw:
+                kern_kw.update(k_scale=to_spool(kw["k_scale"]),
+                               v_scale=to_spool(kw["v_scale"]))
+            fn, plain = da.verify_attention_paged, \
+                da.decode_attention_paged_plain
+        else:
+            fn, plain = da.verify_attention, da.decode_attention_plain
+            kern_args, kern_kw = (q, kc, vc, cached), kw
+        # the plain version takes the folded rows and the kernel's lengths
+        pargs = (da.fold_tokens(q), *kern_args[1:-1], kern_args[-1] + t)
+        out = fn(*kern_args, **kern_kw)
+        ref = da.unfold_tokens(plain(*pargs, tokens=t, **kern_kw), t)
+        torch.cuda.synchronize()
+        err, worst = row_errors(out, ref)
+        if not (torch.isfinite(out).all() and worst <= 1e-2):
+            fail(f"verify {layout} [{dtype}] {shape}: a (slot, token, head) "
+                 f"row's error is {worst:.3g} of its max|ref| (limit 1e-2), "
+                 f"or not finite")
+        t_k = cuda_ms(torch, [lambda: fn(*kern_args, **kern_kw)], 200)
+        t_p = cuda_ms(torch, [lambda: plain(*pargs, tokens=t, **kern_kw)],
+                      10, graph=False)
+        extra = live_pages * 4 + b * 4 if layout == "paged" else b * 4
+        bd, by = verify_bound(torch, lens, t, hq, d,
+                              kv_bytes(dtype, kh, d) + extra,
+                              q.numel() * 2)
+        t_l = None
+        if dtype == "bf16" and layout == "contiguous":
+            rep = hq // kh
+            k4 = kc.view(b, s_cache, kh, d).transpose(1, 2).repeat_interleave(
+                rep, 1)
+            v4 = vc.view(b, s_cache, kh, d).transpose(1, 2).repeat_interleave(
+                rep, 1)
+            bound_t = (cached[:, None] + 1 + torch.arange(t, device=dev))
+            mask = (pos[None, None, :] < bound_t[:, :, None].long())[
+                :, None].expand(b, hq, t, s_cache)
+            qt = q.transpose(1, 2)
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            t_l = cuda_ms(torch, [lambda: sdpa(qt, k4, v4, attn_mask=mask)],
+                          200)
+        base = bf16_ms["decode_attention_paged" if layout == "paged"
+                       else "decode_attention"]
+        name = ("decode_attention_paged" if layout == "paged"
+                else "decode_attention")
+        log(f"  {name}[{dtype}:t{t}] {shape} live={live}: max_abs_err="
+            f"{err:.3e} worst_row_ratio={worst:.3e}, kernel {t_k:.4f} ms "
+            f"(bf16 tokens=1 {base:.4f} ms), plain {t_p:.4f} ms"
+            + (f", sdpa with a (B, H, T, S) mask {t_l:.4f} ms" if t_l else "")
+            + f", bound {bd:.6f} ms ({by})")
+        return row(f"{name}[{dtype}:t{t}]", "decode_attention.cu",
+                   "decode_attention.py:501" if layout != "paged"
+                   else "decode_attention.py:1235", t_k, t_p, bd, by, err,
+                   t_l, frm, worst_row_ratio=worst, shape=shape)
+
+    hq, kh, d = cfg.num_heads, cfg.kv_heads, cfg.dim_head
+    tiny = f"TinyLlama {hq}/{kh} heads x {d}, 8 slots"
+    serves = {("bf16", "contiguous"): "spec_serve",
+              ("k8v4", "paged"): "spec_paged_serve[k8v4]"}
+    for layout in ("contiguous", "paged"):
+        for dtype in STORES:
+            name = ("decode_attention_paged" if layout == "paged"
+                    else "decode_attention")
+            phase = serves.get((dtype, layout),
+                               f"spec_path[{dtype},{layout}]")
+            rows.append(attention(dtype, hq, kh, d, layout,
+                                  (phase, f"{name}[{dtype}:t{t}]"), tiny))
+            torch.cuda.empty_cache()
+    rows.append(attention("k8v4", 32, 32, 128, "contiguous",
+                          ("spec_serve[llama2-7b+draft]",
+                           f"decode_attention[k8v4:t{t}]"),
+                          "Llama-2-7B 32/32 heads x 128, 8 slots"))
+    torch.cuda.empty_cache()
+
+    # -- #2 and #6: a window's 8 x 5 rows, per-row slots (#2) or pool rows
+    f = kh * d
+    kr, vr = (rn(b * t, f).to(torch.bfloat16) for _ in range(2))
+    wpos = (torch.tensor([16, 64, 100, 200, 300, 450, 600, 1021], device=dev)
+            [:, None] + torch.arange(t, device=dev)).reshape(-1).to(
+        torch.int32)                         # the last slot's 3 rows dropped
+    wslots = torch.arange(b, device=dev, dtype=torch.int32
+                          ).repeat_interleave(t)
+    vpage = (wpos.long() // page).clamp(max=wp - 1)
+    wvalid = wpos < s_cache
+    prow = torch.where(wvalid, table[wslots.long(), vpage].long() * page
+                       + wpos.long() % page, 0).to(torch.int32)
+    n_ok = int(wvalid.sum())
+    for dtype in STORES:
+        kb, vb = STORE_BITS[dtype]
+        qkw = {} if dtype == "bf16" else dict(kv_bits=kb, v_bits=vb)
+        fk = f if kb == 16 else (f // 2 if kb == 4 else f)
+        fv = f if vb == 16 else (f // 2 if vb == 4 else f)
+        rk, rv = kh * (2 if kb == 4 else 1), kh * (2 if vb == 4 else 1)
+        for kname, lead, minor in (("scatter_rows", b, s_cache),
+                                   ("scatter_pool_rows", n_pages, page)):
+            sdt = torch.bfloat16 if dtype == "bf16" else torch.int8
+            arrs = [torch.zeros((lead, minor, w), dtype=sdt, device=dev)
+                    for w in (fk, fv)]
+            if dtype != "bf16":
+                arrs += [torch.rand((lead, r, minor), generator=g, device=dev)
+                         for r in (rk, rv)]
+            refs = [a.clone() for a in arrs]
+            sc = (lambda a: dict(k_scale=a[2], v_scale=a[3])
+                  if dtype != "bf16" else {})
+            if kname == "scatter_rows":
+                def kern(a):
+                    ka.scatter_rows(a[0], a[1], kr, vr, wpos, slots=wslots,
+                                    **sc(a), **qkw)
+
+                def plain(a):
+                    ka.scatter_rows_plain(a[0], a[1], kr, vr, wpos,
+                                          slots=wslots, **sc(a), **qkw)
+            else:
+                def kern(a):
+                    ka.scatter_pool_rows(a[0], a[1], kr, vr, prow, wvalid,
+                                         **sc(a), **qkw)
+
+                def plain(a):
+                    ka.scatter_pool_rows_plain(a[0], a[1], kr, vr, prow,
+                                               wvalid, **sc(a), **qkw)
+            kern(arrs)
+            plain(refs)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(arrs, refs)):
+                fail(f"{kname}[{dtype}] with {b * t} window rows differs "
+                     f"from its plain version")
+            t_k = cuda_ms(torch, [lambda: kern(arrs)], 200)
+            t_p = cuda_ms(torch, [lambda: plain(refs)], 20, graph=False)
+            t_l = None
+            if dtype == "bf16":
+                # the same rows by index_copy_ into the flat views, K and V
+                flat = (prow.long() if kname == "scatter_pool_rows" else
+                        wslots.long() * s_cache + wpos.long())[wvalid]
+                kf, vf = refs[0].view(-1, f), refs[1].view(-1, f)
+                kv, vv = kr[wvalid], vr[wvalid]
+                t_l = cuda_ms(torch, [lambda: (kf.index_copy_(0, flat, kv),
+                                               vf.index_copy_(0, flat, vv))],
+                              200)
+            sc_b = 0 if dtype == "bf16" else 4 * (rk + rv)
+            bd, by = bound_ms(n_ok * (2 * f * 2 + fk * (2 if kb == 16 else 1)
+                                      + fv * (2 if vb == 16 else 1) + sc_b)
+                              + b * t * 8, 0)
+            layout = "paged" if kname == "scatter_pool_rows" else "contiguous"
+            frm = {("bf16", "contiguous"): "spec_serve",
+                   ("k8v4", "paged"): "spec_paged_serve[k8v4]"}.get(
+                (dtype, layout), f"spec_path[{dtype},{layout}]")
+            log(f"  {kname}[{dtype}] {b} slots x {t} window rows ({n_ok} "
+                f"written): exact, kernel {t_k:.4f} ms, plain {t_p:.4f} ms"
+                + (f", index_copy_ {t_l:.4f} ms" if t_l else "")
+                + f", bound {bd:.6f} ms")
+            rows.append(row(
+                f"{kname}[{dtype}, {b * t} rows]", "kv_append.cu",
+                "kv_append.py:104" if kname == "scatter_rows"
+                else "kv_append.py:207", t_k, t_p, bd, by, 0.0, t_l,
+                (frm, f"{kname}[{dtype}]")))
+            del arrs, refs
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_verify_matmuls(torch, cfg):
+    """#1 at a verify step's M = B * T = 40 rows (8 slots x 5 tokens),
+    above GEMV_MAX_M = 16, so every matmul takes the WMMA tiled path: the
+    TinyLlama verify step's 89 int8 per-channel matmuls (beside the same
+    at M = 8, the decode GEMV) and Llama-2-7B's 129 W4A8 g128 ones (the
+    M = 8 row is dequant_matmul[w4a8g, M=8]). Each against its plain
+    version (2e-2 of max|ref|), timed beside its bound, its plain version
+    and torch.matmul on bf16 weights."""
+    from deeppowers_tpu_torch.ops.kernels import dequant_matmul as dm
+    m = 8 * SPEC_T
+    rn = randn_on(torch, SEED + 22)
+    rows = []
+    for var, mats in (("w8", None), ("w4a8g", LLAMA2_MATS)):
+        for mm in ((8, m) if var == "w8" else (m,)):
+            tot = dict(ms=0.0, plain=0.0, lib=0.0, bytes=0.0, ops=0.0)
+            err_max = 0.0
+            if var == "w8":
+                calls = [(per, qws, x, kw, od, k, n)
+                         for _, k, n, per, qws, x, kw, od in int8_step(
+                             torch, cfg, rn, mm)]
+            else:
+                g = torch.Generator(device="cuda").manual_seed(SEED + 23)
+                calls = []
+                for _, k, n, mode in mats:
+                    per = 1 if mode == "f32" else LLAMA2_LAYERS
+                    copies = max(1, -(-200_000_000 // (k // 2 * n)))
+                    qws = [random_qw(torch, g, k, n, 4, 128, 8)
+                           for _ in range(copies)]
+                    x = rn(mm, 2 * k if mode == "glu" else k)
+                    kw = {}
+                    if mode == "rms":
+                        kw["rms_weight"] = rn(k, scale=0.1) + 1.0
+                    if mode in ("res", "glu"):
+                        kw["residual"] = rn(mm, n)
+                    if mode == "glu":
+                        kw["glu"] = True
+                    od = torch.float32 if mode == "f32" else torch.bfloat16
+                    calls.append((per, qws, x, kw, od, k, n))
+            for per, qws, x, kw, od, k, n in calls:
+                q0 = qws[0]
+                got = dm.dequant_matmul(x, q0, out_dtype=od, **kw)
+                ref = dm.dequant_matmul_plain(x, q0.data, q0.scales,
+                                              bits=q0.bits,
+                                              act_bits=q0.act_bits,
+                                              out_dtype=od, **kw)
+                torch.cuda.synchronize()
+                err = (got.float() - ref.float()).abs().max().item()
+                scale = ref.float().abs().max().item()
+                if not (torch.isfinite(got).all() and err <= 2e-2 * scale):
+                    fail(f"dequant_matmul[{var}] M={mm} K={k} N={n}: error "
+                         f"{err} > 2e-2 * {scale}")
+                err_max = max(err_max, err)
+                t_k = cuda_ms(torch, [lambda q=q: dm.dequant_matmul(
+                    x, q, out_dtype=od, **kw) for q in qws], 20)
+                t_p = cuda_ms(torch, [lambda: dm.dequant_matmul_plain(
+                    x, q0.data, q0.scales, bits=q0.bits, act_bits=q0.act_bits,
+                    out_dtype=od, **kw)], 3, graph=False)
+                from deeppowers_tpu_torch.quant.qtypes import unpack_int4
+                wbf = [(unpack_int4(q.data) if q.bits == 4 else q.data).to(
+                    torch.bfloat16) for q in qws[:2]]
+                t_l = cuda_ms(torch, [lambda w=w: torch.matmul(x[:, :k], w)
+                                      for w in wbf], 20)
+                w_bytes = (k // 2 if q0.bits == 4 else k) * n
+                tot["ms"] += per * t_k
+                tot["plain"] += per * t_p
+                tot["lib"] += per * t_l
+                tot["bytes"] += per * (w_bytes + q0.scales.numel() * 4
+                                       + x.numel() * 2 + mm * n * (
+                                           4 if od == torch.float32 else 2)
+                                       + (mm * n * 2 if "residual" in kw
+                                          else 0))
+                tot["ops"] += per * 2 * mm * k * n
+                del wbf
+            bd, by = bound_ms(tot["bytes"], tot["ops"], int8=var == "w4a8g")
+            shape = ("TinyLlama verify step, 8 slots x 5 tokens: 22 layers x "
+                     "4 + lm_head" if var == "w8" else
+                     "Llama-2-7B verify step, 8 slots x 5 tokens: 32 layers "
+                     "x 4 + lm_head")
+            if mm == 8:
+                shape = "TinyLlama decode step, 8 slots (GEMV path)"
+            log(f"  dequant_matmul[{var}, M={mm}] {shape}: kernel "
+                f"{tot['ms']:.4f} ms, plain {tot['plain']:.4f} ms, "
+                f"torch.matmul bf16 {tot['lib']:.4f} ms, bound {bd:.4f} ms "
+                f"({by}), max_abs_err {err_max:.3e}")
+            rows.append({
+                "name": f"dequant_matmul[{var}, M={mm}]", "route": "cuda",
+                "source": "deeppowers_tpu_torch/csrc/dequant_matmul.cu",
+                "replaces": "deeppowers_tpu/ops/pallas/dequant_matmul.py:528",
+                "max_abs_err": err_max, "ms": tot["ms"],
+                "plain_ms": tot["plain"], "bound_ms": bd, "bound_by": by,
+                "library_ms": tot["lib"], "shape": shape,
+                "launch_from": ("serve" if mm == 8 else "spec_serve"
+                                if var == "w8" else
+                                "spec_serve[llama2-7b+draft]",
+                                f"dequant_matmul[{var}]")})
+            torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 4: teacher-forced path check
 # ---------------------------------------------------------------------------
@@ -1179,50 +1560,60 @@ def check_quantized_kernels(torch, cfg, rn, bf16_ms):
 PAGED_TABLE = (9, 4, 0, 0, 0, 0, 0, 0)     # slot 0's pages in a 12-page pool
 
 
-def forced_logits(torch, T, kvcache, params, cfg, ids, forced, device,
-                  paged=False, kv_cache_dtype="bf16"):
-    """Prefill `ids` then decode the forced tokens; every step's logits.
-    The contiguous cache has 128 rows, or as many more as the tokens need.
-    With `paged`, the K/V go to pages 9 and 4 of a 12-page pool whose
-    other rows hold NaN (a quantized pool: random bytes, and NaN in its
-    scale pools), through the paged kernels. `kv_cache_dtype` picks the
-    store of either layout."""
+def prompt_cache(torch, T, kvcache, params, cfg, ids, device, paged=False,
+                 kv_cache_dtype="bf16", extra=0):
+    """Prefill `ids` (one slot) and write its K/V into a fresh cache: the
+    contiguous cache has 128 rows, or as many more as the prompt and
+    `extra` tokens need; with `paged`, pages 9 and 4 of a 12-page pool
+    whose other rows hold NaN (a quantized pool: random bytes, and NaN in
+    its scale pools). Returns (the prompt's last logits, caches, lengths)."""
     import numpy as np
     from deeppowers_tpu_torch.runtime import kvcache_paged
     n = len(ids)
     x = torch.tensor([ids], device=device)
     lens = torch.tensor([n], device=device, dtype=torch.int32)
+    last, kv = T.forward_prefill(params, cfg, x, lens, dtype=torch.bfloat16,
+                                 logits_at=lens - 1)
+    if paged:
+        caches = kvcache_paged.init_paged_cache(
+            cfg.num_layers, 1, 1024, cfg.kv_heads, cfg.dim_head,
+            page_size=128, total_pages=12, device=device,
+            kv_cache_dtype=kv_cache_dtype)
+        for c in caches:
+            if c.quantized:
+                for pool in (c.k_pool, c.v_pool):
+                    pool.copy_(torch.randint(-128, 128, pool.shape,
+                                             dtype=torch.int8))
+                c.k_scale.fill_(float("nan"))
+                c.v_scale.fill_(float("nan"))
+            else:
+                c.k_pool.fill_(float("nan"))
+                c.v_pool.fill_(float("nan"))
+        kvcache_paged.with_table(caches, np.array([PAGED_TABLE],
+                                                  dtype=np.int32))
+        for c, (k, v) in zip(caches, kv):
+            kvcache.write_prompt(c, k[0], v[0], 0)
+    else:
+        rows = max(128, -(-(n + extra) // 128) * 128)
+        caches = kvcache.init_cache(cfg.num_layers, 1, rows, cfg.kv_heads,
+                                    cfg.dim_head, device=device,
+                                    kv_cache_dtype=kv_cache_dtype)
+        for c, (k, v) in zip(caches, kv):
+            kvcache.write_prompts(c, k, v, torch.tensor([0], device=device))
+    return last, caches, lens
+
+
+def forced_logits(torch, T, kvcache, params, cfg, ids, forced, device,
+                  paged=False, kv_cache_dtype="bf16"):
+    """Prefill `ids` then decode the forced tokens; every step's logits.
+    The cache is `prompt_cache`'s: contiguous, or paged through the paged
+    kernels; `kv_cache_dtype` picks the store of either layout."""
     out = []
     with torch.no_grad():
-        last, kv = T.forward_prefill(params, cfg, x, lens,
-                                     dtype=torch.bfloat16, logits_at=lens - 1)
+        last, caches, lens = prompt_cache(torch, T, kvcache, params, cfg, ids,
+                                          device, paged, kv_cache_dtype,
+                                          len(forced))
         out.append(last[0].float().cpu())
-        if paged:
-            caches = kvcache_paged.init_paged_cache(
-                cfg.num_layers, 1, 1024, cfg.kv_heads, cfg.dim_head,
-                page_size=128, total_pages=12, device=device,
-                kv_cache_dtype=kv_cache_dtype)
-            for c in caches:
-                if c.quantized:
-                    for pool in (c.k_pool, c.v_pool):
-                        pool.copy_(torch.randint(-128, 128, pool.shape,
-                                                 dtype=torch.int8))
-                    c.k_scale.fill_(float("nan"))
-                    c.v_scale.fill_(float("nan"))
-                else:
-                    c.k_pool.fill_(float("nan"))
-                    c.v_pool.fill_(float("nan"))
-            kvcache_paged.with_table(caches, np.array([PAGED_TABLE],
-                                                      dtype=np.int32))
-            for c, (k, v) in zip(caches, kv):
-                kvcache.write_prompt(c, k[0], v[0], 0)
-        else:
-            rows = max(128, -(-(n + len(forced)) // 128) * 128)
-            caches = kvcache.init_cache(cfg.num_layers, 1, rows, cfg.kv_heads,
-                                        cfg.dim_head, device=device,
-                                        kv_cache_dtype=kv_cache_dtype)
-            for c, (k, v) in zip(caches, kv):
-                kvcache.write_prompts(c, k, v, torch.tensor([0], device=device))
         for t in forced:
             lg, caches = T.forward_decode(
                 params, cfg, torch.tensor([t], device=device), caches, lens,
@@ -1230,6 +1621,36 @@ def forced_logits(torch, T, kvcache, params, cfg, ids, forced, device,
             out.append(lg[0].float().cpu())
             lens = lens + 1
     return out
+
+
+def verify_logits(torch, T, params, cfg, ids, window, device, paged=False,
+                  kv_cache_dtype="bf16", sequential=True):
+    """Prefill `ids`, then verify the forced `window` (T tokens: the last
+    sampled token and T - 1 drafts) in one forward_verify; and, on a fresh
+    cache, the same tokens through T sequential forward_decode steps.
+    Returns (verify logits (T, V), sequential logits (T, V) or None without
+    `sequential`), f32 on the CPU. Caches as `prompt_cache` makes them."""
+    from deeppowers_tpu_torch.runtime import kvcache
+    win = torch.tensor([window], device=device)
+    with torch.no_grad():
+        _, caches, lens = prompt_cache(torch, T, kvcache, params, cfg, ids,
+                                       device, paged, kv_cache_dtype,
+                                       len(window))
+        ver, _ = T.forward_verify(params, cfg, win, caches, lens,
+                                  dtype=torch.bfloat16)
+        if not sequential:
+            return ver[0].float().cpu(), None
+        _, caches, lens = prompt_cache(torch, T, kvcache, params, cfg, ids,
+                                       device, paged, kv_cache_dtype,
+                                       len(window))
+        seq = []
+        for t in window:
+            lg, caches = T.forward_decode(
+                params, cfg, torch.tensor([t], device=device), caches, lens,
+                dtype=torch.bfloat16)
+            seq.append(lg[0])
+            lens = lens + 1
+    return ver[0].float().cpu(), torch.stack(seq).float().cpu()
 
 
 def lm124_path(torch, T, kvcache, counters, device="cuda"):
@@ -1399,6 +1820,7 @@ def serve_llama2(torch, T, counters):
         ttft.append((time.perf_counter() - t1) * 1e3)
     engine.pop_finished()
     out["ttft_512_ms"] = ttft
+    out["params"] = params          # spec_serve[llama2-7b+draft] reuses them
     return out
 
 
@@ -1613,6 +2035,58 @@ def serve_mixtral(torch, T, counters):
     return out
 
 
+def spec_path(torch, T, params, cfg, counters):
+    """The teacher-forced verify window on the card: a 40-token prompt, then
+    forward_verify over T = 5 forced tokens, through each store on each
+    layout, with launch counts from 0 (the tokens = 5 variant of #3 or #5
+    must launch once a layer, and the window's rows go through #2 or #6).
+    Held against the same on the plain path on the CPU and against five
+    sequential forward_decode steps on the card, rel L2 <= 5e-2 per window
+    row (both keep the residual stream in bf16 and differ in rounding
+    order). Returns {(store, layout): launches}."""
+    rng = torch.Generator().manual_seed(SEED + 24)
+    ids = torch.randint(0, cfg.vocab_size, (40,), generator=rng).tolist()
+    window = torch.randint(0, cfg.vocab_size, (SPEC_T,),
+                           generator=rng).tolist()
+    cpu_params = tree_to(params, "cpu")
+    out = {}
+
+    def rel(a, b):
+        return ((a - b).norm(dim=-1) / b.norm(dim=-1)).max().item()
+
+    for dtype in STORES:
+        for paged in (False, True):
+            t0 = time.perf_counter()
+            layout = "paged" if paged else "contiguous"
+            reset_counts(counters)
+            got, seq = verify_logits(torch, T, params, cfg, ids, window,
+                                     "cuda", paged, dtype)
+            torch.cuda.synchronize()
+            launches = out[(dtype, layout)] = read_counts(counters)
+            attn = ("decode_attention_paged" if paged else
+                    "decode_attention") + f"[{dtype}:t{SPEC_T}]"
+            app = ("scatter_pool_rows" if paged else "scatter_rows") + \
+                f"[{dtype}]"
+            if launches.get(attn, 0) != cfg.num_layers or \
+                    launches.get(app, 0) < 2 * cfg.num_layers:
+                fail(f"spec_path[{dtype},{layout}]: {attn} launched "
+                     f"{launches.get(attn, 0)} times for {cfg.num_layers} "
+                     f"layers, {app} {launches.get(app, 0)}")
+            ref, _ = verify_logits(torch, T, cpu_params, cfg, ids, window,
+                                   "cpu", paged, dtype, sequential=False)
+            r_cpu, r_seq = rel(got, ref), rel(got, seq)
+            if not (torch.isfinite(got).all() and r_cpu <= 5e-2
+                    and r_seq <= 5e-2):
+                fail(f"spec_path[{dtype},{layout}]: verify logits rel L2 "
+                     f"{r_cpu:.3e} against the plain path on the CPU, "
+                     f"{r_seq:.3e} against sequential decode (limit 5e-2)")
+            phase_line(f"spec_path[{dtype},{layout}]", t0, tokens=SPEC_T,
+                       logits_rel_l2=f"{r_cpu:.3e}",
+                       vs_sequential_decode=f"{r_seq:.3e}",
+                       **{f"launches_{attn}": launches[attn]})
+    return out
+
+
 MARGIN_SEEDS = 3
 
 
@@ -1732,15 +2206,19 @@ def host_split(torch, prof, n: int) -> dict:
                                             4)) for e in top]}
 
 
-def profile_decode(torch, engine, tok, steps: int = 5):
+def profile_decode(torch, engine, tok, steps: int = 5,
+                   tokens_per_step: int = 1, prompt_bytes: int = 64):
     """Device busy share of full-batch decode steps and their host split:
     8 greedy requests, two warm steps, then `steps` steps under
-    torch.profiler."""
+    torch.profiler (each request's budget covers `tokens_per_step` tokens
+    a step, a speculative window's most)."""
     from deeppowers_tpu_torch.config import GenerationConfig
     from torch.profiler import ProfilerActivity, profile
     for i in range(engine.num_slots):
-        engine.add_request(tok.encode(prompt_text(64, i)), GenerationConfig(
-            max_tokens=steps + 4, temperature=0.0))
+        engine.add_request(tok.encode(prompt_text(prompt_bytes, i)),
+                           GenerationConfig(
+                               max_tokens=(steps + 4) * tokens_per_step,
+                               temperature=0.0))
     engine.step()
     engine.step()
     torch.cuda.synchronize()
@@ -1829,12 +2307,12 @@ def check_variants(phase, launches, want, zero) -> None:
 
 
 def run_requests(torch, engine, prompts, max_tokens, counters, tok,
-                 on_engine=None, profiled=False):
-    """Serve `prompts` as concurrent greedy HTTP requests through the
-    scheduler and the server, in-process. Every launch count is set to 0
-    just before and read just after. With `profiled`, the scheduler's
-    thread runs under torch.profiler (`sched.prof`). Returns (results,
-    launches, wall s, scheduler)."""
+                 on_engine=None, profiled=False, temps=None):
+    """Serve `prompts` as concurrent HTTP requests through the scheduler and
+    the server, in-process: greedy, or at `temps[i]`. Every launch count is
+    set to 0 just before and read just after. With `profiled`, the
+    scheduler's thread runs under torch.profiler (`sched.prof`). Returns
+    (results, launches, wall s, scheduler)."""
     from deeppowers_tpu_torch.serving.scheduler import Scheduler
     from deeppowers_tpu_torch.serving.server import APIServer
 
@@ -1865,7 +2343,7 @@ def run_requests(torch, engine, prompts, max_tokens, counters, tok,
         try:
             results[i] = post(server.port, {
                 "prompt": prompts[i], "max_tokens": max_tokens,
-                "temperature": 0.0}, timeout=240.0)
+                "temperature": temps[i] if temps else 0.0}, timeout=240.0)
         except Exception as e:           # reported below, fails the run
             errors.append(f"request {i}: {e!r}")
 
@@ -1915,11 +2393,14 @@ def summary(results, wall, sched, launches):
             "launches": launches}
 
 
-def serve(torch, params, cfg, counters, kv_cache_dtype="bf16"):
+def serve(torch, params, cfg, counters, kv_cache_dtype="bf16",
+          passes=True):
     """Phase 6 (and 8 with int8 KV): contiguous KV, default
     prefill_chunk_size 512, so the 600- and 900-byte prompts prefill in
     chunks and the 450-byte one takes the flash kernel in bucket 512. The
-    store's variants of #2 and #3 must launch, no other store's."""
+    store's variants of #2 and #3 must launch, no other store's. With
+    `passes`, also each prompt's prefill alone and the traffic twice more
+    (warm, and under the profiler)."""
     from deeppowers_tpu_torch.config import GenerationConfig, RuntimeConfig
     from deeppowers_tpu_torch.quant.kvquant import KV_CACHE_DTYPES
     from deeppowers_tpu_torch.runtime.engine import InferenceEngine
@@ -1948,10 +2429,13 @@ def serve(torch, params, cfg, counters, kv_cache_dtype="bf16"):
         + [f"{k}[{v}]" for k in ("scatter_rows", "decode_attention")
            for v in KV_CACHE_DTYPES if v != kv_cache_dtype])
     out = summary(results, wall, sched, launches)
+    out["token_ids"] = [r["tokens"] for r in results]
     out["segments"] = seg1 - seg0
     out["kv_bytes"] = engine.kv_nbytes
     # the profiler's first use in the process stays on the main thread
     out["profile"] = profile_decode(torch, engine, tok)
+    if not passes:
+        return out
     out["prefill"] = profile_prefill(torch, engine, tok, prompts)
     seg1 = segments(torch)
     # the same traffic again on the warm engine: the difference from the
@@ -1990,10 +2474,18 @@ def paged_prompts():
                      prompt_text(16, 302), prompt_text(40, 303)]
 
 
-def paged_engine(params, cfg, device, eos_token_id, kv_cache_dtype="bf16"):
+# spec_paged_serve's lazy slack: with K = 4 (budgets K rows longer, growth
+# 2K + 2 rows ahead) the 16-page pool preempted in 17 of 18 arrival orders
+# tried on the CPU at a slack of 64 rows, in all 18 (at least twice) at 32
+SPEC_PAGED_SLACK = 32
+
+
+def paged_engine(params, cfg, device, eos_token_id, kv_cache_dtype="bf16",
+                 spec_k=0, slack=64):
     """Phase 7's engine (and 9's with k8v4 KV): 8 slots of 1024 tokens over
-    PAGED_TOTAL_PAGES pages of 128, lazy reservation (slack 64), prefix
-    cache, chunks of 512. Its continue_prefill counts chunks per request
+    PAGED_TOTAL_PAGES pages of 128, lazy reservation (`slack` rows), prefix
+    cache, chunks of 512; with `spec_k`, prompt-lookup speculation of that
+    many drafts (n-gram 3). Its continue_prefill counts chunks per request
     id in `engine.chunks`."""
     import collections
     from deeppowers_tpu_torch.config import RuntimeConfig
@@ -2006,8 +2498,10 @@ def paged_engine(params, cfg, device, eos_token_id, kv_cache_dtype="bf16"):
         runtime=RuntimeConfig(max_batch_size=8, max_seq_len=1024,
                               prefill_buckets=(64, 128, 256, 512, 1024),
                               kv_page_size=128, kv_reserve="lazy",
-                              kv_lazy_slack=64, enable_prefix_cache=True,
-                              prefill_chunk_size=512))
+                              kv_lazy_slack=slack, enable_prefix_cache=True,
+                              prefill_chunk_size=512,
+                              speculative_tokens=spec_k,
+                              speculative_ngram=3))
     engine.chunks = collections.Counter()
     real = engine.continue_prefill
 
@@ -2019,17 +2513,21 @@ def paged_engine(params, cfg, device, eos_token_id, kv_cache_dtype="bf16"):
     return engine
 
 
-def serve_paged(torch, params, cfg, counters, kv_cache_dtype="bf16"):
-    """Phase 7 (and 9 with k8v4 KV): oversubscribed serving with shared
-    system prompts. The store's variants of #5 and #6 must launch, no other
-    store's and no contiguous-layout kernel."""
+def serve_paged(torch, params, cfg, counters, kv_cache_dtype="bf16",
+                spec_k=0):
+    """Phase 7 (and 9 with k8v4 KV, and spec_paged_serve[k8v4] with
+    `spec_k` drafts): oversubscribed serving with shared system prompts.
+    The store's variants of #5 (its verify variant under speculation, and
+    then not its one-token one) and #6 must launch, no other store's and no
+    contiguous-layout kernel."""
     from deeppowers_tpu_torch.config import GenerationConfig
     from deeppowers_tpu_torch.quant.kvquant import KV_CACHE_DTYPES
     from deeppowers_tpu_torch.serving.tokenizer import ByteTokenizer
 
     tok = ByteTokenizer()
     engine = paged_engine(params, cfg, "cuda", tok.eos_token_id,
-                          kv_cache_dtype)
+                          kv_cache_dtype, spec_k,
+                          SPEC_PAGED_SLACK if spec_k else 64)
     engine.generate(tok.encode("warm up"), GenerationConfig(
         max_tokens=2, temperature=0.0))
     engine.chunks.clear()
@@ -2048,15 +2546,176 @@ def serve_paged(torch, params, cfg, counters, kv_cache_dtype="bf16"):
         fail("paged serve: no prefix-cache hit")
     if out["max_chunks"] < 2:
         fail("paged serve: no request went through 2 or more chunks")
+    attn = f"decode_attention_paged[{kv_cache_dtype}]"
+    verify = f"decode_attention_paged[{kv_cache_dtype}:t{spec_k + 1}]"
     check_variants(
         f"paged serve[{kv_cache_dtype}]", launches,
-        [f"{k}[{kv_cache_dtype}]" for k in ("scatter_pool_rows",
-                                            "decode_attention_paged")],
-        ["scatter_rows", "decode_attention"]
+        [f"scatter_pool_rows[{kv_cache_dtype}]", verify if spec_k else attn],
+        ["scatter_rows", "decode_attention"] + ([attn] if spec_k else [])
         + [f"{k}[{v}]" for k in ("scatter_pool_rows", "decode_attention_paged")
            for v in KV_CACHE_DTYPES if v != kv_cache_dtype])
     out["kv_bytes"] = engine.kv_nbytes
-    out["profile"] = profile_decode(torch, engine, tok)
+    if spec_k:
+        out["speculative"] = sched.stats()["speculative"]
+    # a lazy reservation holds prompt + 64 + K rows: 8 prompts of 56 bytes
+    # take one page of 128 each, as 64 bytes do without speculation
+    out["profile"] = profile_decode(torch, engine, tok,
+                                    tokens_per_step=spec_k + 1,
+                                    prompt_bytes=64 - 2 * spec_k)
+    return out
+
+
+SPEC_TEMPERATURE = 0.8        # spec_serve's one sampled request
+
+
+def serve_spec(torch, params, cfg, counters, plain_tokens):
+    """spec_serve[tinyllama]: the scheduler and the HTTP server over a
+    contiguous bf16 cache with prompt-lookup speculation (K = 4, n-gram 3):
+    serve's 8 greedy requests and one more at temperature 0.8. The bf16
+    verify variant of #3 and #2 must launch, the one-token #3 and the paged
+    kernels must not. Also the share of the greedy requests' tokens equal,
+    position by position, to serve's stream of the same prompts without
+    speculation on the card (printed, not gated: bf16 at M = 40 rounds
+    otherwise than at M = 8, and a flipped near-tie changes the rest of a
+    stream), and a profiled step."""
+    from deeppowers_tpu_torch.config import GenerationConfig, RuntimeConfig
+    from deeppowers_tpu_torch.runtime.engine import InferenceEngine
+    from deeppowers_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    engine = InferenceEngine(
+        params, cfg, device="cuda", eos_token_id=tok.eos_token_id,
+        runtime=RuntimeConfig(max_batch_size=8, max_seq_len=1024,
+                              prefill_buckets=(64, 128, 256, 512, 1024),
+                              speculative_tokens=SPEC_K,
+                              speculative_ngram=3))
+    engine.generate(tok.encode("warm up"), GenerationConfig(
+        max_tokens=2, temperature=0.0))
+    prompts = [prompt_text(n, i) for i, n in enumerate(PROMPT_BYTES)]
+    prompts.append(prompt_text(200, len(PROMPT_BYTES)))
+    temps = [0.0] * len(PROMPT_BYTES) + [SPEC_TEMPERATURE]
+    results, launches, wall, sched = run_requests(
+        torch, engine, prompts, MAX_TOKENS, counters, tok, temps=temps)
+    check_variants(
+        "spec_serve", launches,
+        [f"decode_attention[bf16:t{SPEC_T}]", "scatter_rows[bf16]",
+         "dequant_matmul", "flash_attention_prefill"],
+        ["decode_attention[bf16]", "scatter_pool_rows",
+         "decode_attention_paged"])
+    out = summary(results, wall, sched, launches)
+    out["speculative"] = sched.stats()["speculative"]
+    out["spec_mean_accepted"] = engine.spec_mean_accepted
+    same = total = 0
+    for r, want in zip(results, plain_tokens):
+        got = r["tokens"]
+        total += len(got)
+        same += sum(a == b for a, b in zip(got, want))
+    out["equal_to_plain"] = same / max(total, 1)
+    out["kv_bytes"] = engine.kv_nbytes
+    out["profile"] = profile_decode(torch, engine, tok,
+                                    tokens_per_step=SPEC_T)
+    return out
+
+
+def draft_share(torch, T, engine, tok, steps: int = 5) -> dict:
+    """The draft model's K forwards against a whole speculative step, on 8
+    greedy slots after two warm steps: each step is preceded by the same
+    K draft decode steps alone (their rows are rewritten by the step's own
+    draft), both synchronized and timed by the host clock."""
+    from deeppowers_tpu_torch.config import GenerationConfig
+    for i in range(engine.num_slots):
+        engine.add_request(tok.encode(prompt_text(64, i)), GenerationConfig(
+            max_tokens=(steps + 4) * SPEC_T, temperature=0.0))
+    engine.step()
+    engine.step()
+    dparams, dcfg = engine._draft
+    draft, whole = 0.0, 0.0
+    for _ in range(steps):
+        st = engine.state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            x, lens = st.tokens, st.lengths
+            for _ in range(SPEC_K):
+                lg, _ = T.forward_decode(dparams, dcfg, x,
+                                         engine._draft_caches, lens,
+                                         dtype=engine.act_dtype,
+                                         active=st.active)
+                x, lens = lg.argmax(-1).to(torch.int32), lens + 1
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        draft += t1 - t0
+        whole += time.perf_counter() - t1
+    while engine.active_requests:
+        engine.step()
+    engine.pop_finished()
+    return {"draft_ms": draft * 1e3 / steps, "step_ms": whole * 1e3 / steps,
+            "draft_share": draft / whole}
+
+
+SELF_DRAFT_MIN = 3.0      # mean accepted tokens a window, of SPEC_T
+
+
+def serve_llama2_spec(torch, T, counters, l7_params, tiny_params, tiny_cfg):
+    """spec_serve[llama2-7b+draft]: Llama-2-7B W4A8 g128 + k8v4 (serve
+    [llama2-7b]'s weights) verifying K = 4 drafts of TinyLlama-1.1B int8
+    (the main path's weights; the vocabulary, 32000, is shared), serve's
+    traffic once through the scheduler and the HTTP server. The k8v4
+    verify variant of #3 (target) and its one-token variant (draft), #1's
+    W4A8 g128 (target) and int8 (draft) variants must launch, no paged
+    kernel. Random weights make the two models disagree, so a window
+    accepts about one token. Then the draft's share of a step, a profiled
+    step, and the self-draft check: TinyLlama drafting for itself,
+    greedy, must accept at least SELF_DRAFT_MIN of 5 tokens a window."""
+    from deeppowers_tpu_torch.config import GenerationConfig, RuntimeConfig
+    from deeppowers_tpu_torch.models.presets import LLAMA2_7B as cfg
+    from deeppowers_tpu_torch.runtime.engine import InferenceEngine
+    from deeppowers_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    rt = RuntimeConfig(max_batch_size=8, max_seq_len=1024,
+                       prefill_buckets=(64, 128, 256, 512, 1024),
+                       speculative_tokens=SPEC_K)
+    engine = InferenceEngine(l7_params, cfg, device="cuda",
+                             eos_token_id=tok.eos_token_id,
+                             kv_cache_dtype=LLAMA2_KV, runtime=rt,
+                             draft_params=tiny_params, draft_cfg=tiny_cfg)
+    engine.generate(tok.encode("warm up"), GenerationConfig(
+        max_tokens=2, temperature=0.0))
+    prompts = [prompt_text(n, i) for i, n in enumerate(PROMPT_BYTES)]
+    results, launches, wall, sched = run_requests(
+        torch, engine, prompts, MAX_TOKENS, counters, tok)
+    check_variants(
+        "spec_serve[llama2-7b+draft]", launches,
+        [f"decode_attention[{LLAMA2_KV}:t{SPEC_T}]",
+         f"decode_attention[{LLAMA2_KV}]", "dequant_matmul[w4a8g]",
+         "dequant_matmul[w8]", "quantize_activations",
+         f"scatter_rows[{LLAMA2_KV}]"],
+        ["scatter_pool_rows", "decode_attention_paged",
+         f"decode_attention[bf16:t{SPEC_T}]", "decode_attention[bf16]"])
+    out = summary(results, wall, sched, launches)
+    out["speculative"] = sched.stats()["speculative"]
+    out["spec_mean_accepted"] = engine.spec_mean_accepted
+    out["cost_ratio"] = engine._spec_cost_ratio
+    out["kv_bytes"] = engine.kv_nbytes
+    out["draft"] = draft_share(torch, T, engine, tok)
+    out["profile"] = profile_decode(torch, engine, tok,
+                                    tokens_per_step=SPEC_T)
+    del engine
+    torch.cuda.empty_cache()
+    own = InferenceEngine(tiny_params, tiny_cfg, device="cuda",
+                          eos_token_id=tok.eos_token_id, runtime=rt,
+                          draft_params=tiny_params, draft_cfg=tiny_cfg)
+    own.generate_batch([tok.encode(p) for p in prompts], GenerationConfig(
+        max_tokens=MAX_TOKENS, temperature=0.0))
+    out["self_draft"] = {"window_mean": own.spec_window_mean,
+                         "accept_hist": own.spec_accept_hist.tolist()}
+    if own.spec_window_mean < SELF_DRAFT_MIN:
+        fail(f"spec_serve[llama2-7b+draft]: TinyLlama drafting for itself "
+             f"accepts {own.spec_window_mean:.3f} tokens a window, below "
+             f"{SELF_DRAFT_MIN} of {SPEC_T} ({own.spec_accept_hist})")
     return out
 
 
@@ -2097,6 +2756,14 @@ def report_serve(name, t0, out, smi_line, n_requests) -> None:
     if "prefill" in out:
         log(f"{name} prefill of each prompt alone, warm engine " + json.dumps(
             out["prefill"]))
+    if "speculative" in out:
+        spec = dict(out["speculative"])
+        for k in ("spec_mean_accepted", "equal_to_plain", "cost_ratio",
+                  "draft", "self_draft"):
+            if k in out:
+                spec[k] = out[k]
+        log(f"{name} speculative " + json.dumps(spec)
+            + f" card={smi_line!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -2171,6 +2838,7 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     rows = check_kernels(torch, cfg)
     rows += check_wquant_kernels(torch)
+    rows += check_verify_matmuls(torch, cfg)
     rows += check_grouped_kernels(torch)
     phase_line("kernels", t0, checked=len(rows))
 
@@ -2243,6 +2911,10 @@ def main(argv) -> int:
                        logits_rel_l2=f"{rel_q:.3e}",
                        plain_vs_plain_bf16_kv=f"{rel_qb:.3e}")
 
+    # 5b'. a speculative verify window, teacher-forced, through each store
+    # on each layout
+    spec_launches = spec_path(torch, T, params, cfg, counters)
+
     # 5c. the tightest gates again over other seeds
     margins(torch, T, kvcache, cfg, params)
 
@@ -2270,6 +2942,11 @@ def main(argv) -> int:
     srv = serve(torch, params, cfg, counters)
     report_serve("serve", t0, srv, smi_line, len(PROMPT_BYTES))
 
+    # 6b. serve with prompt-lookup speculation, contiguous bf16 KV
+    t0 = time.perf_counter()
+    ssrv = serve_spec(torch, params, cfg, counters, srv["token_ids"])
+    report_serve("spec_serve", t0, ssrv, smi_line, len(PROMPT_BYTES) + 1)
+
     # 7. paged serve
     t0 = time.perf_counter()
     psrv = serve_paged(torch, params, cfg, counters)
@@ -2278,11 +2955,18 @@ def main(argv) -> int:
     # 8, 9. the serve phases again over quantized KV: int8 contiguous,
     # k8v4 paged (the deployed recipe)
     t0 = time.perf_counter()
-    qsrv = serve(torch, params, cfg, counters, kv_cache_dtype="int8")
+    # (its prefill host split equals bf16's: one pass here)
+    qsrv = serve(torch, params, cfg, counters, kv_cache_dtype="int8",
+                 passes=False)
     report_serve("serve[int8]", t0, qsrv, smi_line, len(PROMPT_BYTES))
     t0 = time.perf_counter()
     qpsrv = serve_paged(torch, params, cfg, counters, kv_cache_dtype="k8v4")
     report_serve("paged_serve[k8v4]", t0, qpsrv, smi_line,
+                 len(paged_prompts()))
+    t0 = time.perf_counter()
+    spsrv = serve_paged(torch, params, cfg, counters, kv_cache_dtype="k8v4",
+                        spec_k=SPEC_K)
+    report_serve("spec_paged_serve[k8v4]", t0, spsrv, smi_line,
                  len(paged_prompts()))
 
     # 10. Llama-2-7B, all 32 layers, W4A8 g128 + k8v4, serve's traffic once
@@ -2295,7 +2979,18 @@ def main(argv) -> int:
         f"{lsrv['init_s']:.2f} s); TTFT of a {TTFT_PROMPT}-token prompt "
         f"alone on the warm engine: p50 {tt[len(tt) // 2]:.3f} ms, max "
         f"{tt[-1]:.3f} ms, each " + json.dumps(lsrv["ttft_512_ms"]))
-    del lsrv
+    l7_params = lsrv.pop("params")
+
+    # 10b. the same weights verifying drafts of TinyLlama-1.1B int8
+    t0 = time.perf_counter()
+    lspec = serve_llama2_spec(torch, T, counters, l7_params, params, cfg)
+    report_serve("spec_serve[llama2-7b+draft]", t0, lspec, smi_line,
+                 len(PROMPT_BYTES))
+    log(f"spec_serve[llama2-7b+draft] decode step p50 "
+        f"{lspec['decode_step_ms_p50']:.3f} ms against serve[llama2-7b]'s "
+        f"{lsrv['decode_step_ms_p50']:.3f} ms; tok/s {lspec['tok_per_s']:.1f}"
+        f" against {lsrv['tok_per_s']:.1f} card={smi_line!r}")
+    del lsrv, l7_params
     torch.cuda.empty_cache()
 
     # 11. Mixtral-8x7B whole, W4A8 g128 + int8 KV, serve's traffic once
@@ -2318,14 +3013,23 @@ def main(argv) -> int:
     # (the main path's serve phase when none did)
     serves = {"serve": srv, "paged_serve": psrv, "serve[int8]": qsrv,
               "paged_serve[k8v4]": qpsrv, "serve[llama2-7b]": l7_served,
-              "serve[mixtral-8x7b]": msrv}
+              "serve[mixtral-8x7b]": msrv, "spec_serve": ssrv,
+              "spec_paged_serve[k8v4]": spsrv,
+              "spec_serve[llama2-7b+draft]": lspec}
     runs = {name: out["launches"] for name, out in serves.items()}
     runs.update({f"path[{v},{lay}]": c for (v, lay), c in path_launches.items()})
+    runs.update({f"spec_path[{v},{lay}]": c
+                 for (v, lay), c in spec_launches.items()})
     runs["path[lm124]"] = lm_launches
     runs["path[llama2-7b]"] = l7_launches
     runs["path[mixtral-8x7b]"] = mx_launches
     paged_kernels = ("scatter_pool_rows", "decode_attention_paged")
     for row in rows:
+        if "launch_from" in row:
+            phase, key = row.pop("launch_from")
+            row["launches"] = runs[phase].get(key, 0)
+            row["launches_phase"] = phase
+            continue
         name = row["name"]
         kernel, _, var = name.partition("[")
         var = var.rstrip("]")

@@ -38,7 +38,9 @@ import torch.nn.functional as F
 from ..config import QuantConfig, QuantMode
 from ..ops.attention import (attention_chunk, attention_decode_auto,
                              attention_prefill)
-from ..ops.kernels.decode_attention import decode_attention_paged
+from ..ops.kernels.decode_attention import (decode_attention_paged,
+                                            verify_attention,
+                                            verify_attention_paged)
 from ..ops.kernels.grouped_matmul import (expert_tiles,
                                          grouped_dequant_matmul,
                                          grouped_dequant_matmul_ncat)
@@ -812,3 +814,59 @@ def forward_decode(params: Params, cfg: TransformerConfig,
         attn = _decode_attn(cache, q[:, 0], attn_lengths)
         x = _attn_tail(x, attn.reshape(b, 1, cfg.q_size), ap, layer, cfg)
     return _logits(params, cfg, x)[:, 0], tuple(caches)
+
+
+def _verify_attn(cache, q, lengths):
+    """Verify-window attention (JAX `_verify_attn` :1215-1256): q (B, T, H,
+    D) over either layout and any store, the T tokens folded into query
+    rows of kernel #5 (paged) or #3 (contiguous) over the raw stores and
+    their scales, one length-bounded pass for the whole window. lengths:
+    tokens cached before the window. Returns (B, T, H, D)."""
+    store = kvcache.store_args(cache)
+    if kvcache._is_paged(cache):
+        return verify_attention_paged(q, cache.k_pool, cache.v_pool,
+                                      cache.table, lengths, **store)
+    return verify_attention(q, cache.k, cache.v, lengths, **store)
+
+
+def forward_verify(params: Params, cfg: TransformerConfig,
+                   token_ids: torch.Tensor, caches, lengths: torch.Tensor, *,
+                   dtype=torch.bfloat16,
+                   active: Optional[torch.Tensor] = None):
+    """Speculative-verification forward (JAX :1119-1163): T tokens a slot
+    in one pass. token_ids (B, T): column 0 is each slot's current token
+    (its K/V goes to position lengths[b]), columns 1..T-1 are drafts.
+    All T positions' K/V are written (rows of rejected drafts stay stale
+    past the slot's length, masked on every later read, then overwritten);
+    positions past the cache are dropped. Returns (logits (B, T, V) f32,
+    caches); logits[:, t] is the distribution after input t. With `active`
+    (B,) bool, an inactive slot neither writes nor reads its cache, as in
+    `forward_decode`. The forward's token count for an MoE layer's branch
+    is B*T, as JAX's."""
+    b, t = token_ids.shape
+    positions = lengths.long()[:, None] + torch.arange(
+        t, device=token_ids.device)[None, :]                  # (B, T)
+    # a window near the cache end runs past a learned position table; those
+    # rows are dropped and never emitted, so they read its last row
+    x = _embed(params, cfg, token_ids,
+               positions.clamp(max=cfg.max_seq_len - 1), dtype)
+    if cfg.positions == "rope":
+        rope = rope_tables(positions, cfg.dim_head, theta=cfg.rope_theta)
+    attn_lengths = lengths
+    write_pos = positions
+    if active is not None:
+        write_pos = torch.where(active[:, None], positions,
+                                torch.full_like(positions, -1))
+        # the attention kernel adds T: an inactive slot's length is 0
+        attn_lengths = torch.where(active, lengths,
+                                   torch.full_like(lengths, -t))
+    rows = kvcache.decode_rows(caches[0], write_pos)
+    for layer, cache in zip(params["layers"], caches):
+        ap = layer["attn"]
+        q, k, v = _qkv_norm(x, layer, cfg)
+        if cfg.positions == "rope":
+            q, k = apply_rope_tables(q, *rope), apply_rope_tables(k, *rope)
+        kvcache.append_tokens(cache, k, v, write_pos, rows)
+        attn = _verify_attn(cache, q, attn_lengths)
+        x = _attn_tail(x, attn.reshape(b, t, cfg.q_size), ap, layer, cfg)
+    return _logits(params, cfg, x), tuple(caches)

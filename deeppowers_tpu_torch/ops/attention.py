@@ -1,7 +1,7 @@
 """Attention ops, ported from deeppowers_tpu/ops/attention.py
-(`attention_prefill` :44, `attention_chunk` :93,
-`attention_decode_quantized` :192, `attention_decode`,
-`attention_decode_auto` :265).
+(`attention_prefill` :44, `attention_chunk` :93, `attention_verify` :126,
+`attention_verify_quantized` :161, `attention_decode_quantized` :192,
+`attention_decode`, `attention_decode_auto` :265).
 
 Dispatch tests the tensor's device where the JAX package tested
 `jax.default_backend() == "tpu"`: CUDA tensors take the hand-written
@@ -19,7 +19,7 @@ import torch
 # version of kernel #3 and lives beside it; it is importable from here as
 # from the JAX module
 from .kernels.decode_attention import (  # noqa: F401
-    attention_decode_quantized, decode_attention)
+    attention_decode_quantized, decode_attention, verify_attention)
 from .kernels.flash_attention import flash_attention_prefill
 
 NEG_INF = -1e30
@@ -106,3 +106,32 @@ def attention_decode_auto(q: torch.Tensor, k_cache: torch.Tensor,
                             v_cache.reshape(b, s, -1), lengths,
                             k_scale=k_scale, v_scale=v_scale,
                             kv_bits=kv_bits, v_bits=v_bits, scale=scale)
+
+
+def attention_verify(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """Multi-token decode attention for speculative verification: q
+    (B, T, H, D) window queries over (B, S, Kh, D) caches that hold the
+    window's keys, lengths (B,) tokens cached before the window. Query t of
+    slot b sees key j iff j <= lengths[b] + t. Returns (B, T, H, D).
+    Kernel #3's verify variant on a CUDA tensor, its plain version (JAX's
+    f32 numerics) on the CPU."""
+    b, s, kh, d = k_cache.shape
+    return verify_attention(q, k_cache.reshape(b, s, kh * d),
+                            v_cache.reshape(b, s, kh * d), lengths,
+                            scale=scale)
+
+
+def attention_verify_quantized(q: torch.Tensor, k_q: torch.Tensor,
+                               v_q: torch.Tensor, k_scale: torch.Tensor,
+                               v_scale: torch.Tensor, lengths: torch.Tensor,
+                               *, scale: Optional[float] = None
+                               ) -> torch.Tensor:
+    """attention_verify over an int8 cache (B, S, Kh, D) with (B, Kh, S)
+    f32 scales folded in, JAX's numerics (bf16 q * scale and probabilities
+    times the V scales, f32 sums) on the CPU."""
+    b, s, kh, d = k_q.shape
+    return verify_attention(q, k_q.reshape(b, s, kh * d),
+                            v_q.reshape(b, s, kh * d), lengths,
+                            k_scale=k_scale, v_scale=v_scale, scale=scale)

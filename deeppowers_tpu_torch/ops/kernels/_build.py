@@ -46,11 +46,11 @@ SIGNATURES: Dict[str, list] = {
     "dpt_kv_append_pool": [_P, _P, _P, _P, _P, _LL, _P, _LL, _P, _P, _I, _I,
                            _I, _I, _I, _I, _I, _P],
     "dpt_decode_attention": [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _LL, _P, _LL,
-                             _LL, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
-                             _P, _P, _P, _P],
+                             _LL, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                             _P, _P, _P, _P, _P],
     "dpt_decode_attention_paged": [_P, _LL, _P, _P, _P, _P, _P, _I, _I, _P, _I,
-                                   _I, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P,
-                                   _P, _P],
+                                   _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P,
+                                   _P, _P, _P],
     "dpt_grouped_matmul": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I,
                            _P],
     "dpt_grouped_matmul_ncat": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I,

@@ -1,6 +1,7 @@
 """GQA decode attention over bf16 or quantized KV: wrappers, plain
-versions and launch counts for the contiguous and the paged layout. CUDA
-source: csrc/decode_attention.cu (one kernel template, two row
+versions and launch counts for the contiguous and the paged layout, for
+one token a slot (decode) or a speculative verify window of T tokens a
+slot. CUDA source: csrc/decode_attention.cu (one kernel template, two row
 addressings, four store variants).
 
 `decode_attention` replaces the Pallas TPU kernel
@@ -8,8 +9,17 @@ deeppowers_tpu/ops/pallas/decode_attention.py (`decode_attention_mxu`
 :341, pallas_call :470, body `_kernel_mxu` :123) over flat (B, S, F')
 caches; `decode_attention_paged` replaces `decode_attention_paged_mxu`
 :706 (pallas_call :780, body `_kernel_mxu_paged_db` :526) over (P, page,
-F') pools read through a (B, WP) page table. Both: one token per slot, no
-stacked `layer` operand.
+F') pools read through a (B, WP) page table. Neither takes the stacked
+`layer` operand.
+
+Verify windows (`tokens` = T > 1): `verify_attention` and
+`verify_attention_paged` replace `verify_attention_mxu` :501 and
+`verify_attention_paged_mxu` :1235. As there, the T window tokens fold into
+extra query rows ordered (head, t) (`_fold_tokens` :488), the kernel gets
+lengths + T, and row t sees the positions below lengths + 1 + t (:262-266,
+:657-661), so the cache streams once for the whole window. Launch counts
+are kept per store and per T: `variant_launches["bf16"]` for decode,
+`["bf16:t5"]` for a window of 5.
 
 Store variants, named as quant/kvquant.py's `store_variant` names them:
 "bf16" (no scales); with head-major f32 scales k_scale / v_scale ((B, R, S), or
@@ -18,13 +28,15 @@ Store variants, named as quant/kvquant.py's `store_variant` names them:
 per head, R = 2*Kh), "k8v4" (int8 K, packed int4 V).
 
 out[b, h] = softmax(q[b, h] . K[b, :len, h // rep] * scale) @ V[b, :len,
-h // rep], with len = lengths[b] and K/V the slot's (virtual) dequantized
-rows. Bound on an H100: the live K/V bytes and their scales over 3.35
-TB/s. The kernel splits the sequence across blocks (flash-decoding, 64
-positions a block), folds the scales into the scores and the
-probabilities, computes in f32, and combines the partials in a second
-small kernel; positions at or past the length are excluded by a select,
-and blocks past it read nothing.
+h // rep], with len = lengths[b] (lengths[b] - (T - 1) + t for window token
+t) and K/V the slot's (virtual) dequantized rows. Bound on an H100: the
+live K/V bytes and their scales over 3.35 TB/s, for a window as for one
+token. The kernel splits the sequence across blocks (flash-decoding, 64
+positions a block), each block serving all query rows of its kv head from
+one staged tile, folds the scales into the scores and the probabilities,
+computes in f32, and combines the partials in a second small kernel;
+positions at or past a row's bound are excluded by a select, and blocks
+past the slot's length read nothing.
 
 The plain versions follow the JAX package's CPU path for each variant, so
 that greedy streams match the JAX engine's: bf16 and int8 as
@@ -54,63 +66,95 @@ NEG_INF = -1e30
 SPLIT_CHUNK = 64
 
 
-def _dense_plain(q, k, v, lengths, scale):
-    """attention_decode over (B, S, Kh, D) float K/V. Unread V rows are
-    zeroed by a select first, so NaN there cannot reach the output through
-    a zero probability."""
-    b, h, d = q.shape
+#: query rows a kv head the CUDA kernel takes: 16 warps of 4 rows
+MAX_ROWS = 64
+
+
+def fold_tokens(q: torch.Tensor) -> torch.Tensor:
+    """(B, T, H, D) -> (B, H*T, D), rows ordered (head, t) (JAX
+    `_fold_tokens` :488)."""
+    b, t, h, d = q.shape
+    return q.transpose(1, 2).reshape(b, h * t, d)
+
+
+def unfold_tokens(out: torch.Tensor, t: int) -> torch.Tensor:
+    """(B, H*T, D) -> (B, T, H, D) (JAX `_unfold_tokens` :495)."""
+    b, ht, d = out.shape
+    return out.reshape(b, ht // t, t, d).transpose(1, 2)
+
+
+def _masks(q, s, lengths, tokens):
+    """(slot mask (B, S): positions below lengths, which V rows and scales
+    may be read at; row mask (B, O, S): the positions each query row sees,
+    below lengths - (T - 1) + t for its window token t)."""
+    pos = torch.arange(s, device=q.device)
+    lens = lengths.to(q.device).long()
+    t = torch.arange(q.shape[1], device=q.device) % tokens
+    bound = lens[:, None] - (tokens - 1) + t[None, :]
+    return pos[None, :] < lens[:, None], pos[None, None, :] < bound[:, :, None]
+
+
+def _dense_plain(q, k, v, lengths, scale, tokens=1):
+    """attention_decode over (B, S, Kh, D) float K/V for query rows q
+    (B, O, D), O = H*T. Unread V rows are zeroed by a select first, so NaN
+    there cannot reach the output through a zero probability."""
+    b, o, d = q.shape
     s, kh = k.shape[1], k.shape[2]
-    rep = h // kh
-    valid = torch.arange(s, device=q.device)[None, :] < lengths[:, None].long()
+    rows = o // kh
+    valid, seen = _masks(q, s, lengths, tokens)
     v = torch.where(valid[:, :, None, None], v.float(),
                     torch.zeros((), device=v.device))
-    qg = q.reshape(b, kh, rep, d).float() * scale
+    qg = q.reshape(b, kh, rows, d).float() * scale
     scores = torch.einsum("bkrd,bskd->bkrs", qg, k.float())
-    scores = torch.where(valid[:, None, None, :], scores,
+    scores = torch.where(seen.reshape(b, kh, rows, s), scores,
                          torch.full((), NEG_INF, device=q.device))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkrs,bskd->bkrd", probs, v)
-    return out.reshape(b, h, d).to(q.dtype)
+    return out.reshape(b, o, d).to(q.dtype)
 
 
 def attention_decode_quantized(q, k_q, v_q, k_scale, v_scale, lengths, *,
-                               scale: Optional[float] = None):
+                               scale: Optional[float] = None,
+                               tokens: int = 1):
     """JAX's `attention_decode_quantized` (ops/attention.py:192-228), the
-    int8 variant's plain version: q (B, H, D), k_q, v_q (B, S, Kh, D)
-    int8, scales (B, Kh, S) f32. bf16(q * scale)
+    int8 variant's plain version: q (B, H, D) (or (B, H*T, D) folded query
+    rows of a verify window, JAX `attention_verify_quantized` :161-189),
+    k_q, v_q (B, S, Kh, D) int8, scales (B, Kh, S) f32. bf16(q * scale)
     against the int8 values, the K scales folded into the f32 scores, and
     bf16(probs * v_scale) against the V values, f32 sums. Rows past each
     length are selected away (values and scales), so a NaN scale there
     cannot reach the output."""
-    b, h, d = q.shape
+    b, o, d = q.shape
     s, kh = k_q.shape[1], k_q.shape[2]
-    rep = h // kh
+    rows = o // kh
     scale = scale if scale is not None else d ** -0.5
-    valid = torch.arange(s, device=q.device)[None, :] < lengths[:, None].long()
+    valid, seen = _masks(q, s, lengths, tokens)
     zero = torch.zeros((), device=q.device)
     ks = torch.where(valid[:, None, :], k_scale.float(), zero)
     vs = torch.where(valid[:, None, :], v_scale.float(), zero)
     v = torch.where(valid[:, :, None, None], v_q.float(), zero)
     # q * scale in q's dtype, as JAX multiplies by a weakly typed scalar
     sc = torch.tensor(scale, dtype=q.dtype).float()
-    qg = (q.reshape(b, kh, rep, d).float() * sc).to(torch.bfloat16).float()
+    qg = (q.reshape(b, kh, rows, d).float() * sc).to(torch.bfloat16).float()
     scores = torch.einsum("bkrd,bskd->bkrs", qg, k_q.float())
     scores = scores * ks[:, :, None, :]
-    scores = torch.where(valid[:, None, None, :], scores,
+    scores = torch.where(seen.reshape(b, kh, rows, s), scores,
                          torch.full((), NEG_INF, device=q.device))
     probs = torch.softmax(scores, dim=-1)
     pw = (probs * vs[:, :, None, :]).to(torch.bfloat16).float()
     out = torch.einsum("bkrs,bskd->bkrd", pw, v)
-    return out.reshape(b, h, d).to(q.dtype)
+    return out.reshape(b, o, d).to(q.dtype)
 
 
 def decode_attention_plain(q, k_cache, v_cache, lengths, *, k_scale=None,
                            v_scale=None, kv_bits: int = 8, v_bits: int = 0,
-                           scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B, H, D); caches: (B, S, F') flat stores; scales (B, R, S) when
-    quantized; lengths: (B,). The JAX package's CPU numerics per variant
-    (module docstring)."""
-    b, h, d = q.shape
+                           scale: Optional[float] = None,
+                           tokens: int = 1) -> torch.Tensor:
+    """q: (B, H*T, D) query rows (T = tokens, folded as `fold_tokens`
+    folds them); caches: (B, S, F') flat stores; scales (B, R, S) when
+    quantized; lengths: (B,), including the T window rows. The JAX
+    package's CPU numerics per variant (module docstring)."""
+    b, o, d = q.shape
     s = k_cache.shape[1]
     scale = scale if scale is not None else d ** -0.5
     name = store_variant(k_scale, kv_bits, v_bits)
@@ -118,29 +162,35 @@ def decode_attention_plain(q, k_cache, v_cache, lengths, *, k_scale=None,
     if name == "bf16":
         kh = k_cache.shape[2] // d
         return _dense_plain(q, k_cache.reshape(b, s, kh, d),
-                            v_cache.reshape(b, s, kh, d), lengths, scale)
+                            v_cache.reshape(b, s, kh, d), lengths, scale,
+                            tokens)
     kh = scale_heads(k_scale, kb)
     k4 = k_cache.reshape(b, s, kh, -1)
     v4 = v_cache.reshape(b, s, kh, -1)
     if name == "int8":
         return attention_decode_quantized(q, k4, v4, k_scale, v_scale,
-                                          lengths, scale=scale)
+                                          lengths, scale=scale, tokens=tokens)
     return _dense_plain(q, dequant_side(k4, k_scale, kb, torch.float32),
                         dequant_side(v4, v_scale, vb, torch.float32), lengths,
-                        scale)
+                        scale, tokens)
 
 
-def _count(fn, name: str) -> None:
+def _count(fn, name: str, tokens: int) -> None:
+    """One launch, counted under its store and window: "int8" for decode,
+    "int8:t5" for a verify window of 5."""
     fn.launches += 1
-    fn.variant_launches[name] += 1
+    fn.variant_launches[name if tokens == 1 else f"{name}:t{tokens}"] += 1
 
 
-def _check_common(q, h, d, kh, name, caches, scales, wrapper):
+def _check_common(q, o, d, kh, tokens, name, caches, scales, wrapper):
     if d not in (64, 128):
         raise NotImplementedError(f"head_dim {d} not supported")
-    rep = h // max(kh, 1)
-    if kh < 1 or rep * kh != h or rep > 16:
-        raise NotImplementedError(f"{h} heads over {kh} kv heads")
+    rows = o // max(kh, 1)
+    if kh < 1 or tokens < 1 or rows * kh != o or rows % tokens or \
+            rows > MAX_ROWS:
+        raise NotImplementedError(
+            f"{o} query rows of {tokens} tokens over {kh} kv heads (at most "
+            f"{MAX_ROWS} rows a kv head)")
     if q.dtype != torch.bfloat16:
         raise NotImplementedError(f"CUDA {wrapper} takes bf16 q")
     want = torch.bfloat16 if name == "bf16" else torch.int8
@@ -150,14 +200,14 @@ def _check_common(q, h, d, kh, name, caches, scales, wrapper):
     if name != "bf16" and any(s is None or s.dtype != torch.float32
                               for s in scales):
         raise NotImplementedError(f"CUDA {wrapper} takes f32 scales")
-    return rep
+    return rows
 
 
-def _scratch(q, b, h, d, nsplit):
-    pm = torch.empty((b * h * nsplit,), dtype=torch.float32, device=q.device)
-    pacc = torch.empty((b * h * nsplit * d,), dtype=torch.float32,
+def _scratch(q, b, o, d, nsplit):
+    pm = torch.empty((b * o * nsplit,), dtype=torch.float32, device=q.device)
+    pacc = torch.empty((b * o * nsplit * d,), dtype=torch.float32,
                        device=q.device)
-    out = torch.empty((b, h, d), dtype=torch.bfloat16, device=q.device)
+    out = torch.empty((b, o, d), dtype=torch.bfloat16, device=q.device)
     return pm, torch.empty_like(pm), pacc, out
 
 
@@ -177,19 +227,22 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      k_scale: Optional[torch.Tensor] = None,
                      v_scale: Optional[torch.Tensor] = None,
                      kv_bits: int = 8, v_bits: int = 0,
-                     scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B, H, D); k_cache, v_cache: (B, S, F') stores (bf16 F' = Kh*D;
+                     scale: Optional[float] = None,
+                     tokens: int = 1) -> torch.Tensor:
+    """q: (B, H*T, D) query rows, T = tokens (folded as `fold_tokens`
+    folds a window); k_cache, v_cache: (B, S, F') stores (bf16 F' = Kh*D;
     int8 Kh*D; packed int4 Kh*D/2); k_scale, v_scale: (B, R, S) f32 when
     quantized; lengths: (B,) valid positions per slot (including the
-    current token). Returns (B, H, D). A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises."""
+    current token, or all T window tokens). Returns (B, H*T, D). A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel or
+    raises."""
     name = store_variant(k_scale, kv_bits, v_bits)
     if not q.is_cuda:
         return decode_attention_plain(q, k_cache, v_cache, lengths,
                                       k_scale=k_scale, v_scale=v_scale,
                                       kv_bits=kv_bits, v_bits=v_bits,
-                                      scale=scale)
-    b, h, d = q.shape
+                                      scale=scale, tokens=tokens)
+    b, o, d = q.shape
     s = k_cache.shape[1]
     kb, vb = STORE_BITS[name]
     tensors = [k_cache, v_cache, lengths] + (
@@ -197,8 +250,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     for t in tensors:
         _build.require_cuda(t, "decode_attention operand")
     kh = _kv_heads(name, k_cache.shape[2], k_scale, d)
-    rep = _check_common(q, h, d, kh, name, (k_cache, v_cache),
-                        (k_scale, v_scale), "decode_attention")
+    rows = _check_common(q, o, d, kh, tokens, name, (k_cache, v_cache),
+                         (k_scale, v_scale), "decode_attention")
     kw, vw = _widths(kh, d, kb, vb)
     for c, w in ((k_cache, kw), (v_cache, vw)):
         if c.dim() != 3 or c.shape[:2] != (b, s) or c.shape[2] != w or \
@@ -210,10 +263,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     sc_args = [None, 0, 0, None, 0, 0]
     if name != "bf16":
         for sc, bits in ((k_scale, kb), (v_scale, vb)):
-            rows = kh * (2 if bits == 4 else 1)
-            if sc.dim() != 3 or sc.shape[:2] != (b, rows) or \
+            srows = kh * (2 if bits == 4 else 1)
+            if sc.dim() != 3 or sc.shape[:2] != (b, srows) or \
                     sc.shape[2] < s or sc.stride(2) != 1:
-                raise ValueError(f"scales must be (B, {rows}, >= S) with "
+                raise ValueError(f"scales must be (B, {srows}, >= S) with "
                                  f"contiguous positions, got "
                                  f"{tuple(sc.shape)}")
         sc_args = [k_scale.data_ptr(), k_scale.stride(0), k_scale.stride(1),
@@ -223,14 +276,15 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     lens = lengths.to(torch.int32).contiguous()
     scale = scale if scale is not None else d ** -0.5
     nsplit = -(-s // SPLIT_CHUNK)
-    pm, pl, pacc, out = _scratch(q, b, h, d, nsplit)
+    pm, pl, pacc, out = _scratch(q, b, o, d, nsplit)
     rc = _build.library().dpt_decode_attention(
         q.data_ptr(), q.stride(0), k_cache.data_ptr(), k_cache.stride(0),
         v_cache.data_ptr(), v_cache.stride(0), *sc_args, lens.data_ptr(), b,
-        s, kh, rep, d, kb, vb, SPLIT_CHUNK, float(scale), pm.data_ptr(),
-        pl.data_ptr(), pacc.data_ptr(), out.data_ptr(), _build.stream())
+        s, kh, rows, tokens, d, kb, vb, SPLIT_CHUNK, float(scale),
+        pm.data_ptr(), pl.data_ptr(), pacc.data_ptr(), out.data_ptr(),
+        _build.stream())
     _build.check(rc, "decode_attention")
-    _count(decode_attention, name)
+    _count(decode_attention, name, tokens)
     return out
 
 
@@ -241,9 +295,9 @@ decode_attention.variant_launches = collections.Counter()
 def decode_attention_paged_plain(q, k_pool, v_pool, table, lengths, *,
                                  k_scale=None, v_scale=None, kv_bits: int = 8,
                                  v_bits: int = 0,
-                                 scale: Optional[float] = None
-                                 ) -> torch.Tensor:
-    """q: (B, H, D); pools: (P, page, F'); scale pools (P, R, page) when
+                                 scale: Optional[float] = None,
+                                 tokens: int = 1) -> torch.Tensor:
+    """q: (B, H*T, D); pools: (P, page, F'); scale pools (P, R, page) when
     quantized; table: (B, WP); lengths: (B,). Gathers each slot's pages
     (and their scales) into its virtual (B, WP*page, F') view and applies
     decode_attention_plain, whose selects keep stale rows and stale scales
@@ -261,7 +315,7 @@ def decode_attention_paged_plain(q, k_pool, v_pool, table, lengths, *,
                       v_scale=gather_scale(v_scale, table))
     return decode_attention_plain(q, gather(k_pool), gather(v_pool), lengths,
                                   kv_bits=kv_bits, v_bits=v_bits, scale=scale,
-                                  **scales)
+                                  tokens=tokens, **scales)
 
 
 def decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
@@ -270,18 +324,21 @@ def decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
                            k_scale: Optional[torch.Tensor] = None,
                            v_scale: Optional[torch.Tensor] = None,
                            kv_bits: int = 8, v_bits: int = 0,
-                           scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B, H, D); k_pool, v_pool: (P, page, F') stores; k_scale,
-    v_scale: (P, R, page) f32 when quantized; table: (B, WP) int32 page
-    ids; lengths: (B,) valid positions per slot (including the current
-    token), at most WP * page. Returns (B, H, D). A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel or raises."""
+                           scale: Optional[float] = None,
+                           tokens: int = 1) -> torch.Tensor:
+    """q: (B, H*T, D) query rows, T = tokens; k_pool, v_pool: (P, page,
+    F') stores; k_scale, v_scale: (P, R, page) f32 when quantized; table:
+    (B, WP) int32 page ids; lengths: (B,) valid positions per slot
+    (including the current token, or all T window tokens), at most WP *
+    page. Returns (B, H*T, D). A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel or raises."""
     name = store_variant(k_scale, kv_bits, v_bits)
     if not q.is_cuda:
         return decode_attention_paged_plain(
             q, k_pool, v_pool, table, lengths, k_scale=k_scale,
-            v_scale=v_scale, kv_bits=kv_bits, v_bits=v_bits, scale=scale)
-    b, h, d = q.shape
+            v_scale=v_scale, kv_bits=kv_bits, v_bits=v_bits, scale=scale,
+            tokens=tokens)
+    b, o, d = q.shape
     p, ps = k_pool.shape[0], k_pool.shape[1]
     wp = table.shape[1]
     kb, vb = STORE_BITS[name]
@@ -290,8 +347,8 @@ def decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
     for t in tensors:
         _build.require_cuda(t, "decode_attention_paged operand")
     kh = _kv_heads(name, k_pool.shape[2], k_scale, d)
-    rep = _check_common(q, h, d, kh, name, (k_pool, v_pool),
-                        (k_scale, v_scale), "decode_attention_paged")
+    rows = _check_common(q, o, d, kh, tokens, name, (k_pool, v_pool),
+                         (k_scale, v_scale), "decode_attention_paged")
     kw, vw = _widths(kh, d, kb, vb)
     for c, w in ((k_pool, kw), (v_pool, vw)):
         if c.shape != (p, ps, w) or not c.is_contiguous():
@@ -300,10 +357,10 @@ def decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
     ks_ptr = vs_ptr = None
     if name != "bf16":
         for sc, bits in ((k_scale, kb), (v_scale, vb)):
-            rows = kh * (2 if bits == 4 else 1)
-            if sc.shape != (p, rows, ps) or not sc.is_contiguous():
+            srows = kh * (2 if bits == 4 else 1)
+            if sc.shape != (p, srows, ps) or not sc.is_contiguous():
                 raise ValueError(f"scale pools must be contiguous ({p}, "
-                                 f"{rows}, {ps}), got {tuple(sc.shape)}")
+                                 f"{srows}, {ps}), got {tuple(sc.shape)}")
         ks_ptr, vs_ptr = k_scale.data_ptr(), v_scale.data_ptr()
     if table.dim() != 2 or table.shape[0] != b or table.stride(1) != 1:
         raise ValueError(f"table must be (B, WP) with contiguous rows, got "
@@ -314,16 +371,42 @@ def decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
     lens = lengths.to(torch.int32).contiguous()
     scale = scale if scale is not None else d ** -0.5
     nsplit = -(-(wp * ps) // SPLIT_CHUNK)
-    pm, pl, pacc, out = _scratch(q, b, h, d, nsplit)
+    pm, pl, pacc, out = _scratch(q, b, o, d, nsplit)
     rc = _build.library().dpt_decode_attention_paged(
         q.data_ptr(), q.stride(0), k_pool.data_ptr(), v_pool.data_ptr(),
         ks_ptr, vs_ptr, tab.data_ptr(), tab.stride(0), ps, lens.data_ptr(), b,
-        wp, kh, rep, d, kb, vb, SPLIT_CHUNK, float(scale), pm.data_ptr(),
-        pl.data_ptr(), pacc.data_ptr(), out.data_ptr(), _build.stream())
+        wp, kh, rows, tokens, d, kb, vb, SPLIT_CHUNK, float(scale),
+        pm.data_ptr(), pl.data_ptr(), pacc.data_ptr(), out.data_ptr(),
+        _build.stream())
     _build.check(rc, "decode_attention_paged")
-    _count(decode_attention_paged, name)
+    _count(decode_attention_paged, name, tokens)
     return out
 
 
 decode_attention_paged.launches = 0
 decode_attention_paged.variant_launches = collections.Counter()
+
+
+def verify_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, lengths: torch.Tensor,
+                     **kw) -> torch.Tensor:
+    """Speculative-verify attention (JAX `verify_attention_mxu` :501): q
+    (B, T, H, D) window queries over the stores of `decode_attention`
+    (which already hold the window's K/V); lengths (B,) tokens cached
+    BEFORE the window. The window folds into T query rows a head, one
+    launch for all of them. Returns (B, T, H, D)."""
+    t = q.shape[1]
+    out = decode_attention(fold_tokens(q), k_cache, v_cache, lengths + t,
+                           tokens=t, **kw)
+    return unfold_tokens(out, t)
+
+
+def verify_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, table: torch.Tensor,
+                           lengths: torch.Tensor, **kw) -> torch.Tensor:
+    """`verify_attention` over the paged pools (JAX
+    `verify_attention_paged_mxu` :1235). Returns (B, T, H, D)."""
+    t = q.shape[1]
+    out = decode_attention_paged(fold_tokens(q), k_pool, v_pool, table,
+                                 lengths + t, tokens=t, **kw)
+    return unfold_tokens(out, t)

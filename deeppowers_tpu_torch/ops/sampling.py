@@ -126,6 +126,37 @@ def sample(logits: torch.Tensor, params: SamplingParams,
     return torch.where(params.temperature > 0, tok, greedy_tok)
 
 
+def processed_probs(logits: torch.Tensor, params: SamplingParams, *,
+                    token_counts: Optional[torch.Tensor] = None,
+                    generated_counts: Optional[torch.Tensor] = None,
+                    eos_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The distribution `sample` draws from, as (B, V) f32 probabilities
+    (JAX `processed_probs`, ops/sampling.py:174-204): penalties -> logit
+    bias -> min-tokens EOS suppression (slots with generated_counts <
+    min_tokens and an EOS id) -> temperature -> top-k / top-p -> softmax.
+    A greedy slot (temperature 0) gets an exact one-hot at the argmax.
+    Speculative verification accepts drafts against it."""
+    logits = logits.float()
+    if token_counts is not None:
+        logits = apply_penalties(logits, token_counts, params)
+    logits = apply_logit_bias(logits, params)
+    b, v = logits.shape
+    if eos_ids is not None and generated_counts is not None:
+        suppress = (generated_counts < params.min_tokens) & (eos_ids >= 0)
+        col = eos_ids.clamp(0, v - 1).long()
+        rows = torch.arange(b, device=logits.device)
+        logits = logits.clone()
+        logits[rows, col] += torch.where(
+            suppress, torch.full_like(logits[:, 0], NEG_INF),
+            torch.zeros_like(logits[:, 0]))
+    greedy = torch.nn.functional.one_hot(torch.argmax(logits, dim=-1),
+                                         v).float()
+    temp = params.temperature.clamp(min=1e-6)[:, None]
+    filtered = top_k_top_p_mask(logits / temp, params.top_k, params.top_p)
+    sampled = torch.softmax(filtered, dim=-1)
+    return torch.where((params.temperature > 0)[:, None], sampled, greedy)
+
+
 def logprobs_of(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Log-probability of the chosen tokens (B,)."""
     logits = logits.float()

@@ -38,10 +38,19 @@ MoE models (Mixtral) run on the one device with their quantized experts
 in the cat layout, as the JAX engine runs them without a mesh; their
 batched prefills pad the batch as the JAX engine does, so each forward's
 token count, which picks an MoE layer's branch, is the JAX engine's.
-Not ported yet (ROADMAP.md): speculative and structured decoding,
-multi-step dispatch, top logprobs, sequence-parallel prefill and meshes
-(tensor and expert parallelism); the RuntimeConfig fields that ask for
-them raise NotImplementedError.
+Speculative decoding (`RuntimeConfig.speculative_tokens` = K > 0, JAX
+engine.py:731-821, 1565-1691; runtime/speculative.py) runs on either
+layout and store: each step drafts K tokens a slot by prompt lookup over a
+device token history, or with a draft model (`draft_params` /
+`draft_cfg`, its own contiguous cache in the target's store, prefilled at
+activation), verifies the window in one forward and emits 1..K+1 tokens a
+slot, with one host transfer a step. Pages are reserved K rows further
+ahead, and the engine falls back to plain decode when the mean accepted
+window stays below `speculative_min_accepted` (scaled by a draft's cost).
+Not ported yet (ROADMAP.md): structured decoding, multi-step dispatch, top
+logprobs, sequence-parallel prefill and meshes (tensor and expert
+parallelism); the RuntimeConfig fields that ask for them raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -59,9 +68,9 @@ from ..config import GenerationConfig, RuntimeConfig
 from ..device import resolve_device
 from ..models.transformer import (TransformerConfig, forward_decode,
                                   forward_prefill, forward_prefill_chunk,
-                                  fuse_params)
+                                  fuse_params, param_nbytes)
 from ..ops.sampling import SamplingParams, logprobs_of, sample
-from . import kvcache, kvcache_paged
+from . import kvcache, kvcache_paged, speculative
 from .prefix_index import SlotPrefixIndex
 
 NEG_INF = -1e30
@@ -143,7 +152,7 @@ class SlotResult:
 
 #: RuntimeConfig fields the JAX engine acts on and the port does not yet,
 #: with their defaults: a run that sets one raises instead of ignoring it
-UNPORTED_RUNTIME_DEFAULTS = {"speculative_tokens": 0, "emit_top_logprobs": 0,
+UNPORTED_RUNTIME_DEFAULTS = {"emit_top_logprobs": 0,
                              "decode_steps_per_dispatch": 1,
                              "seq_parallel_prefill": False}
 
@@ -166,7 +175,9 @@ class InferenceEngine:
                  kv_cache_dtype: str = "bf16", act_dtype=torch.bfloat16,
                  seed: int = 0, fuse_projections: bool = True, device=None,
                  kv_layout: str = "contiguous",
-                 kv_total_pages: Optional[int] = None):
+                 kv_total_pages: Optional[int] = None,
+                 draft_params=None,
+                 draft_cfg: Optional[TransformerConfig] = None):
         if kv_layout not in ("contiguous", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
         self.device = resolve_device(device)
@@ -206,6 +217,83 @@ class InferenceEngine:
         self._defer_admission = False
         self._pending_batch: List[Dict] = []
         self.steps = 0
+        self._init_speculation(draft_params, draft_cfg, fuse_projections)
+
+    def _init_speculation(self, draft_params, draft_cfg,
+                          fuse_projections: bool) -> None:
+        """Speculative decoding state (JAX engine.py:731-821): the prompt
+        lookup history, or the draft model and its cache; the counters."""
+        b = self.runtime.max_batch_size
+        self._spec_k = self.runtime.speculative_tokens
+        self._history: Optional[torch.Tensor] = None
+        self._draft = None           # (params, cfg) for draft-model drafting
+        self._draft_caches = None
+        # the last drafts and whole-window slots of the previous step, and
+        # whether any window was whole (speculative.spec_decode_draft_core)
+        self._draft_tail = None
+        self._tail_due = False
+        # forward-equivalents of one speculative step against one plain
+        # decode step: 1 for prompt lookup, 1 + K * (draft bytes / target
+        # bytes) with a draft model (decode streams the weights)
+        self._spec_cost_ratio = 1.0
+        if self._spec_k > 0:
+            if self._spec_k + 1 >= min(self.runtime.prefill_buckets):
+                raise ValueError(
+                    "speculative_tokens must be smaller than the smallest "
+                    "prefill bucket (stale window writes must be overwritten "
+                    "by the next prefill)")
+            if draft_params is not None:
+                if draft_cfg is None:
+                    raise ValueError("draft_params needs draft_cfg")
+                if draft_cfg.vocab_size != self.cfg.vocab_size:
+                    raise ValueError(
+                        f"draft vocab {draft_cfg.vocab_size} != target "
+                        f"vocab {self.cfg.vocab_size} (same tokenizer "
+                        f"required)")
+                if draft_params["embedding"].device.type != self.device.type:
+                    raise ValueError(
+                        f"draft params live on "
+                        f"{draft_params['embedding'].device}, the engine "
+                        f"runs on {self.device}")
+                if fuse_projections:
+                    draft_params = fuse_params(draft_params, draft_cfg)
+                self._draft = (draft_params, draft_cfg)
+                self._spec_cost_ratio = 1.0 + self._spec_k * (
+                    param_nbytes(draft_params)
+                    / max(param_nbytes(self.params), 1))
+                self._draft_caches = self._new_draft_caches()
+            else:
+                self._history = speculative.init_history(b, self.max_seq,
+                                                         self.device)
+        self.spec_steps = 0
+        self.spec_emitted = 0
+        # accepted tokens per non-empty window (index 1..K+1): feeds the
+        # auto-disable policy and the scheduler's stats
+        self.spec_accept_hist = np.zeros((self._spec_k + 2,), dtype=np.int64)
+        self.spec_disabled = False
+
+    def _new_draft_caches(self):
+        """The draft model's contiguous cache, in the target's store."""
+        dcfg = self._draft[1]
+        return kvcache.init_cache(
+            dcfg.num_layers, self.runtime.max_batch_size, self.max_seq,
+            dcfg.kv_heads, dcfg.dim_head, dtype=self.act_dtype,
+            kv_cache_dtype=self.kv_cache_dtype, device=self.device)
+
+    @property
+    def spec_mean_accepted(self) -> float:
+        """Mean tokens emitted per speculative step, over all slots."""
+        return self.spec_emitted / max(self.spec_steps, 1)
+
+    @property
+    def spec_window_mean(self) -> float:
+        """Mean accepted tokens per non-empty speculative window (a slot's
+        window), 0 before the first."""
+        total = int(self.spec_accept_hist.sum())
+        if total == 0:
+            return 0.0
+        counts = np.arange(self.spec_accept_hist.shape[0])
+        return float((self.spec_accept_hist * counts).sum() / total)
 
     @property
     def kv_nbytes(self) -> int:
@@ -333,11 +421,16 @@ class InferenceEngine:
                 matched = self._page_alloc.match_prefix(
                     self._table_host, slot, token_ids, ps)
             if self.runtime.kv_reserve == "lazy":
-                # prompt + slack; grown page by page before decode steps
-                budget = min(n + self.runtime.kv_lazy_slack, self.max_seq)
+                # prompt + slack (+ a window's overrun); grown page by page
+                # before decode steps
+                budget = min(n + self.runtime.kv_lazy_slack + self._spec_k,
+                             self.max_seq)
             else:
-                # the whole token budget, and the padded prompt write
-                budget = min(n + gen.max_tokens + 1, self.max_seq)
+                # the whole token budget (a speculative window writes up to
+                # K rows past the last accepted token), and the padded
+                # prompt write
+                budget = min(n + gen.max_tokens + 1 + self._spec_k,
+                             self.max_seq)
                 budget = max(budget, self._bucket(n))
             if not self._page_alloc.ensure(self._table_host, slot, budget, ps):
                 # ensure() is not transactional: release the partial
@@ -357,7 +450,7 @@ class InferenceEngine:
         item = {"slot": slot, "ids": list(token_ids), "n": n, "gen": gen,
                 "rid": request_id, "t0": t0, "bucket": self._bucket(n)}
         if (self._defer_admission and self.runtime.batched_admission
-                and self._page_alloc is None):
+                and self._page_alloc is None and self._draft is None):
             self._pending_batch.append(item)
             return slot
         self._prefill_group([item])
@@ -504,6 +597,16 @@ class InferenceEngine:
                                              self.runtime.kv_page_size)
         if self._prefix_idx is not None:
             self._prefix_idx.register(slot, it["ids"])
+        if self._history is not None:
+            # the prompt-lookup history row: the prompt, then the first token
+            row = torch.zeros((self._history.shape[1],), dtype=torch.int32)
+            row[:n] = torch.as_tensor(it["ids"], dtype=torch.int32)
+            self._history[slot] = row.to(dev)
+            self._history[slot, n] = tok[0]
+        if self._draft is not None:
+            self._prefill_draft(slot, it["ids"])
+            if self._draft_tail is not None:
+                self._draft_tail[1][slot] = False     # a new occupant
         res = self._slots[slot]
         res.prompt_len = n
         res.max_tokens = gen.max_tokens
@@ -518,6 +621,23 @@ class InferenceEngine:
             res.stop_reason = "eos" if hit_stop else "max_tokens"
             self._retire(slot)
 
+    def _prefill_draft(self, slot: int, ids: Sequence[int]) -> None:
+        """The draft model prefills the whole prompt into its own cache,
+        padded to its bucket (JAX engine.py:1172-1183), also after a
+        chunked target prefill; its logits are not used."""
+        dparams, dcfg = self._draft
+        n = len(ids)
+        padded = np.zeros((1, self._bucket(n)), dtype=np.int64)
+        padded[0, :n] = ids
+        dev = self.device
+        with torch.no_grad():
+            _, kv = forward_prefill(
+                dparams, dcfg, torch.from_numpy(padded).to(dev),
+                torch.tensor([n], device=dev), dtype=self.act_dtype,
+                logits_at=torch.tensor([n - 1], device=dev))
+            for cache, (k, v) in zip(self._draft_caches, kv):
+                kvcache.write_prompt(cache, k[0], v[0], slot)
+
     def synchronize(self) -> None:
         """Wait for the work queued on the card (a prefill chunk returns
         before its kernels end), so that a span timed after it holds only
@@ -527,14 +647,17 @@ class InferenceEngine:
 
     # -- decode -------------------------------------------------------------
     def step(self) -> Dict[int, List[int]]:
-        """One decode step for every active slot; returns {slot: [token]}.
-        Retires finished slots (EOS / max_tokens / cache full)."""
+        """One decode step for every active slot (a speculative step with
+        speculative_tokens > 0); returns {slot: [tokens]}. Retires finished
+        slots (EOS / stop id / max_tokens / cache full)."""
         if not self._active_host.any():
             return {}
         if self._page_alloc is not None and self.runtime.kv_reserve == "lazy":
             self._grow_pages()
             if not self._active_host.any():
                 return {}
+        if self._spec_k > 0:
+            return self._spec_step()
         st = self.state
         with torch.no_grad():
             logits, self.caches = forward_decode(
@@ -548,7 +671,7 @@ class InferenceEngine:
             logits[rows, eos_col] += torch.where(
                 suppress, torch.full_like(logits[:, 0], NEG_INF),
                 torch.zeros_like(logits[:, 0]))
-            need_pen = bool(self._penalty_host[self._active_host].any())
+            need_pen = self._need_penalties()
             nxt = sample(logits, sp, self._rng,
                          token_counts=st.token_counts if need_pen else None,
                          any_sampled=bool(
@@ -572,42 +695,106 @@ class InferenceEngine:
             st.active = still_active
             st.generated = new_generated.to(torch.int32)
             st.last_logprob = lp
-            packed = torch.stack([emitted.double(), lp.double(),
-                                  still_active.double(),
-                                  st.lengths.double(), st.eos_id.double()])
+            packed = self._pack(emitted[None], lp[None])
         self.steps += 1
-        got = packed.cpu().numpy()
-        return self._harvest(got)
+        return self._harvest(packed.cpu().numpy(), 1)
 
-    def _harvest(self, got: np.ndarray) -> Dict[int, List[int]]:
-        """Host bookkeeping of one step: emissions, stop ids, retires."""
-        emitted_np = got[0].astype(np.int64)
-        lp_np = got[1]
-        active_np = got[2] > 0.5
-        lengths_np = got[3].astype(np.int64)
-        eos_np = got[4].astype(np.int64)
+    def _need_penalties(self) -> bool:
+        return bool(self._penalty_host[self._active_host].any())
+
+    def _pack(self, emitted: torch.Tensor, lps: torch.Tensor) -> torch.Tensor:
+        """A step's results for the one host transfer: emitted and logprob
+        rows (R, B) each, then active, lengths and EOS ids (B,)."""
+        st = self.state
+        return torch.cat([emitted.double(), lps.double(),
+                          torch.stack([st.active.double(),
+                                       st.lengths.double(),
+                                       st.eos_id.double()])])
+
+    def _spec_step(self) -> Dict[int, List[int]]:
+        """One speculative step (JAX engine.py:1565-1595): draft K tokens a
+        slot, verify them in one forward, emit 1..K+1 tokens a slot; one
+        host transfer."""
+        st, k = self.state, self._spec_k
+        common = dict(k_draft=k, max_cache_len=self.max_seq,
+                      generator=self._rng, penalties=self._need_penalties(),
+                      dtype=self.act_dtype)
+        with torch.no_grad():
+            if self._draft is not None:
+                (self.caches, self._draft_caches, emitted, lps,
+                 self._draft_tail) = speculative.spec_decode_draft_core(
+                    self.params, self._draft[0], self.cfg, self._draft[1],
+                    self.caches, self._draft_caches, st,
+                    tail=self._draft_tail if self._tail_due else None,
+                    **common)
+            else:
+                self.caches, emitted, lps = speculative.spec_decode_core(
+                    self.params, self.cfg, self.caches, st, self._history,
+                    ngram=self.runtime.speculative_ngram, **common)
+            packed = self._pack(emitted.t(), lps.t())
+        self.steps += 1
+        self.spec_steps += 1
+        return self._harvest(packed.cpu().numpy(), k + 1, spec=True)
+
+    def _spec_observe(self, emitted_np: np.ndarray) -> None:
+        """Acceptance counters of one speculative step and the auto-disable
+        policy (JAX engine.py:1668-1691): below the break-even window mean
+        (speculative_min_accepted, times a draft model's cost ratio) after
+        speculative_probe_steps windows, fall back to plain decode."""
+        valid = emitted_np >= 0
+        self.spec_emitted += int(valid.sum())
+        wins = valid.sum(axis=0)
+        self._tail_due = bool((wins == self._spec_k + 1).any())
+        np.add.at(self.spec_accept_hist,
+                  np.clip(wins[wins > 0], 0, self._spec_k + 1), 1)
+        thresh = self.runtime.speculative_min_accepted * self._spec_cost_ratio
+        if (thresh > 0 and self.spec_accept_hist.sum()
+                >= self.runtime.speculative_probe_steps
+                and self.spec_window_mean < thresh):
+            # rows past each slot's length are never read, so the stale
+            # window writes need no cleanup
+            self._spec_k = 0
+            self.spec_disabled = True
+
+    def _harvest(self, got: np.ndarray, r: int,
+                 spec: bool = False) -> Dict[int, List[int]]:
+        """Host bookkeeping of one step from its packed results (`_pack`,
+        r emitted rows): emissions in order, stop ids (a stop id inside a
+        window cuts the tokens after it), retires, speculative counters."""
+        emitted_np = got[:r].astype(np.int64)
+        lp_np = got[r:2 * r]
+        active_np = got[2 * r] > 0.5
+        lengths_np = got[2 * r + 1].astype(np.int64)
+        eos_np = got[2 * r + 2].astype(np.int64)
+        if spec:
+            self._spec_observe(emitted_np)
         self._lengths_host = lengths_np
         self._active_host = active_np.copy()
         out: Dict[int, List[int]] = {}
         for slot in range(len(self._slots)):
             res = self._slots[slot]
-            if res is None or emitted_np[slot] < 0:
+            keep = emitted_np[:, slot] >= 0
+            if res is None or not keep.any():
                 continue
-            tok = int(emitted_np[slot])
-            res.token_ids.append(tok)
-            res.logprobs.append(float(lp_np[slot]))
-            out[slot] = [tok]
-            if res.stop_token_ids and active_np[slot] and \
-                    tok in res.stop_token_ids:
+            toks = [int(t) for t in emitted_np[keep, slot]]
+            lps = [float(x) for x in lp_np[keep, slot]]
+            stop = next((i for i, t in enumerate(toks)
+                         if t in res.stop_token_ids), None)
+            if stop is not None and (active_np[slot] or stop < len(toks) - 1):
+                # the device tracks one EOS id; the others stop here
+                toks, lps = toks[:stop + 1], lps[:stop + 1]
                 self.state.active[slot] = False
                 active_np[slot] = False
                 res.stop_reason = "eos"
+            res.token_ids.extend(toks)
+            res.logprobs.extend(lps)
+            out[slot] = toks
             cache_full = lengths_np[slot] >= self.max_seq - 1
             if not active_np[slot] or cache_full:
                 if cache_full and active_np[slot]:
                     self.state.active[slot] = False
                     res.stop_reason = res.stop_reason or "max_seq"
-                elif tok == eos_np[slot]:
+                elif toks[-1] == eos_np[slot]:
                     res.stop_reason = res.stop_reason or "eos"
                 elif cache_full:
                     res.stop_reason = res.stop_reason or "max_seq"
@@ -622,16 +809,19 @@ class InferenceEngine:
         the youngest other request (old requests never starve). A slot that
         cannot grow and has no victim stops at its current length
         (stop_reason "kv_pages"). JAX engine.py:1799-1834, one step per
-        dispatch."""
+        dispatch; a speculative step writes K + 1 rows and may overrun by
+        K, so it grows (K + 1) + K rows ahead."""
         ps = self.runtime.kv_page_size
         alloc = self._page_alloc
         shared = getattr(alloc, "shared_per_slot", None)
+        steps = 1 + 2 * self._spec_k
         changed = False
         for slot in range(self.num_slots):
             res = self._slots[slot]
             if res is None or slot in self._prefilling:
                 continue
-            needed = min(int(self._lengths_host[slot]) + 2, self.max_seq)
+            needed = min(int(self._lengths_host[slot]) + steps + 1,
+                         self.max_seq)
             have_pages = len(alloc.per_slot[slot]) + (
                 len(shared[slot]) if shared else 0)
             if needed <= have_pages * ps:
@@ -708,8 +898,9 @@ class InferenceEngine:
         return done
 
     def reset(self) -> None:
-        """Drop all in-flight state: fresh caches (and page pool) and
-        decode state, slots freed (the scheduler's failure recovery)."""
+        """Drop all in-flight state: fresh caches (and page pool, draft
+        cache, drafting history) and decode state, slots freed, speculative
+        counters cleared (the scheduler's failure recovery)."""
         b = self.num_slots
         self.caches = self._new_caches()
         self.state = init_state(b, self.cfg.vocab_size, self.device)
@@ -723,6 +914,15 @@ class InferenceEngine:
         self._prefilling = {}
         if self._prefix_idx is not None:
             self._prefix_idx = SlotPrefixIndex(b)   # fresh caches: no residents
+        if self._history is not None:
+            self._history = speculative.init_history(b, self.max_seq,
+                                                     self.device)
+        if self._draft is not None:
+            self._draft_caches = self._new_draft_caches()
+        self._draft_tail, self._tail_due = None, False
+        self.spec_steps = 0
+        self.spec_emitted = 0
+        self.spec_accept_hist = np.zeros_like(self.spec_accept_hist)
 
     # -- one-shot APIs --------------------------------------------------------
     def generate(self, token_ids: Sequence[int],

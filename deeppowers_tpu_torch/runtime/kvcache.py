@@ -5,7 +5,7 @@ quantized, and the layout dispatch over it and the paged layout
 Ported from deeppowers_tpu/runtime/kvcache.py (`LayerKVCache` :38-113,
 `init_cache` :116-190, `_is_paged` :263,
 `write_prompt`/`write_prompts` :344, `write_chunk` :377, `append_token`
-:432, `slice_window` :506, `copy_prefix` :529, `read` :565, `nbytes`
+:432, `append_tokens` :445, `slice_window` :506, `copy_prefix` :529, `read` :565, `nbytes`
 :603). Chunked prefill reads one slot through `slot_view`, which stands
 for JAX's `read(slice_window(slice_slot(...)))`.
 
@@ -158,9 +158,9 @@ def write_chunk(cache, k_new: torch.Tensor, v_new: torch.Tensor, slot: int,
 
 
 def decode_rows(cache, positions: torch.Tensor):
-    """What `append_token` can share across the layers of one decode step:
-    a paged cache's pool rows for `positions` (one table serves every
-    layer), None for the contiguous layout."""
+    """What `append_token` / `append_tokens` can share across the layers of
+    one step: a paged cache's pool rows for `positions` (B,) or (B, T) (one
+    table serves every layer), None for the contiguous layout."""
     if _is_paged(cache):
         return kvcache_paged.row_ids(cache, positions)
     return None
@@ -177,6 +177,26 @@ def append_token(cache, k_new: torch.Tensor, v_new: torch.Tensor,
         return kvcache_paged.append_token(cache, k_new, v_new, positions, rows)
     scatter_rows(cache.k, cache.v, flat_heads(k_new), flat_heads(v_new), positions,
                  **store_args(cache))
+    return cache
+
+
+def append_tokens(cache, k_new: torch.Tensor, v_new: torch.Tensor,
+                  positions: torch.Tensor, rows=None):
+    """T tokens' K/V (B, T, K, D) per slot at positions (B, T): a
+    speculative verify window, in place, all B*T rows in one kv_append
+    launch (per-row slots), quantized inside it for a quantized cache.
+    Positions at or past the cache end, or negative (an inactive slot),
+    are dropped, as JAX's scatter drops them (JAX :445-454). `rows` is
+    `decode_rows(cache, positions)` on the paged layout."""
+    if _is_paged(cache):
+        return kvcache_paged.append_tokens(cache, k_new, v_new, positions,
+                                           rows)
+    b, t = positions.shape
+    slots = torch.arange(b, device=positions.device,
+                         dtype=torch.int32).repeat_interleave(t)
+    scatter_rows(cache.k, cache.v, flat_heads(k_new).reshape(b * t, -1),
+                 flat_heads(v_new).reshape(b * t, -1),
+                 positions.reshape(-1), slots=slots, **store_args(cache))
     return cache
 
 

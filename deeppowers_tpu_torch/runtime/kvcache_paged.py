@@ -3,7 +3,8 @@ tables, and the host-side page allocators.
 
 Ported from deeppowers_tpu/runtime/kvcache_paged.py (`PagedLayerKVCache`
 :60, `init_paged_cache` :116, `write_prompt`/`write_chunk` :186/:192,
-`_row_ids` :233 (here `row_ids`), `append_token` :298, `_gather`/`read` :317/:361,
+`_row_ids` :233 (here `row_ids`), `append_token` :298, `append_tokens`
+:305, `_gather`/`read` :317/:361,
 `slot_view` :377, `with_table` :392, `PageAllocator` :405,
 `PrefixCachingAllocator` :518), with quantized pools (`_quant_side` :45,
 `init_paged_cache` :140-178, `write_chunk`'s `scatter_scale` :192-231,
@@ -175,20 +176,23 @@ def write_chunk(cache: PagedLayerKVCache, k_new: torch.Tensor,
 
 def row_ids(cache: PagedLayerKVCache, positions: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """positions (B,) -> (absolute int32 row in the (P*page, F) pool view,
-    bool validity), in the form scatter_pool_rows takes without a copy.
-    Positions at or past max_seq, or negative, are invalid and map to row 0
-    of the scratch page. The table is shared, so one call serves every
-    layer of a decode step."""
+    """positions (B,) or (B, T) (slot b's row of a speculative window) ->
+    (absolute int32 rows in the (P*page, F) pool view, bool validity), flat
+    over B*T in the form scatter_pool_rows takes without a copy. Positions
+    at or past max_seq, or negative, are invalid and map to row 0 of the
+    scratch page. The table is shared, so one call serves every layer of a
+    step."""
     ps = cache.page_size
     pos = positions.long()
     valid = (pos >= 0) & (pos < cache.max_seq)
     vpage = torch.where(valid, pos // ps, torch.zeros_like(pos))
     slots = torch.arange(pos.shape[0], device=pos.device)
+    if pos.dim() == 2:
+        slots = slots[:, None]
     page_ids = torch.where(valid, cache.table[slots, vpage].long(),
                            torch.zeros_like(pos))
     rows = torch.where(valid, page_ids * ps + pos % ps, torch.zeros_like(pos))
-    return rows.to(torch.int32), valid
+    return rows.reshape(-1).to(torch.int32), valid.reshape(-1)
 
 
 def append_token(cache: PagedLayerKVCache, k_new: torch.Tensor,
@@ -202,6 +206,24 @@ def append_token(cache: PagedLayerKVCache, k_new: torch.Tensor,
     rows, valid = row_ids(cache, positions) if rows is None else rows
     scatter_pool_rows(cache.k_pool, cache.v_pool, flat_heads(k_new),
                       flat_heads(v_new), rows, valid, **store_args(cache))
+    return cache
+
+
+def append_tokens(cache: PagedLayerKVCache, k_new: torch.Tensor,
+                  v_new: torch.Tensor, positions: torch.Tensor,
+                  rows: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                  ) -> PagedLayerKVCache:
+    """A speculative window's K/V (B, T, Kh, D) at positions (B, T), all
+    B*T rows in one scatter_pool_rows launch (JAX `append_tokens` :305 /
+    `_append` :254). The engine reserves the window's pages ahead, so every
+    in-range position maps to an allocated page; positions at or past
+    max_seq write nothing."""
+    b, t = positions.shape
+    rows, valid = row_ids(cache, positions) if rows is None else rows
+    scatter_pool_rows(cache.k_pool, cache.v_pool,
+                      flat_heads(k_new).reshape(b * t, -1),
+                      flat_heads(v_new).reshape(b * t, -1), rows, valid,
+                      **store_args(cache))
     return cache
 
 

@@ -140,6 +140,11 @@ class Scheduler:
             "prefix_cache": self.engine.prefix_cache_stats,
             "steps": self.engine.steps,
             "healthy": self.is_healthy(),
+            "speculative": {
+                "window_mean_accepted": round(self.engine.spec_window_mean, 3),
+                "accept_hist": self.engine.spec_accept_hist.tolist(),
+                "disabled": self.engine.spec_disabled,
+            },
         }
 
     # -- the loop -----------------------------------------------------------

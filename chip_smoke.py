@@ -65,7 +65,30 @@ Phases, each printing a line with its wall time:
               p50 beside phase 10's, the draft's share of a step; then
               TinyLlama drafting for itself must accept at least 3 of 5
               tokens a window
-(12 runs after 6, 13 after 9, 14 after 10.) The kernels phase also holds
+ 15. scan_serve  phase 6's traffic at the default scan_layers "auto", which
+              stacks TinyLlama's 22 layers (runtime/kvcache_stacked.py),
+              with the prefix cache: the 8 requests, then the same 8 again
+              (prefix copies of the stacked rows); #8 must launch, #2 must
+              not; then one request with prompt lookup (K = 4) on a scan
+              engine; tok/s, TTFT and step p50 beside phase 6's
+ 16. serve[llama2-7b,kt]  phase 10's weights and traffic with the kt
+              mirror (DPT_KV_KT=1, bench.py:61-68's `kt_auto`): #7 must
+              launch and #3 must not; tok/s, step p50 and KV bytes beside
+              phase 10's
+(12 and 15 run after 6, 13 after 9, 14 and 16 after 10; every other
+contiguous phase pins scan_layers=False, so that the unrolled cache they
+measured stays their path.) After the quantized path phases,
+scan_path[bf16] and scan_path[k8v4] teacher-force the main path's weights,
+stacked, through the scan forwards against the same on the CPU and,
+printed, against the unrolled path on the card, and check under
+torch.profiler that a scan decode step copies no layer of the cache;
+after path[llama2-7b], kt_path[llama2-7b] runs its model with the kt
+mirror: a 252-token prompt, 5 decode steps (one completes chunk 1, which
+#7 flushes), a verify window of 5 reading the mirror, against the CPU and
+the run without the mirror. The kernels phase also holds #8 (stacked
+appends, four stores, 8 and 40 rows), #7 (int8 and k8v4, tokens 1 and 5,
+Llama-2-7B's and TinyLlama's heads, its kt bytes too) and #11 (bf16,
+int8) against their plain versions. The kernels phase also holds
 #3 and #5 at tokens = 5 in every store (and #3 k8v4 at Llama-2-7B's
 heads), the window appends of #2 and #6 (8 slots x 5 rows), and #1 at a
 verify step's M = 40 (TinyLlama w8, Llama-2-7B w4a8g); after the path
@@ -1554,6 +1577,265 @@ def check_verify_matmuls(torch, cfg):
 
 
 # ---------------------------------------------------------------------------
+# phase 3, continued: #8 (stacked caches), #7 (the kt mirror), #11
+# ---------------------------------------------------------------------------
+
+# serve's lengths with two slots that complete a chunk in the launch (128
+# and 640 rows: a decode step or a window ending on a 128-row boundary)
+KT_LENS = (48, 96, 128, 232, 332, 482, 640, 932)
+KT_PATH_KV = "k8v4"
+
+
+def check_scan_kt_kernels(torch, cfg):
+    """#8 in four stores (8 rows, and a window's 8 x 5 rows, into layer 11
+    of TinyLlama's (22, 8, 1024, F') stacked caches; one position past the
+    cache, one negative), exact against its plain version, the bf16 rows
+    beside one `index_put_` a side on the layer view; #7 int8 and k8v4 at
+    tokens 1 and 5, at Llama-2-7B's heads (32 x 128) and TinyLlama's
+    (4 x 64), 8 slots at KT_LENS (committed chunks mirrored, the rest
+    stale), each row within 1e-2 of the plain version's max|ref| and the kt
+    bytes after the launch equal to the plain version's; #11 bf16 and int8
+    at TinyLlama's heads over ATTN_LENS, bf16 beside sdpa. Every row
+    carries `launch_from` (phase, counter): a phase whose counts start at 0
+    and whose model and path could launch the row's variant (a note says
+    so where its count is 0)."""
+    from deeppowers_tpu_torch.ops.kernels import (decode_attention as da,
+                                                  kv_append as ka)
+    from deeppowers_tpu_torch.quant.kvquant import STORE_BITS
+    from deeppowers_tpu_torch.runtime import kvcache_stacked as st
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
+    rows = []
+
+    def row(name, src, line, ms, plain, bd, by, err, lib, frm, **kw):
+        out = {"name": name, "route": "cuda",
+               "source": f"deeppowers_tpu_torch/csrc/{src}",
+               "replaces": f"deeppowers_tpu/ops/pallas/{line}",
+               "max_abs_err": err, "ms": ms, "plain_ms": plain,
+               "bound_ms": bd, "bound_by": by, "library_ms": lib,
+               "launch_from": frm}
+        out.update(kw)
+        return out
+
+    # -- #8 -----------------------------------------------------------------
+    n_layers, b, s_cache = cfg.num_layers, 8, 1024
+    kh, d = cfg.kv_heads, cfg.dim_head
+    f = kh * d
+    layer = 11
+    for store in STORES:
+        kb, vb = STORE_BITS[store]
+        cache = st.init_cache(n_layers, b, s_cache, kh, d,
+                              kv_cache_dtype=store, device=dev)
+        ref = st.init_cache(n_layers, b, s_cache, kh, d,
+                            kv_cache_dtype=store, device=dev)
+        lid = cache.layer_ids[layer:layer + 1]
+        for t in (1, SPEC_T):
+            kr, vr = (torch.randn(b * t, f, generator=g, device=dev).to(
+                torch.bfloat16) for _ in range(2))
+            pos = (torch.tensor(ATTN_LENS, device=dev)[:, None] - t
+                   + torch.arange(t, device=dev)[None, :]).reshape(-1).to(
+                torch.int32)
+            pos[3], pos[-1] = s_cache + 1, -1
+            slots = torch.arange(b, device=dev,
+                                 dtype=torch.int32).repeat_interleave(t)
+            ka.scatter_rows_stacked(cache.k, cache.v, kr, vr, lid, pos,
+                                    slots=slots, **st.stack_args(cache))
+            ka.scatter_rows_stacked_plain(ref.k, ref.v, kr, vr, lid, pos,
+                                          slots=slots, **st.stack_args(ref))
+            torch.cuda.synchronize()
+            for name in ("k", "v", "k_scale", "v_scale"):
+                a, r = getattr(cache, name), getattr(ref, name)
+                if r is not None and not torch.equal(a, r):
+                    fail(f"scatter_rows_stacked[{store}, T={t}]: {name} "
+                         f"differs from the plain version")
+            t_k = cuda_ms(torch, [lambda: ka.scatter_rows_stacked(
+                cache.k, cache.v, kr, vr, lid, pos, slots=slots,
+                **st.stack_args(cache))], 200)
+            t_p = cuda_ms(torch, [lambda: ka.scatter_rows_stacked_plain(
+                ref.k, ref.v, kr, vr, lid, pos, slots=slots,
+                **st.stack_args(ref))], 20, graph=False)
+            n_ok = b * t - 2
+            per = {16: 2 * f, 8: f, 4: f // 2}
+            sc = 0 if store == "bf16" else 4 * kh * (
+                (2 if kb == 4 else 1) + (2 if vb == 4 else 1))
+            bd, by = bound_ms(n_ok * (2 * 2 * f + per[kb] + per[vb] + sc)
+                              + b * t * 8 + 4, 0)
+            t_l = None
+            if store == "bf16":
+                keep = (pos >= 0) & (pos < s_cache)
+                idx = (slots[keep].long(), pos[keep].long())
+                kl, vl = ref.k[layer], ref.v[layer]
+                krk, vrk = kr[keep], vr[keep]
+                t_l = cuda_ms(torch, [lambda: (kl.index_put_(idx, krk),
+                                               vl.index_put_(idx, vrk))], 200)
+            # TinyLlama's stacked phases: scan_serve (bf16 rows), its
+            # prompt-lookup request (5 rows a slot a verify step) and
+            # scan_path[k8v4]
+            frm = ("scan_serve[spec]" if t > 1 else
+                   "scan_path[k8v4]" if store == KT_PATH_KV else
+                   "scan_serve", f"scatter_rows_stacked[{store}]")
+            log(f"  scatter_rows_stacked[{store}] {b} x {t} rows, layer "
+                f"{layer} of ({n_layers}, {b}, {s_cache}, ·): exact, kernel "
+                f"{t_k:.4f} ms, plain {t_p:.4f} ms"
+                + (f", index_put_ {t_l:.4f} ms" if t_l else "")
+                + f", bound {bd:.6f} ms")
+            rows.append(row(
+                f"scatter_rows_stacked[{store}" + ("" if t == 1 else
+                                                   f", {b * t} rows") + "]",
+                "kv_append.cu", "kv_append.py:315", t_k, t_p, bd, by, 0.0,
+                t_l, frm, rows_per_slot=t,
+                **({} if store == "bf16" or (store, t) == (KT_PATH_KV, 1)
+                   else {"note": "no phase of this run runs the stacked "
+                                 "cache of TinyLlama in this store"
+                                 + (" with a verify window" if t > 1
+                                    else "")})))
+        del cache, ref
+
+    # -- #7 -----------------------------------------------------------------
+    lens = torch.tensor(KT_LENS, device=dev, dtype=torch.int32)
+    s_kt = 1024
+    for heads, (hq, kh7, d7) in (("llama2-7b", (32, 32, 128)),
+                                 ("tinyllama", (cfg.num_heads, kh, d))):
+        f7 = kh7 * d7
+        for v_bits in (8, 4):
+            store = "k8v4" if v_bits == 4 else "int8"
+            k = torch.randint(-127, 128, (b, s_kt, f7), generator=g,
+                              device=dev, dtype=torch.int8)
+            v = torch.randint(-127, 128, (b, s_kt, f7 // 2 if v_bits == 4
+                                          else f7), generator=g, device=dev,
+                              dtype=torch.int8)
+            ks = torch.rand(b, kh7, s_kt, generator=g, device=dev) * 0.02 \
+                + 0.01
+            vs = torch.rand(b, kh7 * (2 if v_bits == 4 else 1), s_kt,
+                            generator=g, device=dev) * 0.02 + 0.01
+            stale = torch.arange(s_kt, device=dev)[None, :] >= \
+                lens[:, None].long()
+            for a in (ks, vs):
+                a.masked_fill_(stale[:, None, :] & (torch.arange(
+                    s_kt, device=dev) % 3 == 0)[None, None, :], float("nan"))
+            for t in (1, SPEC_T):
+                kt = torch.zeros(b, s_kt // 128, f7, 128, dtype=torch.int8,
+                                 device=dev)
+                for i, n in enumerate(KT_LENS):
+                    full = max((n - t) // 128, 0)
+                    kt[i, :full] = k[i, :full * 128].reshape(
+                        full, 128, f7).transpose(1, 2)
+                kt_ref = kt.clone()
+                q = torch.randn(b, t * hq, d7, generator=g, device=dev).to(
+                    torch.bfloat16)
+                out, _ = da.decode_attention_kt(q, kt, k, v, lens, ks, vs,
+                                                tokens=t, v_bits=v_bits)
+                ref, _ = da.decode_attention_kt_plain(q, kt_ref, k, v, lens,
+                                                      ks, vs, tokens=t,
+                                                      v_bits=v_bits)
+                torch.cuda.synchronize()
+                err, worst = row_errors(out, ref)
+                flushed = int((kt != 0).flatten(2).any(-1).sum())
+                if not (torch.isfinite(out).all() and worst <= 1e-2
+                        and torch.equal(kt, kt_ref)):
+                    fail(f"decode_attention_kt[{store}, {heads}, T={t}]: "
+                         f"worst row ratio {worst:.3g} (limit 1e-2), or "
+                         f"kt bytes differ from the plain version's")
+                t_k = cuda_ms(torch, [lambda: da.decode_attention_kt(
+                    q, kt, k, v, lens, ks, vs, tokens=t, v_bits=v_bits)],
+                    200)
+                t_p = cuda_ms(torch, [lambda: da.decode_attention_kt_plain(
+                    q, kt_ref, k, v, lens, ks, vs, tokens=t,
+                    v_bits=v_bits)], 3, graph=False)
+                live = int(lens.sum())
+                fv = f7 // 2 if v_bits == 4 else f7
+                flush_b = sum(128 * f7 for n in KT_LENS
+                              if n >= 128 and n % 128 < t)
+                nb = (live * (f7 + fv + 4 * kh7 * (1 + (v_bits == 4) + 1))
+                      + 2 * q.numel() * 2 + flush_b)
+                bd, by = verify_bound(torch, lens, t, hq, d7, nb, 0)
+                key = f"decode_attention_kt[{store}" + (
+                    "]" if t == 1 else f":t{t}]")
+                # the 7B's kt phases; at TinyLlama's heads the unrolled
+                # contiguous phases of the store (the mirror off there)
+                if heads == "llama2-7b":
+                    frm = ("serve[llama2-7b,kt]" if t == 1
+                           else "kt_path[llama2-7b]"), key
+                elif t > 1:
+                    frm = f"spec_path[{store},contiguous]", key
+                else:
+                    frm = ("serve[int8]" if store == "int8"
+                           else f"path[{store},contiguous]"), key
+                on = heads == "llama2-7b" and store == KT_PATH_KV
+                log(f"  decode_attention_kt[{store}] {heads} heads "
+                    f"{hq}/{kh7} x {d7}, T={t}, 8 slots {KT_LENS}: "
+                    f"max_abs_err={err:.3e} worst_row_ratio={worst:.3e}, "
+                    f"kt bytes equal ({flushed} chunks non-zero), kernel "
+                    f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {bd:.6f} ms")
+                rows.append(row(
+                    f"decode_attention_kt[{store}" + ("" if t == 1 else
+                                                      f":t{t}") + "]",
+                    "decode_attention_kt.cu", "decode_attention.py:1132",
+                    t_k, t_p, bd, by, err, None, frm, tokens=t, shape=heads,
+                    **({} if on else {"note": "no phase of this run runs "
+                                      "the mirror in this store and "
+                                      "shape"})))
+    # -- #11 ----------------------------------------------------------------
+    lens11 = torch.tensor(ATTN_LENS, device=dev, dtype=torch.int32)
+    hq = cfg.num_heads
+    for quantized in (False, True):
+        q = torch.randn(b, hq, d, generator=g, device=dev).to(torch.bfloat16)
+        if quantized:
+            kc, vc = (torch.randint(-127, 128, (b, s_cache, kh, d),
+                                    generator=g, device=dev,
+                                    dtype=torch.int8) for _ in range(2))
+            sc = tuple(torch.rand(b, kh, s_cache, generator=g, device=dev)
+                       * 0.02 for _ in range(2))
+        else:
+            kc, vc = (torch.randn(b, s_cache, kh, d, generator=g,
+                                  device=dev).to(torch.bfloat16)
+                      for _ in range(2))
+            sc = (None, None)
+        out = da.decode_attention_kernel(q, kc, vc, lens11, *sc)
+        ref = da.decode_attention_kernel_plain(q, kc, vc, lens11, *sc)
+        torch.cuda.synchronize()
+        err, worst = row_errors(out, ref)
+        if not (torch.isfinite(out).all() and worst <= 1e-2):
+            fail(f"decode_attention_kernel[quantized={quantized}]: worst "
+                 f"row ratio {worst:.3g} (limit 1e-2)")
+        t_k = cuda_ms(torch, [lambda: da.decode_attention_kernel(
+            q, kc, vc, lens11, *sc)], 200)
+        t_p = cuda_ms(torch, [lambda: da.decode_attention_kernel_plain(
+            q, kc, vc, lens11, *sc)], 20, graph=False)
+        live = int(lens11.sum())
+        per = 1 if quantized else 2
+        bd, by = bound_ms(2 * live * f * per + (8 * live * kh if quantized
+                                                else 0)
+                          + 2 * q.numel() * 2, 4 * live * hq * d)
+        t_l = None
+        if not quantized:
+            rep = hq // kh
+            k4 = kc.transpose(1, 2).repeat_interleave(rep, 1)
+            v4 = vc.transpose(1, 2).repeat_interleave(rep, 1)
+            mask = (torch.arange(s_cache, device=dev)[None, :]
+                    < lens11[:, None].long())[:, None, None, :]
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            t_l = cuda_ms(torch, [lambda: sdpa(q[:, :, None], k4, v4,
+                                               attn_mask=mask)], 200)
+        name = "int8" if quantized else "bf16"
+        log(f"  decode_attention_kernel[{name}] B={b} H={hq} Kh={kh} D={d}: "
+            f"max_abs_err={err:.3e} worst_row_ratio={worst:.3e}, kernel "
+            f"{t_k:.4f} ms, plain {t_p:.4f} ms"
+            + (f", sdpa {t_l:.4f} ms" if t_l else "")
+            + f", bound {bd:.6f} ms")
+        rows.append(row(f"decode_attention_kernel[{name}]",
+                        "decode_attention.cu", "decode_attention.py:1219",
+                        t_k, t_p, bd, by, err, t_l,
+                        ("serve[int8]" if quantized else "serve",
+                         f"decode_attention_kernel[{name}]"),
+                        note="nothing in the package calls this kernel; its "
+                             "entry point launches #3's CUDA kernel on the "
+                             "flat view under its own count"))
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 4: teacher-forced path check
 # ---------------------------------------------------------------------------
 
@@ -1561,12 +1843,13 @@ PAGED_TABLE = (9, 4, 0, 0, 0, 0, 0, 0)     # slot 0's pages in a 12-page pool
 
 
 def prompt_cache(torch, T, kvcache, params, cfg, ids, device, paged=False,
-                 kv_cache_dtype="bf16", extra=0):
+                 kv_cache_dtype="bf16", extra=0, kv_kt=False):
     """Prefill `ids` (one slot) and write its K/V into a fresh cache: the
     contiguous cache has 128 rows, or as many more as the prompt and
-    `extra` tokens need; with `paged`, pages 9 and 4 of a 12-page pool
-    whose other rows hold NaN (a quantized pool: random bytes, and NaN in
-    its scale pools). Returns (the prompt's last logits, caches, lengths)."""
+    `extra` tokens need (with the kt mirror when `kv_kt`); with `paged`,
+    pages 9 and 4 of a 12-page pool whose other rows hold NaN (a quantized
+    pool: random bytes, and NaN in its scale pools). Returns (the prompt's
+    last logits, caches, lengths)."""
     import numpy as np
     from deeppowers_tpu_torch.runtime import kvcache_paged
     n = len(ids)
@@ -1597,7 +1880,8 @@ def prompt_cache(torch, T, kvcache, params, cfg, ids, device, paged=False,
         rows = max(128, -(-(n + extra) // 128) * 128)
         caches = kvcache.init_cache(cfg.num_layers, 1, rows, cfg.kv_heads,
                                     cfg.dim_head, device=device,
-                                    kv_cache_dtype=kv_cache_dtype)
+                                    kv_cache_dtype=kv_cache_dtype,
+                                    kv_kt=kv_kt)
         for c, (k, v) in zip(caches, kv):
             kvcache.write_prompts(c, k, v, torch.tensor([0], device=device))
     return last, caches, lens
@@ -1725,15 +2009,39 @@ def random_scales(torch, tree, gen):
     return tree
 
 
-def llama2_path(torch, T, kvcache, counters):
+def teacher_forced(torch, T, kvcache, params, cfg, ids, forced, device,
+                   kv_cache_dtype, scan):
+    """forced_logits, or with `scan` scan_forced_logits over
+    stack_layer_params(params) (the stacked weights and cache that
+    scan_layers "auto" gives a model of >= 16 layers)."""
+    if scan:
+        return scan_forced_logits(torch, T, T.stack_layer_params(params),
+                                  cfg, ids, forced, device, kv_cache_dtype)
+    return forced_logits(torch, T, kvcache, params, cfg, ids, forced, device,
+                         kv_cache_dtype=kv_cache_dtype)
+
+
+def scan_variants(kv, scan):
+    """The row writer and attention that a path on `kv` must launch, and
+    the row writer it must not: #8 and #3 on the stacked cache, #2 and #3
+    on the unrolled one."""
+    own = "scatter_rows_stacked" if scan else "scatter_rows"
+    other = "scatter_rows" if scan else "scatter_rows_stacked"
+    return [f"{own}[{kv}]", f"decode_attention[{kv}]"], [other]
+
+
+def llama2_path(torch, T, kvcache, counters, scan=False):
     """Llama-2-7B at full width, LLAMA2_PATH_LAYERS layers, W4A8 g128 + k8v4
     KV, random scales: the teacher-forced logits through the kernels (launch
     counts from 0) against the plain path on the CPU, rel L2 <= 1e-2 (the
     a8 products are exact integers on both, so the two differ only by bf16
-    rounding order and a quantized byte moved by one step). Returns
-    (launches, phase info)."""
+    rounding order and a quantized byte moved by one step). With `scan`
+    (scan_path[llama2-7b]) the same weights stacked, through the scan
+    forwards and the stacked cache on both sides: the default path of a
+    32-layer 7B engine. Returns (launches, phase info)."""
     import dataclasses
     from deeppowers_tpu_torch.models.presets import LLAMA2_7B
+    name = "scan_path[llama2-7b]" if scan else "path[llama2-7b]"
     cfg = dataclasses.replace(LLAMA2_7B, num_layers=LLAMA2_PATH_LAYERS)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
     params = random_scales(torch, llama2_params(torch, T, cfg, gen, "cuda"),
@@ -1742,23 +2050,256 @@ def llama2_path(torch, T, kvcache, counters):
     ids = torch.randint(0, cfg.vocab_size, (40,), generator=rng).tolist()
     forced = torch.randint(0, cfg.vocab_size, (3,), generator=rng).tolist()
     reset_counts(counters)
-    got = forced_logits(torch, T, kvcache, params, cfg, ids, forced, "cuda",
-                        kv_cache_dtype=LLAMA2_KV)
+    got = teacher_forced(torch, T, kvcache, params, cfg, ids, forced, "cuda",
+                         LLAMA2_KV, scan)
     torch.cuda.synchronize()
     launches = read_counts(counters)
-    check_variants("path[llama2-7b]", launches, LLAMA2_ON_PATH,
-                   LLAMA2_OFF_PATH)
-    ref = forced_logits(torch, T, kvcache, tree_to(params, "cpu"), cfg, ids,
-                        forced, "cpu", kv_cache_dtype=LLAMA2_KV)
+    on, off = scan_variants(LLAMA2_KV, scan)
+    check_variants(name, launches, LLAMA2_ON_PATH + on, LLAMA2_OFF_PATH + off)
+    ref = teacher_forced(torch, T, kvcache, tree_to(params, "cpu"), cfg, ids,
+                         forced, "cpu", LLAMA2_KV, scan)
     rel = max(((g - r).norm() / r.norm()).item() for g, r in zip(got, ref))
     if not all(torch.isfinite(g).all() for g in got) or not rel <= 1e-2:
-        fail(f"path[llama2-7b]: kernel vs plain logits rel L2 error {rel} > "
-             f"1e-2")
+        fail(f"{name}: kernel vs plain logits rel L2 error {rel} > 1e-2")
     return launches, {"layers": cfg.num_layers, "hidden": cfg.hidden_size,
                       "weights": "w4a8 g128", "kv": LLAMA2_KV,
                       "logits_rel_l2": f"{rel:.3e}",
+                      "launches_rows": launches[on[0]],
                       "launches_w4a8g": launches["dequant_matmul[w4a8g]"],
                       "launches_quantizer": launches["quantize_activations"]}
+
+
+def scan_forced_logits(torch, T, params, cfg, ids, forced, device,
+                       kv_cache_dtype="bf16"):
+    """forced_logits through the scan forwards: `params` stacked, the
+    prompt written into a one-slot stacked cache by
+    forward_prefill_scan_batch, the forced tokens through
+    forward_decode_scan. Every step's logits, f32 on the CPU."""
+    from deeppowers_tpu_torch.runtime import kvcache_stacked as st
+    n = len(ids)
+    rows = max(128, -(-(n + len(forced)) // 128) * 128)
+    cache = st.init_cache(cfg.num_layers, 1, rows, cfg.kv_heads,
+                          cfg.dim_head, device=device,
+                          kv_cache_dtype=kv_cache_dtype)
+    lens = torch.tensor([n], device=device, dtype=torch.int32)
+    with torch.no_grad():
+        cache, last = T.forward_prefill_scan_batch(
+            params, cfg, torch.tensor([ids], device=device), lens,
+            torch.tensor([0], device=device), cache, dtype=torch.bfloat16)
+        out = [last[0].float().cpu()]
+        for t in forced:
+            lg, cache = T.forward_decode_scan(
+                params, cfg, torch.tensor([t], device=device), cache, lens,
+                dtype=torch.bfloat16)
+            out.append(lg[0].float().cpu())
+            lens = lens + 1
+    return out
+
+
+def layer_copies(torch, T, params, cfg, kv_cache_dtype):
+    """Copies of a layer's worth of cache in one scan decode step of 8
+    slots over a (22, 8, 1024, F') stacked cache, under torch.profiler:
+    aten::copy_ and aten::clone ops whose input holds as many elements as
+    one layer's K store. The attention reads each layer's views in place,
+    so there must be none."""
+    from torch.profiler import ProfilerActivity, profile
+    from deeppowers_tpu_torch.runtime import kvcache_stacked as st
+    cache = st.init_cache(cfg.num_layers, 8, 1024, cfg.kv_heads,
+                          cfg.dim_head, device="cuda",
+                          kv_cache_dtype=kv_cache_dtype)
+    lens = torch.tensor(ATTN_LENS, device="cuda", dtype=torch.int32)
+    toks = torch.arange(8, device="cuda", dtype=torch.int32) + 5
+    with torch.no_grad():
+        T.forward_decode_scan(params, cfg, toks, cache, lens)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            T.forward_decode_scan(params, cfg, toks, cache, lens)
+            torch.cuda.synchronize()
+    layer = 8 * 1024 * cfg.kv_size
+    big = []
+    for ev in prof.events():
+        if ev.name in ("aten::copy_", "aten::clone"):
+            for shape in ev.input_shapes or ():
+                n = 1
+                for x in shape or ():
+                    n *= x
+                if shape and n >= layer:
+                    big.append((ev.name, shape))
+    return big
+
+
+def same_bytes_decode(torch, T, kvcache, params, stacked, cfg, ids, forced,
+                      store):
+    """Max |difference| of the decode logits over the unrolled cache and
+    over a stacked cache holding the same bytes (the unrolled prefill's
+    cache copied into each layer of the stack), the forced tokens through
+    forward_decode and forward_decode_scan on the card: the same kernels
+    on the same bytes."""
+    from deeppowers_tpu_torch.runtime import kvcache_stacked as st
+    with torch.no_grad():
+        _, caches, lens = prompt_cache(torch, T, kvcache, params, cfg, ids,
+                                       "cuda", kv_cache_dtype=store,
+                                       extra=len(forced))
+        stack = st.init_cache(cfg.num_layers, 1, caches[0].k.shape[1],
+                              cfg.kv_heads, cfg.dim_head, device="cuda",
+                              kv_cache_dtype=store)
+        for i, c in enumerate(caches):
+            for name in ("k", "v", "k_scale", "v_scale"):
+                if getattr(c, name) is not None:
+                    getattr(stack, name)[i].copy_(getattr(c, name))
+        diff, lens_s = 0.0, lens.clone()
+        for t in forced:
+            tok = torch.tensor([t], device="cuda")
+            a, caches = T.forward_decode(params, cfg, tok, caches, lens)
+            b, stack = T.forward_decode_scan(stacked, cfg, tok, stack, lens_s)
+            diff = max(diff, (a - b).abs().max().item())
+            lens, lens_s = lens + 1, lens_s + 1
+    return diff
+
+
+def scan_path(torch, T, kvcache, params, cfg, ids, forced, counters,
+              unrolled):
+    """scan_path[bf16] and scan_path[k8v4]: the main path's TinyLlama
+    weights stacked (`stack_layer_params`), teacher-forced through the
+    stacked cache (prompt rows and decode rows through #8, attention on
+    layer views through #3) against the same scan path on the CPU (rel L2
+    <= 5e-2, the path phases' limit) and, printed, against the unrolled
+    path on the card (`unrolled[store]`: the same kernels, but the scan
+    prefill ends each layer with JAX's fused `_attn_tail`, so the prompt's
+    cache bytes differ) and, printed, decode over the same bytes in both
+    layouts (`same_bytes_decode`, 0 expected).
+    #8 must launch and #2 must not; a profiled scan decode step must copy
+    no layer of the cache. Returns {store: launches}."""
+    stacked = T.stack_layer_params(params)
+    stacked_cpu = T.stack_layer_params(tree_to(params, "cpu"))
+    launches = {}
+    for store in ("bf16", KT_PATH_KV):
+        t0 = time.perf_counter()
+        reset_counts(counters)
+        got = scan_forced_logits(torch, T, stacked, cfg, ids, forced, "cuda",
+                                 store)
+        torch.cuda.synchronize()
+        launches[store] = read_counts(counters)
+        check_variants(f"scan_path[{store}]", launches[store],
+                       [f"scatter_rows_stacked[{store}]",
+                        f"decode_attention[{store}]"], ["scatter_rows"])
+        ref = scan_forced_logits(torch, T, stacked_cpu, cfg, ids, forced,
+                                 "cpu", store)
+        rel = max(((g - r).norm() / r.norm()).item()
+                  for g, r in zip(got, ref))
+        rel_u = max(((g - u).norm() / u.norm()).item()
+                    for g, u in zip(got, unrolled[store]))
+        rel_ud = max(((g - u).norm() / u.norm()).item()
+                     for g, u in zip(got[1:], unrolled[store][1:]))
+        if not all(torch.isfinite(g).all() for g in got) or not rel <= 5e-2:
+            fail(f"scan_path[{store}]: kernel vs plain logits rel L2 error "
+                 f"{rel} > 5e-2")
+        same = same_bytes_decode(torch, T, kvcache, params, stacked, cfg,
+                                 ids, forced, store)
+        copies = layer_copies(torch, T, stacked, cfg, store)
+        if copies:
+            fail(f"scan_path[{store}]: a scan decode step copies a layer's "
+                 f"cache: {copies[:4]}")
+        phase_line(f"scan_path[{store}]", t0, logits_rel_l2=f"{rel:.3e}",
+                   vs_unrolled_on_card=f"{rel_u:.3e}",
+                   vs_unrolled_decode_steps=f"{rel_ud:.3e}",
+                   decode_same_bytes_max_abs_diff=same,
+                   layer_copies=len(copies),
+                   launches_stacked=launches[store][
+                       f"scatter_rows_stacked[{store}]"])
+    return launches
+
+
+KT_PATH_PROMPT = 252    # crosses chunk 0; the 4th decode step completes 1
+KT_PATH_FORCED = 5
+
+
+def kt_logits(torch, T, kvcache, params, cfg, ids, forced, window, device,
+              kv_kt):
+    """Prefill `ids` into a k8v4 cache (with the kt mirror when `kv_kt`),
+    decode the forced tokens, then verify `window` in one forward_verify.
+    Returns (every step's logits, f32 on the CPU, the verify window's
+    rows last; the caches)."""
+    with torch.no_grad():
+        last, caches, lens = prompt_cache(
+            torch, T, kvcache, params, cfg, ids, device,
+            kv_cache_dtype=KT_PATH_KV, extra=len(forced) + len(window),
+            kv_kt=kv_kt)
+        out = [last[0].float().cpu()]
+        for t in forced:
+            lg, caches = T.forward_decode(
+                params, cfg, torch.tensor([t], device=device), caches, lens,
+                dtype=torch.bfloat16)
+            out.append(lg[0].float().cpu())
+            lens = lens + 1
+        ver, _ = T.forward_verify(params, cfg,
+                                  torch.tensor([window], device=device),
+                                  caches, lens, dtype=torch.bfloat16)
+        out.extend(ver[0].float().cpu())
+    return out, caches
+
+
+def kt_path(torch, T, kvcache, counters):
+    """kt_path[llama2-7b]: Llama-2-7B at full width, LLAMA2_PATH_LAYERS
+    layers, W4A8 g128 + k8v4 with the kt mirror (as DPT_KV_KT=1 gives it),
+    unrolled: a KT_PATH_PROMPT-token prompt (its chunks transposed into the
+    mirror), KT_PATH_FORCED decode steps (one completes chunk 1, which #7
+    flushes) and a verify window of SPEC_T tokens that reads chunks 0 and
+    1 from the mirror. Teacher-forced against the plain path on the CPU
+    (rel L2 <= 1e-2, as path[llama2-7b]) and, printed, against the same
+    run on the card without the mirror (#3). #7 must launch at tokens 1
+    and 5, #3 must not; every mirror chunk below the length must equal its
+    k rows. Returns (launches, phase info)."""
+    import dataclasses
+    from deeppowers_tpu_torch.models.presets import LLAMA2_7B
+    cfg = dataclasses.replace(LLAMA2_7B, num_layers=LLAMA2_PATH_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    params = random_scales(torch, llama2_params(torch, T, cfg, gen, "cuda"),
+                           gen)
+    rng = torch.Generator().manual_seed(SEED + 32)
+    ids = torch.randint(0, cfg.vocab_size, (KT_PATH_PROMPT,),
+                        generator=rng).tolist()
+    forced = torch.randint(0, cfg.vocab_size, (KT_PATH_FORCED,),
+                           generator=rng).tolist()
+    window = torch.randint(0, cfg.vocab_size, (SPEC_T,),
+                           generator=rng).tolist()
+    reset_counts(counters)
+    got, caches = kt_logits(torch, T, kvcache, params, cfg, ids, forced,
+                            window, "cuda", kv_kt=True)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    check_variants("kt_path[llama2-7b]", launches,
+                   [f"decode_attention_kt[{KT_PATH_KV}]",
+                    f"decode_attention_kt[{KT_PATH_KV}:t{SPEC_T}]",
+                    f"scatter_rows[{KT_PATH_KV}]"] + LLAMA2_ON_PATH,
+                   ["decode_attention"])
+    n = KT_PATH_PROMPT + KT_PATH_FORCED + SPEC_T
+    for c in caches:
+        for ch in range(n // 128):
+            if not torch.equal(c.kt[0, ch], c.k[0, ch * 128:(ch + 1) * 128].t()):
+                fail(f"kt_path[llama2-7b]: mirror chunk {ch} differs from "
+                     f"its k rows")
+    ref, _ = kt_logits(torch, T, kvcache, tree_to(params, "cpu"), cfg, ids,
+                       forced, window, "cpu", kv_kt=True)
+    plain, _ = kt_logits(torch, T, kvcache, params, cfg, ids, forced, window,
+                         "cuda", kv_kt=False)
+    rel = max(((g - r).norm() / r.norm()).item() for g, r in zip(got, ref))
+    rel_m = max(((g - r).norm() / r.norm()).item()
+                for g, r in zip(got, plain))
+    if not all(torch.isfinite(g).all() for g in got) or not rel <= 1e-2:
+        fail(f"kt_path[llama2-7b]: kernel vs plain logits rel L2 error {rel}"
+             f" > 1e-2")
+    return launches, {
+        "layers": cfg.num_layers, "kv": KT_PATH_KV + "+kt",
+        "steps": f"prefill({KT_PATH_PROMPT})+decode({KT_PATH_FORCED})"
+                 f"+verify({SPEC_T})",
+        "logits_rel_l2": f"{rel:.3e}",
+        "vs_no_mirror_on_card": f"{rel_m:.3e}",
+        "launches_kt": launches[f"decode_attention_kt[{KT_PATH_KV}]"],
+        "launches_kt_t5":
+            launches[f"decode_attention_kt[{KT_PATH_KV}:t{SPEC_T}]"]}
 
 
 TTFT_PROMPT = 512
@@ -1789,7 +2330,8 @@ def serve_llama2(torch, T, counters):
         params, cfg, device="cuda", eos_token_id=tok.eos_token_id,
         kv_cache_dtype=LLAMA2_KV,
         runtime=RuntimeConfig(max_batch_size=8, max_seq_len=1024,
-                              prefill_buckets=(64, 128, 256, 512, 1024)))
+                              prefill_buckets=(64, 128, 256, 512, 1024),
+                              scan_layers=False))
     engine.generate(tok.encode("warm up"), GenerationConfig(
         max_tokens=2, temperature=0.0))
     prompts = [prompt_text(n, i) for i, n in enumerate(PROMPT_BYTES)]
@@ -1821,6 +2363,51 @@ def serve_llama2(torch, T, counters):
     engine.pop_finished()
     out["ttft_512_ms"] = ttft
     out["params"] = params          # spec_serve[llama2-7b+draft] reuses them
+    return out
+
+
+def serve_llama2_kt(torch, T, counters, l7_params):
+    """serve[llama2-7b,kt]: serve[llama2-7b]'s weights and traffic once,
+    with the kt mirror that DPT_KV_KT=1 turns on (BASELINE config 3 as
+    bench.py:61-68 builds it, `kv_kt=kt_auto(...)`): decode reads K through
+    #7, which must launch where #3 must not. Then a profiled decode step."""
+    from deeppowers_tpu_torch.config import GenerationConfig, RuntimeConfig
+    from deeppowers_tpu_torch.models.presets import LLAMA2_7B as cfg
+    from deeppowers_tpu_torch.runtime.engine import InferenceEngine
+    from deeppowers_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    before = os.environ.get("DPT_KV_KT")
+    os.environ["DPT_KV_KT"] = "1"
+    try:
+        engine = InferenceEngine(
+            l7_params, cfg, device="cuda", eos_token_id=tok.eos_token_id,
+            kv_cache_dtype=LLAMA2_KV,
+            runtime=RuntimeConfig(max_batch_size=8, max_seq_len=1024,
+                                  prefill_buckets=(64, 128, 256, 512, 1024),
+                                  scan_layers=False))
+    finally:
+        if before is None:
+            os.environ.pop("DPT_KV_KT")
+        else:
+            os.environ["DPT_KV_KT"] = before
+    if engine.caches[0].kt is None:
+        fail("serve[llama2-7b,kt]: DPT_KV_KT=1 gave no kt mirror")
+    engine.generate(tok.encode("warm up"), GenerationConfig(
+        max_tokens=2, temperature=0.0))
+    prompts = [prompt_text(n, i) for i, n in enumerate(PROMPT_BYTES)]
+    results, launches, wall, sched = run_requests(
+        torch, engine, prompts, MAX_TOKENS, counters, tok)
+    check_variants(
+        "serve[llama2-7b,kt]", launches,
+        LLAMA2_ON_PATH + [f"decode_attention_kt[{LLAMA2_KV}]",
+                          f"scatter_rows[{LLAMA2_KV}]",
+                          "flash_attention_prefill"],
+        LLAMA2_OFF_PATH + ["decode_attention", "scatter_pool_rows",
+                           "decode_attention_paged"])
+    out = summary(results, wall, sched, launches)
+    out["kv_bytes"] = engine.kv_nbytes
+    out["profile"] = profile_decode(torch, engine, tok)
     return out
 
 
@@ -1891,7 +2478,7 @@ def flipped_routes(routes, ref_routes):
     return flipped, total
 
 
-def mixtral_path(torch, T, kvcache, counters):
+def mixtral_path(torch, T, kvcache, counters, scan=False):
     """Mixtral-8x7B at full width (hidden 4096, 32/8 heads, 8 experts of
     ffn 14336, top-2), MIXTRAL_PATH_LAYERS layers, W4A8 g128 with random
     scales + int8 KV: a MIXTRAL_PROMPT-token prompt (the prefill takes
@@ -1902,10 +2489,14 @@ def mixtral_path(torch, T, kvcache, counters):
     bf16 rounding tipped), and every logits vector of a token whose own
     routes agree is within 1e-2 rel L2, as path[llama2-7b]'s W4A8 (the
     integer sums are exact; sound runs read 4.4e-4 to 1.6e-3, and one
-    wrong scale row of one expert must not pass). Returns (launches,
-    phase info)."""
+    wrong scale row of one expert must not pass). With `scan`
+    (scan_path[mixtral-8x7b]) the same weights stacked (the cat experts
+    too), through the scan forwards and the stacked cache on both sides:
+    #10 and #9 on views of the stacked experts. Returns (launches, phase
+    info)."""
     import dataclasses
     from deeppowers_tpu_torch.models.presets import MIXTRAL_8X7B
+    name = "scan_path[mixtral-8x7b]" if scan else "path[mixtral-8x7b]"
     cfg = dataclasses.replace(MIXTRAL_8X7B, num_layers=MIXTRAL_PATH_LAYERS)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
     params = mixtral_params(torch, T, cfg, gen, "cuda", scales=True)
@@ -1915,16 +2506,17 @@ def mixtral_path(torch, T, kvcache, counters):
     forced = torch.randint(0, cfg.vocab_size, (3,), generator=rng).tolist()
     reset_counts(counters)
     with recorded_routes(T) as routes:
-        got = forced_logits(torch, T, kvcache, params, cfg, ids, forced,
-                            "cuda", kv_cache_dtype=MIXTRAL_KV)
+        got = teacher_forced(torch, T, kvcache, params, cfg, ids, forced,
+                             "cuda", MIXTRAL_KV, scan)
     torch.cuda.synchronize()
     launches = read_counts(counters)
-    check_variants("path[mixtral-8x7b]", launches, MIXTRAL_ON_PATH,
-                   MIXTRAL_OFF_PATH)
+    on, off = scan_variants(MIXTRAL_KV, scan)
+    check_variants(name, launches, MIXTRAL_ON_PATH + on,
+                   MIXTRAL_OFF_PATH + off)
     t0 = time.perf_counter()
     with recorded_routes(T) as ref_routes:
-        ref = forced_logits(torch, T, kvcache, tree_to(params, "cpu"), cfg,
-                            ids, forced, "cpu", kv_cache_dtype=MIXTRAL_KV)
+        ref = teacher_forced(torch, T, kvcache, tree_to(params, "cpu"), cfg,
+                             ids, forced, "cpu", MIXTRAL_KV, scan)
     cpu_s = time.perf_counter() - t0
     flips, total = flipped_routes(routes, ref_routes)
     # the tokens whose logits each vector is: the prompt's last, then each
@@ -1942,13 +2534,13 @@ def mixtral_path(torch, T, kvcache, counters):
         if flipped_routes(own[i], own_ref[i])[0]:
             exempt.append(i)
     if not all(torch.isfinite(g).all() for g in got):
-        fail("path[mixtral-8x7b]: logits not finite")
+        fail(f"{name}: logits not finite")
     if flips > FLIPPED_ROUTES_MAX * total:
-        fail(f"path[mixtral-8x7b]: {flips} of {total} routes flipped "
+        fail(f"{name}: {flips} of {total} routes flipped "
              f"(limit {FLIPPED_ROUTES_MAX:.0%})")
     bad = [r for i, r in enumerate(rels) if i not in exempt and not r <= 1e-2]
     if bad:
-        fail(f"path[mixtral-8x7b]: kernel vs plain logits rel L2 {rels} "
+        fail(f"{name}: kernel vs plain logits rel L2 {rels} "
              f"(exempt: {exempt}) > 1e-2")
     return launches, {
         "layers": cfg.num_layers, "hidden": cfg.hidden_size,
@@ -1960,7 +2552,8 @@ def mixtral_path(torch, T, kvcache, counters):
         "cpu_ref_s": f"{cpu_s:.1f}",
         "launches_ncat_w4a8g": launches[MIXTRAL_ON_PATH[0]],
         "launches_grouped_w4a8g": launches[MIXTRAL_ON_PATH[1]],
-        "launches_w4a8g": launches["dequant_matmul[w4a8g]"]}
+        "launches_w4a8g": launches["dequant_matmul[w4a8g]"],
+        "launches_rows": launches[on[0]]}
 
 
 def serve_mixtral(torch, T, counters):
@@ -1988,7 +2581,8 @@ def serve_mixtral(torch, T, counters):
         params, cfg, device="cuda", eos_token_id=tok.eos_token_id,
         kv_cache_dtype=MIXTRAL_KV,
         runtime=RuntimeConfig(max_batch_size=8, max_seq_len=1024,
-                              prefill_buckets=(64, 128, 256, 512, 1024)))
+                              prefill_buckets=(64, 128, 256, 512, 1024),
+                              scan_layers=False))
     engine.generate(tok.encode("warm up"), GenerationConfig(
         max_tokens=2, temperature=0.0))
     prompts = [prompt_text(n, i) for i, n in enumerate(PROMPT_BYTES)]
@@ -2249,7 +2843,8 @@ def profile_prefill(torch, engine, tok, prompts):
     chunks, as the engine picks; max_tokens 1, so the slot retires at its
     first token): the wall ms of each, synchronized, in a pass without the
     profiler, then the host split of one prefill (the mean over the
-    prompts) in a pass under torch.profiler."""
+    prompts) and the kernels with the most device time a prefill in a pass
+    under torch.profiler."""
     from deeppowers_tpu_torch.config import GenerationConfig
     from torch.profiler import ProfilerActivity, profile
     gen = GenerationConfig(max_tokens=1, temperature=0.0)
@@ -2269,6 +2864,12 @@ def profile_prefill(torch, engine, tok, prompts):
             one(x)
     engine.pop_finished()
     split = host_split(torch, prof, len(ids))
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    split["top"] = [(e.key[:60], round(e.self_device_time_total / 1e3
+                                       / len(ids), 4))
+                    for e in sorted(dev, key=lambda e: -e.self_device_time_total)
+                    [:4]]
     split["wall_ms"] = walls
     return split
 
@@ -2411,7 +3012,8 @@ def serve(torch, params, cfg, counters, kv_cache_dtype="bf16",
         params, cfg, device="cuda", eos_token_id=tok.eos_token_id,
         kv_cache_dtype=kv_cache_dtype,
         runtime=RuntimeConfig(max_batch_size=8, max_seq_len=1024,
-                              prefill_buckets=(64, 128, 256, 512, 1024)))
+                              prefill_buckets=(64, 128, 256, 512, 1024),
+                              scan_layers=False))
     # warm-up outside the measured run: first launches and allocator
     engine.generate(tok.encode("warm up"), GenerationConfig(
         max_tokens=2, temperature=0.0))
@@ -2588,7 +3190,7 @@ def serve_spec(torch, params, cfg, counters, plain_tokens):
         runtime=RuntimeConfig(max_batch_size=8, max_seq_len=1024,
                               prefill_buckets=(64, 128, 256, 512, 1024),
                               speculative_tokens=SPEC_K,
-                              speculative_ngram=3))
+                              speculative_ngram=3, scan_layers=False))
     engine.generate(tok.encode("warm up"), GenerationConfig(
         max_tokens=2, temperature=0.0))
     prompts = [prompt_text(n, i) for i, n in enumerate(PROMPT_BYTES)]
@@ -2614,6 +3216,82 @@ def serve_spec(torch, params, cfg, counters, plain_tokens):
     out["kv_bytes"] = engine.kv_nbytes
     out["profile"] = profile_decode(torch, engine, tok,
                                     tokens_per_step=SPEC_T)
+    return out
+
+
+def serve_scan(torch, params, cfg, counters):
+    """scan_serve: serve's traffic (TinyLlama int8 weights, bf16 KV) at the
+    default scan_layers "auto", which stacks TinyLlama's 22 layers, with
+    the prefix cache: the 8 requests (the 600- and 900-byte prompts in two
+    chunks), then the same 8 again, whose prompts now match retired slots
+    (prefix copies across all layers of the stacked cache, then chunks from
+    the match). Every cache row goes through #8 and none through #2. Then
+    each prompt's prefill alone on a warm scan engine without the prefix
+    cache (as serve's on the unrolled one), and one greedy request with
+    prompt-lookup speculation (K = 4) on a scan engine: the bf16 verify
+    variant of #3 and #8 at 5 rows a slot."""
+    from deeppowers_tpu_torch.config import GenerationConfig, RuntimeConfig
+    from deeppowers_tpu_torch.runtime.engine import InferenceEngine
+    from deeppowers_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    rt = dict(max_batch_size=8, max_seq_len=1024,
+              prefill_buckets=(64, 128, 256, 512, 1024))
+    engine = InferenceEngine(params, cfg, device="cuda",
+                             eos_token_id=tok.eos_token_id,
+                             runtime=RuntimeConfig(enable_prefix_cache=True,
+                                                   **rt))
+    if not engine.scan_layers:
+        fail("scan_serve: scan_layers='auto' did not stack TinyLlama")
+    engine.generate(tok.encode("warm up"), GenerationConfig(
+        max_tokens=2, temperature=0.0))
+    prompts = [prompt_text(n, i) for i, n in enumerate(PROMPT_BYTES)]
+    results, launches, wall, sched = run_requests(
+        torch, engine, prompts, MAX_TOKENS, counters, tok)
+    res2, launches2, wall2, sched2 = run_requests(
+        torch, engine, prompts, MAX_TOKENS, counters, tok)
+    on = ["scatter_rows_stacked[bf16]", "decode_attention[bf16]",
+          "dequant_matmul", "flash_attention_prefill"]
+    off = ["scatter_rows", "scatter_pool_rows", "decode_attention_paged"]
+    check_variants("scan_serve", launches, on, off)
+    check_variants("scan_serve (second pass)", launches2, on, off)
+    prefix = engine.prefix_cache_stats
+    if prefix["hits"] < 1:
+        fail(f"scan_serve: no prefix copy in the second pass {prefix}")
+    out = summary(results, wall, sched, launches)
+    out["prefix"] = prefix
+    again = summary(res2, wall2, sched2, {})
+    out["second_pass"] = {k: again[k] for k in (
+        "tok_per_s", "ttft_ms_p50", "ttft_ms_max", "decode_step_ms_p50")}
+    out["kv_bytes"] = engine.kv_nbytes
+    out["profile"] = profile_decode(torch, engine, tok)
+    del engine
+    plain = InferenceEngine(params, cfg, device="cuda",
+                            eos_token_id=tok.eos_token_id,
+                            runtime=RuntimeConfig(**rt))
+    plain.generate(tok.encode("warm up"), GenerationConfig(
+        max_tokens=2, temperature=0.0))
+    out["prefill"] = profile_prefill(torch, plain, tok, prompts)
+    del plain
+    spec = InferenceEngine(params, cfg, device="cuda",
+                           eos_token_id=tok.eos_token_id,
+                           runtime=RuntimeConfig(speculative_tokens=SPEC_K,
+                                                 speculative_ngram=3, **rt))
+    reset_counts(counters)
+    r = spec.generate(tok.encode(prompt_text(200, len(PROMPT_BYTES))),
+                      GenerationConfig(max_tokens=MAX_TOKENS,
+                                       temperature=0.0))
+    spec.synchronize()
+    sl = read_counts(counters)
+    check_variants("scan_serve (speculative request)", sl,
+                   [f"decode_attention[bf16:t{SPEC_T}]",
+                    "scatter_rows_stacked[bf16]"],
+                   ["scatter_rows", "decode_attention[bf16]"])
+    out["speculative"] = {"scan": spec.scan_layers,
+                          "tokens": len(r.token_ids),
+                          "spec_steps": spec.spec_steps,
+                          "window_mean": spec.spec_window_mean,
+                          "launches": sl}
     return out
 
 
@@ -2677,7 +3355,7 @@ def serve_llama2_spec(torch, T, counters, l7_params, tiny_params, tiny_cfg):
     tok = ByteTokenizer()
     rt = RuntimeConfig(max_batch_size=8, max_seq_len=1024,
                        prefill_buckets=(64, 128, 256, 512, 1024),
-                       speculative_tokens=SPEC_K)
+                       speculative_tokens=SPEC_K, scan_layers=False)
     engine = InferenceEngine(l7_params, cfg, device="cuda",
                              eos_token_id=tok.eos_token_id,
                              kv_cache_dtype=LLAMA2_KV, runtime=rt,
@@ -2792,14 +3470,15 @@ def main(argv) -> int:
     from deeppowers_tpu_torch.models.presets import TINYLLAMA_1_1B as cfg
     from deeppowers_tpu_torch.ops.kernels import _build
     from deeppowers_tpu_torch.ops.kernels.decode_attention import (
-        decode_attention, decode_attention_paged)
+        decode_attention, decode_attention_kernel, decode_attention_kt,
+        decode_attention_paged)
     from deeppowers_tpu_torch.ops.kernels.dequant_matmul import (
         dequant_matmul, quantize_activations)
     from deeppowers_tpu_torch.ops.kernels.flash_attention import flash_attention_prefill
     from deeppowers_tpu_torch.ops.kernels.grouped_matmul import (
         grouped_dequant_matmul, grouped_dequant_matmul_ncat)
-    from deeppowers_tpu_torch.ops.kernels.kv_append import (scatter_pool_rows,
-                                                            scatter_rows)
+    from deeppowers_tpu_torch.ops.kernels.kv_append import (
+        scatter_pool_rows, scatter_rows, scatter_rows_stacked)
     from deeppowers_tpu_torch.runtime import kvcache
 
     counters = {"dequant_matmul": dequant_matmul,
@@ -2810,7 +3489,10 @@ def main(argv) -> int:
                 "scatter_pool_rows": scatter_pool_rows,
                 "decode_attention_paged": decode_attention_paged,
                 "grouped_dequant_matmul": grouped_dequant_matmul,
-                "grouped_dequant_matmul_ncat": grouped_dequant_matmul_ncat}
+                "grouped_dequant_matmul_ncat": grouped_dequant_matmul_ncat,
+                "scatter_rows_stacked": scatter_rows_stacked,
+                "decode_attention_kt": decode_attention_kt,
+                "decode_attention_kernel": decode_attention_kernel}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2840,6 +3522,7 @@ def main(argv) -> int:
     rows += check_wquant_kernels(torch)
     rows += check_verify_matmuls(torch, cfg)
     rows += check_grouped_kernels(torch)
+    rows += check_scan_kt_kernels(torch, cfg)
     phase_line("kernels", t0, checked=len(rows))
 
     # 4. path: full-width TinyLlama, teacher-forced against the plain path
@@ -2886,6 +3569,7 @@ def main(argv) -> int:
     # 5b. the same through each quantized store on each layout; the card
     # run's launches are counted from 0
     path_launches = {}
+    unrolled = {"bf16": got}
     for kv_dtype in ("int8", "int4", "k8v4"):
         for paged in (False, True):
             t0 = time.perf_counter()
@@ -2910,6 +3594,13 @@ def main(argv) -> int:
             phase_line(f"path[{kv_dtype},{layout}]", t0,
                        logits_rel_l2=f"{rel_q:.3e}",
                        plain_vs_plain_bf16_kv=f"{rel_qb:.3e}")
+            if not paged:
+                unrolled[kv_dtype] = got_q
+
+    # 5b''. the same weights stacked, through the scan forwards and the
+    # stacked cache (bf16 and k8v4)
+    scan_launches = scan_path(torch, T, kvcache, params, cfg, ids, forced,
+                              counters, unrolled)
 
     # 5b'. a speculative verify window, teacher-forced, through each store
     # on each layout
@@ -2931,11 +3622,26 @@ def main(argv) -> int:
     l7_launches, l7 = llama2_path(torch, T, kvcache, counters)
     phase_line("path[llama2-7b]", t0, **l7)
 
+    # 5e''. the same weights stacked: the default (scan) path of the 7B
+    t0 = time.perf_counter()
+    l7s_launches, l7s = llama2_path(torch, T, kvcache, counters, scan=True)
+    phase_line("scan_path[llama2-7b]", t0, **l7s)
+
+    # 5e'. the same through the kt mirror (DPT_KV_KT=1): #7
+    t0 = time.perf_counter()
+    kt_launches, kt = kt_path(torch, T, kvcache, counters)
+    phase_line("kt_path[llama2-7b]", t0, **kt)
+
     # 5f. Mixtral-8x7B at full width, W4A8 g128 + int8 KV (BASELINE config
     # 5), 2 layers: a prefill through #10 and #9, decode through #1
     t0 = time.perf_counter()
     mx_launches, mx = mixtral_path(torch, T, kvcache, counters)
     phase_line("path[mixtral-8x7b]", t0, **mx)
+
+    # 5f'. the same weights stacked: the default (scan) path of Mixtral
+    t0 = time.perf_counter()
+    mxs_launches, mxs = mixtral_path(torch, T, kvcache, counters, scan=True)
+    phase_line("scan_path[mixtral-8x7b]", t0, **mxs)
 
     # 6. serve, contiguous KV
     t0 = time.perf_counter()
@@ -2946,6 +3652,24 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     ssrv = serve_spec(torch, params, cfg, counters, srv["token_ids"])
     report_serve("spec_serve", t0, ssrv, smi_line, len(PROMPT_BYTES) + 1)
+
+    # 6c. serve's traffic on the stacked cache (scan_layers "auto")
+    t0 = time.perf_counter()
+    scsrv = serve_scan(torch, params, cfg, counters)
+    report_serve("scan_serve", t0, scsrv, smi_line, len(PROMPT_BYTES))
+    log(f"scan_serve tok/s {scsrv['tok_per_s']:.1f}, TTFT p50 "
+        f"{scsrv['ttft_ms_p50']:.3f} ms, decode step p50 "
+        f"{scsrv['decode_step_ms_p50']:.3f} ms against serve's "
+        f"{srv['tok_per_s']:.1f}, {srv['ttft_ms_p50']:.3f} ms, "
+        f"{srv['decode_step_ms_p50']:.3f} ms; its second pass (prefix "
+        f"copies) " + json.dumps(scsrv["second_pass"]) + f" card={smi_line!r}")
+    log(f"scan_serve prefill of each prompt alone (bytes {list(PROMPT_BYTES)})"
+        f", ms: scan {json.dumps(scsrv['prefill']['wall_ms'])}, device busy "
+        f"{scsrv['prefill']['busy_ms']:.3f} a prefill; unrolled (serve) "
+        f"{json.dumps(srv['prefill']['wall_ms'])}, device busy "
+        f"{srv['prefill']['busy_ms']:.3f}; top kernels a prefill, scan "
+        + json.dumps(scsrv["prefill"]["top"]) + ", unrolled "
+        + json.dumps(srv["prefill"]["top"]) + f" card={smi_line!r}")
 
     # 7. paged serve
     t0 = time.perf_counter()
@@ -2981,6 +3705,18 @@ def main(argv) -> int:
         f"{tt[-1]:.3f} ms, each " + json.dumps(lsrv["ttft_512_ms"]))
     l7_params = lsrv.pop("params")
 
+    # 10a. the same weights and traffic with the kt mirror (DPT_KV_KT=1)
+    t0 = time.perf_counter()
+    ktsrv = serve_llama2_kt(torch, T, counters, l7_params)
+    report_serve("serve[llama2-7b,kt]", t0, ktsrv, smi_line,
+                 len(PROMPT_BYTES))
+    log(f"serve[llama2-7b,kt] tok/s {ktsrv['tok_per_s']:.1f}, decode step "
+        f"p50 {ktsrv['decode_step_ms_p50']:.3f} ms, kv_bytes "
+        f"{ktsrv['kv_bytes']} against serve[llama2-7b]'s "
+        f"{lsrv['tok_per_s']:.1f}, {lsrv['decode_step_ms_p50']:.3f} ms, "
+        f"{lsrv['kv_bytes']} card={smi_line!r}")
+    torch.cuda.empty_cache()
+
     # 10b. the same weights verifying drafts of TinyLlama-1.1B int8
     t0 = time.perf_counter()
     lspec = serve_llama2_spec(torch, T, counters, l7_params, params, cfg)
@@ -3015,7 +3751,8 @@ def main(argv) -> int:
               "paged_serve[k8v4]": qpsrv, "serve[llama2-7b]": l7_served,
               "serve[mixtral-8x7b]": msrv, "spec_serve": ssrv,
               "spec_paged_serve[k8v4]": spsrv,
-              "spec_serve[llama2-7b+draft]": lspec}
+              "spec_serve[llama2-7b+draft]": lspec, "scan_serve": scsrv,
+              "serve[llama2-7b,kt]": ktsrv}
     runs = {name: out["launches"] for name, out in serves.items()}
     runs.update({f"path[{v},{lay}]": c for (v, lay), c in path_launches.items()})
     runs.update({f"spec_path[{v},{lay}]": c
@@ -3023,6 +3760,11 @@ def main(argv) -> int:
     runs["path[lm124]"] = lm_launches
     runs["path[llama2-7b]"] = l7_launches
     runs["path[mixtral-8x7b]"] = mx_launches
+    runs["scan_path[llama2-7b]"] = l7s_launches
+    runs["scan_path[mixtral-8x7b]"] = mxs_launches
+    runs["scan_serve[spec]"] = scsrv["speculative"]["launches"]
+    runs.update({f"scan_path[{v}]": c for v, c in scan_launches.items()})
+    runs["kt_path[llama2-7b]"] = kt_launches
     paged_kernels = ("scatter_pool_rows", "decode_attention_paged")
     for row in rows:
         if "launch_from" in row:

@@ -57,7 +57,7 @@
 // are staged as zero). A block whose split starts at or past the slot's
 // length exits without reading anything. A second small kernel combines
 // the per-split (max, sum, acc) partials.
-#include "common.cuh"
+#include "attention_combine.cuh"
 
 namespace {
 
@@ -311,26 +311,6 @@ __global__ void partial_kernel(const bf16* __restrict__ q, long long q_sb,
     for (int jj = 0; jj < DJ; ++jj)
       pacc[idx * D + lane + 32 * jj] = acc[rr][jj];
   }
-}
-
-// grid (B * H), D threads.
-__global__ void combine_kernel(const float* __restrict__ pm,
-                               const float* __restrict__ pl,
-                               const float* __restrict__ pacc, int nsplit,
-                               int D, bf16* __restrict__ out) {
-  const long long bh = blockIdx.x;
-  const int d = threadIdx.x;
-  const float* m = pm + bh * nsplit;
-  const float* l = pl + bh * nsplit;
-  float mx = DPT_NEG_INF;
-  for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, m[s]);
-  float L = 0.f, a = 0.f;
-  for (int s = 0; s < nsplit; ++s) {
-    const float w = expf(m[s] - mx);
-    L += l[s] * w;
-    a += pacc[(bh * nsplit + s) * D + d] * w;
-  }
-  out[bh * D + d] = f2bf(a / fmaxf(L, 1e-30f));
 }
 
 struct Args {

@@ -8,6 +8,12 @@
 // :116 -> `_scatter_one` :69, body `_kernel` :43, pallas_call :104); a
 // prefill's rows go through it too, where JAX quantizes them in XLA.
 //
+// dpt_kv_append_stacked: the same rows into [layer, slot, position] of the
+// stacked (L, B, S, F') caches of scan-over-layers, the layer an int32 in
+// device memory. Replaces `scatter_rows_stacked` :328 (body
+// `_kernel_stacked` :252, pallas_call :315); one launch per layer writes K,
+// V and their scales, as for a per-layer cache.
+//
 // dpt_kv_append_pool: pool[rows[b], :] = row[b, :] over the flat
 // (P * page, F') view of the paged layout's pools, where valid[b]. Replaces
 // `scatter_pool_rows` :225 (body `_kernel_pool` :146, pallas_call :207).
@@ -64,6 +70,29 @@ struct ContigDst {
     if (b < 0 || b >= B || p < 0 || p >= S) return false;
     row = (long long)b * S + p;
     major = b;
+    minor = p;
+    return true;
+  }
+  __device__ int minor_len() const { return S; }
+};
+
+// Stacked all-layer caches (L, B, S, F'): layer *layer (an int32 on the
+// device, read by every block as the TPU kernel prefetches it), slot
+// slot[i] (or i), position pos[i]; the scale of group g at ((layer * B +
+// slot) * R + g) * S + pos. A layer outside [0, L) drops every row.
+struct StackDst {
+  const int* __restrict__ layer;
+  const int* __restrict__ pos;
+  const int* __restrict__ slot;
+  int L, B, S;
+  __device__ bool locate(int i, long long& row, long long& major,
+                         int& minor) const {
+    const int l = *layer;
+    const int p = pos[i];
+    const int b = slot ? slot[i] : i;
+    if (l < 0 || l >= L || b < 0 || b >= B || p < 0 || p >= S) return false;
+    major = (long long)l * B + b;
+    row = major * S + p;
     minor = p;
     return true;
   }
@@ -191,6 +220,21 @@ extern "C" int dpt_kv_append(void* kc, void* vc, void* ks, void* vs,
   return launch(kc, vc, ks, vs, kr, kr_sb, vr, vr_sb,
                 ContigDst{(const int*)pos, (const int*)slots, B, S}, N, Kh,
                 D, k_bits, v_bits, stream);
+}
+
+// As dpt_kv_append into layer *layer of stacked (L, B, S, F') stores and
+// (L, B, R, S) scales: `layer` is a (1,) int32 on the device.
+extern "C" int dpt_kv_append_stacked(void* kc, void* vc, void* ks, void* vs,
+                                     const void* kr, long long kr_sb,
+                                     const void* vr, long long vr_sb,
+                                     const void* layer, const void* pos,
+                                     const void* slots, int N, int L, int B,
+                                     int S, int Kh, int D, int k_bits,
+                                     int v_bits, void* stream) {
+  return launch(kc, vc, ks, vs, kr, kr_sb, vr, vr_sb,
+                StackDst{(const int*)layer, (const int*)pos,
+                         (const int*)slots, L, B, S},
+                N, Kh, D, k_bits, v_bits, stream);
 }
 
 // As dpt_kv_append into (P, page, F') pools and (P, R, page) scale pools at

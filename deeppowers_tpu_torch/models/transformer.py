@@ -15,10 +15,15 @@ package's branches at the same token counts: the cat-fused experts
 experts through #1 per expert or plain PyTorch. Expert parallelism is not
 ported (ROADMAP.md).
 
-The KV cache is the unrolled per-layer layout, contiguous or paged, bf16
-or quantized (int8, int4, k8v4): the JAX package's stacked
-scan-over-layers layout exists to cut XLA compile time, which an eager
-PyTorch program does not have. Decode over a paged cache calls the
+The KV cache is the unrolled per-layer layout, contiguous or paged, or the
+stacked layout of scan-over-layers (runtime/kvcache_stacked.py, JAX
+:1383-1680), bf16 or quantized (int8, int4, k8v4). The scan forwards take
+stacked parameters (`stack_layer_params`) and loop over their per-layer
+views where JAX's `lax.scan` walks the stacked leaves; their rows go
+through kernel #8 and their attention reads layer i's views of the stacked
+cache, which copy nothing. An int8-K contiguous cache may carry the kt
+mirror (runtime/kvcache.py); decode and verify over it take kernel #7
+(JAX `_kt_path` :1259-1285). Decode over a paged cache calls the
 table-walking attention kernel on the pools directly and never gathers;
 decode over a quantized cache reads the raw stores and folds the scales in
 the kernel (JAX `_decode_attn` :1288-1330). Chunked prefill attends over
@@ -30,7 +35,7 @@ streams follow JAX's.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -38,8 +43,10 @@ import torch.nn.functional as F
 from ..config import QuantConfig, QuantMode
 from ..ops.attention import (attention_chunk, attention_decode_auto,
                              attention_prefill)
-from ..ops.kernels.decode_attention import (decode_attention_paged,
+from ..ops.kernels.decode_attention import (decode_attention_kt,
+                                            decode_attention_paged,
                                             verify_attention,
+                                            verify_attention_kt,
                                             verify_attention_paged)
 from ..ops.kernels.grouped_matmul import (expert_tiles,
                                          grouped_dequant_matmul,
@@ -50,6 +57,7 @@ from ..ops.rotary import apply_rope_tables, rope_tables
 from ..quant.qtypes import QuantizedTensor, pack_int4, unpack_int4
 from ..quant.quantize import dequantize_stacked, quantize, quantize_stacked
 from ..runtime import kvcache
+from ..runtime import kvcache_stacked as st
 
 Params = Dict[str, Any]
 
@@ -404,6 +412,8 @@ def param_nbytes(params: Params) -> int:
         elif isinstance(node, list):
             for v in node:
                 visit(v)
+        elif isinstance(node, StackedLayers):
+            visit(node.tree)
         elif isinstance(node, QuantizedTensor):
             total += node.nbytes
         elif isinstance(node, torch.Tensor):
@@ -712,6 +722,37 @@ def _logits(params, cfg: TransformerConfig, x):
     return quantized_matmul(x, params["lm_head"]["w"], out_dtype=torch.float32)
 
 
+def _residual_tail(x, attn, ap, layer, cfg: TransformerConfig):
+    """The unrolled prefill forwards' tail (JAX :1047-1055, :1105-1114):
+    the output projection and the FFN, each added to the residual after its
+    own rounding."""
+    x = x + _dense(attn, ap["wo"])
+    return x + _ffn(_norm(x, layer["ln2"], cfg), layer, cfg)
+
+
+def _prefill(params, cfg: TransformerConfig, input_ids, lengths, dtype,
+             logits_at, on_kv, tail):
+    """The whole-prompt forward over padded prompts (B, S): `on_kv(i, k,
+    v)` receives layer i's K/V (B, S, Kh, D), `tail` ends each layer.
+    Returns the logits, (B, S, V) f32 or (B, V) at `logits_at`."""
+    b, s = input_ids.shape
+    positions = torch.arange(s, device=input_ids.device).expand(b, s)
+    x = _embed(params, cfg, input_ids, positions, dtype)
+    if cfg.positions == "rope":
+        rope = rope_tables(positions, cfg.dim_head, theta=cfg.rope_theta)
+    for i, layer in enumerate(_scan_layers(params)):
+        ap = layer["attn"]
+        q, k, v = _qkv(_norm(x, layer["ln1"], cfg), ap, cfg)
+        if cfg.positions == "rope":
+            q, k = apply_rope_tables(q, *rope), apply_rope_tables(k, *rope)
+        on_kv(i, k, v)
+        attn = attention_prefill(q, k, v, lengths=lengths)
+        x = tail(x, attn.reshape(b, s, cfg.q_size), ap, layer, cfg)
+    if logits_at is not None:
+        x = x[torch.arange(b, device=x.device), logits_at.long()]
+    return _logits(params, cfg, x)
+
+
 def forward_prefill(params: Params, cfg: TransformerConfig,
                     input_ids: torch.Tensor, lengths: torch.Tensor, *,
                     dtype=torch.bfloat16,
@@ -720,24 +761,30 @@ def forward_prefill(params: Params, cfg: TransformerConfig,
     (B,). Returns (logits, per-layer [(k, v)] each (B, S, Kh, D)); logits
     are (B, S, V) f32, or (B, V) at positions `logits_at` (B,) when given
     (the engine needs only each prompt's last position)."""
-    b, s = input_ids.shape
-    positions = torch.arange(s, device=input_ids.device).expand(b, s)
-    x = _embed(params, cfg, input_ids, positions, dtype)
-    if cfg.positions == "rope":
-        rope = rope_tables(positions, cfg.dim_head, theta=cfg.rope_theta)
     kv_out = []
-    for layer in params["layers"]:
+    logits = _prefill(params, cfg, input_ids, lengths, dtype, logits_at,
+                      lambda i, k, v: kv_out.append((k, v)), _residual_tail)
+    return logits, kv_out
+
+
+def _prefill_chunk(params, cfg: TransformerConfig, input_ids, caches, slot,
+                   start, dtype, logits_at, tail):
+    c = input_ids.shape[0]
+    positions = start + torch.arange(c, device=input_ids.device)
+    x = _embed(params, cfg, input_ids[None], positions[None], dtype)
+    if cfg.positions == "rope":
+        rope = rope_tables(positions[None], cfg.dim_head, theta=cfg.rope_theta)
+    for layer, cache in zip(_scan_layers(params), caches):
         ap = layer["attn"]
         q, k, v = _qkv(_norm(x, layer["ln1"], cfg), ap, cfg)
         if cfg.positions == "rope":
             q, k = apply_rope_tables(q, *rope), apply_rope_tables(k, *rope)
-        kv_out.append((k, v))
-        attn = attention_prefill(q, k, v, lengths=lengths)
-        x = x + _dense(attn.reshape(b, s, cfg.q_size), ap["wo"])
-        x = x + _ffn(_norm(x, layer["ln2"], cfg), layer, cfg)
-    if logits_at is not None:
-        x = x[torch.arange(b, device=x.device), logits_at.long()]
-    return _logits(params, cfg, x), kv_out
+        kvcache.write_chunk(cache, k[0], v[0], slot, start)
+        kc, vc = kvcache.slot_view(cache, slot, start + c, dtype)
+        attn = attention_chunk(q, kc, vc, start)
+        x = tail(x, attn.reshape(1, c, cfg.q_size), ap, layer, cfg)
+    x = x[0] if logits_at is None else x[0, logits_at]
+    return _logits(params, cfg, x)
 
 
 def forward_prefill_chunk(params: Params, cfg: TransformerConfig,
@@ -750,31 +797,44 @@ def forward_prefill_chunk(params: Params, cfg: TransformerConfig,
     Returns (logits, caches): (C, V) f32, or (V,) at chunk index
     `logits_at` when given. Positions past the prompt's length produce K/V
     that decode never reads (it masks by length)."""
-    c = input_ids.shape[0]
-    positions = start + torch.arange(c, device=input_ids.device)
-    x = _embed(params, cfg, input_ids[None], positions[None], dtype)
-    if cfg.positions == "rope":
-        rope = rope_tables(positions[None], cfg.dim_head, theta=cfg.rope_theta)
-    for layer, cache in zip(params["layers"], caches):
-        ap = layer["attn"]
-        q, k, v = _qkv(_norm(x, layer["ln1"], cfg), ap, cfg)
-        if cfg.positions == "rope":
-            q, k = apply_rope_tables(q, *rope), apply_rope_tables(k, *rope)
-        kvcache.write_chunk(cache, k[0], v[0], slot, start)
-        kc, vc = kvcache.slot_view(cache, slot, start + c, dtype)
-        attn = attention_chunk(q, kc, vc, start)
-        x = x + _dense(attn.reshape(1, c, cfg.q_size), ap["wo"])
-        x = x + _ffn(_norm(x, layer["ln2"], cfg), layer, cfg)
-    x = x[0] if logits_at is None else x[0, logits_at]
-    return _logits(params, cfg, x), tuple(caches)
+    logits = _prefill_chunk(params, cfg, input_ids, caches, slot, start,
+                            dtype, logits_at, _residual_tail)
+    return logits, tuple(caches)
+
+
+def _decode_attn_stacked(cache, i, q1, attn_lengths):
+    """Decode attention over layer i of the stacked cache (JAX
+    `_decode_attn_stacked` :1166-1190): layer i's (B, S, F') stores and
+    (B, R, S) scales are views of the stacked tensors, which kernel #3
+    reads in place, as the TPU kernel's `layer=` index map reads the
+    stacked arrays; no copy of the layer is made."""
+    return attention_decode_auto(q1, cache.k[i], cache.v[i], attn_lengths,
+                                 **st.store_args(cache, i))
+
+
+def _verify_attn_stacked(cache, i, q, lengths):
+    """Verify-window attention over layer i of the stacked cache (JAX
+    `_verify_attn_stacked` :1193-1212), as `_decode_attn_stacked`."""
+    return verify_attention(q, cache.k[i], cache.v[i], lengths,
+                            **st.store_args(cache, i))
 
 
 def _decode_attn(cache, q1, attn_lengths):
-    """Single-token decode attention over either layout and any store
-    (JAX `_decode_attn` :1288-1330): the paged layout walks its pools (and
-    scale pools) through the table in kernel #5; the contiguous layout
-    hands its raw bf16, int8 or packed int4 caches and their scales to
-    kernel #3, never a dequantized copy."""
+    """Single-token decode attention over any layout and store (JAX
+    `_decode_attn` :1288-1330, `_decode_attn_kt` :1268): the paged layout
+    walks its pools (and scale pools) through the table in kernel #5; a
+    contiguous cache with the kt mirror takes kernel #7, which flushes the
+    chunks its tail completes into the mirror in place; other contiguous
+    caches hand their raw bf16, int8 or packed int4 stores and their
+    scales to kernel #3, never a dequantized copy; a stacked layer reads
+    its views of the stacked cache."""
+    if isinstance(cache, st.StackedLayer):
+        return _decode_attn_stacked(cache.cache, cache.index, q1,
+                                    attn_lengths)
+    if getattr(cache, "kt", None) is not None:
+        return decode_attention_kt(q1, cache.kt, cache.k, cache.v,
+                                   attn_lengths, cache.k_scale,
+                                   cache.v_scale, v_bits=cache.vbits)[0]
     store = kvcache.store_args(cache)
     if kvcache._is_paged(cache):
         return decode_attention_paged(q1, cache.k_pool, cache.v_pool,
@@ -805,7 +865,7 @@ def forward_decode(params: Params, cfg: TransformerConfig,
         attn_lengths = torch.where(active, attn_lengths,
                                    torch.zeros_like(attn_lengths))
     rows = kvcache.decode_rows(caches[0], write_pos)
-    for layer, cache in zip(params["layers"], caches):
+    for layer, cache in zip(_scan_layers(params), caches):
         ap = layer["attn"]
         q, k, v = _qkv_norm(x, layer, cfg)
         if cfg.positions == "rope":
@@ -821,7 +881,15 @@ def _verify_attn(cache, q, lengths):
     D) over either layout and any store, the T tokens folded into query
     rows of kernel #5 (paged) or #3 (contiguous) over the raw stores and
     their scales, one length-bounded pass for the whole window. lengths:
-    tokens cached before the window. Returns (B, T, H, D)."""
+    tokens cached before the window. Returns (B, T, H, D). A cache with
+    the kt mirror takes kernel #7's verify form (JAX `_verify_attn_kt`
+    :1278); a stacked layer reads its views of the stacked cache."""
+    if isinstance(cache, st.StackedLayer):
+        return _verify_attn_stacked(cache.cache, cache.index, q, lengths)
+    if getattr(cache, "kt", None) is not None:
+        return verify_attention_kt(q, cache.kt, cache.k, cache.v, lengths,
+                                   cache.k_scale, cache.v_scale,
+                                   v_bits=cache.vbits)[0]
     store = kvcache.store_args(cache)
     if kvcache._is_paged(cache):
         return verify_attention_paged(q, cache.k_pool, cache.v_pool,
@@ -861,7 +929,7 @@ def forward_verify(params: Params, cfg: TransformerConfig,
         attn_lengths = torch.where(active, lengths,
                                    torch.full_like(lengths, -t))
     rows = kvcache.decode_rows(caches[0], write_pos)
-    for layer, cache in zip(params["layers"], caches):
+    for layer, cache in zip(_scan_layers(params), caches):
         ap = layer["attn"]
         q, k, v = _qkv_norm(x, layer, cfg)
         if cfg.positions == "rope":
@@ -870,3 +938,161 @@ def forward_verify(params: Params, cfg: TransformerConfig,
         attn = _verify_attn(cache, q, attn_lengths)
         x = _attn_tail(x, attn.reshape(b, t, cfg.q_size), ap, layer, cfg)
     return _logits(params, cfg, x), tuple(caches)
+
+
+# ---------------------------------------------------------------------------
+# Scan over layers (RuntimeConfig.scan_layers, JAX :1383-1680)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class StackedLayers:
+    """params["layers"] of a scan model: `tree`, the layers' common
+    structure with every leaf stacked on a leading L axis (JAX
+    `stack_layer_params`), and `views`, layer i's parameters as views of
+    those leaves (built once: a forward loops over them)."""
+
+    tree: Any
+    views: List[Any]
+
+
+def _signature(node):
+    """Structure, shapes, dtypes and quantization of a layer's tree: layers
+    stack only where these agree."""
+    if isinstance(node, dict):
+        return ("dict", tuple((k, _signature(v)) for k, v in node.items()))
+    if isinstance(node, list):
+        return ("list", tuple(_signature(v) for v in node))
+    if isinstance(node, QuantizedTensor):
+        return ("qt", node.bits, node.group_size, node.act_bits,
+                node.zero_points is None, tuple(node.data.shape),
+                tuple(node.scales.shape), node.data.dtype)
+    if isinstance(node, torch.Tensor):
+        return ("tensor", tuple(node.shape), node.dtype)
+    return ("leaf", node)
+
+
+def _stack(nodes):
+    first = nodes[0]
+    if isinstance(first, dict):
+        return {k: _stack([n[k] for n in nodes]) for k in first}
+    if isinstance(first, list):
+        return [_stack([n[i] for n in nodes]) for i in range(len(first))]
+    if isinstance(first, QuantizedTensor):
+        zp = (None if first.zero_points is None
+              else torch.stack([n.zero_points for n in nodes]))
+        return QuantizedTensor(torch.stack([n.data for n in nodes]),
+                               torch.stack([n.scales for n in nodes]), zp,
+                               first.bits, first.group_size, first.act_bits)
+    if isinstance(first, torch.Tensor):
+        return torch.stack(nodes)
+    return first
+
+
+def _index(node, i: int):
+    if isinstance(node, dict):
+        return {k: _index(v, i) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_index(v, i) for v in node]
+    if isinstance(node, QuantizedTensor):
+        return QuantizedTensor(
+            node.data[i], node.scales[i],
+            None if node.zero_points is None else node.zero_points[i],
+            node.bits, node.group_size, node.act_bits)
+    if isinstance(node, torch.Tensor):
+        return node[i]
+    return node
+
+
+def stack_layer_params(params: Params) -> Params:
+    """Stack params["layers"] into one tree whose leaves lead with the
+    layer axis (JAX `stack_layer_params` :1395). The layers must agree in
+    structure, shapes, dtypes and quantization; mixed precision across
+    depth raises ValueError, as in JAX. Stacked params pass through."""
+    layers = params["layers"]
+    if not isinstance(layers, list):
+        return params
+    ref = _signature(layers[0])
+    for i, layer in enumerate(layers[1:], 1):
+        if _signature(layer) != ref:
+            raise ValueError(
+                f"scan_layers needs homogeneous layers; layer {i} differs "
+                f"from layer 0 (mixed per-depth precision or structure)")
+    tree = _stack(layers)
+    out = dict(params)
+    out["layers"] = StackedLayers(
+        tree, [_index(tree, i) for i in range(len(layers))])
+    return out
+
+
+def _scan_layers(params: Params):
+    """Each layer's parameters, in order: the list of an unrolled tree, or
+    the views of a stacked one (JAX `_scan_layers` :1418 runs `lax.scan`
+    over the stacked leaves; an eager loop has nothing to compile once)."""
+    layers = params["layers"]
+    return layers.views if isinstance(layers, StackedLayers) else layers
+
+
+def forward_decode_scan(params: Params, cfg: TransformerConfig,
+                        token_ids: torch.Tensor, cache, lengths: torch.Tensor,
+                        *, dtype=torch.bfloat16,
+                        active: Optional[torch.Tensor] = None):
+    """`forward_decode` over stacked layers and the stacked cache (JAX
+    :1480): each layer appends through kernel #8 and attends over its views
+    of the stacked cache. Returns (logits (B, V) f32, cache)."""
+    logits, _ = forward_decode(params, cfg, token_ids, st.layers(cache),
+                               lengths, dtype=dtype, active=active)
+    return logits, cache
+
+
+def forward_verify_scan(params: Params, cfg: TransformerConfig,
+                        token_ids: torch.Tensor, cache, lengths: torch.Tensor,
+                        *, dtype=torch.bfloat16,
+                        active: Optional[torch.Tensor] = None):
+    """`forward_verify` over stacked layers and the stacked cache (JAX
+    :1590). Returns (logits (B, T, V) f32, cache)."""
+    logits, _ = forward_verify(params, cfg, token_ids, st.layers(cache),
+                               lengths, dtype=dtype, active=active)
+    return logits, cache
+
+
+def forward_prefill_scan_batch(params: Params, cfg: TransformerConfig,
+                               input_ids: torch.Tensor, lengths: torch.Tensor,
+                               slots: torch.Tensor, cache, *,
+                               dtype=torch.bfloat16):
+    """Batched prefill over stacked layers (JAX :1543): B padded prompts
+    (B, S) with lengths (B,), each layer's K/V written into [layer, slots]
+    through kernel #8 (a slot out of range drops its rows), and JAX's
+    scan-body tail (`_attn_tail`, with the residual adds, RMSNorm and GLU
+    folded into the matmul kernels, where the unrolled prefill adds after
+    each rounding). Returns (cache, last-position logits (B, V) f32)."""
+    last = _prefill(params, cfg, input_ids, lengths, dtype, lengths - 1,
+                    lambda i, k, v: st.write_prompts_layer(cache, i, k, v,
+                                                           slots),
+                    _attn_tail)
+    return cache, last
+
+
+def forward_prefill_scan(params: Params, cfg: TransformerConfig,
+                         input_ids: torch.Tensor, length, slot, cache, *,
+                         dtype=torch.bfloat16):
+    """One padded prompt (S,) into `slot` (JAX :1516): the B = 1 wrapper of
+    `forward_prefill_scan_batch`. Returns (cache, last logits (V,) f32)."""
+    dev = input_ids.device
+    cache, last = forward_prefill_scan_batch(
+        params, cfg, input_ids[None],
+        torch.as_tensor(length, device=dev).reshape(1),
+        torch.as_tensor(slot, device=dev).reshape(1), cache, dtype=dtype)
+    return cache, last[0]
+
+
+def forward_prefill_chunk_scan(params: Params, cfg: TransformerConfig,
+                               input_ids: torch.Tensor, cache, slot: int,
+                               start: int, *, dtype=torch.bfloat16,
+                               logits_at: Optional[int] = None):
+    """`forward_prefill_chunk` over stacked layers (JAX :1624): the chunk's
+    rows go through kernel #8, attention reads the slot's rows of each
+    layer, and each layer ends with `_attn_tail`, as JAX's scan body does.
+    Returns (logits, cache)."""
+    logits = _prefill_chunk(params, cfg, input_ids, st.layers(cache), slot,
+                            start, dtype, logits_at, _attn_tail)
+    return logits, cache

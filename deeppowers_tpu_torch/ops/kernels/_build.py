@@ -29,8 +29,8 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "deeppowers_tpu_torch"
 SOURCES = ("dequant_matmul.cu", "kv_append.cu", "decode_attention.cu",
-           "flash_attention.cu", "grouped_matmul.cu")
-HEADERS = ("common.cuh",)
+           "decode_attention_kt.cu", "flash_attention.cu", "grouped_matmul.cu")
+HEADERS = ("common.cuh", "attention_combine.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -43,6 +43,8 @@ SIGNATURES: Dict[str, list] = {
     "dpt_quantize_rows": [_P, _LL, _P, _I, _I, _F, _I, _I, _P, _P, _P],
     "dpt_kv_append": [_P, _P, _P, _P, _P, _LL, _P, _LL, _P, _P, _I, _I, _I,
                       _I, _I, _I, _I, _P],
+    "dpt_kv_append_stacked": [_P, _P, _P, _P, _P, _LL, _P, _LL, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "dpt_kv_append_pool": [_P, _P, _P, _P, _P, _LL, _P, _LL, _P, _P, _I, _I,
                            _I, _I, _I, _I, _I, _P],
     "dpt_decode_attention": [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _LL, _P, _LL,
@@ -51,6 +53,8 @@ SIGNATURES: Dict[str, list] = {
     "dpt_decode_attention_paged": [_P, _LL, _P, _P, _P, _P, _P, _I, _I, _P, _I,
                                    _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P,
                                    _P, _P, _P],
+    "dpt_decode_attention_kt": [_P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _I, _I, _F, _P, _P, _P, _P, _P],
     "dpt_grouped_matmul": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I,
                            _P],
     "dpt_grouped_matmul_ncat": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I,

@@ -1,16 +1,32 @@
 """GQA decode attention over bf16 or quantized KV: wrappers, plain
 versions and launch counts for the contiguous and the paged layout, for
 one token a slot (decode) or a speculative verify window of T tokens a
-slot. CUDA source: csrc/decode_attention.cu (one kernel template, two row
-addressings, four store variants).
+slot. CUDA sources: csrc/decode_attention.cu (one kernel template, two row
+addressings, four store variants) and csrc/decode_attention_kt.cu (#7).
+
+`decode_attention_kt` / `verify_attention_kt` replace the Pallas TPU
+kernel `decode_attention_kt` :1081 (pallas_call :1132, body `_kt_kernel`
+:845) and `verify_attention_kt` :1148: attention over an int8-K cache that
+carries the chunk-transposed mirror kt (runtime/kvcache.py), reading
+committed chunks from kt and the rest from the row-major k, and flushing
+every chunk its tail completes into kt in place. Their plain version
+walks the TPU kernel's units in its order, with its roundings (bf16 q
+after the scale, bf16 probabilities times V scales), so that greedy
+streams follow the JAX engine's. `decode_attention_kernel` is the older
+per-head kernel (:1160, pallas_call :1219, body `_kernel` :42), which
+nothing in the JAX package calls: its entry point launches the contiguous
+kernel on the flat view of its (B, S, Kh, D) caches, which computes its
+f32 function, and counts its own launches.
 
 `decode_attention` replaces the Pallas TPU kernel
 deeppowers_tpu/ops/pallas/decode_attention.py (`decode_attention_mxu`
 :341, pallas_call :470, body `_kernel_mxu` :123) over flat (B, S, F')
 caches; `decode_attention_paged` replaces `decode_attention_paged_mxu`
 :706 (pallas_call :780, body `_kernel_mxu_paged_db` :526) over (P, page,
-F') pools read through a (B, WP) page table. Neither takes the stacked
-`layer` operand.
+F') pools read through a (B, WP) page table. The stacked cache's layer i
+reaches `decode_attention` as (B, S, F') views of its (L, B, S, F')
+tensors, which the kernel reads in place (its slot stride is taken from
+the view), where the TPU kernel takes a `layer` operand.
 
 Verify windows (`tokens` = T > 1): `verify_attention` and
 `verify_attention_paged` replace `verify_attention_mxu` :501 and
@@ -58,7 +74,7 @@ from typing import Optional
 import torch
 
 from ...quant.kvquant import (STORE_BITS, dequant_side, gather_scale,
-                              scale_heads, store_variant)
+                              scale_heads, store_variant, unpack4)
 from . import _build
 
 NEG_INF = -1e30
@@ -236,12 +252,23 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     current token, or all T window tokens). Returns (B, H*T, D). A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel or
     raises."""
-    name = store_variant(k_scale, kv_bits, v_bits)
     if not q.is_cuda:
         return decode_attention_plain(q, k_cache, v_cache, lengths,
                                       k_scale=k_scale, v_scale=v_scale,
                                       kv_bits=kv_bits, v_bits=v_bits,
                                       scale=scale, tokens=tokens)
+    out = _launch(q, k_cache, v_cache, lengths, k_scale=k_scale,
+                  v_scale=v_scale, kv_bits=kv_bits, v_bits=v_bits,
+                  scale=scale, tokens=tokens)
+    _count(decode_attention, store_variant(k_scale, kv_bits, v_bits), tokens)
+    return out
+
+
+def _launch(q, k_cache, v_cache, lengths, *, k_scale, v_scale, kv_bits,
+            v_bits, scale, tokens):
+    """Check the operands of the contiguous kernel and launch it (not
+    counted: its callers count their own launches)."""
+    name = store_variant(k_scale, kv_bits, v_bits)
     b, o, d = q.shape
     s = k_cache.shape[1]
     kb, vb = STORE_BITS[name]
@@ -284,7 +311,6 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         pm.data_ptr(), pl.data_ptr(), pacc.data_ptr(), out.data_ptr(),
         _build.stream())
     _build.check(rc, "decode_attention")
-    _count(decode_attention, name, tokens)
     return out
 
 
@@ -410,3 +436,261 @@ def verify_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
     out = decode_attention_paged(fold_tokens(q), k_pool, v_pool, table,
                                  lengths + t, tokens=t, **kw)
     return unfold_tokens(out, t)
+
+
+# ---------------------------------------------------------------------------
+# The chunk-transposed K mirror (kernel #7) and the per-head kernel (#11)
+# ---------------------------------------------------------------------------
+
+#: positions a kt chunk holds
+KT_CHUNK = 128
+
+
+def kt_group(f: int, c_chunks: int) -> int:
+    """Chunks a committed unit of the TPU kernel's loop reads at once (JAX
+    `kt_group` :834); the plain version walks the same units, so its
+    online softmax rounds where the TPU kernel's does."""
+    grp = max(1, min(8, 2048 // max(f, 1)))
+    while grp > 1 and c_chunks % grp:
+        grp -= 1
+    return grp
+
+
+def _kt_units(ln: int, full: int, grp: int):
+    """(first chunk, chunks, tail?) of one slot's units, in the TPU
+    kernel's order (`unit_of` :887-895): committed groups, then the
+    128-row tail units."""
+    units = [(c0, grp, False) for c0 in range(0, full, grp)]
+    n_tail = ln - full * KT_CHUNK
+    units += [(full + j, 1, True)
+              for j in range(-(-n_tail // KT_CHUNK))]
+    return units
+
+
+def decode_attention_kt_plain(q, kt, k, v, lengths, k_scale, v_scale, *,
+                              scale: Optional[float] = None,
+                              tokens: int = 1, v_bits: int = 8):
+    """The kt kernel's function in plain PyTorch (JAX `_kt_kernel` :845),
+    unit by unit as the TPU kernel walks them: q rounded to bf16 after the
+    scale, scores (q . k_int) * k_scale in f32, an online softmax in f32,
+    bf16(p * v_scale) against the V values; committed chunks read from kt,
+    the rest from the row-major k; each tail chunk that lies whole below
+    the length is written into kt (in place). Positions past a row's bound
+    are selected away, their V scales never multiplied by 0. Returns
+    (out (B, O, D), kt)."""
+    b, o, d = q.shape
+    c_n, f = kt.shape[1], kt.shape[2]
+    kh = f // d
+    rep = o // kh
+    scale = scale if scale is not None else d ** -0.5
+    grp = kt_group(f, c_n)
+    ch = KT_CHUNK
+    qb = (q.float() * scale).to(torch.bfloat16).float().reshape(b, kh, rep, d)
+    t_row = torch.arange(rep, device=q.device) % tokens
+    out = torch.zeros((b, o, d), dtype=q.dtype, device=q.device)
+    zero = torch.zeros((), device=q.device)
+    for i, ln in enumerate(lengths.tolist()):
+        if ln <= 0:
+            continue
+        full = max((ln - tokens) // ch, 0)
+        m = torch.full((kh, rep), NEG_INF, device=q.device)
+        l = torch.zeros((kh, rep), device=q.device)
+        acc = torch.zeros((kh, rep, d), device=q.device)
+        for c0, g, tail in _kt_units(ln, full, grp):
+            pos = torch.arange(c0 * ch, (c0 + g) * ch, device=q.device)
+            if tail:
+                rows = k[i, c0 * ch:(c0 + 1) * ch]                  # (128, F)
+                kk = rows.reshape(ch, kh, d).permute(1, 2, 0)
+                bound = ln - (tokens - 1) + t_row
+                valid = pos[None, :] < bound[:, None]
+                if (c0 + 1) * ch <= ln:                             # flush
+                    kt[i, c0] = rows.t()
+            else:
+                kk = kt[i, c0:c0 + g].reshape(g, kh, d, ch).permute(
+                    1, 2, 0, 3).reshape(kh, d, g * ch)
+                valid = (pos < full * ch)[None, :].expand(rep, -1)
+            s = torch.einsum("krd,kdn->krn", qb[i], kk.float())
+            s = s * k_scale[i][:, None, pos]
+            s = torch.where(valid[None], s, torch.full((), NEG_INF,
+                                                       device=q.device))
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.where(valid[None], torch.exp(s - m_new[..., None]),
+                            zero)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            m = m_new
+            vrows = v[i, pos].reshape(pos.numel(), kh, -1).transpose(0, 1)
+            if v_bits == 4:
+                lo, hi = unpack4(vrows)
+                vsc = v_scale[i].reshape(kh, 2, -1)[:, :, pos]
+                pv = torch.cat([
+                    _bf16_probs(p, vsc[:, 0], valid) @ lo.float(),
+                    _bf16_probs(p, vsc[:, 1], valid) @ hi.float()], -1)
+            else:
+                pv = _bf16_probs(p, v_scale[i][:, pos], valid) @ \
+                    vrows.float()
+            acc = acc * alpha[..., None] + pv
+        out[i] = (acc * (1.0 / l.clamp_min(1e-30))[..., None]).reshape(
+            o, d).to(q.dtype)
+    return out, kt
+
+
+def _bf16_probs(p, vs, valid):
+    """bf16(p * v_scale) over (Kh, rows, n) probabilities and (Kh, n) V
+    scales, 0 where a position is not visible."""
+    w = torch.where(valid[None], p * vs[:, None, :],
+                    torch.zeros((), device=p.device))
+    return w.to(torch.bfloat16).float()
+
+
+def _kt_check(q, kt, k, v, lengths, k_scale, v_scale, tokens, v_bits):
+    """Check what the kt kernel takes; returns (B, C, Kh, rows)."""
+    b, o, d = q.shape
+    c_n, f = kt.shape[1], kt.shape[2]
+    kh = f // d
+    rows = o // max(kh, 1)
+    s = c_n * KT_CHUNK
+    fv = f // 2 if v_bits == 4 else f
+    for t in (kt, k, v, lengths, k_scale, v_scale):
+        _build.require_cuda(t, "decode_attention_kt operand")
+    if d not in (64, 128) or q.dtype != torch.bfloat16 or kh * d != f or \
+            rows * kh != o or rows % tokens or rows > MAX_ROWS or \
+            v_bits not in (8, 4):
+        raise NotImplementedError(
+            f"CUDA decode_attention_kt takes bf16 q of head_dim 64 or 128, "
+            f"at most {MAX_ROWS} rows a kv head and v_bits 8 or 4; got q "
+            f"{tuple(q.shape)} {q.dtype} over F = {f}, v_bits {v_bits}")
+    want = {kt: (b, c_n, f, KT_CHUNK), k: (b, s, f), v: (b, s, fv)}
+    for t, shape in want.items():
+        if t.dtype != torch.int8 or tuple(t.shape) != shape or \
+                not t.is_contiguous() or t.data_ptr() % 16:
+            raise NotImplementedError(
+                f"kt, k and v must be contiguous 16-byte aligned int8 "
+                f"{list(want.values())}, got {tuple(t.shape)} {t.dtype}")
+    for sc, r in ((k_scale, kh), (v_scale, 2 * kh if v_bits == 4 else kh)):
+        if sc.dtype != torch.float32 or tuple(sc.shape) != (b, r, s) or \
+                not sc.is_contiguous():
+            raise NotImplementedError(
+                f"scales must be contiguous f32 ({b}, {r}, {s}), got "
+                f"{tuple(sc.shape)} {sc.dtype}")
+    return b, c_n, kh, rows
+
+
+def decode_attention_kt(q: torch.Tensor, kt: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor, lengths: torch.Tensor,
+                        k_scale: torch.Tensor, v_scale: torch.Tensor, *,
+                        scale: Optional[float] = None, tokens: int = 1,
+                        v_bits: int = 8):
+    """Decode (or, with tokens = T, folded verify) attention over an int8-K
+    cache that carries the chunk-transposed mirror (JAX
+    `decode_attention_kt` :1081): q (B, H*T, D); kt (B, C, Kh*D, 128) int8,
+    updated in place; k (B, C*128, Kh*D) int8, the row-major source; v
+    (B, C*128, FV) int8 or packed int4 (v_bits 4); k_scale (B, Kh, S),
+    v_scale (B, Kh | 2*Kh, S) f32; lengths (B,) including the T window rows.
+    Returns (out (B, H*T, D), kt). A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel or raises."""
+    if not q.is_cuda:
+        return decode_attention_kt_plain(q, kt, k, v, lengths, k_scale,
+                                         v_scale, scale=scale, tokens=tokens,
+                                         v_bits=v_bits)
+    b, c_n, kh, rows = _kt_check(q, kt, k, v, lengths, k_scale, v_scale,
+                                 tokens, v_bits)
+    o, d = q.shape[1], q.shape[2]
+    if q.stride(2) != 1 or q.stride(1) != d:
+        q = q.contiguous()
+    lens = lengths.to(torch.int32).contiguous()
+    scale = scale if scale is not None else d ** -0.5
+    pm, pl, pacc, out = _scratch(q, b, o, d, c_n)
+    rc = _build.library().dpt_decode_attention_kt(
+        q.data_ptr(), q.stride(0), kt.data_ptr(), k.data_ptr(), v.data_ptr(),
+        k_scale.data_ptr(), v_scale.data_ptr(), lens.data_ptr(), b, c_n, kh,
+        rows, tokens, d, v_bits, float(scale), pm.data_ptr(), pl.data_ptr(),
+        pacc.data_ptr(), out.data_ptr(), _build.stream())
+    _build.check(rc, "decode_attention_kt")
+    _count(decode_attention_kt, "k8v4" if v_bits == 4 else "int8", tokens)
+    return out, kt
+
+
+decode_attention_kt.launches = 0
+decode_attention_kt.variant_launches = collections.Counter()
+
+
+def verify_attention_kt(q: torch.Tensor, kt: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor, lengths: torch.Tensor,
+                        k_scale: torch.Tensor, v_scale: torch.Tensor, *,
+                        scale: Optional[float] = None, v_bits: int = 8):
+    """Speculative-verify attention over the kt layout (JAX
+    `verify_attention_kt` :1148): q (B, T, H, D), lengths (B,) tokens
+    cached before the window. Returns (out (B, T, H, D), kt)."""
+    t = q.shape[1]
+    out, kt = decode_attention_kt(fold_tokens(q), kt, k, v, lengths + t,
+                                  k_scale, v_scale, scale=scale, tokens=t,
+                                  v_bits=v_bits)
+    return unfold_tokens(out, t), kt
+
+
+def decode_attention_kernel_plain(q, k_cache, v_cache, lengths, k_scale=None,
+                                  v_scale=None, *,
+                                  block_s: Optional[int] = None,
+                                  scale: Optional[float] = None):
+    """JAX `_kernel` (:42-95) in plain PyTorch: f32 throughout, K and V
+    dequantized by their (B, Kh, S) scales, positions past `lengths`
+    masked. The TPU kernel's blocks of `block_s` rows change only its
+    online softmax's rounding, not the function. V rows past the length
+    are selected away (the TPU kernel multiplies p = 0 into the last
+    block's stale rows, so a NaN there gives NaN)."""
+    del block_s
+    b, h, d = q.shape
+    s, kh = k_cache.shape[1], k_cache.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    kf, vf = k_cache.float(), v_cache.float()
+    if k_scale is not None:
+        kf = kf * k_scale.float().transpose(1, 2)[..., None]
+        vf = vf * v_scale.float().transpose(1, 2)[..., None]
+    valid = (torch.arange(s, device=q.device)[None, :]
+             < lengths.to(q.device).long()[:, None])
+    vf = torch.where(valid[:, :, None, None], vf,
+                     torch.zeros((), device=q.device))
+    qg = q.float().reshape(b, kh, h // kh, d) * scale
+    scores = torch.einsum("bkrd,bskd->bkrs", qg, kf)
+    scores = torch.where(valid[:, None, None, :], scores,
+                         torch.full((), NEG_INF, device=q.device))
+    out = torch.einsum("bkrs,bskd->bkrd", torch.softmax(scores, -1), vf)
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def decode_attention_kernel(q: torch.Tensor, k_cache: torch.Tensor,
+                            v_cache: torch.Tensor, lengths: torch.Tensor,
+                            k_scale: Optional[torch.Tensor] = None,
+                            v_scale: Optional[torch.Tensor] = None, *,
+                            block_s: Optional[int] = None,
+                            scale: Optional[float] = None) -> torch.Tensor:
+    """Per-head decode attention (JAX `decode_attention_kernel` :1160): q
+    (B, H, D); k_cache, v_cache (B, S, Kh, D) bf16, or int8 with (B, Kh, S)
+    f32 scales; lengths (B,). Returns (B, H, D). On the card it launches
+    kernel #3's CUDA kernel on the flat (B, S, Kh*D) view of the same
+    memory, which computes this function in f32 throughout; its launches
+    count here. `block_s` tiles the TPU's VMEM and is not used. A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel or
+    raises."""
+    if not q.is_cuda:
+        return decode_attention_kernel_plain(q, k_cache, v_cache, lengths,
+                                             k_scale, v_scale,
+                                             block_s=block_s, scale=scale)
+    b, s, kh, d = k_cache.shape
+    for c in (k_cache, v_cache):
+        if c.shape != (b, s, kh, d) or not c.is_contiguous():
+            raise NotImplementedError(
+                f"caches must be contiguous (B, S, Kh, D) = {(b, s, kh, d)}, "
+                f"got {tuple(c.shape)}")
+    if k_scale is not None and k_cache.dtype != torch.int8:
+        raise NotImplementedError("scaled caches must be int8")
+    out = _launch(q, k_cache.view(b, s, kh * d), v_cache.view(b, s, kh * d),
+                  lengths, k_scale=k_scale, v_scale=v_scale, kv_bits=8,
+                  v_bits=0, scale=scale, tokens=1)
+    _count(decode_attention_kernel, store_variant(k_scale), 1)
+    return out
+
+
+decode_attention_kernel.launches = 0
+decode_attention_kernel.variant_launches = collections.Counter()

@@ -132,7 +132,7 @@ def store_variant(k_scale, kv_bits: int = 8, v_bits: int = 0) -> str:
 def scale_heads(scale: torch.Tensor, bits: int) -> int:
     """Kv heads of a side from its scale rows: an int4 side carries two
     sub-block scales per head, an int8 side one."""
-    return scale.shape[1] // (2 if bits == 4 else 1)
+    return scale.shape[-2] // (2 if bits == 4 else 1)
 
 
 def store_layout(kv_cache_dtype: str, num_kv_heads: int, head_dim: int):
@@ -184,7 +184,7 @@ def quant_for(rows: torch.Tensor, scale: torch.Tensor, bits: int
     stored rows, (N, R) scales)."""
     kh = scale_heads(scale, bits)
     return quant_side(rows.reshape(rows.shape[0], kh, -1), bits,
-                      scale.shape[1] // kh)
+                      scale.shape[-2] // kh)
 
 
 def store_args(cache) -> dict:

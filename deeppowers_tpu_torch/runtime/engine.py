@@ -11,9 +11,18 @@ Eager PyTorch needs none of the JAX engine's compile machinery (jit caches,
 donation, multi-step dispatch, pipelined harvests, window buckets): each
 step() runs one decode forward over all slots and one host transfer of the
 per-slot results. Decode attention bounds its reads per slot by length in
-the kernel. The KV cache is the unrolled per-layer layout
-(RuntimeConfig.scan_layers is accepted and gives the same outputs), either
-contiguous or paged (`kv_layout="paged"`, JAX engine.py:635-665).
+the kernel. The KV cache is contiguous or paged (`kv_layout="paged"`, JAX
+engine.py:635-665). `RuntimeConfig.scan_layers` decides as in JAX
+(:615-630): "auto" (the default) stacks the layers of a model with 16 or
+more homogeneous layers on the contiguous layout, a mixed-precision model
+staying unrolled; True stacks them or raises ValueError (paged layout,
+mixed precision); False keeps the unrolled forwards. A stacked model
+keeps the stacked cache (runtime/kvcache_stacked.py) and runs the scan
+forwards, with the same greedy tokens as JAX's scan engine; a draft
+model's cache stays per layer. An unrolled contiguous cache of an int8-K
+store carries the kt mirror when `kvcache.kt_auto` says so: never by
+default on this card (as JAX's policy off the TPU), always with
+DPT_KV_KT=1; decode and verify then read K through kernel #7.
 
 Admission, as in the JAX engine (`begin_request` :941-987): a prompt
 longer than `prefill_chunk_size`, or one whose prefix is found in the
@@ -67,10 +76,13 @@ import torch
 from ..config import GenerationConfig, RuntimeConfig
 from ..device import resolve_device
 from ..models.transformer import (TransformerConfig, forward_decode,
-                                  forward_prefill, forward_prefill_chunk,
-                                  fuse_params, param_nbytes)
+                                  forward_decode_scan, forward_prefill,
+                                  forward_prefill_chunk,
+                                  forward_prefill_chunk_scan,
+                                  forward_prefill_scan_batch, fuse_params,
+                                  param_nbytes, stack_layer_params)
 from ..ops.sampling import SamplingParams, logprobs_of, sample
-from . import kvcache, kvcache_paged, speculative
+from . import kvcache, kvcache_paged, kvcache_stacked, speculative
 from .prefix_index import SlotPrefixIndex
 
 NEG_INF = -1e30
@@ -157,6 +169,27 @@ UNPORTED_RUNTIME_DEFAULTS = {"emit_top_logprobs": 0,
                              "seq_parallel_prefill": False}
 
 
+def _scan_policy(params, cfg: TransformerConfig, scan, kv_layout: str):
+    """(params, scan?) as the JAX engine decides `scan_layers`
+    (engine.py:615-630): "auto" stacks the layers of a model with at least
+    16 of them on the contiguous layout and stays unrolled when they do not
+    stack (mixed per-depth precision); True stacks them, raising
+    ValueError on the paged layout or for layers that do not stack; False
+    keeps them unrolled."""
+    if scan == "auto":
+        if cfg.num_layers < 16 or kv_layout == "paged":
+            return params, False
+        try:
+            return stack_layer_params(params), True
+        except ValueError:
+            return params, False
+    if scan:
+        if kv_layout == "paged":
+            raise ValueError("scan_layers requires kv_layout='contiguous'")
+        return stack_layer_params(params), True
+    return params, False
+
+
 def _require_ported(runtime: RuntimeConfig) -> None:
     for name, default in UNPORTED_RUNTIME_DEFAULTS.items():
         value = getattr(runtime, name)
@@ -191,8 +224,9 @@ class InferenceEngine:
             raise ValueError(
                 f"params live on {params['embedding'].device}, the engine "
                 f"runs on {self.device}")
-        self.params = fuse_params(params, cfg) if fuse_projections else params
-        self.scan_layers = False
+        params = fuse_params(params, cfg) if fuse_projections else params
+        self.params, self.scan_layers = _scan_policy(
+            params, cfg, self.runtime.scan_layers, kv_layout)
         b = self.runtime.max_batch_size
         self.max_seq = min(self.runtime.max_seq_len, cfg.max_seq_len)
         self.kv_layout = kv_layout
@@ -298,16 +332,25 @@ class InferenceEngine:
     @property
     def kv_nbytes(self) -> int:
         """Device bytes of the KV caches (stores, scales, page table)."""
+        if self.scan_layers:
+            return kvcache_stacked.nbytes(self.caches)
         return kvcache.nbytes(self.caches)
 
     def _new_caches(self):
         """Zeroed caches of the engine's layout; on the paged layout also a
         fresh allocator and host table (the JAX engine's init :635-665)."""
         cfg, b = self.cfg, self.runtime.max_batch_size
+        if self.scan_layers:
+            return kvcache_stacked.init_cache(
+                cfg.num_layers, b, self.max_seq, cfg.kv_heads, cfg.dim_head,
+                dtype=self.act_dtype, kv_cache_dtype=self.kv_cache_dtype,
+                device=self.device)
         if self.kv_layout != "paged":
             return kvcache.init_cache(
                 cfg.num_layers, b, self.max_seq, cfg.kv_heads, cfg.dim_head,
                 dtype=self.act_dtype, kv_cache_dtype=self.kv_cache_dtype,
+                kv_kt=kvcache.kt_auto(self.kv_cache_dtype, cfg.kv_heads,
+                                      cfg.dim_head),
                 device=self.device)
         ps = self.runtime.kv_page_size
         if self.max_seq % ps or self.runtime.prefill_chunk_size % ps:
@@ -409,8 +452,12 @@ class InferenceEngine:
             # this slot's rows are about to be overwritten: never a source
             self._prefix_idx.invalidate(slot)
             if matched:
-                for cache in self.caches:
-                    kvcache.copy_prefix(cache, src, slot, matched)
+                if self.scan_layers:
+                    kvcache_stacked.copy_prefix(self.caches, src, slot,
+                                                matched)
+                else:
+                    for cache in self.caches:
+                        kvcache.copy_prefix(cache, src, slot, matched)
                 self._prefix_idx.record_hit(matched)
         if self._page_alloc is not None:
             ps = self.runtime.kv_page_size
@@ -466,8 +513,10 @@ class InferenceEngine:
         piece = pp.ids[pp.pos:pp.pos + chunk]
         c_ids = np.zeros((chunk,), dtype=np.int64)
         c_ids[:len(piece)] = piece
+        fwd = (forward_prefill_chunk_scan if self.scan_layers
+               else forward_prefill_chunk)
         with torch.no_grad():
-            last, _ = forward_prefill_chunk(
+            last, _ = fwd(
                 self.params, self.cfg, torch.from_numpy(c_ids).to(self.device),
                 self.caches, slot, pp.pos, dtype=self.act_dtype,
                 logits_at=len(piece) - 1)
@@ -493,17 +542,26 @@ class InferenceEngine:
             lens[i] = it["n"]
         dev = self.device
         lengths = torch.from_numpy(lens).to(dev)
-        slots = torch.tensor([it["slot"] for it in items], device=dev)
         n = len(items)
+        # padding rows go to slot B, which the stacked cache's scatter drops
+        slots = torch.tensor([it["slot"] for it in items]
+                             + [self.num_slots] * (rows - n), device=dev)
         with torch.no_grad():
-            last, kv = forward_prefill(
-                self.params, self.cfg, torch.from_numpy(ids).to(dev), lengths,
-                dtype=self.act_dtype, logits_at=lengths - 1)
-            for cache, (k, v) in zip(self.caches, kv):
-                if self._page_alloc is not None:
-                    kvcache.write_prompt(cache, k[0], v[0], items[0]["slot"])
-                else:
-                    kvcache.write_prompts(cache, k[:n], v[:n], slots)
+            if self.scan_layers:
+                _, last = forward_prefill_scan_batch(
+                    self.params, self.cfg, torch.from_numpy(ids).to(dev),
+                    lengths, slots, self.caches, dtype=self.act_dtype)
+            else:
+                last, kv = forward_prefill(
+                    self.params, self.cfg, torch.from_numpy(ids).to(dev),
+                    lengths, dtype=self.act_dtype, logits_at=lengths - 1)
+                for cache, (k, v) in zip(self.caches, kv):
+                    if self._page_alloc is not None:
+                        kvcache.write_prompt(cache, k[0], v[0],
+                                             items[0]["slot"])
+                    else:
+                        kvcache.write_prompts(cache, k[:n], v[:n],
+                                              slots[:n])
         for i, it in enumerate(items):
             self._activate_slot(it, last[i])
 
@@ -659,8 +717,9 @@ class InferenceEngine:
         if self._spec_k > 0:
             return self._spec_step()
         st = self.state
+        fwd = forward_decode_scan if self.scan_layers else forward_decode
         with torch.no_grad():
-            logits, self.caches = forward_decode(
+            logits, self.caches = fwd(
                 self.params, self.cfg, st.tokens, self.caches, st.lengths,
                 dtype=self.act_dtype, active=st.active)
             sp = st.sampling

@@ -3,7 +3,7 @@ quantized, and the layout dispatch over it and the paged layout
 (runtime/kvcache_paged.py).
 
 Ported from deeppowers_tpu/runtime/kvcache.py (`LayerKVCache` :38-113,
-`init_cache` :116-190, `_is_paged` :263,
+`init_cache` :116-190, `_is_paged` :263, `kt_auto` :268,
 `write_prompt`/`write_prompts` :344, `write_chunk` :377, `append_token`
 :432, `append_tokens` :445, `slice_window` :506, `copy_prefix` :529, `read` :565, `nbytes`
 :603). Chunked prefill reads one slot through `slot_view`, which stands
@@ -17,9 +17,20 @@ layout exactly (the quantizers are quant/kvquant.py):
   int4  k, v (B, S, Kh*D/2) packed int4; scales (B, 2*Kh, S), two
         sub-block scales per head (rows 2*head + half)
   k8v4  int8 K with (B, Kh, S) scales, packed int4 V with (B, 2*Kh, S)
-Scales are head-major, the orientation the decode kernel reads. The JAX
-package's chunk-transposed K mirror (`kt`) is not kept: it accelerates a
-TPU-only flat-loop kernel.
+Scales are head-major, the orientation the decode kernel reads.
+
+An int8-K store (int8, k8v4) may also carry the chunk-transposed K mirror
+`kt` (B, S/128, Kh*D, 128) int8 (JAX `LayerKVCache.kt`, `init_cache(kv_kt=)`
+:116-190): chunk c holds positions [c*128, (c+1)*128) feature-major, the
+layout kernel #7 (`decode_attention_kt`) reads. The row-major k stays the
+source of truth. The prompt and chunk writers derive the chunks they touch
+from the updated k (`_kt_write_prompts` :296, `_kt_refresh_chunks` :311);
+appends leave kt alone, and the decode kernel flushes every chunk its tail
+completes. A chunk is read from kt only once every row of it is cached
+(the mirror's invariant, JAX decode_attention.py:824-830), so chunks left
+stale by a rejected speculative window or a prefix copy heal before they
+are read. `kt_auto` is JAX's policy (:268-293): off on any backend but the
+TPU unless `DPT_KV_KT=1`.
 
 Unlike the JAX version, which returns new (donated) buffers, writes here
 update the tensors IN PLACE; each function still returns the cache so call
@@ -28,14 +39,16 @@ sites read the same.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
 
+from ..ops.kernels.decode_attention import KT_CHUNK
 from ..ops.kernels.kv_append import scatter_rows
 from ..quant.kvquant import dequant_side, flat_heads, new_store, store_args
-from . import kvcache_paged
+from . import kvcache_paged, kvcache_stacked
 
 
 @dataclass
@@ -53,6 +66,8 @@ class LayerKVCache:
     v_scale: Optional[torch.Tensor] = None
     bits: int = 8
     v_bits: int = 0
+    #: the chunk-transposed K mirror (B, S/128, Kh*D, 128) int8, or None
+    kt: Optional[torch.Tensor] = None
 
     @property
     def quantized(self) -> bool:
@@ -79,14 +94,70 @@ class LayerKVCache:
 
 def init_cache(num_layers: int, batch_slots: int, max_seq: int,
                num_kv_heads: int, head_dim: int, *, dtype=torch.bfloat16,
-               kv_cache_dtype: str = "bf16", device=None
+               kv_cache_dtype: str = "bf16", kv_kt: bool = False, device=None
                ) -> Tuple[LayerKVCache, ...]:
-    """Zero-filled caches (and scales) for all layers."""
+    """Zero-filled caches (and scales) for all layers. kv_kt: also the kt
+    mirror, for int8 or k8v4 stores with max_seq % 128 == 0 only (JAX
+    :134)."""
+    kv_kt = (kv_kt and kv_cache_dtype in ("int8", "k8v4")
+             and max_seq % KT_CHUNK == 0)
+    f = num_kv_heads * head_dim
+
+    def mirror():
+        if not kv_kt:
+            return None
+        return torch.zeros((batch_slots, max_seq // KT_CHUNK, f, KT_CHUNK),
+                           dtype=torch.int8, device=device)
+
     return tuple(
         LayerKVCache(**new_store(kv_cache_dtype, batch_slots, max_seq,
                                  num_kv_heads, head_dim, dtype=dtype,
-                                 device=device))
+                                 device=device), kt=mirror())
         for _ in range(num_layers))
+
+
+def kt_auto(kv_cache_dtype: str, num_kv_heads: int, head_dim: int) -> bool:
+    """JAX's policy for the kt mirror (`kt_auto` :268-293): int8-K stores
+    only, with kv heads <= 8 or a multiple of 8 (a TPU DMA alignment rule,
+    kept so that both packages decide alike); DPT_KV_KT=0/1 overrides;
+    otherwise on only on a TPU with Kh*D >= 2048, so never here."""
+    if kv_cache_dtype not in ("int8", "k8v4"):
+        return False
+    if not (num_kv_heads <= 8 or num_kv_heads % 8 == 0):
+        return False
+    return os.environ.get("DPT_KV_KT", "") == "1"
+
+
+def _kt_write_prompts(cache: LayerKVCache, slots: torch.Tensor,
+                      s_pad: int) -> None:
+    """The chunks of the first s_pad rows of `slots`, transposed from the
+    updated k into kt (JAX `_kt_write_prompts` :296 transposes the
+    quantized rows it wrote, zero-padded to a chunk; here the rows past
+    s_pad are k's own, which no reader sees before a flush rewrites
+    them). A slot out of range is clamped onto the last slot, whose
+    chunks are then rewritten from its own k: always safe, as any slot's
+    readable chunks equal its k rows, so no host check is needed."""
+    kt = cache.kt
+    b, c_n, f = kt.shape[0], kt.shape[1], kt.shape[2]
+    nch = min(-(-s_pad // KT_CHUNK), c_n)
+    sl = slots.long().clamp(0, b - 1)
+    rows = cache.k[sl, :nch * KT_CHUNK].reshape(-1, nch, KT_CHUNK, f)
+    kt[sl, :nch] = rows.transpose(2, 3)
+
+
+def _kt_refresh_chunks(cache: LayerKVCache, slot: int, start: int,
+                       c_len: int) -> None:
+    """Re-derive the kt chunks a write of rows [start, start + c_len) of
+    `slot` touched, from the updated k (JAX `_kt_refresh_chunks` :311,
+    the same chunk window and clamp)."""
+    kt = cache.kt
+    c_n = kt.shape[1]
+    s, f = cache.k.shape[1], cache.k.shape[2]
+    nch = min((c_len + 254) // KT_CHUNK, c_n)
+    n128 = nch * KT_CHUNK
+    sc = min(max((start // KT_CHUNK) * KT_CHUNK, 0), max(s - n128, 0))
+    rows = cache.k[slot, sc:sc + n128].reshape(nch, KT_CHUNK, f)
+    kt[slot, sc // KT_CHUNK:sc // KT_CHUNK + nch] = rows.transpose(1, 2)
 
 
 def _is_paged(cache) -> bool:
@@ -110,6 +181,8 @@ def write_prompts(cache: LayerKVCache, k_new: torch.Tensor,
         scatter_rows(cache.k, cache.v, k_new.reshape(b * s_pad, -1),
                      v_new.reshape(b * s_pad, -1), pos,
                      slots=slots.repeat_interleave(s_pad), **store_args(cache))
+        if cache.kt is not None:
+            _kt_write_prompts(cache, slots, s_pad)
         return cache
     slots = slots.long()
     keep = (slots >= 0) & (slots < cache.k.shape[0])
@@ -138,6 +211,9 @@ def write_chunk(cache, k_new: torch.Tensor, v_new: torch.Tensor, slot: int,
     multiple)."""
     if _is_paged(cache):
         return kvcache_paged.write_chunk(cache, k_new, v_new, slot, start)
+    if isinstance(cache, kvcache_stacked.StackedLayer):
+        return kvcache_stacked.write_chunk_layer(cache.cache, cache.index,
+                                                 k_new, v_new, slot, start)
     c = k_new.shape[0]
     n = min(start + c, cache.k.shape[1]) - start
     if n <= 0:
@@ -151,6 +227,8 @@ def write_chunk(cache, k_new: torch.Tensor, v_new: torch.Tensor, slot: int,
                                   dtype=torch.int32),
                      slots=torch.full((c,), s, device=dev, dtype=torch.int32),
                      **store_args(cache))
+        if cache.kt is not None:
+            _kt_refresh_chunks(cache, s, int(start), c)
         return cache
     cache.k[s, start:start + n] = flat_heads(k_new[:n]).to(cache.k.dtype)
     cache.v[s, start:start + n] = flat_heads(v_new[:n]).to(cache.v.dtype)
@@ -175,6 +253,9 @@ def append_token(cache, k_new: torch.Tensor, v_new: torch.Tensor,
     compute it here."""
     if _is_paged(cache):
         return kvcache_paged.append_token(cache, k_new, v_new, positions, rows)
+    if isinstance(cache, kvcache_stacked.StackedLayer):
+        return kvcache_stacked.append_token_layer(cache.cache, cache.index,
+                                                  k_new, v_new, positions)
     scatter_rows(cache.k, cache.v, flat_heads(k_new), flat_heads(v_new), positions,
                  **store_args(cache))
     return cache
@@ -191,6 +272,9 @@ def append_tokens(cache, k_new: torch.Tensor, v_new: torch.Tensor,
     if _is_paged(cache):
         return kvcache_paged.append_tokens(cache, k_new, v_new, positions,
                                            rows)
+    if isinstance(cache, kvcache_stacked.StackedLayer):
+        return kvcache_stacked.append_tokens_layer(cache.cache, cache.index,
+                                                   k_new, v_new, positions)
     b, t = positions.shape
     slots = torch.arange(b, device=positions.device,
                          dtype=torch.int32).repeat_interleave(t)
@@ -201,7 +285,8 @@ def append_tokens(cache, k_new: torch.Tensor, v_new: torch.Tensor,
 
 
 def slice_window(cache: LayerKVCache, window: int) -> LayerKVCache:
-    """View of the first `window` positions (no copy)."""
+    """View of the first `window` positions (no copy). The kt mirror is
+    dropped, as in JAX (:506-527): the kt kernel takes the whole cache."""
     def cut(sc):
         return None if sc is None else sc[:, :, :window]
 
@@ -223,6 +308,13 @@ def copy_prefix(cache: LayerKVCache, src: int, dst: int, n: int
     if cache.quantized:
         cache.k_scale[dst, :, :n] = cache.k_scale[src, :, :n]
         cache.v_scale[dst, :, :n] = cache.v_scale[src, :, :n]
+    if cache.kt is not None:
+        # JAX `one_kt` (:547-558): positions below n, chunk * 128 + lane;
+        # the partly covered boundary chunk heals before it is read
+        whole, part = divmod(n, KT_CHUNK)
+        cache.kt[dst, :whole] = cache.kt[src, :whole]
+        if part and whole < cache.kt.shape[1]:
+            cache.kt[dst, whole, :, :part] = cache.kt[src, whole, :, :part]
     return cache
 
 
@@ -242,6 +334,9 @@ def slot_view(cache, slot: int, window: int, dtype=torch.bfloat16
     slot's pages."""
     if _is_paged(cache):
         return kvcache_paged.slot_view(cache, slot, dtype, window)
+    if isinstance(cache, kvcache_stacked.StackedLayer):
+        return kvcache_stacked.read_slot_layer(cache.cache, cache.index, slot,
+                                               dtype, window)
     s = int(slot)
 
     def cut(sc):
@@ -265,7 +360,7 @@ def nbytes(caches) -> int:
     seen, total = set(), 0
     for c in caches:
         arrs = ((c.k_pool, c.v_pool, c.k_scale, c.v_scale, c.table)
-                if _is_paged(c) else (c.k, c.v, c.k_scale, c.v_scale))
+                if _is_paged(c) else (c.k, c.v, c.k_scale, c.v_scale, c.kt))
         for arr in arrs:
             if arr is not None and id(arr) not in seen:
                 seen.add(id(arr))

@@ -39,8 +39,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..models.transformer import forward_decode, forward_verify
+from ..models.transformer import (forward_decode, forward_verify,
+                                  forward_verify_scan)
 from ..ops.sampling import logprobs_of, processed_probs
+from .kvcache_stacked import StackedKVCache
 
 #: floor added to probabilities before a draw, as JAX's log(p + 1e-30):
 #: an all-zero residual (a greedy slot whose draft was its argmax) then
@@ -173,6 +175,17 @@ def _finish(state, emitted, lps, counts, gen, terminated):
     return valid
 
 
+def _verify(params, cfg, inputs, caches, state, dtype):
+    """The target's verify forward over its cache: the stacked one of
+    scan-over-layers (JAX speculative.py:205-215, 354-360) or per-layer
+    caches of either layout. A draft model's cache is always per-layer
+    (JAX engine.py:796)."""
+    fwd = (forward_verify_scan if isinstance(caches, StackedKVCache)
+           else forward_verify)
+    return fwd(params, cfg, inputs, caches, state.lengths, dtype=dtype,
+               active=state.active)
+
+
 def spec_decode_core(params, cfg, caches, state, history: torch.Tensor, *,
                      k_draft: int, ngram: int, max_cache_len: int,
                      generator: Optional[torch.Generator] = None,
@@ -187,9 +200,7 @@ def spec_decode_core(params, cfg, caches, state, history: torch.Tensor, *,
     hist_len = state.lengths + 1     # cached tokens + the pending last token
     drafts = draft_ngram(history[:, :s_hist], hist_len, ngram, k_draft)
     inputs = torch.cat([state.tokens[:, None], drafts], 1)
-    logits, caches = forward_verify(params, cfg, inputs, caches,
-                                    state.lengths, dtype=dtype,
-                                    active=state.active)
+    logits, caches = _verify(params, cfg, inputs, caches, state, dtype)
     out = _accept_window(logits, drafts, state, generator,
                          state.token_counts if penalties else None,
                          max_cache_len)
@@ -241,9 +252,7 @@ def spec_decode_draft_core(params, draft_params, cfg, draft_cfg, caches,
         lengths = lengths + 1
     drafts = torch.stack(drafts, 1)                           # (B, K)
     inputs = torch.cat([state.tokens[:, None], drafts], 1)
-    logits, caches = forward_verify(params, cfg, inputs, caches,
-                                    state.lengths, dtype=dtype,
-                                    active=state.active)
+    logits, caches = _verify(params, cfg, inputs, caches, state, dtype)
     out = _accept_window(logits, drafts, state, generator,
                          state.token_counts if penalties else None,
                          max_cache_len, q_probs=torch.stack(qs, 1))

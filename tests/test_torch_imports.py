@@ -43,6 +43,7 @@ def test_no_jax_imports(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import deeppowers_tpu_torch, sys\n"
             "import deeppowers_tpu_torch.runtime.engine\n"
+            "import deeppowers_tpu_torch.runtime.kvcache_stacked\n"
             "import deeppowers_tpu_torch.serving.server\n"
             "import deeppowers_tpu_torch.models.convert\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -113,7 +113,16 @@ variants of #2, #3, #5 and #6, #1 at widths no multiple of 8, and #1's
 int4, grouped and a8 weight variants and the activation quantizer at
 Llama-2-7B's matrices (M = 8 and 512), and the grouped kernels #10 and
 #9 of MoE at Mixtral-8x7B's experts (1024 routed rows) in four weight
-variants too. Each serve phase, and each path
+variants too. #1's tensor-core route (every M above GEMV_MAX_M) is held
+at a TinyLlama 512-token prefill on the main path's own int8 weight
+(dequant_matmul[w8, M=512]), its weight-only prologue
+(stage_activations) at those rows, and the two routes are timed side by
+side at M = 8..64 (route sweep lines); every #1 gate is per row (2e-2 of
+the row's max|ref|). The serve, spec and scan phases also require both of
+#1's routes to launch (dequant_matmul[gemv] for decode steps,
+dequant_matmul[mma] for prefills and verify steps), and serve[llama2-7b]
+times its 512-token TTFT on the default scan engine too. Each serve phase,
+and each path
 run on the card that gives a row its launches, sets every launch count
 (per variant too) to 0 just before it and reads the counts just after. Each serve phase also
 prints every request's TTFT, the host split of a profiled decode step
@@ -224,6 +233,21 @@ def row_errors(out, ref):
     return diff.max().item(), ratio.max().item()
 
 
+def check_dm(what, got, ref, limit=2e-2):
+    """#1's gate: finite, and every row's max abs error at most `limit` of
+    that row's max|ref|. Returns (max abs error, worst row ratio)."""
+    err, ratio = row_errors(got, ref)
+    if not (bool(got.isfinite().all()) and ratio <= limit):
+        fail(f"{what}: worst row error {ratio:.3e} of its max|ref| > "
+             f"{limit} (max abs error {err:.3e})")
+    return err, ratio
+
+
+# #1's routes, each counted under its own key: prefills and verify steps
+# take the tensor-core kernel, decode steps the GEMV
+ROUTES_ON = ["dequant_matmul[gemv]", "dequant_matmul[mma]"]
+
+
 def tree_to(tree, device):
     from deeppowers_tpu_torch.quant.qtypes import QuantizedTensor
     if isinstance(tree, dict):
@@ -282,7 +306,7 @@ STEP_REPS = 3
 
 def step_ms(torch, cfg) -> dict:
     """ms of the TinyLlama int8 decode step's 89 matmuls through #1, and of
-    its w_gu at a 1024-token prefill (the tiled path), by CUDA-graph
+    its w_gu at a 1024-token prefill (the tensor-core route), by CUDA-graph
     replays as the kernels phase times them, STEP_REPS times each. Only
     the wrapper's call is used, so any checkout's package can be timed
     (`--step-ms ROOT`)."""
@@ -307,12 +331,10 @@ def check_kernels(torch, cfg):
                                                   dequant_matmul as dm,
                                                   flash_attention as fa,
                                                   kv_append as ka)
-    from deeppowers_tpu_torch.quant.quantize import quantize
 
     dev = torch.device("cuda")
     rn = randn_on(torch, SEED + 1)
     rows = []
-    h, ffn = cfg.hidden_size, cfg.ffn_size
     b = 8
 
     # -- 1. dequant_matmul: the five decode matmuls of one step, M = 8 -----
@@ -325,12 +347,9 @@ def check_kernels(torch, cfg):
         ref = dm.dequant_matmul_plain(x, qws[0].data, qws[0].scales,
                                       out_dtype=out_dtype, **kw)
         torch.cuda.synchronize()
-        err = (got.float() - ref.float()).abs().max().item()
-        scale = ref.float().abs().max().item()
+        err, ratio = check_dm(f"dequant_matmul {name}", got, ref)
         log(f"  dequant_matmul {name} M={b} K={k} N={n}: max_abs_err={err:.3e}"
-            f" max|ref|={scale:.3e}")
-        if not err <= 2e-2 * scale:
-            fail(f"dequant_matmul {name}: error {err} > 2e-2 * {scale}")
+            f" worst row ratio {ratio:.3e}")
         err_max = max(err_max, err)
         wbf = [(q.data.to(torch.bfloat16) * q.scales.to(torch.bfloat16))
                for q in qws]
@@ -367,24 +386,7 @@ def check_kernels(torch, cfg):
                  "plain_ms": tot["plain"], "bound_ms": bd, "bound_by": by,
                  "library_ms": tot["lib"]})
 
-    # prefill shape (tiled path): a 1024-token prompt through w_gu
-    q_big = quantize(rn(h, 2 * ffn, scale=0.02, dtype=torch.float32))
-    xp = rn(1024, h)
-    got = dm.dequant_matmul(xp, q_big)
-    ref = dm.dequant_matmul_plain(xp, q_big.data, q_big.scales)
-    err = (got.float() - ref.float()).abs().max().item()
-    scale = ref.float().abs().max().item()
-    if not err <= 2e-2 * scale:
-        fail(f"dequant_matmul prefill: error {err} > 2e-2 * {scale}")
-    t_k = cuda_ms(torch, [lambda: dm.dequant_matmul(xp, q_big)], 5)
-    wbf = q_big.data.to(torch.bfloat16) * q_big.scales.to(torch.bfloat16)
-    t_l = cuda_ms(torch, [lambda: torch.matmul(xp, wbf)], 5)
-    bd, by = bound_ms(h * 2 * ffn + 1024 * h * 2 + 1024 * 2 * ffn * 2,
-                      2 * 1024 * h * 2 * ffn)
-    log(f"  dequant_matmul w_gu prefill M=1024: max_abs_err={err:.3e}, "
-        f"kernel {t_k:.3f} ms, torch.matmul bf16 {t_l:.3f} ms, bound "
-        f"{bd:.4f} ms ({by})")
-    del q_big, wbf
+    rows += check_w8_prefill(torch, cfg, rn)
     rows += check_odd_n(torch)
 
     # -- 2. kv_append: one decode token per slot into a 1024-row cache -----
@@ -598,13 +600,176 @@ def check_kernels(torch, cfg):
     return rows
 
 
+PREFILL_M = 512
+
+
+def check_w8_prefill(torch, cfg, rn):
+    """#1 on the main path's own weight (int8 per-channel, "w8") at a
+    512-token prefill: TinyLlama's 22 layers x (wqkv+rms, wo+res,
+    w_gu+rms, w_out+glu+res) through the tensor-core route, each against
+    its plain version (2e-2 of each row's max|ref|), timed beside its
+    bound, its plain version and torch.matmul on bf16 weights. Then the
+    route's weight-only prologue (#1p, `stage_activations`) at the same
+    rows: the RMSNorm rows of wqkv / w_gu and the GLU rows of w_out against
+    its plain version (RMSNorm rows bit for bit; a GLU row may move one
+    bf16 step where silu's last f32 bit differs, on at most 1e-3 of the
+    values; the row factor within 1e-5)."""
+    from deeppowers_tpu_torch.ops.kernels import dequant_matmul as dm
+    m = PREFILL_M
+    tot = dict(ms=0.0, plain=0.0, lib=0.0, bytes=0.0, ops=0.0)
+    err_max = 0.0
+    for name, k, n, per, qws, x, kw, od in int8_step(torch, cfg, rn, m):
+        if od == torch.float32:
+            continue                 # a prefill takes logits at one row
+        q0 = qws[0]
+        got = dm.dequant_matmul(x, q0, out_dtype=od, **kw)
+        ref = dm.dequant_matmul_plain(x, q0.data, q0.scales, out_dtype=od,
+                                      **kw)
+        torch.cuda.synchronize()
+        err, ratio = check_dm(f"dequant_matmul[w8] {name} M={m}", got, ref)
+        err_max = max(err_max, err)
+        t_k = cuda_ms(torch, [lambda q=q: dm.dequant_matmul(
+            x, q, out_dtype=od, **kw) for q in qws], 10)
+        t_p = cuda_ms(torch, [lambda: dm.dequant_matmul_plain(
+            x, q0.data, q0.scales, out_dtype=od, **kw)], 3, graph=False)
+        wbf = [q.data.to(torch.bfloat16) for q in qws[:2]]
+        t_l = cuda_ms(torch, [lambda w=w: torch.matmul(x[:, :k], w)
+                              for w in wbf], 10)
+        nbytes = (k * n + 4 * n + x.numel() * 2 + m * n * 2
+                  + (m * n * 2 if "residual" in kw else 0)
+                  + (k * 2 if "rms_weight" in kw else 0))
+        log(f"  dequant_matmul[w8] {name} M={m} K={k} N={n}: max_abs_err="
+            f"{err:.3e} worst row ratio {ratio:.3e}, kernel {t_k:.4f} ms, "
+            f"plain {t_p:.4f} ms, torch.matmul bf16 {t_l:.4f} ms, x{per}")
+        tot["ms"] += per * t_k
+        tot["plain"] += per * t_p
+        tot["lib"] += per * t_l
+        tot["bytes"] += per * nbytes
+        tot["ops"] += per * 2 * m * k * n
+        del qws, wbf
+    bd, by = bound_ms(tot["bytes"], tot["ops"])
+    log(f"  dequant_matmul[w8, M={m}] TinyLlama prefill: kernel "
+        f"{tot['ms']:.4f} ms, plain {tot['plain']:.4f} ms, torch.matmul "
+        f"bf16 {tot['lib']:.4f} ms, bound {bd:.4f} ms ({by})")
+    rows = [{"name": f"dequant_matmul[w8, M={m}]", "route": "cuda",
+             "source": "deeppowers_tpu_torch/csrc/dequant_matmul.cu",
+             "replaces": "deeppowers_tpu/ops/pallas/dequant_matmul.py:528",
+             "max_abs_err": err_max, "ms": tot["ms"],
+             "plain_ms": tot["plain"], "bound_ms": bd, "bound_by": by,
+             "library_ms": tot["lib"], "variant": "w8",
+             "shape": "TinyLlama 512-token prefill: 22 layers x (wqkv, wo, "
+                      "w_gu, w_out)",
+             "launch_from": ("serve", "dequant_matmul[mma]")}]
+
+    t = dict(ms=0.0, plain=0.0, bytes=0.0)
+    err_max = 0.0
+    L = cfg.num_layers
+    for k, glu, per in ((cfg.hidden_size, False, 2 * L),
+                        (cfg.ffn_size, True, L)):
+        x = rn(m, 2 * k if glu else k)
+        kw = {"glu": True} if glu else {"rms_weight": rn(k, scale=0.1) + 1.0,
+                                         "rms_eps": cfg.norm_eps}
+        a, rf = dm.stage_activations(x, k, **kw)
+        a2, rf2 = dm.stage_activations_plain(x, k, **kw)
+        torch.cuda.synchronize()
+        diff = (a.float() - a2.float()).abs()
+        err_max = max(err_max, diff.max().item())
+        moved = (diff > 0).float().mean().item()
+        step = (diff <= a2.float().abs() * 2.0 ** -7 + 1e-30).all().item()
+        if glu and not (step and moved <= 1e-3) or not glu and moved:
+            fail(f"stage_activations {'glu' if glu else 'rms'}: {moved:.2e} "
+                 f"of the values differ from the plain version (one step: "
+                 f"{step})")
+        if rf is not None and not (
+                (rf - rf2).abs() <= 1e-5 * rf.abs()).all():
+            fail("stage_activations: row factor off the plain version's")
+        t["ms"] += per * cuda_ms(torch, [lambda: dm.stage_activations(
+            x, k, **kw)], 20)
+        t["plain"] += per * cuda_ms(torch, [
+            lambda: dm.stage_activations_plain(x, k, **kw)], 5, graph=False)
+        t["bytes"] += per * (x.numel() * 2 + m * k * 2
+                             + (0 if glu else k * 2 + m * 4))
+    bd, by = bound_ms(t["bytes"], 0.0)
+    log(f"  stage_activations (#1p) TinyLlama prefill rows, M={m}: kernel "
+        f"{t['ms']:.4f} ms, plain {t['plain']:.4f} ms, bound {bd:.4f} ms "
+        f"({by}), max_abs_err {err_max:.3e}")
+    rows.append({"name": "stage_activations", "route": "cuda",
+                 "source": "deeppowers_tpu_torch/csrc/dequant_matmul.cu",
+                 "replaces": "deeppowers_tpu/ops/pallas/dequant_matmul.py:"
+                             "179 (the RMSNorm and GLU folds of _make_kernel)",
+                 "max_abs_err": err_max, "ms": t["ms"],
+                 "plain_ms": t["plain"], "bound_ms": bd, "bound_by": by,
+                 "library_ms": None,
+                 "shape": "TinyLlama 512-token prefill: 22 layers x (wqkv, "
+                          "w_gu RMSNorm rows, w_out GLU rows)",
+                 "note": "no one PyTorch call computes bf16(x * g) with the "
+                         "row's rsqrt(mean(x^2) + eps), or act(gate) * up",
+                 "launch_from": ("scan_serve", "stage_activations")})
+    return rows
+
+
+# GEMV against the tensor-core route: one layer's matmuls at these M
+SWEEP_M = (8, 16, 17, 24, 32, 40, 64)
+
+
+def route_sweep(torch, cfg) -> dict:
+    """#1's two routes at small M: one layer's four matmuls of TinyLlama
+    int8 (w8) and of Llama-2-7B W4A8 g128, ms a layer by CUDA-graph replay
+    with weight copies past the 50 MB L2; the GEMV takes M <= 16 only.
+    {variant: {M: {route: ms}}}: where the tensor-core route is no slower,
+    GEMV_MAX_M could end."""
+    from deeppowers_tpu_torch.ops.kernels import dequant_matmul as dm
+    g = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    h, ffn = cfg.hidden_size, cfg.ffn_size
+    tiny = [(h, cfg.q_size + 2 * cfg.kv_size, "rms"), (cfg.q_size, h, "res"),
+            (h, 2 * ffn, "rms"), (ffn, h, "glu")]
+    l7 = [(k, n, mode) for _, k, n, mode in LLAMA2_MATS if mode != "f32"]
+    out = {}
+    for var, mats, bits, group, a8 in (("w8", tiny, 8, 0, 0),
+                                       ("w4a8g", l7, 4, 128, 8)):
+        layer = sum((k // 2 if bits == 4 else k) * n for k, n, _ in mats)
+        copies = max(1, -(-150_000_000 // layer))
+        qws = [[random_qw(torch, g, k, n, bits, group, a8)
+                for k, n, _ in mats] for _ in range(copies)]
+        res = {}
+        for m in SWEEP_M:
+            xs, kws = [], []
+            for k, n, mode in mats:
+                xs.append((torch.randn(m, 2 * k if mode == "glu" else k,
+                                       generator=g, device="cuda")
+                           ).to(torch.bfloat16))
+                kw = {}
+                if mode == "rms":
+                    kw["rms_weight"] = torch.ones(k, device="cuda",
+                                                  dtype=torch.bfloat16)
+                if mode in ("res", "glu"):
+                    kw["residual"] = torch.zeros(m, n, device="cuda",
+                                                 dtype=torch.bfloat16)
+                if mode == "glu":
+                    kw["glu"] = True
+                kws.append(kw)
+            for path in (("gemv", "mma") if m <= dm.GEMV_MAX_M
+                         else ("mma",)):
+                fns = [lambda c=c, i=i, path=path: dm.dequant_matmul_via(
+                    path, xs[i], qws[c][i], **kws[i])
+                    for c in range(copies) for i in range(len(mats))]
+                res.setdefault(m, {})[path] = round(
+                    cuda_ms(torch, fns, 2 * len(fns)) * len(mats), 6)
+        out[var] = res
+        log(f"  route sweep [{var}] ms a layer (GEMV_MAX_M = "
+            f"{dm.GEMV_MAX_M}): " + json.dumps(res))
+        del qws
+        torch.cuda.empty_cache()
+    return out
+
+
 # #1 at widths no multiple of 8: the untied lm_head of the repo's trained
 # checkpoints (lm124_ckpt, moelm_ckpt: K = 768, N = 260) and a wide odd N
 ODD_N = ((768, 260), (2048, 4099))
 
 
 def check_odd_n(torch):
-    """#1's tail columns: the decode GEMV (M = 8) and the tiled prefill
+    """#1's tail columns: the decode GEMV (M = 8) and the tensor-core prefill
     path (M = 512) against the plain version, 2e-2 of max|ref|. Its inputs
     come from a generator of their own, so the other checks' inputs do not
     depend on it."""
@@ -621,11 +786,8 @@ def check_odd_n(torch):
             ref = dm.dequant_matmul_plain(x, qw.data, qw.scales,
                                           out_dtype=torch.float32)
             torch.cuda.synchronize()
-            err = (got - ref).abs().max().item()
-            scale = ref.abs().max().item()
-            if not err <= 2e-2 * scale:
-                fail(f"dequant_matmul K={k} N={n} M={m}: error {err} > "
-                     f"2e-2 * {scale}")
+            err, ratio = check_dm(f"dequant_matmul K={k} N={n} M={m}", got,
+                                  ref)
             err_max = max(err_max, err)
             times[m] = (
                 cuda_ms(torch, [lambda: dm.dequant_matmul(
@@ -637,7 +799,8 @@ def check_odd_n(torch):
                                 * qw.scales.to(torch.bfloat16): torch.matmul(
                                     x, w)], 50))
             log(f"  dequant_matmul odd N: K={k} N={n} M={m}: max_abs_err="
-                f"{err:.3e} max|ref|={scale:.3e}, kernel {times[m][0]:.4f} "
+                f"{err:.3e} worst row ratio {ratio:.3e}, kernel "
+                f"{times[m][0]:.4f} "
                 f"ms, plain {times[m][1]:.4f} ms, torch.matmul bf16 "
                 f"{times[m][2]:.4f} ms")
         t_k, t_p, t_l = times[8]
@@ -729,11 +892,8 @@ def check_wquant_kernels(torch):
                 got = dm.dequant_matmul(x, q0, out_dtype=out_dtype, **kw)
                 ref = plain()
                 torch.cuda.synchronize()
-                err = (got.float() - ref.float()).abs().max().item()
-                scale = ref.float().abs().max().item()
-                if not (torch.isfinite(got).all() and err <= 2e-2 * scale):
-                    fail(f"dequant_matmul[{var}] {name} M={m}: error {err} > "
-                         f"2e-2 * {scale}")
+                err, ratio = check_dm(f"dequant_matmul[{var}] {name} M={m}",
+                                      got, ref)
                 err_max = max(err_max, err)
                 iters = 50 if m == 8 else 10
                 t_k = cuda_ms(torch, [lambda q=q: dm.dequant_matmul(
@@ -758,7 +918,8 @@ def check_wquant_kernels(torch):
                 ops = 2 * m * k * n
                 bd, by = bound_ms(nbytes, ops, int8=bool(a8))
                 log(f"  dequant_matmul[{var}] {name} M={m} K={k} N={n}: "
-                    f"max_abs_err={err:.3e} max|ref|={scale:.3e}, kernel "
+                    f"max_abs_err={err:.3e} worst row ratio {ratio:.3e}, "
+                    f"kernel "
                     f"{t_k:.4f} ms, plain {t_p:.4f} ms, torch.matmul bf16 "
                     f"{t_l:.4f} ms" + (f", torch._int_mm {t_i:.4f} ms"
                                        if t_i else "")
@@ -1479,19 +1640,21 @@ def check_verify_kernels(torch, cfg, bf16_ms):
 
 def check_verify_matmuls(torch, cfg):
     """#1 at a verify step's M = B * T = 40 rows (8 slots x 5 tokens),
-    above GEMV_MAX_M = 16, so every matmul takes the WMMA tiled path: the
+    above GEMV_MAX_M = 16, so every matmul takes the tensor-core route: the
     TinyLlama verify step's 89 int8 per-channel matmuls (beside the same
     at M = 8, the decode GEMV) and Llama-2-7B's 129 W4A8 g128 ones (the
     M = 8 row is dequant_matmul[w4a8g, M=8]). Each against its plain
-    version (2e-2 of max|ref|), timed beside its bound, its plain version
-    and torch.matmul on bf16 weights."""
+    version (2e-2 of each row's max|ref|), timed beside its bound, its
+    plain version, torch.matmul on bf16 weights and, for W4A8,
+    torch._int_mm on int8 operands."""
     from deeppowers_tpu_torch.ops.kernels import dequant_matmul as dm
     m = 8 * SPEC_T
     rn = randn_on(torch, SEED + 22)
     rows = []
     for var, mats in (("w8", None), ("w4a8g", LLAMA2_MATS)):
         for mm in ((8, m) if var == "w8" else (m,)):
-            tot = dict(ms=0.0, plain=0.0, lib=0.0, bytes=0.0, ops=0.0)
+            tot = dict(ms=0.0, plain=0.0, lib=0.0, int_mm=0.0, bytes=0.0,
+                       ops=0.0)
             err_max = 0.0
             if var == "w8":
                 calls = [(per, qws, x, kw, od, k, n)
@@ -1523,11 +1686,8 @@ def check_verify_matmuls(torch, cfg):
                                               act_bits=q0.act_bits,
                                               out_dtype=od, **kw)
                 torch.cuda.synchronize()
-                err = (got.float() - ref.float()).abs().max().item()
-                scale = ref.float().abs().max().item()
-                if not (torch.isfinite(got).all() and err <= 2e-2 * scale):
-                    fail(f"dequant_matmul[{var}] M={mm} K={k} N={n}: error "
-                         f"{err} > 2e-2 * {scale}")
+                err, _ = check_dm(f"dequant_matmul[{var}] M={mm} K={k} N={n}",
+                                  got, ref)
                 err_max = max(err_max, err)
                 t_k = cuda_ms(torch, [lambda q=q: dm.dequant_matmul(
                     x, q, out_dtype=od, **kw) for q in qws], 20)
@@ -1539,6 +1699,13 @@ def check_verify_matmuls(torch, cfg):
                     torch.bfloat16) for q in qws[:2]]
                 t_l = cuda_ms(torch, [lambda w=w: torch.matmul(x[:, :k], w)
                                       for w in wbf], 20)
+                if q0.act_bits == 8:
+                    xq = torch.randint(-127, 128, (mm, k), device="cuda",
+                                       dtype=torch.int8)
+                    q_int = unpack_int4(q0.data) if q0.bits == 4 else q0.data
+                    tot["int_mm"] += per * cuda_ms(torch, [
+                        lambda: torch._int_mm(xq, q_int)], 20)
+                    del q_int
                 w_bytes = (k // 2 if q0.bits == 4 else k) * n
                 tot["ms"] += per * t_k
                 tot["plain"] += per * t_p
@@ -1559,8 +1726,10 @@ def check_verify_matmuls(torch, cfg):
                 shape = "TinyLlama decode step, 8 slots (GEMV path)"
             log(f"  dequant_matmul[{var}, M={mm}] {shape}: kernel "
                 f"{tot['ms']:.4f} ms, plain {tot['plain']:.4f} ms, "
-                f"torch.matmul bf16 {tot['lib']:.4f} ms, bound {bd:.4f} ms "
-                f"({by}), max_abs_err {err_max:.3e}")
+                f"torch.matmul bf16 {tot['lib']:.4f} ms"
+                + (f", torch._int_mm {tot['int_mm']:.4f} ms"
+                   if tot["int_mm"] else "")
+                + f", bound {bd:.4f} ms ({by}), max_abs_err {err_max:.3e}")
             rows.append({
                 "name": f"dequant_matmul[{var}, M={mm}]", "route": "cuda",
                 "source": "deeppowers_tpu_torch/csrc/dequant_matmul.cu",
@@ -1572,6 +1741,8 @@ def check_verify_matmuls(torch, cfg):
                                 if var == "w8" else
                                 "spec_serve[llama2-7b+draft]",
                                 f"dequant_matmul[{var}]")})
+            if tot["int_mm"]:
+                rows[-1]["int_mm_ms"] = tot["int_mm"]
             torch.cuda.empty_cache()
     return rows
 
@@ -2184,7 +2355,8 @@ def scan_path(torch, T, kvcache, params, cfg, ids, forced, counters,
         launches[store] = read_counts(counters)
         check_variants(f"scan_path[{store}]", launches[store],
                        [f"scatter_rows_stacked[{store}]",
-                        f"decode_attention[{store}]"], ["scatter_rows"])
+                        f"decode_attention[{store}]"] + ROUTES_ON,
+                       ["scatter_rows"])
         ref = scan_forced_logits(torch, T, stacked_cpu, cfg, ids, forced,
                                  "cpu", store)
         rel = max(((g - r).norm() / r.norm()).item()
@@ -2339,7 +2511,7 @@ def serve_llama2(torch, T, counters):
         torch, engine, prompts, MAX_TOKENS, counters, tok)
     check_variants(
         "serve[llama2-7b]", launches,
-        LLAMA2_ON_PATH + ["flash_attention_prefill",
+        LLAMA2_ON_PATH + ROUTES_ON + ["flash_attention_prefill",
                           f"scatter_rows[{LLAMA2_KV}]",
                           f"decode_attention[{LLAMA2_KV}]"],
         LLAMA2_OFF_PATH + ["scatter_pool_rows", "decode_attention_paged",
@@ -2362,6 +2534,31 @@ def serve_llama2(torch, T, counters):
         ttft.append((time.perf_counter() - t1) * 1e3)
     engine.pop_finished()
     out["ttft_512_ms"] = ttft
+    del engine
+    torch.cuda.empty_cache()
+    # the default (scan) path of the 7B: the same weights stacked
+    # (scan_layers "auto"), the same prompt alone, TTFT_REPS times
+    scan = InferenceEngine(
+        params, cfg, device="cuda", eos_token_id=tok.eos_token_id,
+        kv_cache_dtype=LLAMA2_KV,
+        runtime=RuntimeConfig(max_batch_size=8, max_seq_len=1024,
+                              prefill_buckets=(64, 128, 256, 512, 1024)))
+    if not scan.scan_layers:
+        fail("serve[llama2-7b]: scan_layers='auto' did not stack the 7B")
+    scan.generate(tok.encode("warm up"), GenerationConfig(
+        max_tokens=2, temperature=0.0))
+    ttft = []
+    for i in range(TTFT_REPS):
+        ids = [4 + (j * 7 + i) % 250 for j in range(TTFT_PROMPT)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        scan.add_request(ids, gen)
+        torch.cuda.synchronize()
+        ttft.append((time.perf_counter() - t1) * 1e3)
+    scan.pop_finished()
+    out["ttft_512_scan_ms"] = ttft
+    del scan
+    torch.cuda.empty_cache()
     out["params"] = params          # spec_serve[llama2-7b+draft] reuses them
     return out
 
@@ -2400,7 +2597,7 @@ def serve_llama2_kt(torch, T, counters, l7_params):
         torch, engine, prompts, MAX_TOKENS, counters, tok)
     check_variants(
         "serve[llama2-7b,kt]", launches,
-        LLAMA2_ON_PATH + [f"decode_attention_kt[{LLAMA2_KV}]",
+        LLAMA2_ON_PATH + ROUTES_ON + [f"decode_attention_kt[{LLAMA2_KV}]",
                           f"scatter_rows[{LLAMA2_KV}]",
                           "flash_attention_prefill"],
         LLAMA2_OFF_PATH + ["decode_attention", "scatter_pool_rows",
@@ -2591,7 +2788,7 @@ def serve_mixtral(torch, T, counters):
             torch, engine, prompts, MAX_TOKENS, counters, tok)
     check_variants(
         "serve[mixtral-8x7b]", launches,
-        MIXTRAL_ON_PATH + ["flash_attention_prefill",
+        MIXTRAL_ON_PATH + ROUTES_ON + ["flash_attention_prefill",
                            f"scatter_rows[{MIXTRAL_KV}]",
                            f"decode_attention[{MIXTRAL_KV}]"],
         MIXTRAL_OFF_PATH + ["scatter_pool_rows", "decode_attention_paged"]
@@ -3026,7 +3223,7 @@ def serve(torch, params, cfg, counters, kv_cache_dtype="bf16",
                                              "decode_attention")]
     check_variants(
         f"serve[{kv_cache_dtype}]", launches,
-        ["dequant_matmul", "flash_attention_prefill"] + own,
+        ["dequant_matmul", "flash_attention_prefill"] + ROUTES_ON + own,
         ["scatter_pool_rows", "decode_attention_paged"]
         + [f"{k}[{v}]" for k in ("scatter_rows", "decode_attention")
            for v in KV_CACHE_DTYPES if v != kv_cache_dtype])
@@ -3152,7 +3349,8 @@ def serve_paged(torch, params, cfg, counters, kv_cache_dtype="bf16",
     verify = f"decode_attention_paged[{kv_cache_dtype}:t{spec_k + 1}]"
     check_variants(
         f"paged serve[{kv_cache_dtype}]", launches,
-        [f"scatter_pool_rows[{kv_cache_dtype}]", verify if spec_k else attn],
+        [f"scatter_pool_rows[{kv_cache_dtype}]", verify if spec_k else attn]
+        + ROUTES_ON,
         ["scatter_rows", "decode_attention"] + ([attn] if spec_k else [])
         + [f"{k}[{v}]" for k in ("scatter_pool_rows", "decode_attention_paged")
            for v in KV_CACHE_DTYPES if v != kv_cache_dtype])
@@ -3201,7 +3399,7 @@ def serve_spec(torch, params, cfg, counters, plain_tokens):
     check_variants(
         "spec_serve", launches,
         [f"decode_attention[bf16:t{SPEC_T}]", "scatter_rows[bf16]",
-         "dequant_matmul", "flash_attention_prefill"],
+         "dequant_matmul", "flash_attention_prefill"] + ROUTES_ON,
         ["decode_attention[bf16]", "scatter_pool_rows",
          "decode_attention_paged"])
     out = summary(results, wall, sched, launches)
@@ -3251,7 +3449,8 @@ def serve_scan(torch, params, cfg, counters):
     res2, launches2, wall2, sched2 = run_requests(
         torch, engine, prompts, MAX_TOKENS, counters, tok)
     on = ["scatter_rows_stacked[bf16]", "decode_attention[bf16]",
-          "dequant_matmul", "flash_attention_prefill"]
+          "dequant_matmul", "flash_attention_prefill",
+          "stage_activations"] + ROUTES_ON
     off = ["scatter_rows", "scatter_pool_rows", "decode_attention_paged"]
     check_variants("scan_serve", launches, on, off)
     check_variants("scan_serve (second pass)", launches2, on, off)
@@ -3285,7 +3484,7 @@ def serve_scan(torch, params, cfg, counters):
     sl = read_counts(counters)
     check_variants("scan_serve (speculative request)", sl,
                    [f"decode_attention[bf16:t{SPEC_T}]",
-                    "scatter_rows_stacked[bf16]"],
+                    "scatter_rows_stacked[bf16]"] + ROUTES_ON,
                    ["scatter_rows", "decode_attention[bf16]"])
     out["speculative"] = {"scan": spec.scan_layers,
                           "tokens": len(r.token_ids),
@@ -3367,7 +3566,7 @@ def serve_llama2_spec(torch, T, counters, l7_params, tiny_params, tiny_cfg):
         torch, engine, prompts, MAX_TOKENS, counters, tok)
     check_variants(
         "spec_serve[llama2-7b+draft]", launches,
-        [f"decode_attention[{LLAMA2_KV}:t{SPEC_T}]",
+        ROUTES_ON + [f"decode_attention[{LLAMA2_KV}:t{SPEC_T}]",
          f"decode_attention[{LLAMA2_KV}]", "dequant_matmul[w4a8g]",
          "dequant_matmul[w8]", "quantize_activations",
          f"scatter_rows[{LLAMA2_KV}]"],
@@ -3473,7 +3672,7 @@ def main(argv) -> int:
         decode_attention, decode_attention_kernel, decode_attention_kt,
         decode_attention_paged)
     from deeppowers_tpu_torch.ops.kernels.dequant_matmul import (
-        dequant_matmul, quantize_activations)
+        dequant_matmul, quantize_activations, stage_activations)
     from deeppowers_tpu_torch.ops.kernels.flash_attention import flash_attention_prefill
     from deeppowers_tpu_torch.ops.kernels.grouped_matmul import (
         grouped_dequant_matmul, grouped_dequant_matmul_ncat)
@@ -3483,6 +3682,7 @@ def main(argv) -> int:
 
     counters = {"dequant_matmul": dequant_matmul,
                 "quantize_activations": quantize_activations,
+                "stage_activations": stage_activations,
                 "scatter_rows": scatter_rows,
                 "decode_attention": decode_attention,
                 "flash_attention_prefill": flash_attention_prefill,
@@ -3521,6 +3721,7 @@ def main(argv) -> int:
     rows = check_kernels(torch, cfg)
     rows += check_wquant_kernels(torch)
     rows += check_verify_matmuls(torch, cfg)
+    route_sweep(torch, cfg)
     rows += check_grouped_kernels(torch)
     rows += check_scan_kt_kernels(torch, cfg)
     phase_line("kernels", t0, checked=len(rows))
@@ -3699,10 +3900,14 @@ def main(argv) -> int:
     report_serve("serve[llama2-7b]", t0, lsrv, smi_line, len(PROMPT_BYTES))
     l7_served = {"launches": lsrv["launches"]}
     tt = sorted(lsrv["ttft_512_ms"])
+    ts = sorted(lsrv["ttft_512_scan_ms"])
     log(f"serve[llama2-7b] params {lsrv['param_bytes']} bytes (drawn in "
         f"{lsrv['init_s']:.2f} s); TTFT of a {TTFT_PROMPT}-token prompt "
         f"alone on the warm engine: p50 {tt[len(tt) // 2]:.3f} ms, max "
-        f"{tt[-1]:.3f} ms, each " + json.dumps(lsrv["ttft_512_ms"]))
+        f"{tt[-1]:.3f} ms, each " + json.dumps(lsrv["ttft_512_ms"])
+        + f"; on the scan engine (scan_layers 'auto', the default): p50 "
+        f"{ts[len(ts) // 2]:.3f} ms, max {ts[-1]:.3f} ms, each "
+        + json.dumps(lsrv["ttft_512_scan_ms"]) + f" card={smi_line!r}")
     l7_params = lsrv.pop("params")
 
     # 10a. the same weights and traffic with the kt mirror (DPT_KV_KT=1)

@@ -2,10 +2,12 @@
 
 Same dataclasses, fields, defaults and JSON round-trip as the JAX package.
 The JAX module imported jax.numpy only for a default dtype, which the
-port does not need. RuntimeConfig keeps the fields of machinery not ported
-yet (paged KV, speculative decoding, ...) so configs round-trip
-unchanged; the port's engine reads the fields its slice implements
-(runtime/engine.py).
+port does not need. RuntimeConfig keeps every field so configs round-trip
+unchanged; three of them name machinery not ported yet
+(`emit_top_logprobs`, `decode_steps_per_dispatch`,
+`seq_parallel_prefill`), and the port's engine raises NotImplementedError
+when one differs from its default (runtime/engine.py
+`UNPORTED_RUNTIME_DEFAULTS`).
 """
 
 from __future__ import annotations
@@ -154,8 +156,11 @@ class RuntimeConfig:
     speculative_min_accepted: float = 0.0
     speculative_probe_steps: int = 50
     seq_parallel_prefill: bool = False
-    # Accepted for config parity; the port always runs unrolled per-layer
-    # caches (eager PyTorch has no compile time to save).
+    # As the JAX engine reads it (runtime/engine.py `_scan_policy`): "auto"
+    # stacks the layers of a model with >= 16 of them on the contiguous
+    # layout (the stacked cache, runtime/kvcache_stacked.py) and stays
+    # unrolled when they do not stack; True stacks them or raises; False
+    # keeps per-layer caches.
     scan_layers: object = "auto"
 
     def __post_init__(self):

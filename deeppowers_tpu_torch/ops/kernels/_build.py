@@ -30,7 +30,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "deeppowers_tpu_torch"
 SOURCES = ("dequant_matmul.cu", "kv_append.cu", "decode_attention.cu",
            "decode_attention_kt.cu", "flash_attention.cu", "grouped_matmul.cu")
-HEADERS = ("common.cuh", "attention_combine.cuh")
+HEADERS = ("common.cuh", "attention_combine.cuh", "wgmma.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -39,8 +39,10 @@ NVCC_TIMEOUT_S = 600
 _P, _LL, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 SIGNATURES: Dict[str, list] = {
     "dpt_dequant_matmul": [_P, _LL, _P, _P, _P, _I, _I, _P, _P, _P, _LL, _P,
-                           _I, _P, _I, _I, _I, _I, _I, _I, _F, _P],
-    "dpt_quantize_rows": [_P, _LL, _P, _I, _I, _F, _I, _I, _P, _P, _P],
+                           _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _F, _P],
+    "dpt_quantize_rows": [_P, _LL, _P, _I, _I, _F, _I, _I, _P, _LL, _P, _P],
+    "dpt_stage_rows": [_P, _LL, _P, _I, _I, _F, _I, _I, _P, _LL, _P, _P],
     "dpt_kv_append": [_P, _P, _P, _P, _P, _LL, _P, _LL, _P, _P, _I, _I, _I,
                       _I, _I, _I, _I, _P],
     "dpt_kv_append_stacked": [_P, _P, _P, _P, _P, _LL, _P, _LL, _P, _P, _P,

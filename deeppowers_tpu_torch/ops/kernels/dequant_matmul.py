@@ -33,13 +33,17 @@ scale needs the whole row before any product.
 Launch counts: `dequant_matmul.launches`, and in
 `dequant_matmul.variant_launches` each launch under its width class ("n8"
 N % 8 == 0, "n4" N % 4 == 0 otherwise, "n1" any other N: the load width
-of the kernel's instantiation) and under its weight variant (`variant`:
-"w8", "w8g", "w8a8", "w8a8g", "w4", "w4g", "w4a8", "w4a8g").
+of the kernel's instantiation), under its weight variant (`variant`:
+"w8", "w8g", "w8a8", "w8a8g", "w4", "w4g", "w4a8", "w4a8g") and under its
+route ("gemv" for M <= GEMV_MAX_M, "mma" above: `route`). The tensor-core
+route's weight-only prologue is counted in `stage_activations.launches`,
+the a8 quantizer in `quantize_activations.launches`.
 
-Bound on an H100: at decode the weight bytes (int4: half of int8's) over
-3.35 TB/s; at prefill the 2*M*K*N operations (int8 tensor cores for a8).
-The CUDA design (split-K GEMV for M <= 16, a WMMA tiled GEMM above) is
-described in the sources.
+Bound on an H100: at decode and verify sizes the weight bytes (int4: half
+of int8's) over 3.35 TB/s; at prefill the 2*M*K*N operations (int8 tensor
+cores for a8). The CUDA design (a split-K GEMV for M <= GEMV_MAX_M, a
+pipelined wgmma kernel above, whose planner is `mma_plan`) is described in
+the sources.
 """
 
 from __future__ import annotations
@@ -56,14 +60,29 @@ from ...quant.quantize import quantize_rows
 from ..normalization import rms_norm
 from . import _build
 
-#: rows at or below which the split-K GEMV runs (decode)
-GEMV_MAX_M = 16
+#: rows at or below which the split-K GEMV runs (decode); the tensor-core
+#: kernel takes every M above (`route`, which the C side is handed). The
+#: crossover measured on an H100 (PERF.md, chip_smoke.py's route sweep):
+#: at M = 16 the tensor-core kernel takes half the GEMV's time, at M = 8
+#: the GEMV is faster on int8 weights
+GEMV_MAX_M = 8
+#: the routes of one launch, in the C side's numbering (ROUTE_GEMV, ROUTE_MMA)
+ROUTES = ("gemv", "mma")
 #: most stored K rows a GEMV block stages (int4 stages two planes' rows)
 _KCHUNK_MAX = {8: 512, 4: 256}
 #: blocks the GEMV grid aims for (two per SM of an H100)
 _TARGET_BLOCKS = 264
 #: the CUDA kernels flush per-group sums at this K granularity
 GROUP_ALIGN = 32
+#: the tensor-core kernel's stage depths (unpacked K rows a stage: 64
+#: where the scale groups allow it, else 32) and weight columns a block
+#: (csrc MMA_NT)
+MMA_BKS = (64, 32)
+MMA_NT = 128
+#: its token tiles: wgmma N sizes that both the bf16 and the s8 atoms take
+MMA_TOKEN_TILES = (32, 48, 64, 128)
+#: SMs of an H100: the planner fills them
+_SMS = 132
 
 
 def _act(x: torch.Tensor, act: str) -> torch.Tensor:
@@ -155,6 +174,13 @@ def variant(qw: QuantizedTensor) -> str:
             + ("g" if grouped else ""))
 
 
+def launch_keys(m: int, qw: QuantizedTensor, path: Optional[str] = None):
+    """The keys of `dequant_matmul.variant_launches` one launch of an M-row
+    product counts under: its width class, its weight variant and its
+    route (`route(m)` unless another is named)."""
+    return width_variant(qw.shape[1]), variant(qw), path or route(m)
+
+
 def _check_weight(qw: QuantizedTensor) -> None:
     if not isinstance(qw, QuantizedTensor):
         raise TypeError("dequant_matmul needs a QuantizedTensor weight")
@@ -166,15 +192,24 @@ def _check_weight(qw: QuantizedTensor) -> None:
         raise ValueError(f"not a weight the JAX package makes: {qw!r}")
 
 
+def _padded_rows(m: int, k: int, dtype, device) -> torch.Tensor:
+    """An (M, K) view of rows that start 16 bytes apart at least, as the
+    tensor-core kernel's copies need."""
+    per = 16 // torch.empty((), dtype=dtype).element_size()
+    return torch.empty((m, -(-k // per) * per), dtype=dtype,
+                       device=device)[:, :k]
+
+
 def quantize_activations(x: torch.Tensor, k: int, *,
                          rms_weight: Optional[torch.Tensor] = None,
                          rms_eps: float = 1e-6, glu: bool = False,
-                         act: str = "silu"):
+                         act: str = "silu", _padded: bool = False):
     """(q, xs): the a8 matmul's input (x, rms_norm(x), or act(gate) * up
     for x = gate | up) quantized per row to int8, x: (M, K or 2K) ->
     ((M, K) int8, (M, 1) f32). A CPU tensor takes the plain version; a
     CUDA tensor launches the kernel (csrc/dequant_matmul.cu), counted in
-    `quantize_activations.launches`."""
+    `quantize_activations.launches`; `_padded` (the tensor-core route)
+    starts q's rows 16 bytes apart."""
     if not x.is_cuda:
         return quantize_rows(_unfused_input(x, k, rms_weight, rms_eps, glu,
                                             act))
@@ -184,18 +219,98 @@ def quantize_activations(x: torch.Tensor, k: int, *,
     g = None
     if rms_weight is not None:
         g = rms_weight.to(torch.bfloat16).contiguous()
-    q = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    if _padded:
+        q = _padded_rows(m, k, torch.int8, x.device)
+    else:
+        q = torch.empty((m, k), dtype=torch.int8, device=x.device)
     xs = torch.empty((m, 1), dtype=torch.float32, device=x.device)
     rc = _build.library().dpt_quantize_rows(
         x.data_ptr(), x.stride(0), None if g is None else g.data_ptr(),
         int(glu), int(act == "gelu"), float(rms_eps), m, k, q.data_ptr(),
-        xs.data_ptr(), _build.stream())
+        q.stride(0), xs.data_ptr(), _build.stream())
     _build.check(rc, "quantize_activations")
     quantize_activations.launches += 1
     return q, xs
 
 
 quantize_activations.launches = 0
+
+
+def stage_activations_plain(x, k, *, rms_weight=None, rms_eps=1e-6,
+                            glu=False, act="silu"):
+    """(a, rf): the weight-only product's input as `dequant_matmul_plain`
+    rounds it (x, x * g or act(gate) * up, in x's dtype) and the RMSNorm
+    row factor rsqrt(mean(x^2) + eps), (..., 1) f32, or None without a
+    norm."""
+    xf = x.float()
+    if glu:
+        a = _act(xf[..., :k], act) * xf[..., k:]
+    elif rms_weight is not None:
+        a = xf * rms_weight.float()
+    else:
+        a = xf
+    rf = None
+    if rms_weight is not None:
+        rf = torch.rsqrt((xf * xf).sum(-1, keepdim=True) / k + rms_eps)
+    return a.to(x.dtype), rf
+
+
+def dequant_product_plain(a, data, scales, *, bits=8, rf=None, bias=None,
+                          residual=None,
+                          out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The weight-only product behind `stage_activations_plain`: a @ (q *
+    s) with each group's scale, times the row factor rf, plus bias and
+    residual, cast once; with it, the same bits as `dequant_matmul_plain`."""
+    q = unpack_int4(data) if bits == 4 else data
+    k, n = q.shape
+    rows, g = _groups(scales, k, n)
+    s = scales.float().reshape(rows, n)
+    af = a.float()
+    if rows == 1:
+        y = (af @ q.float()) * s
+    else:
+        y = af @ (q.float().reshape(rows, g, n) * s[:, None]).reshape(k, n)
+    if rf is not None:
+        y = y * rf
+    if bias is not None:
+        y = y + bias.float()
+    if residual is not None:
+        y = y + residual.float()
+    return y.to(out_dtype)
+
+
+def stage_activations(x: torch.Tensor, k: int, *,
+                      rms_weight: Optional[torch.Tensor] = None,
+                      rms_eps: float = 1e-6, glu: bool = False,
+                      act: str = "silu"):
+    """The tensor-core route's weight-only prologue, once per row: (a, rf)
+    as `stage_activations_plain` gives them, x: (M, K or 2K) bf16 -> ((M,
+    K) bf16 with rows 16 bytes apart at least, (M, 1) f32 or None). A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel
+    (csrc/dequant_matmul.cu `stage_rows_kernel`), counted in
+    `stage_activations.launches`."""
+    if not x.is_cuda:
+        return stage_activations_plain(x, k, rms_weight=rms_weight,
+                                       rms_eps=rms_eps, glu=glu, act=act)
+    if x.dtype != torch.bfloat16 or x.dim() != 2 or x.stride(-1) != 1:
+        raise ValueError("stage_activations takes (M, K) bf16 rows")
+    m = x.shape[0]
+    g = None
+    if rms_weight is not None:
+        g = rms_weight.to(torch.bfloat16).contiguous()
+    a = _padded_rows(m, k, torch.bfloat16, x.device)
+    rf = None if g is None else torch.empty((m, 1), dtype=torch.float32,
+                                            device=x.device)
+    rc = _build.library().dpt_stage_rows(
+        x.data_ptr(), x.stride(0), None if g is None else g.data_ptr(),
+        int(glu), int(act == "gelu"), float(rms_eps), m, k, a.data_ptr(),
+        a.stride(0), None if rf is None else rf.data_ptr(), _build.stream())
+    _build.check(rc, "stage_activations")
+    stage_activations.launches += 1
+    return a, rf
+
+
+stage_activations.launches = 0
 
 
 def _fit_chunk(kchunk: int, seg: int, rows: int, quads: bool) -> int:
@@ -215,7 +330,7 @@ def gemv_chunk(m: int, k: int, n: int, bits: int, rows_g: int,
     """The split-K GEMV's chunk of stored weight rows for an (M, K) x
     (K, N) product with `rows_g` scale rows."""
     rows = k // 2 if bits == 4 else k
-    ct = 4 if (bits == 4 or m > 8) else 8
+    ct = 4 if bits == 4 else 8
     nb = -(-n // (32 * ct))
     kmax = _KCHUNK_MAX[bits]
     ksplit = max(-(-rows // kmax),
@@ -229,6 +344,54 @@ def gemv_chunk(m: int, k: int, n: int, bits: int, rows_g: int,
     return _fit_chunk(kchunk, seg, rows, a8)
 
 
+def route(m: int) -> str:
+    """The kernel an (M, K) x (K, N) product takes: "gemv" for M <=
+    GEMV_MAX_M, else "mma". The wrapper hands the C side this choice."""
+    return "gemv" if m <= GEMV_MAX_M else "mma"
+
+
+MmaPlan = collections.namedtuple("MmaPlan",
+                                 "bn bk m_tiles n_tiles chunk splits")
+
+
+def mma_plan(m: int, k: int, n: int, rows_g: int) -> MmaPlan:
+    """The tensor-core kernel's grid for an (M, K) x (K, N) product with
+    `rows_g` scale rows: the token tile (the least of MMA_TOKEN_TILES that
+    holds M, else 128), the stage depth (the deepest of MMA_BKS that
+    divides the group), and the K split. A verify step (token tile <= 64)
+    is bytes-bound: K is split until at least two blocks an SM stream the
+    weight. A prefill splits only when it fills less than half the card.
+    A chunk (unpacked K rows, a multiple of the stage depth) never crosses
+    a scale group: it divides the group or is a multiple of it."""
+    bn = next((t for t in MMA_TOKEN_TILES if t >= m), MMA_TOKEN_TILES[-1])
+    g = k // rows_g if rows_g > 1 else k
+    bk = next(b for b in MMA_BKS if rows_g == 1 or g % b == 0)
+    mt, nt = -(-m // bn), -(-n // MMA_NT)
+    units = -(-k // bk)
+    blocks = mt * nt
+    want = -(-2 * _SMS // blocks) if bn <= 64 else _SMS // blocks
+    chunk = units * bk
+    if want > 1:
+        chunk = max(1, units // want) * bk
+        if rows_g > 1:
+            chunk = (chunk // g * g if chunk >= g else
+                     max(d for d in range(bk, chunk + 1, bk) if g % d == 0))
+    return MmaPlan(bn, bk, mt, nt, chunk, -(-k // chunk))
+
+
+def mma_flush_points(k: int, group: int, chunk: int, bk: int):
+    """For each K chunk of the tensor-core kernel, the unpacked K offsets
+    at which its blocks flush their group sums into the f32 totals: the
+    end of every stage of `bk` rows that ends a group (of `group` rows; k
+    for per-channel scales), and the chunk's end."""
+    points = []
+    for k0 in range(0, k, chunk):
+        end = min(k, k0 + chunk)
+        points.append([min(ku + bk, end) for ku in range(k0, end, bk)
+                       if (ku + bk) % group == 0 or ku + bk >= end])
+    return points
+
+
 def dequant_matmul(x: torch.Tensor, qw: QuantizedTensor, *,
                    rms_weight: Optional[torch.Tensor] = None,
                    rms_eps: float = 1e-6, glu: bool = False,
@@ -239,7 +402,7 @@ def dequant_matmul(x: torch.Tensor, qw: QuantizedTensor, *,
     (..., 2K)), bias and residual folded in. x: (..., K); returns (..., N).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises for what the kernel does not take."""
+    of its `route` or raises for what the kernel does not take."""
     if rms_weight is not None and glu:
         raise ValueError("rms and glu fusion are mutually exclusive")
     _check_weight(qw)
@@ -248,6 +411,29 @@ def dequant_matmul(x: torch.Tensor, qw: QuantizedTensor, *,
             x, qw.data, qw.scales, bits=qw.bits, act_bits=qw.act_bits,
             rms_weight=rms_weight, rms_eps=rms_eps, glu=glu, act=act,
             residual=residual, bias=bias, out_dtype=out_dtype)
+    m = x.numel() // x.shape[-1] if x.shape[-1] else 0
+    return dequant_matmul_via(route(m), x, qw, rms_weight=rms_weight,
+                              rms_eps=rms_eps, glu=glu, act=act,
+                              residual=residual, bias=bias,
+                              out_dtype=out_dtype)
+
+
+def dequant_matmul_via(path: str, x: torch.Tensor, qw: QuantizedTensor, *,
+                       rms_weight: Optional[torch.Tensor] = None,
+                       rms_eps: float = 1e-6, glu: bool = False,
+                       act: str = "silu",
+                       residual: Optional[torch.Tensor] = None,
+                       bias: Optional[torch.Tensor] = None,
+                       out_dtype=torch.bfloat16) -> torch.Tensor:
+    """`dequant_matmul` on a CUDA tensor through the named route ("gemv"
+    takes M <= GEMV_MAX_M only); `dequant_matmul` passes `route(M)`. Timing
+    both routes at one M is what sets GEMV_MAX_M."""
+    if path not in ROUTES:
+        raise ValueError(f"unknown route {path!r}")
+    if rms_weight is not None and glu:
+        raise ValueError("rms and glu fusion are mutually exclusive")
+    _check_weight(qw)
+    _build.require_cuda(x, "x")
     k, n = qw.shape
     kx = 2 * k if glu else k
     if x.shape[-1] != kx:
@@ -267,7 +453,6 @@ def dequant_matmul(x: torch.Tensor, qw: QuantizedTensor, *,
     if scales.dtype != torch.float32 or rows_g * n != scales.numel() \
             or rows_g * group != k:
         raise ValueError("scales must be (1, N) or (K/g, N) f32")
-    name = variant(qw)
     a8 = qw.act_bits == 8
     rows = k // 2 if qw.bits == 4 else k
     if rows_g > 1 and group % GROUP_ALIGN:
@@ -283,6 +468,8 @@ def dequant_matmul(x: torch.Tensor, qw: QuantizedTensor, *,
     if x2.stride(-1) != 1:
         x2 = x2.contiguous()
     m = x2.shape[0]
+    if path == "gemv" and m > GEMV_MAX_M:
+        raise ValueError(f"the GEMV takes M <= {GEMV_MAX_M}, got {m}")
     g = None
     if rms_weight is not None:
         g = rms_weight.to(torch.bfloat16).contiguous()
@@ -299,31 +486,45 @@ def dequant_matmul(x: torch.Tensor, qw: QuantizedTensor, *,
     for t, what in ((data, "weight"), (scales, "scales")):
         _build.require_cuda(t, what)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    ws, kchunk = None, 0
-    if m <= GEMV_MAX_M:
-        kchunk = gemv_chunk(m, k, n, qw.bits, rows_g, a8)
-        ws = torch.empty((-(-rows // kchunk), m, n), dtype=torch.float32,
-                         device=x.device)
     lib = _build.library()
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     xs = None
-    if a8:
-        x2, xs = quantize_activations(x2, k, rms_weight=g, rms_eps=rms_eps,
-                                      glu=glu, act=act)
+    if path == "gemv":
+        kchunk, bn, bk = gemv_chunk(m, k, n, qw.bits, rows_g, a8), 0, 0
+        ws = torch.empty((-(-rows // kchunk), m, n), dtype=torch.float32,
+                         device=x.device)
+        if a8:
+            x2, xs = quantize_activations(x2, k, rms_weight=g,
+                                          rms_eps=rms_eps, glu=glu, act=act)
+            g, glu = None, False
+    else:
+        plan = mma_plan(m, k, n, rows_g)
+        kchunk, bn, bk, ws = plan.chunk, plan.bn, plan.bk, None
+        if plan.splits > 1:
+            ws = torch.empty((plan.splits, m, n), dtype=torch.float32,
+                             device=x.device)
+        if a8:
+            x2, xs = quantize_activations(x2, k, rms_weight=g,
+                                          rms_eps=rms_eps, glu=glu, act=act,
+                                          _padded=True)
+        elif g is not None or glu or x2.data_ptr() % 16 or x2.stride(0) % 8:
+            x2, xs = stage_activations(x2, k, rms_weight=g, rms_eps=rms_eps,
+                                       glu=glu, act=act)
         g, glu = None, False
     rc = lib.dpt_dequant_matmul(
         x2.data_ptr(), x2.stride(0), ptr(xs), data.data_ptr(),
         scales.data_ptr(), qw.bits, group if rows_g > 1 else 0, ptr(g),
         ptr(bias_f), ptr(res2), 0 if res2 is None else res2.stride(0),
         out.data_ptr(), int(out_dtype == torch.float32), ptr(ws), m, k, n,
-        kchunk, int(glu), int(act == "gelu"), float(rms_eps), _build.stream())
+        ROUTES.index(path), kchunk, bn, bk, int(a8), int(glu),
+        int(act == "gelu"), float(rms_eps), _build.stream())
     _build.check(rc, "dequant_matmul")
     dequant_matmul.launches += 1
-    dequant_matmul.variant_launches[width_variant(n)] += 1
-    dequant_matmul.variant_launches[name] += 1
+    for key in launch_keys(m, qw, path):
+        dequant_matmul.variant_launches[key] += 1
     return out.reshape(*lead, n)
 
 

@@ -486,17 +486,19 @@ def cuda_device():
 @pytest.mark.parametrize("bits,group,act_bits", [
     (8, 0, 0), (4, 0, 0), (4, 128, 0), (8, 128, 0), (8, 0, 8), (8, 128, 8),
     (4, 0, 8), (4, 128, 8)])
-@pytest.mark.parametrize("m", [1, 8, 16, 100])
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 40, 64, 100, 512])
 @pytest.mark.parametrize("fusion", ["plain", "rms", "glu_residual"])
+@pytest.mark.parametrize("n", [260, 264, 4099])
 def test_cuda_variant_matches_plain(cuda_device, bits, group, act_bits, m,
-                                    fusion):
-    """Each weight variant of #1 on the card, GEMV (M <= 16) and tiled path,
-    against its plain version on the same inputs (2e-2 of max|ref|, as
-    chip_smoke.py holds it). Grouped: K = 1408 puts int4's plane boundary
-    (704) inside group 5 of 128; per-channel: K = 1344 (42 K tiles of
-    32); N = 260 leaves a partial column group."""
+                                    fusion, n):
+    """Each weight variant of #1 on the card, GEMV (M <= GEMV_MAX_M) and
+    tensor-core route, against its plain version on the same inputs (2e-2
+    of max|ref|, as chip_smoke.py holds it). Grouped: K = 1408 puts int4's
+    plane boundary (704) inside group 5 of 128; per-channel: K = 1344 (42
+    K stages of 32). No N here is a multiple of 16: 264 copies 8 bytes a
+    row segment, 260 four, 4099 one, each with a partial column tile."""
     g = torch.Generator(device=cuda_device).manual_seed(m)
-    k, n = (1408 if group else 1344), 260
+    k = 1408 if group else 1344
     qw = quantize(torch.randn(k, n, generator=g, device=cuda_device) * 0.02,
                   bits=bits, group_size=group)
     qw.act_bits = act_bits

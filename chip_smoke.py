@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --step-ms CHECKOUT
+    python3 chip_smoke.py --ttft CHECKOUT
 
 The second form only times the TinyLlama int8 decode step's 89 matmuls
 and its w_gu at a 1024-token prefill through #1 with the package of
 another checkout of the repo (its root first on sys.path; it builds that
 checkout's kernels), three times each, and prints them as JSON: run it
 for two checkouts in turn (parent, change, change, parent) to pair them
-on one card.
+on one card. `--ttft CHECKOUT` does the same for the TTFT where #4 and
+#9 run (see `ttft_ms`).
 
 Phases, each printing a line with its wall time:
   1. device   the card's name and power limit (nvidia-smi), torch and CUDA
@@ -326,6 +328,89 @@ def step_ms(torch, cfg) -> dict:
                 xp, q_big)], 20) for _ in range(STEP_REPS)]}
 
 
+def ttft_ms(torch) -> dict:
+    """TTFT (ms: a prompt alone on a warm engine, add_request and its
+    chunks to the first token, synchronized) where #4 and #9 run, TTFT_REPS
+    times each: TinyLlama int8 (serve's weights) on a 512-token prompt
+    (#4 in bucket 512) and a 900-token one (two chunks through
+    flash_attention_chunk); Llama-2-7B W4A8 g128 + k8v4 (serve[llama2-7b]'s
+    weights) on a 512-token prompt, unrolled and on the default scan
+    engine; Mixtral-8x7B W4A8 g128 + int8 KV (serve[mixtral-8x7b]'s
+    weights) on a 512-token prompt (#10 and #9). Then serve's TTFT p50:
+    serve's 8 requests through the scheduler and the HTTP server on the
+    warm TinyLlama engine, STEP_REPS times. Only the engine and the
+    serving API are used, so any checkout's package can be timed
+    (`--ttft ROOT`)."""
+    from deeppowers_tpu_torch.config import (GenerationConfig, QuantConfig,
+                                             RuntimeConfig)
+    from deeppowers_tpu_torch.models import transformer as T
+    from deeppowers_tpu_torch.models.presets import (LLAMA2_7B, MIXTRAL_8X7B,
+                                                     TINYLLAMA_1_1B)
+    from deeppowers_tpu_torch.runtime.engine import InferenceEngine
+    from deeppowers_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    first = GenerationConfig(max_tokens=1, temperature=0.0)
+
+    def engine(params, cfg, kv, scan=False):
+        e = InferenceEngine(
+            params, cfg, device="cuda", eos_token_id=tok.eos_token_id,
+            kv_cache_dtype=kv,
+            runtime=RuntimeConfig(max_batch_size=8, max_seq_len=1024,
+                                  prefill_buckets=(64, 128, 256, 512, 1024),
+                                  **({} if scan else {"scan_layers": False})))
+        e.generate(tok.encode("warm up"), GenerationConfig(
+            max_tokens=2, temperature=0.0))
+        return e
+
+    def times(e, n):
+        out = []
+        for i in range(TTFT_REPS + 1):       # the first one warms the shape
+            ids = [4 + (j * 7 + i) % 250 for j in range(n)]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            slot = e.add_request(ids, first)
+            while slot in e.prefilling_slots:
+                e.continue_prefill(slot)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t1) * 1e3)
+            e.pop_finished()
+        return out[1:]
+
+    res = {}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = T.init_params(TINYLLAMA_1_1B, gen, dtype=torch.bfloat16,
+                           device="cuda")
+    params = T.fuse_params(T.quantize_params(params, QuantConfig()),
+                           TINYLLAMA_1_1B)
+    e = engine(params, TINYLLAMA_1_1B, "bf16")
+    res["tinyllama_512_ms"] = times(e, 512)
+    res["tinyllama_900_ms"] = times(e, 900)
+    prompts = [prompt_text(n, i) for i, n in enumerate(PROMPT_BYTES)]
+    p50 = []
+    for _ in range(STEP_REPS):
+        results, _, wall, sched = run_requests(torch, e, prompts, MAX_TOKENS,
+                                               {}, tok)
+        p50.append(summary(results, wall, sched, {})["ttft_ms_p50"])
+    res["tinyllama_serve_ttft_p50_ms"] = p50
+    del e, params
+    params = llama2_params(torch, T, LLAMA2_7B, torch.Generator(
+        device="cuda").manual_seed(SEED + 12), "cuda")
+    for scan in (False, True):
+        e = engine(params, LLAMA2_7B, LLAMA2_KV, scan)
+        res["llama2_512_scan_ms" if scan else "llama2_512_ms"] = times(e, 512)
+        del e
+    del params
+    torch.cuda.empty_cache()
+    params = mixtral_params(torch, T, MIXTRAL_8X7B, torch.Generator(
+        device="cuda").manual_seed(SEED + 16), "cuda")
+    e = engine(params, MIXTRAL_8X7B, MIXTRAL_KV)
+    res["mixtral_512_ms"] = times(e, 512)
+    del e, params
+    torch.cuda.empty_cache()
+    return res
+
+
 def check_kernels(torch, cfg):
     from deeppowers_tpu_torch.ops.kernels import (decode_attention as da,
                                                   dequant_matmul as dm,
@@ -461,10 +546,15 @@ def check_kernels(torch, cfg):
 
     # -- 4. flash_attention_prefill: at the serve phase's shape, the 300-
     # and 450-token prompts batched in bucket 512 (longer prompts prefill
-    # in chunks, through attention_chunk); and at bucket 1024 with 600 and
-    # 900 tokens, the shape it was first held at. The line reports bucket 512.
-    def flash_case(s, plen):
-        qp, kp, vp = rn(2, s, hq, d), rn(2, s, kh, d), rn(2, s, kh, d)
+    # in chunks, through flash_attention_chunk); and at bucket 1024 with
+    # 600 and 900 tokens, the shape it was first held at. The line reports
+    # bucket 512; untimed, the same prompts at Mixtral's heads. Then at
+    # the 7B's heads (32 x 128, MHA), a 512-token prompt, in a row of its
+    # own; and a chunk.
+    def flash_case(s, plen, hq=hq, kh=kh, d=d, timed=True):
+        rep = hq // kh
+        b = len(plen)
+        qp, kp, vp = rn(b, s, hq, d), rn(b, s, kh, d), rn(b, s, kh, d)
         ln = torch.tensor(plen, device=dev, dtype=torch.int32)
         out = fa.flash_attention_prefill(qp, kp, vp, ln)
         ref = fa.flash_attention_plain(qp, kp, vp, ln)
@@ -472,8 +562,14 @@ def check_kernels(torch, cfg):
         errs = [row_errors(out[i, :n], ref[i, :n]) for i, n in enumerate(plen)]
         err, worst = max(e for e, _ in errs), max(w for _, w in errs)
         if not (torch.isfinite(out).all() and worst <= 1e-2):
-            fail(f"flash_attention_prefill S={s}: a valid (token, head) row's "
-                 f"error is {worst:.3g} of its max|ref| (limit 1e-2)")
+            fail(f"flash_attention_prefill S={s} H={hq} Kh={kh} D={d}: a "
+                 f"valid (token, head) row's error is {worst:.3g} of its "
+                 f"max|ref| (limit 1e-2), or not finite")
+        if not timed:
+            log(f"  flash_attention_prefill B={b} S={s} H={hq} Kh={kh} D={d} "
+                f"lengths={plen}: max_abs_err={err:.3e} worst_row_ratio="
+                f"{worst:.3e}")
+            return err
         t_k = cuda_ms(torch, [lambda: fa.flash_attention_prefill(qp, kp, vp,
                                                                  ln)], 20)
         t_p = cuda_ms(torch, [lambda: fa.flash_attention_plain(qp, kp, vp,
@@ -490,18 +586,33 @@ def check_kernels(torch, cfg):
         rows_n, keys = sum(plen), sum(n * (n + 1) // 2 for n in plen)
         bd, by = bound_ms(rows_n * (2 * hq + 2 * kh) * d * 2,
                           4 * keys * hq * d)
-        log(f"  flash_attention_prefill B=2 S={s} lengths={plen}: max_abs_err"
-            f"={err:.3e} worst_row_ratio={worst:.3e}, kernel {t_k:.4f} ms, "
+        log(f"  flash_attention_prefill B={b} S={s} H={hq} Kh={kh} D={d} "
+            f"lengths={plen}: max_abs_err={err:.3e} worst_row_ratio="
+            f"{worst:.3e}, kernel {t_k:.4f} ms (the CUDA-core kernel "
+            f"before: {FLASH_OLD_MS.get((s, hq, kh, d), 'not measured')}), "
             f"plain {t_p:.4f} ms, sdpa {t_l:.4f} ms, bound {bd:.6f} ms")
         return err, t_k, t_p, t_l, bd, by
 
     err, t_k, t_p, t_l, bd, by = flash_case(512, [300, 450])
-    err = max(err, flash_case(1024, [600, 900])[0])
+    f1024 = flash_case(1024, [600, 900])
+    # untimed: Mixtral's heads (32 / 8 x 128, GQA), serve[mixtral-8x7b]'s
+    err = max(err, f1024[0], flash_case(512, [300, 450], hq=32, kh=8, d=128,
+                                        timed=False))
     rows.append({"name": "flash_attention_prefill", "route": "cuda",
                  "source": "deeppowers_tpu_torch/csrc/flash_attention.cu",
                  "replaces": "deeppowers_tpu/ops/pallas/flash_attention.py:140",
                  "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
-                 "bound_ms": bd, "bound_by": by, "library_ms": t_l})
+                 "bound_ms": bd, "bound_by": by, "library_ms": t_l,
+                 "ms_1024": f1024[1], "library_ms_1024": f1024[3]})
+    err, t_k, t_p, t_l, bd, by = flash_case(512, [512], hq=32, kh=32, d=128)
+    rows.append({"name": "flash_attention_prefill[llama2-7b]", "route": "cuda",
+                 "source": "deeppowers_tpu_torch/csrc/flash_attention.cu",
+                 "replaces": "deeppowers_tpu/ops/pallas/flash_attention.py:140",
+                 "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+                 "bound_ms": bd, "bound_by": by, "library_ms": t_l,
+                 "launch_from": ("serve[llama2-7b]",
+                                 "flash_attention_prefill")})
+    rows.append(check_flash_chunk(torch, rn, hq, kh, d))
     del kc, vc, kc2, vc2, k4, v4
     torch.cuda.empty_cache()
 
@@ -587,17 +698,79 @@ def check_kernels(torch, cfg):
     rows += check_quantized_kernels(torch, cfg, rn, bf16_ms)
     rows += check_verify_kernels(torch, cfg, bf16_ms)
 
-    # chunked prefill's attention_chunk: plain PyTorch on every device (the
-    # JAX package computes it with XLA, not in a Pallas kernel); one layer,
-    # a 512-token chunk at start 512 over its slot's 1024-row view
-    from deeppowers_tpu_torch.ops.attention import attention_chunk
-    qc, kc1, vc1 = rn(1, 512, hq, d), rn(1, 1024, kh, d), rn(1, 1024, kh, d)
-    t_c = cuda_ms(torch, [lambda: attention_chunk(qc, kc1, vc1, 512)], 20)
-    log(f"  attention_chunk (plain PyTorch, not a kernel) C=512 start=512 "
-        f"view=1024: {t_c:.4f} ms per layer")
-    del qc, kc1, vc1
-    torch.cuda.empty_cache()
     return rows
+
+
+# #4's times before its wgmma redesign (the CUDA-core kernel, PERF.md §6;
+# NVIDIA H100 80GB HBM3, 700.00 W), by (S, H, Kh, D); other shapes were not
+# timed
+FLASH_OLD_MS = {(512, 32, 4, 64): 0.361754}
+CHUNK_START, CHUNK_C = 512, 388
+
+
+def check_flash_chunk(torch, rn, hq, kh, d):
+    """#4 with a start offset (flash_attention_chunk): a 900-token prompt's
+    second chunk, C = 388 queries at start 512 over its slot's view of 900
+    rows, TinyLlama's heads; against its plain version (the f32 einsum
+    code attention_chunk ran on the card before), every row within 1e-2
+    of its max|ref|; timed beside sdpa with the same mask on repeated
+    K/V. Launches from serve, whose 600- and 900-byte prompts chunk. Also
+    held, untimed: a last chunk padded to 512 rows past a 1024-row
+    cache's end (start 896), whose queries past the view see all of it,
+    and the timed chunk at the 7B's and Mixtral's heads (D = 128)."""
+    from deeppowers_tpu_torch.ops.kernels import flash_attention as fa
+    dev = torch.device("cuda")
+    st, c = CHUNK_START, CHUNK_C
+    qc, kc, vc = rn(1, c, hq, d), rn(1, st + c, kh, d), rn(1, st + c, kh, d)
+    out = fa.flash_attention_chunk(qc, kc, vc, st)
+    ref = fa.flash_attention_chunk_plain(qc, kc, vc, st)
+    torch.cuda.synchronize()
+    err, worst = row_errors(out, ref)
+    finite = bool(torch.isfinite(out).all())
+    # untimed: the padded last chunk; the same chunk at the 7B's (32 x 128,
+    # MHA) and Mixtral's (32 / 8 x 128) heads, which serve[llama2-7b] and
+    # serve[mixtral-8x7b] chunk with
+    for s_e, c_e, st_e, hq_e, kh_e, d_e in ((1024, 512, 896, hq, kh, d),
+                                            (st + c, c, st, 32, 32, 128),
+                                            (st + c, c, st, 32, 8, 128)):
+        qe, ke, ve = rn(1, c_e, hq_e, d_e), rn(1, s_e, kh_e, d_e), \
+            rn(1, s_e, kh_e, d_e)
+        out_e = fa.flash_attention_chunk(qe, ke, ve, st_e)
+        ref_e = fa.flash_attention_chunk_plain(qe, ke, ve, st_e)
+        torch.cuda.synchronize()
+        err_e, worst_e = row_errors(out_e, ref_e)
+        err, worst = max(err, err_e), max(worst, worst_e)
+        finite = finite and bool(torch.isfinite(out_e).all())
+        log(f"  flash_attention_chunk C={c_e} start={st_e} view={s_e} "
+            f"H={hq_e} Kh={kh_e} D={d_e}: max_abs_err={err_e:.3e} "
+            f"worst_row_ratio={worst_e:.3e}")
+    if not (finite and worst <= 1e-2):
+        fail(f"flash_attention_chunk: a (token, head) row's error is "
+             f"{worst:.3g} of its max|ref| (limit 1e-2), or not finite")
+    t_k = cuda_ms(torch, [lambda: fa.flash_attention_chunk(qc, kc, vc, st)],
+                  20)
+    t_p = cuda_ms(torch, [lambda: fa.flash_attention_chunk_plain(
+        qc, kc, vc, st)], 5, graph=False)
+    rep = hq // kh
+    mask = (torch.arange(st + c, device=dev)[None, :]
+            <= st + torch.arange(c, device=dev)[:, None])
+    qt = qc.transpose(1, 2)
+    kt, vt = (t.transpose(1, 2).repeat_interleave(rep, 1) for t in (kc, vc))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t_l = cuda_ms(torch, [lambda: sdpa(qt, kt, vt, attn_mask=mask)], 20)
+    keys = sum(st + i + 1 for i in range(c))
+    bd, by = bound_ms((c * 2 * hq + (st + c) * 2 * kh) * d * 2,
+                      4 * keys * hq * d)
+    log(f"  flash_attention_chunk C={c} start={st} H={hq} Kh={kh} D={d}: "
+        f"max_abs_err={err:.3e} worst_row_ratio={worst:.3e}, kernel "
+        f"{t_k:.4f} ms, plain (attention_chunk's f32 einsum) {t_p:.4f} ms, "
+        f"sdpa {t_l:.4f} ms, bound {bd:.6f} ms")
+    return {"name": "flash_attention_chunk", "route": "cuda",
+            "source": "deeppowers_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "deeppowers_tpu/ops/pallas/flash_attention.py:140",
+            "max_abs_err": err, "ms": t_k, "plain_ms": t_p, "bound_ms": bd,
+            "bound_by": by, "library_ms": t_l,
+            "launch_from": ("serve", "flash_attention_chunk")}
 
 
 PREFILL_M = 512
@@ -1013,6 +1186,11 @@ MIXTRAL_H, MIXTRAL_FFN, MIXTRAL_E = 4096, 14336, 8
 ROUTED_COUNTS = (300, 220, 160, 130, 100, 70, 44, 0)
 GROUPED_VARIANTS = (("w4a8g", 4, 128, 8), ("w4g", 4, 128, 0),
                     ("w8g", 8, 128, 0), ("w8a8g", 8, 128, 8))
+# #9's times before it moved onto #1's tensor-core kernel (the mma.sync
+# kernel of csrc/grouped_matmul.cu, PERF.md §6; NVIDIA H100 80GB HBM3,
+# 700.00 W), by variant
+GROUPED_OLD_MS = {"w4a8g": 3.120774, "w4g": 1.910336, "w8g": 1.969952,
+                  "w8a8g": 2.953203}
 
 
 def check_grouped_kernels(torch):
@@ -1098,14 +1276,22 @@ def check_grouped_kernels(torch):
             nbytes = (w_bytes + s_bytes + pairs * k * 2
                       + pairs * n * (4 if out_dtype == torch.float32 else 2))
             bd, by = bound_ms(nbytes, 2 * pairs * k * n, int8=bool(a8))
+            stacked = kernel == "grouped_dequant_matmul"
+            old = (f" (the mma.sync kernel before: {GROUPED_OLD_MS[var]} ms)"
+                   if stacked else "")
             log(f"  {kernel}[{var}] {pairs} routed rows (M_pad={m_pad}, "
                 f"{live_tiles} live tiles) K={k} N={n}: max_abs_err="
-                f"{err:.3e} worst_row_ratio={worst:.3e}, kernel {t_k:.4f} ms,"
-                f" plain {t_p:.4f} ms, torch.bmm bf16 {t_l:.4f} ms, bound "
-                f"{bd:.4f} ms ({by})")
+                f"{err:.3e} worst_row_ratio={worst:.3e}, kernel {t_k:.4f} ms"
+                f"{old}, plain {t_p:.4f} ms, torch.bmm bf16 {t_l:.4f} ms, "
+                f"bound {bd:.4f} ms ({by})")
+            if stacked and var == GROUPED_VARIANTS[0][0]:   # the path's
+                rows.append(check_segments(torch, gm, x, group, te, dest,
+                                           var))
             rows.append({
                 "name": f"{kernel}[{var}]", "route": "cuda",
-                "source": "deeppowers_tpu_torch/csrc/grouped_matmul.cu",
+                "source": ("deeppowers_tpu_torch/csrc/dequant_matmul.cu"
+                           if stacked else
+                           "deeppowers_tpu_torch/csrc/grouped_matmul.cu"),
                 "replaces": ("deeppowers_tpu/ops/pallas/dequant_matmul.py:911"
                              if kernel.endswith("ncat") else
                              "deeppowers_tpu/ops/pallas/dequant_matmul.py:755"),
@@ -1118,6 +1304,34 @@ def check_grouped_kernels(torch):
             del qw, got, ref
             torch.cuda.empty_cache()
     return rows
+
+
+def check_segments(torch, gm, x, group, te, dest, var):
+    """#9's a8 pre-pass (quantize_segments) on the w_out rows of one
+    variant: every routed row's bytes and segment scales equal its plain
+    version's, bit for bit; timed beside its bound (the routed rows' bf16
+    read once, their int8 codes and f32 scales written once) and the plain
+    version. Launches from serve[mixtral-8x7b]."""
+    q, qs = gm.quantize_segments(x, group, te)
+    qp, qsp = gm.quantize_segments_plain(x, group)
+    torch.cuda.synchronize()
+    if not (torch.equal(q[dest], qp[dest])
+            and torch.equal(qs[:, dest], qsp[:, dest])):
+        fail(f"quantize_segments[{var}] differs from its plain version")
+    t_k = cuda_ms(torch, [lambda: gm.quantize_segments(x, group, te)], 20)
+    t_p = cuda_ms(torch, [lambda: gm.quantize_segments_plain(x, group)], 5,
+                  graph=False)
+    pairs, k = dest.numel(), x.shape[1]
+    bd, by = bound_ms(pairs * k * (2 + 1) + pairs * (k // group) * 4, 0)
+    log(f"  quantize_segments[{var}] {pairs} routed rows K={k} segments of "
+        f"{group}: exact, kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+        f"{bd:.6f} ms")
+    return {"name": "quantize_segments", "route": "cuda",
+            "source": "deeppowers_tpu_torch/csrc/dequant_matmul.cu",
+            "replaces": "deeppowers_tpu/ops/pallas/dequant_matmul.py:755",
+            "max_abs_err": 0.0, "ms": t_k, "plain_ms": t_p, "bound_ms": bd,
+            "bound_by": by, "library_ms": None,
+            "launch_from": ("serve[mixtral-8x7b]", "quantize_segments")}
 
 
 ATTN_LENS = (48, 96, 132, 232, 332, 482, 632, 932)
@@ -2512,6 +2726,7 @@ def serve_llama2(torch, T, counters):
     check_variants(
         "serve[llama2-7b]", launches,
         LLAMA2_ON_PATH + ROUTES_ON + ["flash_attention_prefill",
+                          "flash_attention_chunk",
                           f"scatter_rows[{LLAMA2_KV}]",
                           f"decode_attention[{LLAMA2_KV}]"],
         LLAMA2_OFF_PATH + ["scatter_pool_rows", "decode_attention_paged",
@@ -2599,7 +2814,7 @@ def serve_llama2_kt(torch, T, counters, l7_params):
         "serve[llama2-7b,kt]", launches,
         LLAMA2_ON_PATH + ROUTES_ON + [f"decode_attention_kt[{LLAMA2_KV}]",
                           f"scatter_rows[{LLAMA2_KV}]",
-                          "flash_attention_prefill"],
+                          "flash_attention_prefill", "flash_attention_chunk"],
         LLAMA2_OFF_PATH + ["decode_attention", "scatter_pool_rows",
                            "decode_attention_paged"])
     out = summary(results, wall, sched, launches)
@@ -2615,7 +2830,7 @@ MIXTRAL_KV = "int8"
 MIXTRAL_PROMPT = 320          # b·s >= 256: the prefill takes #10 and #9
 MIXTRAL_ON_PATH = ["grouped_dequant_matmul_ncat[w4a8g]",
                    "grouped_dequant_matmul[w4a8g]", "dequant_matmul[w4a8g]",
-                   "quantize_activations"]
+                   "quantize_activations", "quantize_segments"]
 MIXTRAL_OFF_PATH = (LLAMA2_OFF_PATH + [
     f"{k}[{v}]" for k in ("grouped_dequant_matmul",
                           "grouped_dequant_matmul_ncat")
@@ -2789,6 +3004,7 @@ def serve_mixtral(torch, T, counters):
     check_variants(
         "serve[mixtral-8x7b]", launches,
         MIXTRAL_ON_PATH + ROUTES_ON + ["flash_attention_prefill",
+                           "flash_attention_chunk",
                            f"scatter_rows[{MIXTRAL_KV}]",
                            f"decode_attention[{MIXTRAL_KV}]"],
         MIXTRAL_OFF_PATH + ["scatter_pool_rows", "decode_attention_paged"]
@@ -3223,7 +3439,8 @@ def serve(torch, params, cfg, counters, kv_cache_dtype="bf16",
                                              "decode_attention")]
     check_variants(
         f"serve[{kv_cache_dtype}]", launches,
-        ["dequant_matmul", "flash_attention_prefill"] + ROUTES_ON + own,
+        ["dequant_matmul", "flash_attention_prefill",
+         "flash_attention_chunk"] + ROUTES_ON + own,
         ["scatter_pool_rows", "decode_attention_paged"]
         + [f"{k}[{v}]" for k in ("scatter_rows", "decode_attention")
            for v in KV_CACHE_DTYPES if v != kv_cache_dtype])
@@ -3349,8 +3566,8 @@ def serve_paged(torch, params, cfg, counters, kv_cache_dtype="bf16",
     verify = f"decode_attention_paged[{kv_cache_dtype}:t{spec_k + 1}]"
     check_variants(
         f"paged serve[{kv_cache_dtype}]", launches,
-        [f"scatter_pool_rows[{kv_cache_dtype}]", verify if spec_k else attn]
-        + ROUTES_ON,
+        [f"scatter_pool_rows[{kv_cache_dtype}]", verify if spec_k else attn,
+         "flash_attention_chunk"] + ROUTES_ON,
         ["scatter_rows", "decode_attention"] + ([attn] if spec_k else [])
         + [f"{k}[{v}]" for k in ("scatter_pool_rows", "decode_attention_paged")
            for v in KV_CACHE_DTYPES if v != kv_cache_dtype])
@@ -3399,7 +3616,8 @@ def serve_spec(torch, params, cfg, counters, plain_tokens):
     check_variants(
         "spec_serve", launches,
         [f"decode_attention[bf16:t{SPEC_T}]", "scatter_rows[bf16]",
-         "dequant_matmul", "flash_attention_prefill"] + ROUTES_ON,
+         "dequant_matmul", "flash_attention_prefill",
+         "flash_attention_chunk"] + ROUTES_ON,
         ["decode_attention[bf16]", "scatter_pool_rows",
          "decode_attention_paged"])
     out = summary(results, wall, sched, launches)
@@ -3452,8 +3670,14 @@ def serve_scan(torch, params, cfg, counters):
           "dequant_matmul", "flash_attention_prefill",
           "stage_activations"] + ROUTES_ON
     off = ["scatter_rows", "scatter_pool_rows", "decode_attention_paged"]
-    check_variants("scan_serve", launches, on, off)
-    check_variants("scan_serve (second pass)", launches2, on, off)
+    check_variants("scan_serve", launches, on + ["flash_attention_chunk"],
+                   off)
+    # the second pass prefills from its prefix matches in chunks; a prompt
+    # takes #4 whole only when another request took its retired slot first
+    # (arrival order decides), so #4 is required through its chunk entry
+    check_variants("scan_serve (second pass)", launches2,
+                   [k for k in on if k != "flash_attention_prefill"]
+                   + ["flash_attention_chunk"], off)
     prefix = engine.prefix_cache_stats
     if prefix["hits"] < 1:
         fail(f"scan_serve: no prefix copy in the second pass {prefix}")
@@ -3661,8 +3885,17 @@ def main(argv) -> int:
         log(json.dumps({"checkout": argv[1], **step_ms(torch,
                                                        TINYLLAMA_1_1B)}))
         return 0
+    if argv[:1] == ["--ttft"] and len(argv) == 2:
+        # TTFT where #4 and #9 run, through the package of the checkout at
+        # argv[1], for a paired run of two checkouts on one card
+        sys.path.insert(0, os.path.abspath(argv[1]))
+        from deeppowers_tpu_torch.ops.kernels import _build
+        _build.library()
+        log(json.dumps({"checkout": argv[1], **ttft_ms(torch)}))
+        return 0
     if argv:
-        sys.stderr.write("usage: chip_smoke.py [--step-ms CHECKOUT]\n")
+        sys.stderr.write("usage: chip_smoke.py [--step-ms CHECKOUT | "
+                         "--ttft CHECKOUT]\n")
         return 2
     from deeppowers_tpu_torch.config import QuantConfig
     from deeppowers_tpu_torch.models import transformer as T
@@ -3673,9 +3906,11 @@ def main(argv) -> int:
         decode_attention_paged)
     from deeppowers_tpu_torch.ops.kernels.dequant_matmul import (
         dequant_matmul, quantize_activations, stage_activations)
-    from deeppowers_tpu_torch.ops.kernels.flash_attention import flash_attention_prefill
+    from deeppowers_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_chunk, flash_attention_prefill)
     from deeppowers_tpu_torch.ops.kernels.grouped_matmul import (
-        grouped_dequant_matmul, grouped_dequant_matmul_ncat)
+        grouped_dequant_matmul, grouped_dequant_matmul_ncat,
+        quantize_segments)
     from deeppowers_tpu_torch.ops.kernels.kv_append import (
         scatter_pool_rows, scatter_rows, scatter_rows_stacked)
     from deeppowers_tpu_torch.runtime import kvcache
@@ -3686,10 +3921,12 @@ def main(argv) -> int:
                 "scatter_rows": scatter_rows,
                 "decode_attention": decode_attention,
                 "flash_attention_prefill": flash_attention_prefill,
+                "flash_attention_chunk": flash_attention_chunk,
                 "scatter_pool_rows": scatter_pool_rows,
                 "decode_attention_paged": decode_attention_paged,
                 "grouped_dequant_matmul": grouped_dequant_matmul,
                 "grouped_dequant_matmul_ncat": grouped_dequant_matmul_ncat,
+                "quantize_segments": quantize_segments,
                 "scatter_rows_stacked": scatter_rows_stacked,
                 "decode_attention_kt": decode_attention_kt,
                 "decode_attention_kernel": decode_attention_kernel}

@@ -1,12 +1,13 @@
-// Grouped dequant matmuls for MoE: rows sorted by expert, in tiles of 64
-// rows that each belong to one expert, times that expert's quantized
-// weights (int8, or int4 in half-split nibbles; group scales; bf16 or
-// dynamic int8 activations), f32 accumulation.
+// Grouped dequant matmul over the cat experts for MoE: rows sorted by
+// expert, in tiles of 64 rows that each belong to one expert, times that
+// expert's column block of one concatenated quantized weight (int8, or
+// int4 in half-split nibbles; group scales; bf16 or dynamic int8
+// activations), f32 accumulation.
 //
-// Replaces the Pallas TPU kernels of deeppowers_tpu/ops/pallas/
-// dequant_matmul.py: `grouped_dequant_matmul` :620 (pallas_call :755, #9)
-// and `grouped_dequant_matmul_ncat` :775 (pallas_call :911, #10), both on
-// the body `_make_kernel` :152 with its a8 `qdot` :198.
+// Replaces the Pallas TPU kernel of deeppowers_tpu/ops/pallas/
+// dequant_matmul.py `grouped_dequant_matmul_ncat` :775 (pallas_call :911,
+// #10), on the body `_make_kernel` :152 with its a8 `qdot` :198. (#9, over
+// stacked experts, runs on the tensor-core kernel of dequant_matmul.cu.)
 //
 // What bounds it on an H100: at a prefill's row counts the 2*rows*K*N
 // operations over the int8 (a8) or bf16 tensor-core peak (Mixtral-8x7B's
@@ -17,8 +18,7 @@
 // - Grid (ceil(N / 128), M / 64): a block owns 64 rows x 128 columns. It
 //   reads its expert from the device tile table (the TPU kernel's scalar
 //   prefetch has no counterpart) and returns at once for a dead tail tile
-//   (-1). #9 offsets the weights and scales by the expert's stacked slice,
-//   #10 its columns by e * n_e in the cat; one template serves both.
+//   (-1), and offsets its columns by e * n_e in the cat.
 // - K is walked inside the block in steps of 32 unpacked rows; unpacked
 //   row k of an int4 weight is the low nibble of stored row k (k < K/2) or
 //   the high nibble of row k - K/2, so the walk is the same for both widths
@@ -54,9 +54,7 @@ struct GroupedArgs {
   const int8_t* w;       // stored rows with row stride w_ld
   const float* scales;   // (K / group, ...) with row stride s_ld
   const int* te;         // expert of each 64-row tile, -1 dead
-  long long w_es;        // elements between two experts' weights (#9)
-  long long s_es;        // ... between two experts' scale tables (#9)
-  long long col_es;      // columns between two experts' blocks (#10)
+  long long col_es;      // columns between two experts' blocks
   long long w_ld, s_ld;
   int group;
   void* out;             // (M, N) f32 or bf16
@@ -108,8 +106,8 @@ __global__ void __launch_bounds__(GTHREADS) grouped_kernel(GroupedArgs a) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int wm0 = (warp >> 2) * 32, wn0 = (warp & 3) * 32;
-  const int8_t* w = a.w + e * a.w_es + e * a.col_es;
-  const float* sc = a.scales + e * a.s_es + e * a.col_es;
+  const int8_t* w = a.w + e * a.col_es;
+  const float* sc = a.scales + e * a.col_es;
   const int K = a.K, N = a.N, g = a.group;
   const int kst = INT4 ? K / 2 : K;
 
@@ -288,35 +286,21 @@ int launch(const GroupedArgs& a, int bits, int a8, void* stream) {
 
 }  // namespace
 
-// #9. x: (M, K) bf16, contiguous, M a multiple of 64. w: stacked (E, K, N)
-// int8 or (E, K/2, N) packed int4, contiguous, 16-byte aligned; scales:
-// (E, K / group, N) f32. te: (M / 64,) int32 expert per tile, -1 for a
-// dead tile (its rows are not written).
-// group: the scale group in unpacked rows (K when per-channel), a multiple
-// of 32; a8 weights need every group inside one nibble plane. N % 16 == 0.
-// out: (M, N) f32 when out_f32, else bf16.
-extern "C" int dpt_grouped_matmul(const void* x, const void* w,
-                                  const void* scales, const void* te,
-                                  int bits, int group, int a8,
-                                  void* out, int out_f32, int M, int K, int N,
-                                  void* stream) {
-  const long long kst = bits == 4 ? K / 2 : K;
-  GroupedArgs a{(const bf16*)x, (const int8_t*)w, (const float*)scales,
-                (const int*)te, kst * N, (long long)(K / group) * N, 0, N, N,
-                group, out, out_f32, M, K, N};
-  return launch(a, bits, a8, stream);
-}
-
-// #10. As #9 but w: the 2-D cat (K[/2], n_total) whose columns e * n_e ..
-// (e + 1) * n_e are expert e's, scales (K / group, n_total); out: (M, n_e).
-// n_e % 16 == 0.
+// #10. x: (M, K) bf16, contiguous, M a multiple of 64. w: the 2-D cat
+// (K[/2], n_total) int8 or packed int4, contiguous, 16-byte aligned, whose
+// columns e * n_e .. (e + 1) * n_e are expert e's; scales (K / group,
+// n_total) f32. te: (M / 64,) int32 expert per tile, -1 for a dead tile
+// (its rows are not written). group: the scale group in unpacked rows (K
+// when per-channel), a multiple of 32; a8 weights need every group inside
+// one nibble plane. n_e % 16 == 0. out: (M, n_e) f32 when out_f32, else
+// bf16.
 extern "C" int dpt_grouped_matmul_ncat(const void* x, const void* w,
                                        const void* scales, const void* te,
                                        int bits, int group, int a8, void* out,
                                        int out_f32, int M, int K, int n_e,
                                        int n_total, void* stream) {
   GroupedArgs a{(const bf16*)x, (const int8_t*)w, (const float*)scales,
-                (const int*)te, 0, 0, n_e, n_total, n_total, group, out,
+                (const int*)te, n_e, n_total, n_total, group, out,
                 out_f32, M, K, n_e};
   return launch(a, bits, a8, stream);
 }

@@ -6,7 +6,8 @@
 Dispatch tests the tensor's device where the JAX package tested
 `jax.default_backend() == "tpu"`: CUDA tensors take the hand-written
 kernels, CPU tensors their plain versions. Prefill keeps the JAX threshold:
-the flash kernel for S >= 512, the dense path below.
+the flash kernel for S >= 512, the dense path below; chunks of a long
+prompt take the flash kernel with a start offset on the card.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import torch
 # from the JAX module
 from .kernels.decode_attention import (  # noqa: F401
     attention_decode_quantized, decode_attention, verify_attention)
-from .kernels.flash_attention import flash_attention_prefill
+from .kernels.flash_attention import (flash_attention_chunk,
+                                      flash_attention_prefill)
 
 NEG_INF = -1e30
 #: prompt buckets at or above this length take the flash kernel
@@ -60,23 +62,11 @@ def attention_chunk(q: torch.Tensor, k_cache: torch.Tensor,
     """Chunked-prefill attention: the chunk's queries q (B, C, H, D) at
     positions start..start+C over a cache view (B, S, Kh, D) that holds
     this chunk's keys, with the causal frontier at start + i. Returns
-    (B, C, H, D). Plain PyTorch on every device: the JAX package computes it
-    with XLA, not in a Pallas kernel. Callers pass the view cut at
-    start + C, the last key any query sees."""
-    b, c, h, d = q.shape
-    s, kh = k_cache.shape[1], k_cache.shape[2]
-    rep = h // kh
-    scale = scale if scale is not None else d ** -0.5
-    qg = (q.reshape(b, c, kh, rep, d) * scale).float()
-    scores = torch.einsum("bqkrd,bskd->bkrqs", qg, k_cache.float())
-    q_idx = start + torch.arange(c, device=q.device)
-    k_idx = torch.arange(s, device=q.device)
-    mask = k_idx[None, :] <= q_idx[:, None]                   # (C, S)
-    scores = torch.where(mask[None, None, None], scores,
-                         torch.full((), NEG_INF, device=q.device))
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkrqs,bskd->bqkrd", probs, v_cache.float())
-    return out.reshape(b, c, h, d).to(q.dtype)
+    (B, C, H, D). The JAX package computes it with XLA; here a CUDA tensor
+    takes kernel #4 with a start offset (`flash_attention_chunk`), a CPU
+    tensor its plain version. Callers pass the view cut at start + C, the
+    last key any query sees."""
+    return flash_attention_chunk(q, k_cache, v_cache, start, scale=scale)
 
 
 def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,

@@ -57,12 +57,13 @@ SIGNATURES: Dict[str, list] = {
                                    _P, _P, _P],
     "dpt_decode_attention_kt": [_P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _I, _I, _I, _I, _F, _P, _P, _P, _P, _P],
-    "dpt_grouped_matmul": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I,
-                           _P],
+    "dpt_grouped_mma": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I,
+                        _I, _I, _P],
+    "dpt_quantize_segments": [_P, _I, _I, _I, _P, _P, _P, _P],
     "dpt_grouped_matmul_ncat": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I,
                                 _I, _I, _P],
     "dpt_flash_attention": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P,
-                            _I, _I, _I, _I, _I, _F, _P, _P],
+                            _I, _I, _I, _I, _I, _I, _I, _F, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -4,11 +4,14 @@ Replaces the two grouped Pallas TPU kernels of
 deeppowers_tpu/ops/pallas/dequant_matmul.py, both built on the body
 `_make_kernel` :152:
   #9  `grouped_dequant_matmul` :620 (pallas_call :755): rows times stacked
-      expert weights (E, K[/2], N) with scales (E, G, N);
+      expert weights (E, K[/2], N) with scales (E, G, N). CUDA: #1's
+      tensor-core kernel in its expert-tile mode (csrc/dequant_matmul.cu
+      `mma_kernel`, launcher `dpt_grouped_mma`), a8 behind the per-(row,
+      group) pre-pass `quantize_segments`;
   #10 `grouped_dequant_matmul_ncat` :775 (pallas_call :911): rows times
       the column block e·n_e .. (e+1)·n_e of one concatenated (K[/2],
-      E·n_e) weight, the cat-fused gate|up of every expert.
-CUDA source: csrc/grouped_matmul.cu (one kernel template, two launchers).
+      E·n_e) weight, the cat-fused gate|up of every expert. CUDA:
+      csrc/grouped_matmul.cu.
 
 The rows are routed (token, expert) pairs sorted by expert, each expert's
 segment padded to whole tiles of BLOCK_M rows, so every tile belongs to
@@ -28,14 +31,17 @@ int4 in half-split nibbles, any group g dividing K):
   segment adds (sum * qs) * s in one fused multiply-add, in the Pallas
   body's order in the plain version (bit for bit with it on the CPU). The segment is the scale group when the
   group divides the Pallas kernel's K block (its `pre` regime), else that
-  block (`_pick_block_k` :327, copied here). The CUDA kernel quantizes in
-  its staging of the activation tile and takes only weights whose
-  segments are their groups (`a8_per_group`); it raises on the others.
+  block (`_pick_block_k` :327, copied here). The CUDA kernels take only
+  weights whose segments are their groups (`a8_per_group`) and raise on
+  the others: #9 quantizes in a pre-pass (`quantize_segments`, whose
+  plain version composed with `grouped_a8_product_plain` gives
+  `grouped_dequant_matmul_plain`'s bits), #10 in its staging of the
+  activation tile.
 
 Launch counts: `grouped_dequant_matmul.launches`,
-`grouped_dequant_matmul_ncat.launches`, and in each one's
-`variant_launches` the launch under its weight variant ("w4a8g", "w4g",
-"w8g", "w8a8g", ...; `dequant_matmul.variant`).
+`grouped_dequant_matmul_ncat.launches`, `quantize_segments.launches`,
+and in the first two's `variant_launches` the launch under its weight
+variant ("w4a8g", "w4g", "w8g", "w8a8g", ...; `dequant_matmul.variant`).
 
 Bound on an H100: at a prefill's row counts the 2·rows·K·N operations over
 the int8 (a8) or bf16 tensor-core peak; the weights of each expert with
@@ -51,13 +57,14 @@ import torch.nn.functional as F
 
 from ...quant.qtypes import QuantizedTensor, unpack_int4
 from . import _build
-from .dequant_matmul import variant
+from .dequant_matmul import MMA_BKS, variant
 
 #: rows of a tile: the routed layout's and the CUDA kernels' (64, an
 #: mma tile's row count; each output row depends only on its own input
 #: row, so it need not be the Pallas kernels' block)
 BLOCK_M = 64
-#: the CUDA kernels walk K in steps of this many unpacked rows
+#: the CUDA kernels walk K in steps of this many unpacked rows (#9's
+#: stages take 64 where the groups allow: `stage_depth`)
 K_STEP = 32
 
 # The Pallas kernel's measured stream rate by K block, relative to the
@@ -135,9 +142,24 @@ def _rows_product(a: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     nseg = keff_pad // seg
     ap = F.pad(a.reshape(r, planes, keff), (0, keff_pad - keff))
     ap = ap.reshape(r, planes, nseg, seg)
-    qp = F.pad(q.reshape(planes, keff, n), (0, 0, 0, keff_pad - keff))
     qs = ap.abs().amax(-1).clamp_min(1e-30) * _RECIP_127   # (R, P, S)
     ai = torch.round(ap / qs[..., None]).clamp(-127, 127)
+    return _a8_sums(ai, qs, q, s, bits, group)
+
+
+def _a8_sums(ai, qs, q, s, bits: int, group: int) -> torch.Tensor:
+    """The a8 product of one expert's quantized rows: codes ai (R, P, S,
+    seg) and scales qs (R, P, S) per (row, plane, segment, as
+    `a8_segments` pads each plane) times its codes q (K, N) with scales s
+    (G, N): exact integer sums, each segment's (sum * qs) * s added in one
+    fused multiply-add in the Pallas body's order. (R, N) f32."""
+    r = ai.shape[0]
+    k, n = q.shape
+    rows_g = s.shape[0]
+    seg, keff, keff_pad, g_eff = a8_segments(bits, k, group)
+    planes = k // keff
+    nseg = keff_pad // seg
+    qp = F.pad(q.reshape(planes, keff, n), (0, 0, 0, keff_pad - keff))
     # exact integer sums: f32 holds a segment's sum while below 2^24
     dt = torch.float32 if seg * 127 * 128 <= 2 ** 24 else torch.float64
     part = torch.matmul(ai.permute(1, 2, 0, 3).to(dt),
@@ -152,7 +174,7 @@ def _rows_product(a: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     # two f32 values is exact, so one f32 rounding of it plus out is the
     # fused op's (bar a double-rounding tie)
     per_block = max(1, _pick_block_k(keff, _BLOCK_K) // seg)
-    out = torch.zeros((r, n), dtype=torch.float32, device=a.device)
+    out = torch.zeros((r, n), dtype=torch.float32, device=ai.device)
     for b0 in range(0, nseg, per_block):
         for p in range(planes):
             for j in range(b0, min(b0 + per_block, nseg)):
@@ -197,6 +219,88 @@ def grouped_dequant_matmul_ncat_plain(xs, qw: QuantizedTensor, tile_expert,
             qw.scales[:, e * ne:(e + 1) * ne]
     return _grouped_plain(xs, tile_expert, weight, qw.bits, qw.group_size,
                           qw.act_bits, ne, out_dtype)
+
+
+def quantize_segments_plain(xs: torch.Tensor, seg: int):
+    """(q, qs): #9's a8 activations xs (M, K), rounded to bf16, quantized
+    per (row, segment of `seg` unpacked K values) as the Pallas body
+    quantizes them where its segments are the scale groups: qs =
+    max(amax, 1e-30) * fl(1/127), (K / seg, M) f32, segment-major as the
+    kernel's flush reads it; q = x / qs rounded half to even, clipped to
+    +-127, (M, K) int8."""
+    m, k = xs.shape
+    a = xs.to(torch.bfloat16).float().reshape(m, k // seg, seg)
+    qs = a.abs().amax(-1).clamp_min(1e-30) * _RECIP_127      # (M, G)
+    q = torch.round(a / qs[..., None]).clamp(-127, 127)
+    return q.to(torch.int8).reshape(m, k), qs.t().contiguous()
+
+
+def quantize_segments(xs: torch.Tensor, seg: int,
+                      tile_expert: torch.Tensor):
+    """#9's a8 pre-pass: (q, qs) as `quantize_segments_plain` gives them,
+    xs (M_pad, K) bf16 rows in tiles of BLOCK_M. A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel
+    (csrc/dequant_matmul.cu `quantize_segments_kernel`, counted in
+    `quantize_segments.launches`), which skips the rows of dead tiles
+    (their q and qs are left undefined)."""
+    if not xs.is_cuda:
+        return quantize_segments_plain(xs, seg)
+    m, k = xs.shape
+    if xs.dtype != torch.bfloat16 or not xs.is_contiguous() \
+            or xs.data_ptr() % 16 or m % BLOCK_M or k % seg or seg % 8:
+        raise NotImplementedError(
+            f"quantize_segments takes contiguous (M, K) bf16 rows in tiles "
+            f"of {BLOCK_M} and segments of a multiple of 8 dividing K, got "
+            f"{xs.dtype} {tuple(xs.shape)}, segment {seg}")
+    te = tile_expert.to(torch.int32).contiguous()
+    q = torch.empty((m, k), dtype=torch.int8, device=xs.device)
+    qs = torch.empty((k // seg, m), dtype=torch.float32, device=xs.device)
+    rc = _build.library().dpt_quantize_segments(
+        xs.data_ptr(), m, k, seg, te.data_ptr(), q.data_ptr(), qs.data_ptr(),
+        _build.stream())
+    _build.check(rc, "quantize_segments")
+    quantize_segments.launches += 1
+    return q, qs
+
+
+quantize_segments.launches = 0
+
+
+def grouped_a8_product_plain(q: torch.Tensor, qs: torch.Tensor,
+                             qw: QuantizedTensor, tile_expert, *,
+                             out_dtype=torch.float32) -> torch.Tensor:
+    """#9's a8 product behind `quantize_segments_plain`: rows q (M_pad, K)
+    int8 with scales qs (K / g, M_pad), each segment one scale group of
+    the stacked a8 qw (`a8_per_group`), tile i times expert
+    tile_expert[i]. With that pre-pass, the same bits as
+    `grouped_dequant_matmul_plain`."""
+    bits, k = qw.bits, qw.shape[1]
+    seg, keff, keff_pad, g_eff = a8_segments(bits, k, qw.group_size)
+    if not a8_per_group(bits, k, qw.group_size):
+        raise NotImplementedError("a8 segments that are not scale groups")
+    planes = k // keff
+    out = torch.zeros((q.shape[0], qw.data.shape[-1]), dtype=torch.float32,
+                      device=q.device)
+    tile_e = tile_expert.to(torch.int64).repeat_interleave(BLOCK_M)
+    for e in sorted(set(tile_expert.tolist()) - {-1}):
+        rows = torch.nonzero(tile_e == e).flatten()
+        r = rows.numel()
+        # back to the (row, plane, segment) layout of `a8_segments`; a
+        # padded segment's codes are 0, so it adds exactly nothing
+        ai = F.pad(q[rows].float().reshape(r, planes, keff),
+                   (0, keff_pad - keff)).reshape(r, planes, -1, seg)
+        qr = F.pad(qs[:, rows].t().reshape(r, planes, keff // g_eff),
+                   (0, keff_pad // seg - keff // g_eff), value=1.0)
+        wq = unpack_int4(qw.data[e]) if bits == 4 else qw.data[e]
+        out[rows] = _a8_sums(ai, qr, wq, qw.scales[e].float(), bits,
+                             qw.group_size)
+    return out.to(out_dtype)
+
+
+def stage_depth(group: int) -> int:
+    """Unpacked K rows a stage of #9's tensor-core kernel: 64 where the
+    scale group (K when per-channel) allows, else 32 (`MMA_BKS`)."""
+    return next(b for b in MMA_BKS if group % b == 0)
 
 
 def _check(xs, qw, te, k, out_dtype, name):
@@ -253,7 +357,8 @@ def grouped_dequant_matmul(xs: torch.Tensor, qw: QuantizedTensor,
     """#9: xs (M_pad, K) rows, tile i of BLOCK_M rows times expert
     tile_expert[i] of the stacked qw (data (E, K[/2], N), scales (E, G,
     N)) -> (M_pad, N). A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel or raises."""
+    launches the tensor-core kernel (a8: after `quantize_segments`) or
+    raises."""
     if not xs.is_cuda:
         return grouped_dequant_matmul_plain(xs, qw, tile_expert,
                                             out_dtype=out_dtype)
@@ -266,11 +371,14 @@ def grouped_dequant_matmul(xs: torch.Tensor, qw: QuantizedTensor,
         raise NotImplementedError(f"CUDA grouped_dequant_matmul takes N % 16 "
                                   f"== 0, got {n}")
     te = tile_expert.to(torch.int32).contiguous()
+    a8 = qw.act_bits == 8
+    x, qs = quantize_segments(xs, g, te) if a8 else (xs, None)
     out = torch.empty((xs.shape[0], n), dtype=out_dtype, device=xs.device)
-    rc = _build.library().dpt_grouped_matmul(
-        xs.data_ptr(), qw.data.data_ptr(), qw.scales.data_ptr(), te.data_ptr(),
-        qw.bits, g, int(qw.act_bits == 8), out.data_ptr(),
-        int(out_dtype == torch.float32), xs.shape[0], k, n, _build.stream())
+    rc = _build.library().dpt_grouped_mma(
+        x.data_ptr(), None if qs is None else qs.data_ptr(),
+        qw.data.data_ptr(), qw.scales.data_ptr(), te.data_ptr(), qw.bits, g,
+        int(a8), out.data_ptr(), int(out_dtype == torch.float32),
+        xs.shape[0], k, n, e, stage_depth(g), _build.stream())
     _build.check(rc, "grouped_dequant_matmul")
     _count(grouped_dequant_matmul, qw)
     return out

@@ -268,6 +268,61 @@ def test_cuda_kernels_match_plain(cuda_device):
     assert (out.float() - ref.float()).abs().max() <= 1e-2 * ref.float().abs().max()
 
 
+# (B, S, H, Kh, D, lengths, start): TinyLlama's heads at the serve
+# phase's bucket; the 7B's (MHA) and Mixtral's (GQA) at D = 128; length 1
+# and lengths off the 128-row tile; S off a multiple of 64; and chunks
+# (start > 0, one slot, every key of the view valid) at both widths, the
+# last one a chunk padded past the end of a 1024-row cache
+FLASH_CASES = [(2, 512, 32, 4, 64, (300, 450), 0),
+               (1, 512, 32, 32, 128, (512,), 0),
+               (2, 300, 32, 8, 128, (1, 257), 0),
+               (2, 200, 8, 2, 64, (57, 200), 0),
+               (1, 388, 32, 4, 64, None, 512),
+               (1, 100, 32, 8, 128, None, 13),
+               (1, 64, 32, 32, 128, None, 700),
+               (1, 512, 32, 4, 64, None, 896)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_cuda_flash_matches_plain(cuda_device, case):
+    """#4 on the card, prefill (start 0, lengths) and chunks (start > 0),
+    against its plain versions on the same inputs: every valid (token,
+    head) row within 1e-2 of its own max|ref| (chip_smoke.py's gate), all
+    rows finite, and the entry point's launch counted."""
+    from deeppowers_tpu_torch.ops.kernels import flash_attention as fa
+    b, s, h, kh, d, lens, start = case
+    g = torch.Generator(device=cuda_device).manual_seed(s + d + start)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=cuda_device).to(
+            torch.bfloat16)
+
+    q = rn(b, s, h, d)
+    if lens is None:
+        rows = min(start + s + 5, 1024)
+        k, v = rn(b, rows, kh, d), rn(b, rows, kh, d)
+        fn = fa.flash_attention_chunk
+        before = fn.launches
+        out = fn(q, k, v, start)
+        ref = fa.flash_attention_chunk_plain(q, k[:, :start + s],
+                                             v[:, :start + s], start)
+        lens = (s,) * b
+    else:
+        k, v = rn(b, s, kh, d), rn(b, s, kh, d)
+        ln = torch.tensor(lens, device=cuda_device, dtype=torch.int32)
+        fn = fa.flash_attention_prefill
+        before = fn.launches
+        out = fn(q, k, v, ln)
+        ref = fa.flash_attention_plain(q, k, v, ln)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.isfinite(out).all()
+    for i, n in enumerate(lens):
+        diff = (out[i, :n].float() - ref[i, :n].float()).abs().amax(-1)
+        assert (diff <= 1e-2 * ref[i, :n].float().abs().amax(-1)).all()
+
+
 def test_ops_matmul_wrappers_match_jax():
     """ops/matmul.py (kernel 1's callers) against the JAX package's, f32:
     both apply the same algebra; only summation order differs."""

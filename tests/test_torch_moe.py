@@ -551,6 +551,17 @@ def test_cuda_grouped_matches_plain(cuda_device, kernel, bits, group,
     assert torch.isfinite(got[live]).all()
     assert (diff <= 2e-2 * scale).all()
     assert fn.variant_launches[gm.variant(qw)] > 0
+    if kernel == "grouped" and act_bits:
+        # #9's a8 pre-pass on the card: its plain version's bytes and
+        # scales on every live row, bit for bit
+        seg = group or k
+        before = gm.quantize_segments.launches
+        q, qs = gm.quantize_segments(x, seg, te)
+        qp, qsp = gm.quantize_segments_plain(x, seg)
+        torch.cuda.synchronize()
+        assert gm.quantize_segments.launches == before + 1
+        assert torch.equal(q[live], qp[live])
+        assert torch.equal(qs[:, live], qsp[:, live])
 
 
 @pytest.mark.cuda

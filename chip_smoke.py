@@ -115,7 +115,10 @@ variants of #2, #3, #5 and #6, #1 at widths no multiple of 8, and #1's
 int4, grouped and a8 weight variants and the activation quantizer at
 Llama-2-7B's matrices (M = 8 and 512), and the grouped kernels #10 and
 #9 of MoE at Mixtral-8x7B's experts (1024 routed rows) in four weight
-variants too. #1's tensor-core route (every M above GEMV_MAX_M) is held
+variants too (#10 also, untimed, at mixtral-mini's, tiny-moe's and a ragged
+cat whose column blocks end inside the next expert), and #1's GEMV on one
+Mixtral-8x7B layer's cat experts at M = 8 (dequant_matmul[w4a8g, Mixtral
+layer, M=8]). #1's tensor-core route (every M above GEMV_MAX_M) is held
 at a TinyLlama 512-token prefill on the main path's own int8 weight
 (dequant_matmul[w8, M=512]), its weight-only prologue
 (stage_activations) at those rows, and the two routes are timed side by
@@ -246,8 +249,10 @@ def check_dm(what, got, ref, limit=2e-2):
 
 
 # #1's routes, each counted under its own key: prefills and verify steps
-# take the tensor-core kernel, decode steps the GEMV
+# take the tensor-core kernel, decode steps the GEMV; their sources
 ROUTES_ON = ["dequant_matmul[gemv]", "dequant_matmul[mma]"]
+GEMV_SRC = "deeppowers_tpu_torch/csrc/gemv.cu"
+MMA_SRC = "deeppowers_tpu_torch/csrc/dequant_matmul.cu"
 
 
 def tree_to(tree, device):
@@ -465,7 +470,7 @@ def check_kernels(torch, cfg):
         del qws, wbf
     bd, by = bound_ms(tot["bytes"], tot["flops"])
     rows.append({"name": "dequant_matmul", "route": "cuda",
-                 "source": "deeppowers_tpu_torch/csrc/dequant_matmul.cu",
+                 "source": "deeppowers_tpu_torch/csrc/gemv.cu",
                  "replaces": "deeppowers_tpu/ops/pallas/dequant_matmul.py:528",
                  "max_abs_err": err_max, "ms": tot["ms"],
                  "plain_ms": tot["plain"], "bound_ms": bd, "bound_by": by,
@@ -888,9 +893,9 @@ SWEEP_M = (8, 16, 17, 24, 32, 40, 64)
 def route_sweep(torch, cfg) -> dict:
     """#1's two routes at small M: one layer's four matmuls of TinyLlama
     int8 (w8) and of Llama-2-7B W4A8 g128, ms a layer by CUDA-graph replay
-    with weight copies past the 50 MB L2; the GEMV takes M <= 16 only.
-    {variant: {M: {route: ms}}}: where the tensor-core route is no slower,
-    GEMV_MAX_M could end."""
+    with weight copies past the 50 MB L2; the GEMV takes M <= GEMV_MAX_M
+    only. {variant: {M: {route: ms}}}: where the tensor-core route is no
+    slower, GEMV_MAX_M could end."""
     from deeppowers_tpu_torch.ops.kernels import dequant_matmul as dm
     g = torch.Generator(device="cuda").manual_seed(SEED + 24)
     h, ffn = cfg.hidden_size, cfg.ffn_size
@@ -979,7 +984,7 @@ def check_odd_n(torch):
         t_k, t_p, t_l = times[8]
         bd, by = bound_ms(k * n + 4 * n + 8 * k * 2 + 8 * n * 4, 2 * 8 * k * n)
         rows.append({"name": f"dequant_matmul[N={n}]", "route": "cuda",
-                     "source": "deeppowers_tpu_torch/csrc/dequant_matmul.cu",
+                     "source": "deeppowers_tpu_torch/csrc/gemv.cu",
                      "replaces": "deeppowers_tpu/ops/pallas/dequant_matmul.py:528",
                      "max_abs_err": err_max, "ms": t_k, "plain_ms": t_p,
                      "bound_ms": bd, "bound_by": by, "library_ms": t_l,
@@ -1106,7 +1111,7 @@ def check_wquant_kernels(torch):
                 del qws, wbf, q_int
             bd, by = bound_ms(tot["bytes"], tot["ops"], int8=bool(a8))
             row = {"name": f"dequant_matmul[{var}, M={m}]", "route": "cuda",
-                   "source": "deeppowers_tpu_torch/csrc/dequant_matmul.cu",
+                   "source": (GEMV_SRC if m == 8 else MMA_SRC),
                    "replaces": "deeppowers_tpu/ops/pallas/dequant_matmul.py:528",
                    "max_abs_err": err_max, "ms": tot["ms"],
                    "plain_ms": tot["plain"], "bound_ms": bd, "bound_by": by,
@@ -1186,11 +1191,19 @@ MIXTRAL_H, MIXTRAL_FFN, MIXTRAL_E = 4096, 14336, 8
 ROUTED_COUNTS = (300, 220, 160, 130, 100, 70, 44, 0)
 GROUPED_VARIANTS = (("w4a8g", 4, 128, 8), ("w4g", 4, 128, 0),
                     ("w8g", 8, 128, 0), ("w8a8g", 8, 128, 8))
-# #9's times before it moved onto #1's tensor-core kernel (the mma.sync
-# kernel of csrc/grouped_matmul.cu, PERF.md §6; NVIDIA H100 80GB HBM3,
-# 700.00 W), by variant
-GROUPED_OLD_MS = {"w4a8g": 3.120774, "w4g": 1.910336, "w8g": 1.969952,
-                  "w8a8g": 2.953203}
+# #9's and #10's times before they moved onto #1's tensor-core kernel
+# (the mma.sync kernel each had, PERF.md §6; NVIDIA H100 80GB HBM3,
+# 700.00 W), by kernel and variant
+GROUPED_OLD_MS = {
+    "grouped_dequant_matmul": {"w4a8g": 3.120774, "w4g": 1.910336,
+                               "w8g": 1.969952, "w8a8g": 2.953203},
+    "grouped_dequant_matmul_ncat": {"w4a8g": 5.227206, "w4g": 3.369261,
+                                    "w8g": 3.453946, "w8a8g": 4.963488}}
+# #10's other cats, held untimed: (name, K, n_e, E, group): mixtral-mini's
+# w_gu, tiny-moe's, and a ragged one whose 128-column blocks end inside
+# the next expert's columns
+NCAT_EDGES = (("mixtral-mini", 2048, 11264, 8, 128),
+              ("tiny-moe", 64, 256, 4, 32), ("ragged", 64, 96, 4, 32))
 
 
 def check_grouped_kernels(torch):
@@ -1277,8 +1290,8 @@ def check_grouped_kernels(torch):
                       + pairs * n * (4 if out_dtype == torch.float32 else 2))
             bd, by = bound_ms(nbytes, 2 * pairs * k * n, int8=bool(a8))
             stacked = kernel == "grouped_dequant_matmul"
-            old = (f" (the mma.sync kernel before: {GROUPED_OLD_MS[var]} ms)"
-                   if stacked else "")
+            old = (f" (the mma.sync kernel before: "
+                   f"{GROUPED_OLD_MS[kernel][var]} ms)")
             log(f"  {kernel}[{var}] {pairs} routed rows (M_pad={m_pad}, "
                 f"{live_tiles} live tiles) K={k} N={n}: max_abs_err="
                 f"{err:.3e} worst_row_ratio={worst:.3e}, kernel {t_k:.4f} ms"
@@ -1289,9 +1302,7 @@ def check_grouped_kernels(torch):
                                            var))
             rows.append({
                 "name": f"{kernel}[{var}]", "route": "cuda",
-                "source": ("deeppowers_tpu_torch/csrc/dequant_matmul.cu"
-                           if stacked else
-                           "deeppowers_tpu_torch/csrc/grouped_matmul.cu"),
+                "source": "deeppowers_tpu_torch/csrc/dequant_matmul.cu",
                 "replaces": ("deeppowers_tpu/ops/pallas/dequant_matmul.py:911"
                              if kernel.endswith("ncat") else
                              "deeppowers_tpu/ops/pallas/dequant_matmul.py:755"),
@@ -1303,7 +1314,109 @@ def check_grouped_kernels(torch):
                           f"rows over {live_e} of {e} experts")})
             del qw, got, ref
             torch.cuda.empty_cache()
+    check_ncat_edges(torch, gm)
     return rows
+
+
+def check_ncat_edges(torch, gm):
+    """#10 at the other cats (NCAT_EDGES) in the four weight variants,
+    routed rows of every expert but one, dead tail tiles: every routed row
+    within 2e-2 of its own max|ref| of the plain version; untimed."""
+    from deeppowers_tpu_torch.quant.qtypes import QuantizedTensor
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 25)
+    for name, k, ne, e, group in NCAT_EDGES:
+        counts = torch.tensor([70, 0, 130] + [9] * (e - 3), device=dev)
+        sorted_e = torch.repeat_interleave(torch.arange(e, device=dev), counts)
+        dest, te, m_pad = gm.expert_tiles(sorted_e, counts)
+        x = torch.zeros(m_pad, k, device=dev, dtype=torch.bfloat16)
+        x[dest] = torch.randn(dest.numel(), k, generator=g, device=dev).to(
+            torch.bfloat16)
+        errs = {}
+        for var, bits, _, a8 in GROUPED_VARIANTS:
+            qw = QuantizedTensor(
+                torch.randint(-127, 128, (k // 2 if bits == 4 else k, e * ne),
+                              generator=g, device=dev, dtype=torch.int8),
+                0.01 * (0.5 + torch.rand(k // group, e * ne, generator=g,
+                                         device=dev)), None, bits, group, a8)
+            got = gm.grouped_dequant_matmul_ncat(x, qw, te, ne)
+            ref = gm.grouped_dequant_matmul_ncat_plain(x, qw, te, ne)
+            torch.cuda.synchronize()
+            err, worst = row_errors(got[dest], ref[dest])
+            if not (torch.isfinite(got[dest]).all() and worst <= 2e-2):
+                fail(f"grouped_dequant_matmul_ncat[{var}] at {name}: a routed "
+                     f"row's error is {worst:.3g} of its max|ref| (limit "
+                     f"2e-2)")
+            errs[var] = f"{worst:.2e}"
+        log(f"  grouped_dequant_matmul_ncat at {name} (K={k}, n_e={ne}, "
+            f"E={e}, g{group}): worst row ratio by variant {json.dumps(errs)}")
+
+
+# a Mixtral-8x7B decode step's MoE through #1's GEMV (the cat path, as
+# the engine takes it below 256 tokens): w_gu over all 8 experts' gate|up
+# (K = 4096, N = 8 x 2 x 14336) and w_out over their stacked halves (K = 8
+# x 14336, N = 4096), W4A8 g128, 8 slots
+MIXTRAL_GEMV_MATS = (("w_gu cat", MIXTRAL_H, MIXTRAL_E * 2 * MIXTRAL_FFN),
+                     ("w_out cat", MIXTRAL_E * MIXTRAL_FFN, MIXTRAL_H))
+
+
+def check_mixtral_gemv(torch):
+    """#1's GEMV on one Mixtral-8x7B layer's cat experts at M = 8, W4A8
+    g128 (the quantizer included, as the path runs it): each matmul
+    against its plain version (2e-2 of each row's max|ref|), timed beside
+    its bound (the codes and scales read once: about 0.2235 ms), the plain
+    version and torch.matmul on the layer's bf16 weights (2.8 GB, made
+    here; timed only, never called by the port). Launches from
+    serve[mixtral-8x7b]'s GEMV route. Inputs from a generator of their
+    own."""
+    from deeppowers_tpu_torch.ops.kernels import dequant_matmul as dm
+    g = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    tot = dict(ms=0.0, plain=0.0, lib=0.0, bytes=0.0, ops=0.0)
+    err_max = 0.0
+    for name, k, n in MIXTRAL_GEMV_MATS:
+        qw = random_qw(torch, g, k, n, 4, 128, 8)
+        x = torch.randn(8, k, generator=g, device="cuda").to(torch.bfloat16)
+        got = dm.dequant_matmul(x, qw, out_dtype=torch.float32)
+        ref = dm.dequant_matmul_plain(x, qw.data, qw.scales, bits=4,
+                                      act_bits=8, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        err, ratio = check_dm(f"dequant_matmul[w4a8g] Mixtral {name} M=8",
+                              got, ref)
+        err_max = max(err_max, err)
+        del ref
+        t_k = cuda_ms(torch, [lambda: dm.dequant_matmul(
+            x, qw, out_dtype=torch.float32)], 20)
+        t_p = cuda_ms(torch, [lambda: dm.dequant_matmul_plain(
+            x, qw.data, qw.scales, bits=4, act_bits=8,
+            out_dtype=torch.float32)], 1, graph=False)
+        wbf = torch.randn(k, n, generator=g, device="cuda").to(torch.bfloat16)
+        t_l = cuda_ms(torch, [lambda: torch.matmul(x, wbf)], 20)
+        del wbf
+        nbytes = (qw.data.numel() + qw.scales.numel() * 4 + x.numel() * 2
+                  + 8 * n * 4)
+        bd, by = bound_ms(nbytes, 2 * 8 * k * n, int8=True)
+        log(f"  dequant_matmul[w4a8g] Mixtral {name} M=8 K={k} N={n}: "
+            f"max_abs_err={err:.3e} worst row ratio {ratio:.3e}, kernel "
+            f"{t_k:.4f} ms, plain {t_p:.4f} ms, torch.matmul bf16 "
+            f"{t_l:.4f} ms, bound {bd:.4f} ms ({by})")
+        tot["ms"] += t_k
+        tot["plain"] += t_p
+        tot["lib"] += t_l
+        tot["bytes"] += nbytes
+        tot["ops"] += 2 * 8 * k * n
+        del qw, got
+        torch.cuda.empty_cache()
+    bd, by = bound_ms(tot["bytes"], tot["ops"], int8=True)
+    return [{"name": "dequant_matmul[w4a8g, Mixtral layer, M=8]",
+             "route": "cuda",
+             "source": GEMV_SRC,
+             "replaces": "deeppowers_tpu/ops/pallas/dequant_matmul.py:528",
+             "max_abs_err": err_max, "ms": tot["ms"],
+             "plain_ms": tot["plain"], "bound_ms": bd, "bound_by": by,
+             "library_ms": tot["lib"],
+             "shape": "Mixtral-8x7B decode step, 8 slots, one layer's cat "
+                      "experts: w_gu 4096 x 229376 and w_out 114688 x 4096",
+             "launch_from": ("serve[mixtral-8x7b]", "dequant_matmul[gemv]")}]
 
 
 def check_segments(torch, gm, x, group, te, dest, var):
@@ -1854,7 +1967,7 @@ def check_verify_kernels(torch, cfg, bf16_ms):
 
 def check_verify_matmuls(torch, cfg):
     """#1 at a verify step's M = B * T = 40 rows (8 slots x 5 tokens),
-    above GEMV_MAX_M = 16, so every matmul takes the tensor-core route: the
+    above GEMV_MAX_M, so every matmul takes the tensor-core route: the
     TinyLlama verify step's 89 int8 per-channel matmuls (beside the same
     at M = 8, the decode GEMV) and Llama-2-7B's 129 W4A8 g128 ones (the
     M = 8 row is dequant_matmul[w4a8g, M=8]). Each against its plain
@@ -1946,7 +2059,7 @@ def check_verify_matmuls(torch, cfg):
                 + f", bound {bd:.4f} ms ({by}), max_abs_err {err_max:.3e}")
             rows.append({
                 "name": f"dequant_matmul[{var}, M={mm}]", "route": "cuda",
-                "source": "deeppowers_tpu_torch/csrc/dequant_matmul.cu",
+                "source": (GEMV_SRC if mm == 8 else MMA_SRC),
                 "replaces": "deeppowers_tpu/ops/pallas/dequant_matmul.py:528",
                 "max_abs_err": err_max, "ms": tot["ms"],
                 "plain_ms": tot["plain"], "bound_ms": bd, "bound_by": by,
@@ -3960,6 +4073,7 @@ def main(argv) -> int:
     rows += check_verify_matmuls(torch, cfg)
     route_sweep(torch, cfg)
     rows += check_grouped_kernels(torch)
+    rows += check_mixtral_gemv(torch)
     rows += check_scan_kt_kernels(torch, cfg)
     phase_line("kernels", t0, checked=len(rows))
 

@@ -1,7 +1,8 @@
-// Hopper building blocks of the tensor-core kernels (#1 and #9 in
-// dequant_matmul.cu, #4 in flash_attention.cu): mbarriers, TMA boxes of
-// 2-4 dimensional tensor maps and the host encoder of those maps, cp.async
-// into a stage ring, ldmatrix, and the warpgroup matrix multiply (wgmma)
+// Hopper building blocks of the tensor-core kernels (#1, #9 and #10 in
+// dequant_matmul.cu and gemv.cu, #4 in flash_attention.cu): mbarriers,
+// TMA boxes of 2-4 dimensional tensor maps and the host encoder of those
+// maps, cp.async into a stage ring, ldmatrix, and the warpgroup matrix
+// multiply (wgmma)
 // with A from registers or shared memory and B from shared memory, K- or
 // MN-major. The device side is PTX for sm_90a.
 #pragma once
@@ -120,6 +121,15 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr,
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// the same, not transposed: lane 4r + c gets b16 elements 2c, 2c + 1 of
+// row r of each matrix
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, unsigned (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
 }

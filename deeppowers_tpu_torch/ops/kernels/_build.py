@@ -28,9 +28,11 @@ import torch
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "deeppowers_tpu_torch"
-SOURCES = ("dequant_matmul.cu", "kv_append.cu", "decode_attention.cu",
-           "decode_attention_kt.cu", "flash_attention.cu", "grouped_matmul.cu")
-HEADERS = ("common.cuh", "attention_combine.cuh", "wgmma.cuh")
+SOURCES = ("dequant_matmul.cu", "gemv.cu", "kv_append.cu",
+           "decode_attention.cu", "decode_attention_kt.cu",
+           "flash_attention.cu")
+HEADERS = ("common.cuh", "attention_combine.cuh", "wgmma.cuh",
+           "dequant_common.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -58,10 +60,8 @@ SIGNATURES: Dict[str, list] = {
     "dpt_decode_attention_kt": [_P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _I, _I, _I, _I, _F, _P, _P, _P, _P, _P],
     "dpt_grouped_mma": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I,
-                        _I, _I, _P],
+                        _I, _I, _I, _P],
     "dpt_quantize_segments": [_P, _I, _I, _I, _P, _P, _P, _P],
-    "dpt_grouped_matmul_ncat": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I,
-                                _I, _I, _P],
     "dpt_flash_attention": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P,
                             _I, _I, _I, _I, _I, _I, _I, _F, _P, _P],
 }

@@ -3,9 +3,10 @@
 Replaces the Pallas TPU kernel deeppowers_tpu/ops/pallas/dequant_matmul.py
 (`dequant_matmul` :554 and `dequant_matmul_fused` :582, both through
 `_dispatch` :351 to the pallas_call at :528, body `_make_kernel` :152);
-this one wrapper covers both entry points. CUDA source:
-csrc/dequant_matmul.cu (one kernel family for every weight variant, the
-group size a runtime value, and the activation quantizer).
+this one wrapper covers both entry points. CUDA sources:
+csrc/dequant_matmul.cu (the tensor-core kernel, the launcher of both
+routes, and the activation quantizer) and csrc/gemv.cu (the decode GEMV),
+each kernel taking every weight variant, the group size a runtime value.
 
 Takes every symmetric 2-D weight the JAX package makes: int8 or int4
 (half-split nibbles, quant/qtypes.py), per-channel scales (1, N) or
@@ -41,9 +42,10 @@ the a8 quantizer in `quantize_activations.launches`.
 
 Bound on an H100: at decode and verify sizes the weight bytes (int4: half
 of int8's) over 3.35 TB/s; at prefill the 2*M*K*N operations (int8 tensor
-cores for a8). The CUDA design (a split-K GEMV for M <= GEMV_MAX_M, a
-pipelined wgmma kernel above, whose planner is `mma_plan`) is described in
-the sources.
+cores for a8). The CUDA design (for M <= GEMV_MAX_M a GEMV that streams
+the weight through mma.sync atoms, its K splits a thread-block cluster
+that sums them in the same launch, planner `gemv_plan`; a pipelined wgmma
+kernel above, planner `mma_plan`) is described in the sources.
 """
 
 from __future__ import annotations
@@ -60,18 +62,22 @@ from ...quant.quantize import quantize_rows
 from ..normalization import rms_norm
 from . import _build
 
-#: rows at or below which the split-K GEMV runs (decode); the tensor-core
-#: kernel takes every M above (`route`, which the C side is handed). The
-#: crossover measured on an H100 (PERF.md, chip_smoke.py's route sweep):
-#: at M = 16 the tensor-core kernel takes half the GEMV's time, at M = 8
-#: the GEMV is faster on int8 weights
+#: rows at or below which the decode GEMV runs (one n8 token tile, the C
+#: side's guard); the tensor-core kernel takes every M above (`route`,
+#: which the C side is handed). From chip_smoke.py's route sweep on an
+#: H100 (PERF.md §6): at M = 8 the GEMV reads faster on one layer of
+#: TinyLlama int8 and of Llama-2-7B W4A8 g128 (0.0585 / 0.1308 against
+#: 0.0748 / 0.1651 ms); a two-tile version read slower than the tensor-core
+#: kernel at M = 16 on TinyLlama's (0.0830 against 0.0767 ms), and was
+#: dropped
 GEMV_MAX_M = 8
 #: the routes of one launch, in the C side's numbering (ROUTE_GEMV, ROUTE_MMA)
 ROUTES = ("gemv", "mma")
-#: most stored K rows a GEMV block stages (int4 stages two planes' rows)
-_KCHUNK_MAX = {8: 512, 4: 256}
-#: blocks the GEMV grid aims for (two per SM of an H100)
-_TARGET_BLOCKS = 264
+#: the GEMV's block: weight columns, and stored rows a stage of its ring
+GEMV_NT = 128
+GEMV_BK = 64
+#: bytes of activations a GEMV block stages at once
+GEMV_ACT_BYTES = 32768
 #: the CUDA kernels flush per-group sums at this K granularity
 GROUP_ALIGN = 32
 #: the tensor-core kernel's stage depths (unpacked K rows a stage: 64
@@ -81,8 +87,13 @@ MMA_BKS = (64, 32)
 MMA_NT = 128
 #: its token tiles: wgmma N sizes that both the bf16 and the s8 atoms take
 MMA_TOKEN_TILES = (32, 48, 64, 128)
-#: SMs of an H100: the planner fills them
+#: SMs of an H100: the planners fill them
 _SMS = 132
+#: blocks the GEMV's grid aims for, one an SM (on an H100, at decode
+#: shapes, more blocks through deeper K splits read slower: PERF.md §6);
+#: and its K splits at most (a portable cluster of a column tile's splits)
+GEMV_BLOCKS = _SMS
+GEMV_SPLITS = 8
 
 
 def _act(x: torch.Tensor, act: str) -> torch.Tensor:
@@ -161,8 +172,9 @@ def dequant_matmul_plain(x, data, scales, *, bits=8, act_bits=0,
 
 
 def width_variant(n: int) -> str:
-    """The alignment class of an N-column weight, which picks the kernel's
-    load width (csrc/dequant_matmul.cu `row_align`)."""
+    """The alignment class of an N-column weight, which sets how its rows
+    reach the kernels (TMA when N % 16 == 0, else cp.async copies as wide
+    as N allows: csrc/dequant_matmul.cu `wvec`)."""
     return "n8" if n % 8 == 0 else "n4" if n % 4 == 0 else "n1"
 
 
@@ -313,35 +325,38 @@ def stage_activations(x: torch.Tensor, k: int, *,
 stage_activations.launches = 0
 
 
-def _fit_chunk(kchunk: int, seg: int, rows: int, quads: bool) -> int:
-    """A GEMV K chunk (in stored rows) no longer than `kchunk` whose
-    boundaries include every multiple of `seg` (so no chunk crosses a
-    scale group in either nibble plane), a multiple of 4 when the a8 loop
-    takes rows four at a time."""
-    step = 4 if quads else 1
-    if seg >= rows:
-        return -(-kchunk // step) * step
-    return max(d for d in range(step, min(kchunk, seg) + 1, step)
-               if seg % d == 0)
+GemvPlan = collections.namedtuple("GemvPlan", "n_tiles seg chunk splits sub")
 
 
-def gemv_chunk(m: int, k: int, n: int, bits: int, rows_g: int,
-               a8: bool) -> int:
-    """The split-K GEMV's chunk of stored weight rows for an (M, K) x
-    (K, N) product with `rows_g` scale rows."""
+def gemv_plan(k: int, n: int, bits: int, rows_g: int, a8: bool) -> GemvPlan:
+    """The decode GEMV's grid for an (M <= GEMV_MAX_M, K) x (K, N) product
+    with `rows_g` scale rows: its column tiles of GEMV_NT, the segment
+    (stored rows in which no scale group of
+    either int4 plane ends: the group, or gcd(group, K/2) for int4; all
+    rows per-channel), the K split in chunks of stored rows (a cluster of
+    at most GEMV_SPLITS blocks a column tile), and the rows a block stages
+    at once (`sub`, their activations within GEMV_ACT_BYTES). The grid
+    aims at GEMV_BLOCKS blocks (one an SM). A chunk is a whole number of
+    stages and of groups of both planes, so no chunk crosses a group; when
+    an int4 group straddles the planes no such chunk is shorter than K/2,
+    and K is not split."""
     rows = k // 2 if bits == 4 else k
-    ct = 4 if bits == 4 else 8
-    nb = -(-n // (32 * ct))
-    kmax = _KCHUNK_MAX[bits]
-    ksplit = max(-(-rows // kmax),
-                 min(-(-_TARGET_BLOCKS // nb), max(1, rows // 64)))
-    kchunk = -(-rows // ksplit)
+    planes = 2 if bits == 4 else 1
+    n_tiles = -(-n // GEMV_NT)
+    seg, quantum, straddle = rows, GEMV_BK, False
     if rows_g > 1:
         g = k // rows_g
         seg = math.gcd(g, rows) if bits == 4 else g
+        quantum = seg * GEMV_BK // math.gcd(seg, GEMV_BK)
+        straddle = rows % g != 0
+    want = min(GEMV_SPLITS, -(-GEMV_BLOCKS // n_tiles))
+    if straddle:
+        chunk = -(-rows // GEMV_BK) * GEMV_BK
     else:
-        seg = rows
-    return _fit_chunk(kchunk, seg, rows, a8)
+        chunk = -(-(-(-rows // want)) // quantum) * quantum
+    cap = GEMV_ACT_BYTES // (GEMV_MAX_M * planes * (1 if a8 else 2))
+    sub = min(cap // GEMV_BK * GEMV_BK, -(-chunk // GEMV_BK) * GEMV_BK)
+    return GemvPlan(n_tiles, seg, chunk, -(-rows // chunk), sub)
 
 
 def route(m: int) -> str:
@@ -493,9 +508,8 @@ def dequant_matmul_via(path: str, x: torch.Tensor, qw: QuantizedTensor, *,
 
     xs = None
     if path == "gemv":
-        kchunk, bn, bk = gemv_chunk(m, k, n, qw.bits, rows_g, a8), 0, 0
-        ws = torch.empty((-(-rows // kchunk), m, n), dtype=torch.float32,
-                         device=x.device)
+        plan = gemv_plan(k, n, qw.bits, rows_g, a8)
+        kchunk, bn, bk, ws = plan.chunk, 0, plan.sub, None
         if a8:
             x2, xs = quantize_activations(x2, k, rms_weight=g,
                                           rms_eps=rms_eps, glu=glu, act=act)

@@ -4,14 +4,19 @@ Replaces the two grouped Pallas TPU kernels of
 deeppowers_tpu/ops/pallas/dequant_matmul.py, both built on the body
 `_make_kernel` :152:
   #9  `grouped_dequant_matmul` :620 (pallas_call :755): rows times stacked
-      expert weights (E, K[/2], N) with scales (E, G, N). CUDA: #1's
-      tensor-core kernel in its expert-tile mode (csrc/dequant_matmul.cu
-      `mma_kernel`, launcher `dpt_grouped_mma`), a8 behind the per-(row,
-      group) pre-pass `quantize_segments`;
+      expert weights (E, K[/2], N) with scales (E, G, N);
   #10 `grouped_dequant_matmul_ncat` :775 (pallas_call :911): rows times
       the column block e·n_e .. (e+1)·n_e of one concatenated (K[/2],
-      E·n_e) weight, the cat-fused gate|up of every expert. CUDA:
-      csrc/grouped_matmul.cu.
+      E·n_e) weight, the cat-fused gate|up of every expert.
+Both run on #1's tensor-core kernel in its expert-tile modes
+(csrc/dequant_matmul.cu `mma_kernel`, launcher `dpt_grouped_mma`), a8
+behind the per-(row, group) pre-pass `quantize_segments`. The two differ
+only in where an expert's weight lies: #9's expert is the third
+coordinate of the map (N, stored rows, E), #10's the second of (n_e, E,
+stored rows), a view of the cat whose pitches (n_e, E·n_e) each follow
+the one before (`expert_map`); a column block that ends inside the next
+expert's columns reads zeros past n_e, and no column past n_e is stored.
+So #10 is #9 over that view: the plain versions agree bit for bit.
 
 The rows are routed (token, expert) pairs sorted by expert, each expert's
 segment padded to whole tiles of BLOCK_M rows, so every tile belongs to
@@ -29,14 +34,14 @@ int4 in half-split nibbles, any group g dividing K):
   segment): qs = max(amax, 1e-30) * fl(1/127), codes round-half-even of
   x / qs clipped to +-127; the products are exact int32 sums; each
   segment adds (sum * qs) * s in one fused multiply-add, in the Pallas
-  body's order in the plain version (bit for bit with it on the CPU). The segment is the scale group when the
-  group divides the Pallas kernel's K block (its `pre` regime), else that
-  block (`_pick_block_k` :327, copied here). The CUDA kernels take only
-  weights whose segments are their groups (`a8_per_group`) and raise on
-  the others: #9 quantizes in a pre-pass (`quantize_segments`, whose
-  plain version composed with `grouped_a8_product_plain` gives
-  `grouped_dequant_matmul_plain`'s bits), #10 in its staging of the
-  activation tile.
+  body's order in the plain version (bit for bit with it on the CPU). The
+  segment is the scale group when the group divides the Pallas kernel's
+  K block (its `pre` regime), else that block (`_pick_block_k` :327,
+  copied here). The CUDA path takes only weights whose segments are their
+  groups (`a8_per_group`) and raises on the others: the pre-pass
+  (`quantize_segments`, whose plain version composed with
+  `grouped_a8_product_plain` gives `grouped_dequant_matmul_plain`'s bits)
+  quantizes each (row, group) once for the product.
 
 Launch counts: `grouped_dequant_matmul.launches`,
 `grouped_dequant_matmul_ncat.launches`, `quantize_segments.launches`,
@@ -59,12 +64,12 @@ from ...quant.qtypes import QuantizedTensor, unpack_int4
 from . import _build
 from .dequant_matmul import MMA_BKS, variant
 
-#: rows of a tile: the routed layout's and the CUDA kernels' (64, an
-#: mma tile's row count; each output row depends only on its own input
+#: rows of a tile: the routed layout's and the CUDA kernel's (64, a
+#: token tile of its wgmma; each output row depends only on its own input
 #: row, so it need not be the Pallas kernels' block)
 BLOCK_M = 64
-#: the CUDA kernels walk K in steps of this many unpacked rows (#9's
-#: stages take 64 where the groups allow: `stage_depth`)
+#: the CUDA kernel walks K in stages of this many unpacked rows, or 64
+#: where the groups allow (`stage_depth`)
 K_STEP = 32
 
 # The Pallas kernel's measured stream rate by K block, relative to the
@@ -222,9 +227,9 @@ def grouped_dequant_matmul_ncat_plain(xs, qw: QuantizedTensor, tile_expert,
 
 
 def quantize_segments_plain(xs: torch.Tensor, seg: int):
-    """(q, qs): #9's a8 activations xs (M, K), rounded to bf16, quantized
-    per (row, segment of `seg` unpacked K values) as the Pallas body
-    quantizes them where its segments are the scale groups: qs =
+    """(q, qs): the expert tiles' a8 activations xs (M, K), rounded to
+    bf16, quantized per (row, segment of `seg` unpacked K values) as the
+    Pallas body quantizes them where its segments are the scale groups: qs =
     max(amax, 1e-30) * fl(1/127), (K / seg, M) f32, segment-major as the
     kernel's flush reads it; q = x / qs rounded half to even, clipped to
     +-127, (M, K) int8."""
@@ -237,9 +242,9 @@ def quantize_segments_plain(xs: torch.Tensor, seg: int):
 
 def quantize_segments(xs: torch.Tensor, seg: int,
                       tile_expert: torch.Tensor):
-    """#9's a8 pre-pass: (q, qs) as `quantize_segments_plain` gives them,
-    xs (M_pad, K) bf16 rows in tiles of BLOCK_M. A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel
+    """The a8 pre-pass of #9 and #10: (q, qs) as `quantize_segments_plain`
+    gives them, xs (M_pad, K) bf16 rows in tiles of BLOCK_M. A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel
     (csrc/dequant_matmul.cu `quantize_segments_kernel`, counted in
     `quantize_segments.launches`), which skips the rows of dead tiles
     (their q and qs are left undefined)."""
@@ -298,8 +303,9 @@ def grouped_a8_product_plain(q: torch.Tensor, qs: torch.Tensor,
 
 
 def stage_depth(group: int) -> int:
-    """Unpacked K rows a stage of #9's tensor-core kernel: 64 where the
-    scale group (K when per-channel) allows, else 32 (`MMA_BKS`)."""
+    """Unpacked K rows a stage of the tensor-core kernel in its expert-tile
+    modes: 64 where the scale group (K when per-channel) allows, else 32
+    (`MMA_BKS`)."""
     return next(b for b in MMA_BKS if group % b == 0)
 
 
@@ -351,6 +357,41 @@ def _count(fn, qw):
     fn.variant_launches[variant(qw)] += 1
 
 
+def expert_map(cat: bool, rows: int, n: int, e: int):
+    """(dims, pitches) of the 3-D tensor map through which the tensor-core
+    kernel reads an expert's weight, in TMA's order (innermost first;
+    int8 elements, pitches in bytes), as csrc/dequant_matmul.cu
+    `launch_mma_bn` encodes it: stacked (#9, (E, rows, n)): dims (n, rows,
+    E), pitches (n, rows·n), the expert the third coordinate; cat (#10,
+    (rows, E·n)): dims (n, E, rows), pitches (n, E·n), the expert the
+    second. TMA needs each pitch a multiple of 16 bytes."""
+    if cat:
+        return (n, e, rows), (n, e * n)
+    return (n, rows, e), (n, rows * n)
+
+
+def _launch(fn, name, xs, qw, te, k, n, e, cat, out_dtype):
+    """#9 (cat False) or #10 (cat True) on the tensor-core kernel."""
+    g = _check(xs, qw, te, k, out_dtype, name)
+    rows = k // 2 if qw.bits == 4 else k
+    if any(p % 16 for p in expert_map(cat, rows, n, e)[1]):
+        raise NotImplementedError(
+            f"CUDA {name} takes {'n_per_expert' if cat else 'N'} % 16 == 0 "
+            f"(TMA's pitches), got {n}")
+    te = te.to(torch.int32).contiguous()
+    a8 = qw.act_bits == 8
+    x, qs = quantize_segments(xs, g, te) if a8 else (xs, None)
+    out = torch.empty((xs.shape[0], n), dtype=out_dtype, device=xs.device)
+    rc = _build.library().dpt_grouped_mma(
+        x.data_ptr(), None if qs is None else qs.data_ptr(),
+        qw.data.data_ptr(), qw.scales.data_ptr(), te.data_ptr(), qw.bits, g,
+        int(a8), out.data_ptr(), int(out_dtype == torch.float32),
+        xs.shape[0], k, n, e, stage_depth(g), int(cat), _build.stream())
+    _build.check(rc, name)
+    _count(fn, qw)
+    return out
+
+
 def grouped_dequant_matmul(xs: torch.Tensor, qw: QuantizedTensor,
                            tile_expert: torch.Tensor, *,
                            out_dtype=torch.float32) -> torch.Tensor:
@@ -365,23 +406,8 @@ def grouped_dequant_matmul(xs: torch.Tensor, qw: QuantizedTensor,
     if qw.data.dim() != 3:
         raise ValueError("grouped_dequant_matmul expects stacked (E, K, N)")
     e, _, n = qw.data.shape
-    k = qw.shape[1]
-    g = _check(xs, qw, tile_expert, k, out_dtype, "grouped_dequant_matmul")
-    if n % 16:
-        raise NotImplementedError(f"CUDA grouped_dequant_matmul takes N % 16 "
-                                  f"== 0, got {n}")
-    te = tile_expert.to(torch.int32).contiguous()
-    a8 = qw.act_bits == 8
-    x, qs = quantize_segments(xs, g, te) if a8 else (xs, None)
-    out = torch.empty((xs.shape[0], n), dtype=out_dtype, device=xs.device)
-    rc = _build.library().dpt_grouped_mma(
-        x.data_ptr(), None if qs is None else qs.data_ptr(),
-        qw.data.data_ptr(), qw.scales.data_ptr(), te.data_ptr(), qw.bits, g,
-        int(a8), out.data_ptr(), int(out_dtype == torch.float32),
-        xs.shape[0], k, n, e, stage_depth(g), _build.stream())
-    _build.check(rc, "grouped_dequant_matmul")
-    _count(grouped_dequant_matmul, qw)
-    return out
+    return _launch(grouped_dequant_matmul, "grouped_dequant_matmul", xs, qw,
+                   tile_expert, qw.shape[1], n, e, False, out_dtype)
 
 
 grouped_dequant_matmul.launches = 0
@@ -394,7 +420,8 @@ def grouped_dequant_matmul_ncat(xs: torch.Tensor, qw: QuantizedTensor,
     """#10: xs (M_pad, K) rows, tile i times the column block of expert
     tile_expert[i] of the 2-D cat qw (K[/2], E·n_per_expert) -> (M_pad,
     n_per_expert). A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel or raises."""
+    launches the tensor-core kernel over the cat's expert view (a8: after
+    `quantize_segments`) or raises."""
     if not xs.is_cuda:
         return grouped_dequant_matmul_ncat_plain(
             xs, qw, tile_expert, n_per_expert, out_dtype=out_dtype)
@@ -404,21 +431,8 @@ def grouped_dequant_matmul_ncat(xs: torch.Tensor, qw: QuantizedTensor,
     ne = n_per_expert
     if n_total % ne:
         raise ValueError(f"cat N {n_total} not a multiple of {ne}")
-    g = _check(xs, qw, tile_expert, k, out_dtype,
-               "grouped_dequant_matmul_ncat")
-    if ne % 16:
-        raise NotImplementedError(f"CUDA grouped_dequant_matmul_ncat takes "
-                                  f"n_per_expert % 16 == 0, got {ne}")
-    te = tile_expert.to(torch.int32).contiguous()
-    out = torch.empty((xs.shape[0], ne), dtype=out_dtype, device=xs.device)
-    rc = _build.library().dpt_grouped_matmul_ncat(
-        xs.data_ptr(), qw.data.data_ptr(), qw.scales.data_ptr(), te.data_ptr(),
-        qw.bits, g, int(qw.act_bits == 8), out.data_ptr(),
-        int(out_dtype == torch.float32), xs.shape[0], k, ne, n_total,
-        _build.stream())
-    _build.check(rc, "grouped_dequant_matmul_ncat")
-    _count(grouped_dequant_matmul_ncat, qw)
-    return out
+    return _launch(grouped_dequant_matmul_ncat, "grouped_dequant_matmul_ncat",
+                   xs, qw, tile_expert, k, ne, n_total // ne, True, out_dtype)
 
 
 grouped_dequant_matmul_ncat.launches = 0

@@ -268,6 +268,42 @@ def test_cuda_kernels_match_plain(cuda_device):
     assert (out.float() - ref.float()).abs().max() <= 1e-2 * ref.float().abs().max()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,act_bits,n", [(8, 0, 2048), (4, 8, 2048),
+                                             (8, 0, 40000)])
+def test_cuda_gemv_is_one_launch_and_reproducible(cuda_device, bits,
+                                                   act_bits, n):
+    """A decode matmul on the GEMV route is one kernel launch (a8: after
+    the row quantizer), with K split (N = 2048: its last block sums the
+    splits) or not (N = 40000), and no epilogue kernel; the same inputs
+    give the same bits twice."""
+    g = torch.Generator(device=cuda_device).manual_seed(bits + n)
+    k = 2048
+    data = torch.randint(-127, 128, (k // 2 if bits == 4 else k, n),
+                         generator=g, device=cuda_device, dtype=torch.int8)
+    scales = 1e-3 * (0.5 + torch.rand((k // 128, n), generator=g,
+                                      device=cuda_device))
+    qw = QuantizedTensor(data, scales, None, bits, 128, act_bits)
+    x = torch.randn(8, k, generator=g, device=cuda_device).to(torch.bfloat16)
+    gw = torch.randn(k, generator=g, device=cuda_device).to(torch.bfloat16)
+    res = torch.randn(8, n, generator=g, device=cuda_device).to(torch.bfloat16)
+    first = dequant_matmul(x, qw, rms_weight=gw, residual=res)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        again = dequant_matmul(x, qw, rms_weight=gw, residual=res)
+        torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "memcpy" not in e.name.lower()
+               and "memset" not in e.name.lower()]
+    assert sum("gemv_kernel" in k for k in kernels) == 1, kernels
+    assert not any("epilogue_kernel" in k for k in kernels), kernels
+    assert len(kernels) == (2 if act_bits else 1), kernels
+
+
 # (B, S, H, Kh, D, lengths, start): TinyLlama's heads at the serve
 # phase's bucket; the 7B's (MHA) and Mixtral's (GQA) at D = 128; length 1
 # and lengths off the 128-row tile; S off a multiple of 64; and chunks

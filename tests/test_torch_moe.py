@@ -180,6 +180,94 @@ def test_grouped_ncat_bf16_out_matches_pallas(act_bits):
     assert _rel(got[live], ref[live]) < 1e-2
 
 
+# (bits, group, act_bits): #10's six weight variants (w8, w4, w8g, w4g,
+# w8a8g, w4a8g)
+NCAT_VARIANTS = [(8, 0, 0), (4, 0, 0), (8, 32, 0), (4, 32, 0), (8, 32, 8),
+                 (4, 32, 8)]
+
+
+def _cat_and_stacked(bits, group, act_bits, k, n, seed):
+    """Random codes and scales as #10's cat (K[/2], E·n) and as the same
+    experts stacked (E, K[/2], n), the stacked one read through the cat's
+    TMA view (`expert_map`): no copy of a code or a scale."""
+    g = torch.Generator().manual_seed(seed)
+    rows = k // 2 if bits == 4 else k
+    data = torch.randint(-127, 128, (rows, E * n), generator=g,
+                         dtype=torch.int8)
+    srows = k // group if group else 1
+    scales = 0.01 * (0.5 + torch.rand((srows, E * n), generator=g))
+    cat = QuantizedTensor(data, scales, None, bits, group, act_bits)
+
+    def view(t, r):
+        dims, pitches = gm.expert_map(True, r, n, E)
+        st = torch.as_strided(t, dims[::-1], pitches[::-1] + (1,))
+        return st.permute(1, 0, 2)            # (rows, E, n) -> (E, rows, n)
+    stacked = QuantizedTensor(view(data, rows), view(scales, srows), None,
+                              bits, group, act_bits)
+    return cat, stacked
+
+
+@pytest.mark.parametrize("bits,group,act_bits", NCAT_VARIANTS)
+def test_ncat_is_the_grouped_product_over_the_cat_view(bits, group,
+                                                       act_bits):
+    """The identity #10's CUDA path rests on: the cat's column block of
+    expert e is expert e of the stacked weight that `expert_map`'s view
+    (the kernel's TMA map) reads, so #10's plain version equals #9's over
+    that view bit for bit, dead tiles included (rows of 4 experts, one
+    empty, two dead tail tiles)."""
+    k, n = 256, 96
+    cat, stacked = _cat_and_stacked(bits, group, act_bits, k, n,
+                                    bits + group + act_bits)
+    te, _, _, m_pad = _layout()
+    xs = torch.randn(m_pad, k, generator=torch.Generator().manual_seed(3))
+    xs = xs.to(torch.bfloat16)
+    for dt in (torch.float32, torch.bfloat16):
+        got = gm.grouped_dequant_matmul_ncat_plain(xs, cat, te, n,
+                                                   out_dtype=dt)
+        ref = gm.grouped_dequant_matmul_plain(xs, stacked, te, out_dtype=dt)
+        assert got.dtype == dt and torch.equal(got, ref)
+
+
+# (K, n_e, E) of #10's cats: Mixtral-8x7B's w_gu (2 x 14336 a expert),
+# mixtral-mini's (2 x 5632), tiny-moe's (2 x 128), and a ragged one (2 x
+# 48, four experts: a 128-column block ends inside the next expert)
+CAT_SHAPES = [(4096, 28672, 8), (2048, 11264, 8), (64, 256, 4), (64, 96, 4)]
+
+
+@pytest.mark.parametrize("k,ne,e", CAT_SHAPES)
+def test_expert_map_addresses_the_cat(k, ne, e):
+    """#10's TMA view of the cat: pitches that TMA takes (multiples of 16
+    bytes, each the one before times its extent, so the view is dense and
+    in bounds) and coordinate (column c, expert x, stored row r) at the
+    cat's byte r·E·n_e + x·n_e + c; a 128-column block of expert x reads
+    past n_e only into what TMA zero-fills. The stacked map of #9 the
+    same way."""
+    for bits in (8, 4):
+        rows = k // 2 if bits == 4 else k
+        for cat in (True, False):
+            dims, pitches = gm.expert_map(cat, rows, ne, e)
+            assert all(p % 16 == 0 for p in pitches)
+            assert pitches[0] == dims[0] and pitches[1] == dims[1] * dims[0]
+            assert dims[0] == ne and sorted(dims[1:]) == sorted((rows, e))
+            rng = np.random.default_rng(k + ne)
+            c = rng.integers(0, ne, 64)
+            x = rng.integers(0, e, 64)
+            r = rng.integers(0, rows, 64)
+            coords = (c, x, r) if cat else (c, r, x)
+            off = coords[0] + coords[1] * pitches[0] + coords[2] * pitches[1]
+            want = (r * e * ne + x * ne + c) if cat else \
+                (x * rows * ne + r * ne + c)
+            assert (off == want).all()
+            last = sum((d - 1) * p for d, p in zip(dims, (1,) + pitches))
+            assert last == rows * e * ne - 1
+    if ne * k * e <= 1 << 20:           # the small cats: the whole view
+        data = torch.arange(k * e * ne, dtype=torch.int32).reshape(k, e * ne)
+        dims, pitches = gm.expert_map(True, k, ne, e)
+        st = torch.as_strided(data, dims[::-1], pitches[::-1] + (1,))
+        for xe in range(e):
+            assert torch.equal(st[:, xe], data[:, xe * ne:(xe + 1) * ne])
+
+
 @pytest.mark.parametrize("bits,k,group,per_group", [
     (4, 4096, 128, True), (4, 14336, 128, True), (4, 256, 32, True),
     (4, 256, 128, True), (4, 768, 128, True), (4, 1536, 0, False),
@@ -562,6 +650,32 @@ def test_cuda_grouped_matches_plain(cuda_device, kernel, bits, group,
         assert gm.quantize_segments.launches == before + 1
         assert torch.equal(q[live], qp[live])
         assert torch.equal(qs[:, live], qsp[:, live])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,group,act_bits", [
+    (4, 32, 8), (4, 32, 0), (8, 32, 0), (8, 32, 8), (4, 0, 0), (8, 0, 0)])
+@pytest.mark.parametrize("k,ne", [(64, 96), (64, 256), (1024, 96)])
+def test_cuda_ncat_at_expert_edges_matches_plain(cuda_device, k, ne, bits,
+                                                 group, act_bits):
+    """#10 on the tensor-core kernel where a 128-column block of one expert
+    ends inside the next expert's columns (n_e = 96, tiny-moe's 2 x 48
+    shape at its K = 64, and at K = 1024) or fills its columns exactly
+    (tiny-moe's n_e = 256): live rows within 2e-2 of each row's max|ref|,
+    a8 through the pre-pass, and no column past n_e written (the output
+    is n_e wide; the plain version reads only the expert's columns)."""
+    x, qw, te = _card_case(cuda_device, "ncat", bits, group, act_bits, k, ne)
+    before = gm.grouped_dequant_matmul_ncat.launches
+    got = gm.grouped_dequant_matmul_ncat(x, qw, te, ne)
+    ref = gm.grouped_dequant_matmul_ncat_plain(x, qw, te, ne)
+    torch.cuda.synchronize()
+    assert got.shape == (x.shape[0], ne)
+    assert gm.grouped_dequant_matmul_ncat.launches == before + 1
+    live = torch.repeat_interleave(te >= 0, 64)
+    diff = (got.float() - ref.float())[live].abs().amax(-1)
+    scale = ref.float()[live].abs().amax(-1)
+    assert torch.isfinite(got[live]).all()
+    assert (diff <= 2e-2 * scale).all()
 
 
 @pytest.mark.cuda

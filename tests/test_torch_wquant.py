@@ -316,27 +316,80 @@ def test_asymmetric_weight_raises():
         dm.dequant_matmul(torch.randn(2, 64), qw)
 
 
-@pytest.mark.parametrize("name,ragged", [("w8a8g", False), ("w4a8g", False),
-                                         ("w4g", True), ("w4a8", True)])
-def test_gemv_chunks_keep_groups_whole(name, ragged):
-    """The split-K GEMV's chunks never cross a scale group in either
-    nibble plane (a straddling int4 group included), and take whole
-    quads of rows for a8."""
-    bits = 4 if name.startswith("w4") else 8
-    a8 = "a8" in name
-    k, g = (96, 32) if ragged else (4096, 128)
-    rows = k // 2 if bits == 4 else k
-    rows_g = 1 if not name.endswith("g") else k // g
-    for m in (1, 8, 16):
-        c = dm.gemv_chunk(m, k, 4096, bits, rows_g, a8)
-        assert 0 < c <= rows and (not a8 or c % 4 == 0)
-        if rows_g == 1:
-            continue
-        for start in range(0, rows, c):
-            end = min(rows, start + c)
-            planes = [0, k // 2] if bits == 4 else [0]
-            for off in planes:
-                assert (start + off) // g == (end - 1 + off) // g
+# (K, N) of the matrices a served model's decode step takes through #1's
+# GEMV: TinyLlama-1.1B, Llama-2-7B, Mixtral-8x7B (attention, the router-
+# free cat experts' w_gu and w_out, head), lm124_ckpt's GPT-2 shapes with
+# its 260-wide head, and ragged ones (int4's plane boundary inside a group,
+# N no multiple of 16, K no multiple of 64)
+GEMV_SHAPES = {
+    "tinyllama": [(2048, 2560), (2048, 2048), (2048, 11264), (5632, 2048),
+                  (2048, 32000)],
+    "llama2-7b": [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096),
+                  (4096, 32000)],
+    "mixtral": [(4096, 6144), (4096, 4096), (4096, 229376), (114688, 4096),
+                (4096, 32000)],
+    "lm124": [(768, 2304), (768, 768), (768, 3072), (3072, 768), (768, 260)],
+    "ragged": [(96, 128), (1408, 260), (1344, 4099), (1000, 264)],
+}
+
+
+@pytest.mark.parametrize("model", sorted(GEMV_SHAPES))
+def test_gemv_plan_keeps_groups_whole_and_fills_the_card(model):
+    """The decode GEMV's K split, for every weight variant: at most
+    GEMV_SPLITS chunks (one cluster a column tile) of a whole
+    number of 64-row stages tile the stored rows, whole quads for a8; no
+    chunk crosses a scale group in either int4 nibble plane (a group that
+    straddles the planes keeps K whole), and the segment between two
+    flushes lies in one group of each plane; the rows staged at once fit
+    the block's activation budget; and the grid aims at a block an SM of
+    an H100 (132): the split is the most that whole groups allow up to
+    that aim."""
+    for k, n in GEMV_SHAPES[model]:
+        for bits in (8, 4):
+            for group in (0, 32, 128):
+                if group and k % group:
+                    continue
+                rows = k // 2 if bits == 4 else k
+                rows_g = k // group if group else 1
+                for a8 in (False, True):
+                    p = dm.gemv_plan(k, n, bits, rows_g, a8)
+                    assert p.n_tiles == -(-n // dm.GEMV_NT)
+                    assert p.chunk % dm.GEMV_BK == 0
+                    assert p.splits == -(-rows // p.chunk)
+                    assert 1 <= p.splits <= dm.GEMV_SPLITS
+                    planes = 2 if bits == 4 else 1
+                    assert p.sub % dm.GEMV_BK == 0 and p.sub <= p.chunk
+                    assert dm.GEMV_MAX_M * planes * p.sub * (
+                        1 if a8 else 2) <= dm.GEMV_ACT_BYTES
+                    want = min(dm.GEMV_SPLITS,
+                               -(-dm.GEMV_BLOCKS // p.n_tiles))
+                    assert p.splits <= want
+                    straddle = bits == 4 and group and rows % group
+                    quantum = (dm.GEMV_BK if not group else
+                               np.lcm(p.seg, dm.GEMV_BK))
+                    if straddle:
+                        assert p.splits == 1
+                    else:
+                        assert p.chunk % quantum == 0
+                        assert p.chunk == quantum or -(-rows // (
+                            p.chunk - quantum)) > want
+                    if not group:
+                        continue
+                    assert p.seg % 16 == 0
+                    offs = [0, k // 2] if bits == 4 else [0]
+                    for g0 in range(0, k, group):
+                        # each group's stored rows, in each plane,
+                        # lie in one chunk
+                        for off in offs:
+                            a = max(g0, off) - off
+                            b = min(g0 + group, off + rows) - off
+                            if a < b:
+                                assert a // p.chunk == (b - 1) // p.chunk
+                    for start in range(0, rows, p.seg):
+                        end = min(rows, start + p.seg)
+                        for off in offs:
+                            assert (start + off) // group == \
+                                (end - 1 + off) // group
 
 
 @pytest.mark.parametrize("qcfg", [
@@ -519,6 +572,55 @@ def test_cuda_variant_matches_plain(cuda_device, bits, group, act_bits, m,
     torch.cuda.synchronize()
     assert (got - ref).abs().max() <= 2e-2 * ref.abs().max()
     assert dm.dequant_matmul.variant_launches[dm.variant(qw)] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,group,act_bits", [
+    (8, 0, 0), (4, 0, 0), (4, 128, 0), (8, 128, 0), (8, 0, 8), (8, 128, 8),
+    (4, 0, 8), (4, 128, 8)])
+@pytest.mark.parametrize("m", list(range(1, 9)))
+@pytest.mark.parametrize("fusion", ["plain", "bias", "rms_residual",
+                                    "glu_bias_residual"])
+@pytest.mark.parametrize("n", [260, 264, 4099, 34000])
+def test_cuda_gemv_matches_plain(cuda_device, bits, group, act_bits, m,
+                                 fusion, n):
+    """#1's decode GEMV on the card, every weight variant at every M up to
+    GEMV_MAX_M, against its plain version on the same inputs (2e-2 of each
+    row's max|ref|, chip_smoke.py's gate): with and without bias, residual
+    and the RMSNorm and GLU folds; N = 260 / 264 / 4099 (cp.async copies 4,
+    8 and 1 bytes wide, a partial column tile, K split with the reduction
+    in the kernel) and N = 34000 (TMA, enough column tiles that K is not
+    split). Grouped: K = 1408 (int4's plane boundary inside group 5);
+    per-channel: K = 1344. One launch of the "gemv" route each."""
+    g = torch.Generator(device=cuda_device).manual_seed(1000 + m + n)
+    k = 1408 if group else 1344
+    qw = quantize(torch.randn(k, n, generator=g, device=cuda_device) * 0.02,
+                  bits=bits, group_size=group)
+    qw.act_bits = act_bits
+    glu = fusion.startswith("glu")
+    x = torch.randn(m, 2 * k if glu else k, generator=g,
+                    device=cuda_device).to(torch.bfloat16)
+    kw = {}
+    if "bias" in fusion:
+        kw["bias"] = torch.randn(n, generator=g, device=cuda_device)
+    if "residual" in fusion:
+        kw["residual"] = torch.randn(m, n, generator=g,
+                                     device=cuda_device).to(torch.bfloat16)
+    if "rms" in fusion:
+        kw["rms_weight"] = (torch.randn(k, generator=g, device=cuda_device)
+                            * 0.1 + 1).to(torch.bfloat16)
+    if glu:
+        kw["glu"] = True
+    before = dm.dequant_matmul.variant_launches["gemv"]
+    for od in (torch.float32, torch.bfloat16):
+        got = dm.dequant_matmul(x, qw, out_dtype=od, **kw)
+        ref = dm.dequant_matmul_plain(x, qw.data, qw.scales, bits=bits,
+                                      act_bits=act_bits, out_dtype=od, **kw)
+        torch.cuda.synchronize()
+        diff = (got.float() - ref.float()).abs().amax(-1)
+        assert torch.isfinite(got).all()
+        assert (diff <= 2e-2 * ref.float().abs().amax(-1)).all()
+    assert dm.dequant_matmul.variant_launches["gemv"] == before + 2
 
 
 @pytest.mark.cuda

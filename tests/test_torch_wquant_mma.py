@@ -36,6 +36,7 @@ from deeppowers_tpu_torch.quant.qtypes import QuantizedTensor
 torch.set_num_threads(1)
 
 CSRC = Path(dm.__file__).resolve().parents[2] / "csrc" / "dequant_matmul.cu"
+GEMV_SRC = CSRC.with_name("gemv.cu")
 
 # (rms, glu, act, residual, bias)
 FOLDS = {
@@ -249,8 +250,9 @@ def test_route_is_one_function_the_c_side_is_handed():
     """`route` alone picks the kernel: the GEMV at or below GEMV_MAX_M,
     the tensor-core kernel above; the wrapper passes its index in
     `ROUTES`, which is the C side's numbering, and the C side's GEMV
-    takes at most 16 rows (its widest instantiation), so GEMV_MAX_M may
-    not exceed it. No other row count decides a route in the source."""
+    takes at most the rows of its guard (one n8 token tile), so
+    GEMV_MAX_M may not exceed it. No other row count decides a route in
+    the source."""
     for m in range(1, 600):
         assert dm.route(m) == ("gemv" if m <= dm.GEMV_MAX_M else "mma")
     src = CSRC.read_text()
@@ -261,6 +263,28 @@ def test_route_is_one_function_the_c_side_is_handed():
     assert guard and dm.GEMV_MAX_M <= int(guard.group(1))
     assert "M <= 16" not in src
     assert "tiled_wq_kernel" not in src and "tiled_a8_kernel" not in src
+
+
+def test_gemv_route_is_one_kernel_and_the_old_gemv_is_gone():
+    """The GEMV route of the C side launches one kernel, gemv_kernel
+    (csrc/gemv.cu; a cluster of its K splits), and no epilogue after it
+    (the splits meet in distributed shared memory); the split-K GEMV it
+    replaced (gemv_wq_kernel, gemv_a8_kernel and the host's gemv_chunk)
+    is gone from the sources and the wrapper."""
+    src = CSRC.read_text()
+    body = src[src.index("if (route == ROUTE_GEMV) {"):]
+    body = body[:body.index("\n  }\n")]
+    assert "gemv_route(" in body and "epilogue_kernel" not in body
+    assert "<<<" not in body
+    launcher = GEMV_SRC.read_text()
+    launcher = launcher[launcher.index("cudaError_t launch_gemv("):]
+    launcher = launcher[:launcher.index("\n}\n")]
+    assert launcher.count("cudaLaunchKernelEx(") == 1
+    assert "<<<" not in launcher and "gemv_kernel<" in launcher
+    for old in ("gemv_wq_kernel", "gemv_a8_kernel", "gemv_dp4a",
+                "gemv_nibbles", "launch_gemv_ct"):
+        assert old not in src and old not in GEMV_SRC.read_text()
+    assert not hasattr(dm, "gemv_chunk") and not hasattr(dm, "_fit_chunk")
 
 
 @pytest.mark.parametrize("m,n,bits,group,act_bits,keys", [

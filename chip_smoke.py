@@ -4,14 +4,20 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --step-ms CHECKOUT
     python3 chip_smoke.py --ttft CHECKOUT
+    python3 chip_smoke.py --slot-orders CHECKOUT
 
 The second form only times the TinyLlama int8 decode step's 89 matmuls
-and its w_gu at a 1024-token prefill through #1 with the package of
+and its w_gu at a 1024-token prefill through #1, and a decode step's
+attention calls through #3 and #5 (STEP_ATTENTION: 22 TinyLlama bf16
+calls, 32 Llama-2-7B k8v4 ones, 22 paged TinyLlama ones, and single calls
+at the 7B's bf16 and Mixtral's int8 heads, over cache copies past the L2),
+with the package of
 another checkout of the repo (its root first on sys.path; it builds that
 checkout's kernels), three times each, and prints them as JSON: run it
 for two checkouts in turn (parent, change, change, parent) to pair them
 on one card. `--ttft CHECKOUT` does the same for the TTFT where #4 and
-#9 run (see `ttft_ms`).
+#9 run (see `ttft_ms`), `--slot-orders CHECKOUT` for the attention calls
+over ATTN_LENS in ten orders of the slots (see `slot_order_ms`).
 
 Phases, each printing a line with its wall time:
   1. device   the card's name and power limit (nvidia-smi), torch and CUDA
@@ -90,7 +96,12 @@ mirror: a 252-token prompt, 5 decode steps (one completes chunk 1, which
 the run without the mirror. The kernels phase also holds #8 (stacked
 appends, four stores, 8 and 40 rows), #7 (int8 and k8v4, tokens 1 and 5,
 Llama-2-7B's and TinyLlama's heads, its kt bytes too) and #11 (bf16,
-int8) against their plain versions. The kernels phase also holds
+int8) against their plain versions. #3 and #5 are one launch a call (a
+cluster of splits a (slot, kv head) combined in distributed shared
+memory, no combine_kernel: every serve phase's profiled decode step but
+the kt one's must show none). The kernels phase also holds #3 at tokens
+= 1 at Llama-2-7B's heads in k8v4 and bf16 (beside sdpa) and at
+Mixtral-8x7B's in int8, timed over cache copies past the 50 MB L2, and
 #3 and #5 at tokens = 5 in every store (and #3 k8v4 at Llama-2-7B's
 heads), the window appends of #2 and #6 (8 slots x 5 rows), and #1 at a
 verify step's M = 40 (TinyLlama w8, Llama-2-7B w4a8g); after the path
@@ -149,6 +160,7 @@ from __future__ import annotations
 
 import json
 import os
+import random
 import subprocess
 import sys
 import threading
@@ -326,11 +338,135 @@ def step_ms(torch, cfg) -> dict:
     q_big = quantize(rn(cfg.hidden_size, 2 * cfg.ffn_size, scale=0.02,
                         dtype=torch.float32))
     xp = rn(1024, cfg.hidden_size)
-    return {"step_matmuls_ms": [sum(per * cuda_ms(torch, fns, 50)
-                                    for fns, per in calls)
-                                for _ in range(STEP_REPS)],
-            "w_gu_prefill_ms": [cuda_ms(torch, [lambda: dm.dequant_matmul(
-                xp, q_big)], 20) for _ in range(STEP_REPS)]}
+    out = {"step_matmuls_ms": [sum(per * cuda_ms(torch, fns, 50)
+                                   for fns, per in calls)
+                               for _ in range(STEP_REPS)],
+           "w_gu_prefill_ms": [cuda_ms(torch, [lambda: dm.dequant_matmul(
+               xp, q_big)], 20) for _ in range(STEP_REPS)]}
+    del calls, q_big, xp
+    torch.cuda.empty_cache()
+    out.update(step_attention_ms(torch, cfg))
+    return out
+
+
+# (name, store, query heads, kv heads, head dim, layout, calls a decode
+# step): the attention calls of a decode step that `--step-ms` times, then
+# single calls at the 7B's and Mixtral's heads (calls 1)
+STEP_ATTENTION = (
+    ("tinyllama #3 bf16 x22", "bf16", 32, 4, 64, "contiguous", 22),
+    ("llama2-7b #3 k8v4 x32", "k8v4", 32, 32, 128, "contiguous", 32),
+    ("tinyllama #5 bf16 pages of 128 x22", "bf16", 32, 4, 64, "paged", 22),
+    ("llama2-7b #3 bf16", "bf16", 32, 32, 128, "contiguous", 1),
+    ("mixtral-8x7b #3 int8", "int8", 32, 8, 128, "contiguous", 1))
+ATTN_PAGE = 128
+#: live K/V bytes a timing cycles through at least: past the 50 MB L2, as a
+#: decode step finds the cache after a layer's weights streamed by
+ATTN_COLD_BYTES = 75_000_000
+
+
+def attention_live_bytes(store, kh, d, lens, page=None):
+    """Bytes #3 / #5 must read at `lens`: each live row's K and V of every
+    kv head and their f32 scales, and with pages the page ids of the live
+    pages (q and the output apart)."""
+    per = {"bf16": 4 * d, "int8": 2 * d + 8, "int4": d + 16,
+           "k8v4": d + d // 2 + 12}[store] * kh
+    live = sum(lens)
+    table = 4 * sum(-(-n // page) for n in lens) if page else 0
+    return live * per + table
+
+
+def attention_inputs(torch, store, hq, kh, d, layout, copies, seed):
+    """Random decode-attention operands on the card, 8 slots over a 1024-row
+    cache (or 8 pages of ATTN_PAGE a slot in a pool of 65 pages), `copies`
+    caches deep: (q, lens, [(args, kwargs) per copy]). Quantized codes are
+    random bytes, scales uniform in [0.001, 0.021)."""
+    from deeppowers_tpu_torch.quant.kvquant import STORE_BITS
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, s = 8, 1024
+    kb, vb = STORE_BITS[store]
+    q = torch.randn(b, hq, d, generator=g, device="cuda").to(torch.bfloat16)
+    lens = torch.tensor(ATTN_LENS, device="cuda", dtype=torch.int32)
+    wp = s // ATTN_PAGE
+    table = (torch.randperm(b * wp, generator=torch.Generator().manual_seed(
+        seed)) + 1).reshape(b, wp).to(device="cuda", dtype=torch.int32)
+
+    def side(bits):
+        width = kh * d // 2 if bits == 4 else kh * d
+        shape = ((b * wp + 1, ATTN_PAGE, width) if layout == "paged"
+                 else (b, s, width))
+        if bits == 16:
+            return torch.randn(shape, generator=g, device="cuda").to(
+                torch.bfloat16), None
+        rows = kh * (2 if bits == 4 else 1)
+        sshape = ((b * wp + 1, rows, ATTN_PAGE) if layout == "paged"
+                  else (b, rows, s))
+        return (torch.randint(-128, 128, shape, generator=g, device="cuda",
+                              dtype=torch.int8),
+                0.001 + 0.02 * torch.rand(sshape, generator=g, device="cuda"))
+    sets = []
+    for _ in range(copies):
+        (kc, ks), (vc, vs) = side(kb), side(vb)
+        kw = {} if store == "bf16" else dict(k_scale=ks, v_scale=vs,
+                                            kv_bits=kb, v_bits=vb)
+        args = ((q, kc, vc, table, lens) if layout == "paged"
+                else (q, kc, vc, lens))
+        sets.append((args, kw))
+    return q, lens, sets
+
+
+def step_attention_ms(torch, cfg) -> dict:
+    """ms of the decode step's attention calls through the wrappers of #3
+    and #5 (STEP_ATTENTION: a step's calls times one call's mean), each
+    call cycling through enough cache copies that their live rows pass
+    ATTN_COLD_BYTES, by CUDA-graph replay, STEP_REPS times each. Only the
+    wrappers' calls are used, so any checkout's package can be timed."""
+    from deeppowers_tpu_torch.ops.kernels import decode_attention as da
+    out = {}
+    for i, (name, store, hq, kh, d, layout, per) in enumerate(
+            STEP_ATTENTION):
+        live = attention_live_bytes(store, kh, d, ATTN_LENS,
+                                    ATTN_PAGE if layout == "paged" else None)
+        copies = max(1, -(-ATTN_COLD_BYTES // live))
+        _, _, sets = attention_inputs(torch, store, hq, kh, d, layout,
+                                      copies, SEED + 40 + i)
+        fn = (da.decode_attention_paged if layout == "paged"
+              else da.decode_attention)
+        fns = [lambda a=a, kw=kw: fn(*a, **kw) for a, kw in sets]
+        out[f"attention_ms[{name}]"] = [per * cuda_ms(torch, fns, 20 * copies)
+                                        for _ in range(STEP_REPS)]
+        del sets, fns
+        torch.cuda.empty_cache()
+    return out
+
+
+#: random slot orders of ATTN_LENS that `--slot-orders` times, and their seed
+SLOT_ORDERS, SLOT_ORDER_SEED = 8, 7
+
+
+def slot_order_ms(torch) -> dict:
+    """ms of STEP_ATTENTION's calls, timed as `step_attention_ms` times them
+    but once each, with ATTN_LENS given to the 8 slots ascending,
+    descending and in SLOT_ORDERS random orders (random.Random(
+    SLOT_ORDER_SEED)): how far a call's time depends on which slots hold
+    the long walks. Only the wrappers are used, so any checkout's package
+    can be timed (`--slot-orders ROOT`)."""
+    global ATTN_LENS, STEP_REPS
+    base, reps = ATTN_LENS, STEP_REPS
+    rng = random.Random(SLOT_ORDER_SEED)
+    orders = [("ascending", base), ("descending", base[::-1])]
+    for i in range(SLOT_ORDERS):
+        order = list(base)
+        rng.shuffle(order)
+        orders.append((f"random{i}", tuple(order)))
+    out = {}
+    try:
+        STEP_REPS = 1
+        for name, lens in orders:
+            ATTN_LENS = lens
+            out[name] = {"lens": lens, **step_attention_ms(torch, None)}
+    finally:
+        ATTN_LENS, STEP_REPS = base, reps
+    return out
 
 
 def ttft_ms(torch) -> dict:
@@ -702,7 +838,93 @@ def check_kernels(torch, cfg):
     del kpool, vpool, kpool2, vpool2
     rows += check_quantized_kernels(torch, cfg, rn, bf16_ms)
     rows += check_verify_kernels(torch, cfg, bf16_ms)
+    rows += check_big_heads_attention(torch)
 
+    return rows
+
+
+# #3 at tokens 1 over ATTN_LENS at the big models' heads: (name, store,
+# query heads, kv heads, head dim, phase and counter of its launches)
+BIG_HEADS_ATTENTION = (
+    ("llama2-7b", "k8v4", 32, 32, 128,
+     ("serve[llama2-7b]", "decode_attention[k8v4]")),
+    ("llama2-7b", "bf16", 32, 32, 128,
+     ("serve[llama2-7b]", "decode_attention[bf16]")),
+    ("mixtral-8x7b", "int8", 32, 8, 128,
+     ("serve[mixtral-8x7b]", "decode_attention[int8]")))
+
+
+def check_big_heads_attention(torch):
+    """#3 at tokens 1 over ATTN_LENS (8 slots of a 1024-row cache) at
+    Llama-2-7B's heads (32 x 128, MHA) in k8v4 and bf16 and at
+    Mixtral-8x7B's (32 / 8 x 128) in int8: each (slot, head) row within
+    1e-2 of its plain version's max|ref|, finite, with NaN in the bf16
+    rows and scales past each length; timed over enough cache copies that
+    their live rows pass ATTN_COLD_BYTES (4 of the 7B's k8v4 cache, 2 of
+    its bf16 one), as a decode step finds them after a layer's weights;
+    the bf16 row beside F.scaled_dot_product_attention with a length
+    mask over the same copies."""
+    from deeppowers_tpu_torch.ops.kernels import decode_attention as da
+    rows = []
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for i, (model, store, hq, kh, d, frm) in enumerate(BIG_HEADS_ATTENTION):
+        live = attention_live_bytes(store, kh, d, ATTN_LENS)
+        copies = max(1, -(-ATTN_COLD_BYTES // live))
+        q, lens, sets = attention_inputs(torch, store, hq, kh, d,
+                                         "contiguous", copies, SEED + 30 + i)
+        (kc, vc), kw = sets[0][0][1:3], sets[0][1]
+        stale = torch.arange(kc.shape[1], device="cuda")[None, :] >= \
+            lens[:, None].long()
+        if store == "bf16":
+            kc[stale] = float("nan")
+            vc[stale] = float("nan")
+        else:
+            for sc in (kw["k_scale"], kw["v_scale"]):
+                sc.masked_fill_(stale[:, None, :], float("nan"))
+        out = da.decode_attention(q, kc, vc, lens, **kw)
+        ref = da.decode_attention_plain(q, kc, vc, lens, **kw)
+        torch.cuda.synchronize()
+        err, worst = row_errors(out, ref)
+        if not (torch.isfinite(out).all() and worst <= 1e-2):
+            fail(f"decode_attention[{store}] at {model}'s heads: a (slot, "
+                 f"head) row's error is {worst:.3g} of its max|ref| (limit "
+                 f"1e-2), or not finite")
+        fns = [lambda a=a, kw=kw: da.decode_attention(*a, **kw)
+               for a, kw in sets]
+        t_k = cuda_ms(torch, fns, 20 * copies)
+        t_p = cuda_ms(torch, [lambda: da.decode_attention_plain(
+            q, kc, vc, lens, **kw)], 5, graph=False)
+        bd, by = bound_ms(live + 2 * q.numel() * 2,
+                          4 * int(lens.sum()) * hq * d)
+        t_l = None
+        if store == "bf16":
+            mask = (torch.arange(kc.shape[1], device="cuda")[None, :]
+                    < lens[:, None].long())[:, None, None, :]
+            views = [(a[1].view(8, -1, kh, d).transpose(1, 2),
+                      a[2].view(8, -1, kh, d).transpose(1, 2))
+                     for a, _ in sets]
+            t_l = cuda_ms(torch, [lambda k4=k4, v4=v4: sdpa(
+                q[:, :, None], k4, v4, attn_mask=mask)
+                for k4, v4 in views], 20 * copies)
+        log(f"  decode_attention[{store}] {model} {hq}/{kh} heads x {d} "
+            f"live={int(lens.sum())}: max_abs_err={err:.3e} "
+            f"worst_row_ratio={worst:.3e}, kernel {t_k:.4f} ms over "
+            f"{copies} cache copies, plain {t_p:.4f} ms"
+            + (f", sdpa {t_l:.4f} ms" if t_l else "")
+            + f", bound {bd:.6f} ms ({by})")
+        rows.append({"name": f"decode_attention[{store}, {model}]",
+                     "route": "cuda",
+                     "source": "deeppowers_tpu_torch/csrc/decode_attention.cu",
+                     "replaces": "deeppowers_tpu/ops/pallas/decode_attention.py:470",
+                     "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+                     "bound_ms": bd, "bound_by": by, "library_ms": t_l,
+                     "worst_row_ratio": worst, "cache_copies": copies,
+                     "launch_from": frm,
+                     **({} if store != "bf16" else {
+                         "note": "no phase serves the 7B over a bf16 "
+                                 "cache"})})
+        del q, lens, sets, kc, vc, kw, out, ref
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -2932,7 +3154,7 @@ def serve_llama2_kt(torch, T, counters, l7_params):
                            "decode_attention_paged"])
     out = summary(results, wall, sched, launches)
     out["kv_bytes"] = engine.kv_nbytes
-    out["profile"] = profile_decode(torch, engine, tok)
+    out["profile"] = profile_decode(torch, engine, tok, combine=True)
     return out
 
 
@@ -3327,11 +3549,14 @@ def host_split(torch, prof, n: int) -> dict:
 
 
 def profile_decode(torch, engine, tok, steps: int = 5,
-                   tokens_per_step: int = 1, prompt_bytes: int = 64):
+                   tokens_per_step: int = 1, prompt_bytes: int = 64,
+                   combine: bool = False):
     """Device busy share of full-batch decode steps and their host split:
     8 greedy requests, two warm steps, then `steps` steps under
     torch.profiler (each request's budget covers `tokens_per_step` tokens
-    a step, a speculative window's most)."""
+    a step, a speculative window's most). #3 and #5 are one launch a call:
+    only a kt engine (#7, `combine`) may run the split-attention
+    combine_kernel."""
     from deeppowers_tpu_torch.config import GenerationConfig
     from torch.profiler import ProfilerActivity, profile
     for i in range(engine.num_slots):
@@ -3354,6 +3579,8 @@ def profile_decode(torch, engine, tok, steps: int = 5,
         fail("profile: no device time recorded for the decode steps")
     dev = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not combine and any("combine_kernel" in e.key for e in dev):
+        fail("profile: a decode step ran combine_kernel beside #3 / #5")
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
     while engine.active_requests:
         engine.step()
@@ -3982,6 +4209,15 @@ def report_serve(name, t0, out, smi_line, n_requests) -> None:
 
 # ---------------------------------------------------------------------------
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() \
+        else "nvidia-smi: " + smi.stderr.strip()
+
+
 def main(argv) -> int:
     threading.Thread(target=watchdog, daemon=True, name="watchdog").start()
     import torch
@@ -3995,8 +4231,8 @@ def main(argv) -> int:
         from deeppowers_tpu_torch.models.presets import TINYLLAMA_1_1B
         from deeppowers_tpu_torch.ops.kernels import _build
         _build.library()
-        log(json.dumps({"checkout": argv[1], **step_ms(torch,
-                                                       TINYLLAMA_1_1B)}))
+        log(json.dumps({"checkout": argv[1], "card": card_line(),
+                        **step_ms(torch, TINYLLAMA_1_1B)}))
         return 0
     if argv[:1] == ["--ttft"] and len(argv) == 2:
         # TTFT where #4 and #9 run, through the package of the checkout at
@@ -4004,11 +4240,21 @@ def main(argv) -> int:
         sys.path.insert(0, os.path.abspath(argv[1]))
         from deeppowers_tpu_torch.ops.kernels import _build
         _build.library()
-        log(json.dumps({"checkout": argv[1], **ttft_ms(torch)}))
+        log(json.dumps({"checkout": argv[1], "card": card_line(),
+                        **ttft_ms(torch)}))
+        return 0
+    if argv[:1] == ["--slot-orders"] and len(argv) == 2:
+        # #3 / #5 over slot orders of ATTN_LENS, through the package of the
+        # checkout at argv[1], for a paired run of two checkouts on one card
+        sys.path.insert(0, os.path.abspath(argv[1]))
+        from deeppowers_tpu_torch.ops.kernels import _build
+        _build.library()
+        log(json.dumps({"checkout": argv[1], "card": card_line(),
+                        **slot_order_ms(torch)}))
         return 0
     if argv:
         sys.stderr.write("usage: chip_smoke.py [--step-ms CHECKOUT | "
-                         "--ttft CHECKOUT]\n")
+                         "--ttft CHECKOUT | --slot-orders CHECKOUT]\n")
         return 2
     from deeppowers_tpu_torch.config import QuantConfig
     from deeppowers_tpu_torch.models import transformer as T
@@ -4048,11 +4294,7 @@ def main(argv) -> int:
 
     # 1. device
     t0 = time.perf_counter()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    smi_line = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() \
-        else "nvidia-smi: " + smi.stderr.strip()
+    smi_line = card_line()
     log(smi_line)
     phase_line("device", t0, torch=torch.__version__, cuda=torch.version.cuda,
                card=repr(torch.cuda.get_device_name(0)),

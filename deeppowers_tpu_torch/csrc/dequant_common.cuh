@@ -58,6 +58,18 @@ __device__ __forceinline__ unsigned bf16x2_of(unsigned u, unsigned lo,
   return *reinterpret_cast<const unsigned*>(&h);
 }
 
+// Two nibbles of u (biased by 8: u = packed ^ 0x88888888), those at bits
+// sh and sh + 16, as an exact bf16 pair: each becomes the mantissa of 128
+// + n (0x4300 | n), and one fused multiply-add takes 136 off.
+__device__ __forceinline__ unsigned bf16x2_nibbles(unsigned u, int sh) {
+  const unsigned v = ((u >> sh) & 0x000F000Fu) | 0x43004300u;
+  unsigned d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(d)
+      : "r"(v), "r"(0x3F803F80u), "r"(0xC308C308u));
+  return d;
+}
+
 // sign-extend the four nibbles (0..15, one per byte) of v to int8 bytes
 __device__ __forceinline__ unsigned sext_nibbles(unsigned v) {
   return __vsub4(v ^ 0x08080808u, 0x08080808u);

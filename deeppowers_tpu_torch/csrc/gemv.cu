@@ -54,37 +54,6 @@ __device__ __forceinline__ void bar_consumers() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(GV_CONSUMERS) : "memory");
 }
 
-// every thread of the cluster, its shared-memory writes released to and
-// the others' acquired from the cluster
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release;\n"
-      "barrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
-// the f32 at this block's shared address p in cluster block `rank`
-__device__ __forceinline__ float ld_cluster(const float* p, unsigned rank) {
-  uint32_t a;
-  float v;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(a)
-               : "r"(smem_u32(p)), "r"(rank));
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
-               : "=f"(v)
-               : "r"(a)
-               : "memory");
-  return v;
-}
-
-// D(16 x 8) += A(16 x 16) B(16 x 8): bf16 in, f32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // D(16 x 8) += A(16 x 16) B(16 x 8): s8 in, exact s32 sums
 __device__ __forceinline__ void mma_s8(int (&d)[4], unsigned a0, unsigned a1,
                                        unsigned b0) {
@@ -92,18 +61,6 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], unsigned a0, unsigned a1,
       "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a0), "r"(a1), "r"(b0));
-}
-
-// Two nibbles of u (biased by 8: u = packed ^ 0x88888888), those at bits
-// sh and sh + 16, as an exact bf16 pair: each becomes the mantissa of 128
-// + n (0x4300 | n), and one fused multiply-add takes 136 off.
-__device__ __forceinline__ unsigned bf16x2_nibbles(unsigned u, int sh) {
-  const unsigned v = ((u >> sh) & 0x000F000Fu) | 0x43004300u;
-  unsigned d;
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
-      : "=r"(d)
-      : "r"(v), "r"(0x3F803F80u), "r"(0xC308C308u));
-  return d;
 }
 
 // Stored weight rows r.. of a stage (zero past `rows`), 128 columns from

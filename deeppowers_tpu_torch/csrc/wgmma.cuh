@@ -134,6 +134,47 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t addr, unsigned (&r)[4]) {
       : "r"(addr));
 }
 
+// -- clusters and mma.sync ---------------------------------------------------
+// every thread of the cluster, its shared-memory writes released to and
+// the others' acquired from the cluster
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// the f32 at this block's shared address p in cluster block `rank`
+__device__ __forceinline__ float ld_cluster(const float* p, unsigned rank) {
+  uint32_t a;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+
+// D(16 x 8) += A(16 x 16) B(16 x 8): bf16 in, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// D(16 x 8) += A(16 x 16) B(16 x 8): f16 in, f32 sums
+__device__ __forceinline__ void mma_f16(float (&d)[4], const unsigned (&a)[4],
+                                        unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // -- wgmma ------------------------------------------------------------------
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");

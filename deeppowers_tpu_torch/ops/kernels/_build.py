@@ -52,11 +52,9 @@ SIGNATURES: Dict[str, list] = {
     "dpt_kv_append_pool": [_P, _P, _P, _P, _P, _LL, _P, _LL, _P, _P, _I, _I,
                            _I, _I, _I, _I, _I, _P],
     "dpt_decode_attention": [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _LL, _P, _LL,
-                             _LL, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                             _P, _P, _P, _P, _P],
-    "dpt_decode_attention_paged": [_P, _LL, _P, _P, _P, _P, _P, _I, _I, _P, _I,
-                                   _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P,
-                                   _P, _P, _P],
+                             _LL, _P] + [_I] * 14 + [_F, _P, _P],
+    "dpt_decode_attention_paged": [_P, _LL, _P, _P, _P, _P, _P, _I, _I, _P]
+                                  + [_I] * 14 + [_F, _P, _P],
     "dpt_decode_attention_kt": [_P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _I, _I, _I, _I, _F, _P, _P, _P, _P, _P],
     "dpt_grouped_mma": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I,

@@ -16,7 +16,10 @@ streams follow the JAX engine's. `decode_attention_kernel` is the older
 per-head kernel (:1160, pallas_call :1219, body `_kernel` :42), which
 nothing in the JAX package calls: its entry point launches the contiguous
 kernel on the flat view of its (B, S, Kh, D) caches, which computes its
-f32 function, and counts its own launches.
+function, and counts its own launches. Its TPU kernel computes in f32
+throughout; the port's rounds as below (q * scale in bf16 first), which is
+why its rows stand further from their f32 plain version than they did when
+it computed in f32.
 
 `decode_attention` replaces the Pallas TPU kernel
 deeppowers_tpu/ops/pallas/decode_attention.py (`decode_attention_mxu`
@@ -47,12 +50,20 @@ out[b, h] = softmax(q[b, h] . K[b, :len, h // rep] * scale) @ V[b, :len,
 h // rep], with len = lengths[b] (lengths[b] - (T - 1) + t for window token
 t) and K/V the slot's (virtual) dequantized rows. Bound on an H100: the
 live K/V bytes and their scales over 3.35 TB/s, for a window as for one
-token. The kernel splits the sequence across blocks (flash-decoding, 64
-positions a block), each block serving all query rows of its kv head from
-one staged tile, folds the scales into the scores and the probabilities,
-computes in f32, and combines the partials in a second small kernel;
-positions at or past a row's bound are excluded by a select, and blocks
-past the slot's length read nothing.
+token. One launch a call: the sequence splits across the blocks of a
+thread-block cluster per (slot, kv head) (flash-decoding; `attention_plan`
+picks the splits and tiles from the shapes), each block's position groups
+stream their tiles through a cp.async ring in the stored form, run both
+dots on the tensor cores (mma.sync, bf16 operands, f32 sums) and keep an
+online softmax each; the groups merge in shared memory and the splits in
+distributed shared memory, in a fixed order. The operands round as the
+TPU kernel's MXU path rounds them: bf16(q * scale), the K scales folded
+into the f32 scores, the V codes exact in bf16. p * v_scale goes into p.V
+as two bf16 terms, hi = bf16(p * v_scale) and lo = bf16 of the rest (exact
+to about 2^-16), where the TPU rounds it once: rounded once, an int8 row
+stood past the 1e-2 gate from its plain version on the card. Positions at
+or past a row's bound are excluded by a select, and blocks past the slot's
+length read nothing. No scratch tensor is allocated.
 
 The plain versions follow the JAX package's CPU path for each variant, so
 that greedy streams match the JAX engine's: bf16 and int8 as
@@ -78,12 +89,57 @@ from ...quant.kvquant import (STORE_BITS, dequant_side, gather_scale,
 from . import _build
 
 NEG_INF = -1e30
-#: cache positions per block of the S split
-SPLIT_CHUNK = 64
-
-
-#: query rows a kv head the CUDA kernel takes: 16 warps of 4 rows
+#: query rows a kv head the CUDA kernel takes: four 16-row m tiles
 MAX_ROWS = 64
+#: splits of one (slot, kv head) at most: a portable thread-block cluster
+MAX_SPLITS = 8
+#: warps a block (csrc MAX_WARPS)
+MAX_WARPS = 8
+#: stages of a position group's cp.async ring at most (csrc STAGES)
+STAGES = 3
+#: positions a ring stage (a tile) at least: one p.V k-step
+TILE = 16
+#: streaming multiprocessors of the H100 SXM, which the split count fills
+SMS = 132
+#: warps an SM holds of the kernel at head_dim 64 / 128: ptxas gives it
+#: about 128 / 165-210 registers a thread
+SM_WARPS = {64: 16, 128: 8}
+
+#: The launch of #3 / #5: `nsplit` splits of `chunk` positions for each
+#: (slot, kv head), a cluster; ring stages of `tile` positions, `stages`
+#: of them a position group; a block of `pw` position groups of `mg` warps
+#: (one 16-row m tile each).
+Plan = collections.namedtuple("Plan", "nsplit chunk tile pw mg stages")
+
+
+def attention_plan(b: int, kh: int, s: int, rows: int, d: int,
+                   page: Optional[int] = None) -> Plan:
+    """The kernel's launch from the shapes alone (never the lengths, so no
+    host sync): B slots, Kh kv heads, S positions (WP * page when paged),
+    `rows` query rows a kv head, head_dim D, and the page size.
+
+    - mg = ceil(rows / 16) warps share a position group's ring, and a block
+      holds MAX_WARPS // mg groups;
+    - a tile is 16 positions for one warp a group, 32 for two, else 64 (32
+      at D = 128): the group's barrier a tile is shared by more rows. A
+      tile never crosses a page whose size is a multiple of 16 (it shrinks
+      to the page); through any other page each row finds its own;
+    - splits: as many as one wave of such blocks holds (SM_WARPS a
+      streaming multiprocessor) while each group keeps two tiles or more,
+      at most MAX_SPLITS (a cluster); one when the (slot, kv head) pairs
+      alone pass a wave;
+    - chunk: positions a split, a whole number of tiles; stages: STAGES,
+      or as many tiles as a group walks when fewer."""
+    mg = -(-rows // 16)
+    pw = MAX_WARPS // mg
+    tile = TILE * (1 if mg == 1 else 2 if mg == 2 or d == 128 else 4)
+    while page and page % TILE == 0 and page % tile:
+        tile //= 2
+    wave = SMS * max(1, SM_WARPS[d] // (mg * pw))
+    nsplit = max(1, min(MAX_SPLITS, wave // (b * kh), s // (2 * pw * tile)))
+    chunk = -(-(-(-s // nsplit)) // tile) * tile
+    stages = min(STAGES, -(-(chunk // tile) // pw))
+    return Plan(-(-s // chunk), chunk, tile, pw, mg, stages)
 
 
 def fold_tokens(q: torch.Tensor) -> torch.Tensor:
@@ -219,6 +275,14 @@ def _check_common(q, o, d, kh, tokens, name, caches, scales, wrapper):
     return rows
 
 
+def _aligned(t: torch.Tensor, lead_stride: int, what: str) -> None:
+    """The kernel copies 16-byte chunks: the base and the stride between
+    slots (or pages) must be multiples of 16 bytes."""
+    if t.data_ptr() % 16 or (lead_stride * t.element_size()) % 16:
+        raise ValueError(f"{what} must be 16-byte aligned (base and slot "
+                         f"stride), got stride {lead_stride}")
+
+
 def _scratch(q, b, o, d, nsplit):
     pm = torch.empty((b * o * nsplit,), dtype=torch.float32, device=q.device)
     pacc = torch.empty((b * o * nsplit * d,), dtype=torch.float32,
@@ -287,6 +351,8 @@ def _launch(q, k_cache, v_cache, lengths, *, k_scale, v_scale, kv_bits,
                              f"contiguous rows, got {tuple(c.shape)}")
     if kb == vb and k_cache.stride(0) != v_cache.stride(0):
         raise ValueError("K and V caches of one store must share strides")
+    for c in (k_cache, v_cache):
+        _aligned(c, c.stride(0), "decode_attention caches")
     sc_args = [None, 0, 0, None, 0, 0]
     if name != "bf16":
         for sc, bits in ((k_scale, kb), (v_scale, vb)):
@@ -302,13 +368,12 @@ def _launch(q, k_cache, v_cache, lengths, *, k_scale, v_scale, kv_bits,
         q = q.contiguous()
     lens = lengths.to(torch.int32).contiguous()
     scale = scale if scale is not None else d ** -0.5
-    nsplit = -(-s // SPLIT_CHUNK)
-    pm, pl, pacc, out = _scratch(q, b, o, d, nsplit)
+    plan = attention_plan(b, kh, s, rows, d)
+    out = torch.empty((b, o, d), dtype=torch.bfloat16, device=q.device)
     rc = _build.library().dpt_decode_attention(
         q.data_ptr(), q.stride(0), k_cache.data_ptr(), k_cache.stride(0),
         v_cache.data_ptr(), v_cache.stride(0), *sc_args, lens.data_ptr(), b,
-        s, kh, rows, tokens, d, kb, vb, SPLIT_CHUNK, float(scale),
-        pm.data_ptr(), pl.data_ptr(), pacc.data_ptr(), out.data_ptr(),
+        s, kh, rows, tokens, d, kb, vb, *plan, float(scale), out.data_ptr(),
         _build.stream())
     _build.check(rc, "decode_attention")
     return out
@@ -380,6 +445,7 @@ def decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
         if c.shape != (p, ps, w) or not c.is_contiguous():
             raise ValueError(f"pools must be contiguous ({p}, {ps}, {w}), "
                              f"got {tuple(c.shape)}")
+        _aligned(c, c.stride(0), "decode_attention_paged pools")
     ks_ptr = vs_ptr = None
     if name != "bf16":
         for sc, bits in ((k_scale, kb), (v_scale, vb)):
@@ -396,13 +462,12 @@ def decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
     tab = table if table.dtype == torch.int32 else table.to(torch.int32)
     lens = lengths.to(torch.int32).contiguous()
     scale = scale if scale is not None else d ** -0.5
-    nsplit = -(-(wp * ps) // SPLIT_CHUNK)
-    pm, pl, pacc, out = _scratch(q, b, o, d, nsplit)
+    plan = attention_plan(b, kh, wp * ps, rows, d, page=ps)
+    out = torch.empty((b, o, d), dtype=torch.bfloat16, device=q.device)
     rc = _build.library().dpt_decode_attention_paged(
         q.data_ptr(), q.stride(0), k_pool.data_ptr(), v_pool.data_ptr(),
         ks_ptr, vs_ptr, tab.data_ptr(), tab.stride(0), ps, lens.data_ptr(), b,
-        wp, kh, rows, tokens, d, kb, vb, SPLIT_CHUNK, float(scale),
-        pm.data_ptr(), pl.data_ptr(), pacc.data_ptr(), out.data_ptr(),
+        wp, kh, rows, tokens, d, kb, vb, *plan, float(scale), out.data_ptr(),
         _build.stream())
     _build.check(rc, "decode_attention_paged")
     _count(decode_attention_paged, name, tokens)
@@ -669,10 +734,10 @@ def decode_attention_kernel(q: torch.Tensor, k_cache: torch.Tensor,
     (B, H, D); k_cache, v_cache (B, S, Kh, D) bf16, or int8 with (B, Kh, S)
     f32 scales; lengths (B,). Returns (B, H, D). On the card it launches
     kernel #3's CUDA kernel on the flat (B, S, Kh*D) view of the same
-    memory, which computes this function in f32 throughout; its launches
-    count here. `block_s` tiles the TPU's VMEM and is not used. A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel or
-    raises."""
+    memory, which computes this function with bf16 operands and f32 sums;
+    its launches count here. `block_s` tiles the TPU's VMEM and is not
+    used. A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel or raises."""
     if not q.is_cuda:
         return decode_attention_kernel_plain(q, k_cache, v_cache, lengths,
                                              k_scale, v_scale,

@@ -261,6 +261,11 @@ def test_cuda_kernels_match_plain(cuda_device):
     out = decode_attention(q, kc, vc, lens)
     ref = decode_attention_plain(q, kc, vc, lens)
     assert (out.float() - ref.float()).abs().max() <= 1e-2 * ref.float().abs().max()
+    assert torch.equal(out, decode_attention(q, kc, vc, lens))  # same bytes
+    kc[0, 7:], vc[0, 7:] = float("nan"), float("nan")   # stale rows
+    empty = decode_attention(q, kc, vc,
+                             torch.tensor([7, 0], device=cuda_device))
+    assert torch.equal(empty[0], out[0]) and (empty[1] == 0).all()
     q, k = rn(1, 600, 16, 64), rn(1, 600, 4, 64)
     lens = torch.tensor([555], device=cuda_device)
     out = flash_attention_prefill(q, k, k, lens)[:, :555]

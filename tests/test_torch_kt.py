@@ -526,3 +526,6 @@ def test_cuda_decode_attention_kernel_matches_plain(cuda_device, quantized):
     ratio = np.abs(got - want).max(-1) / np.abs(want).max(-1)
     assert ratio.max() <= 1e-2
     assert da.decode_attention_kernel.variant_launches[name] == before + 1
+    assert torch.equal(out, da.decode_attention_kernel(q, kc, vc, lens, *sc))
+    zero = da.decode_attention_kernel(q, kc, vc, lens * 0, *sc)
+    assert (zero == 0).all()                     # length 0: a zero row

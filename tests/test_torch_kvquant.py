@@ -555,6 +555,9 @@ def test_cuda_quantized_kernels_match_plain(cuda_device, dtype):
                                 device=dev, dtype=torch.int8))
         c.k_scale.uniform_(0.001, 0.02, generator=g)
         c.v_scale.uniform_(0.001, 0.02, generator=g)
+    stale = torch.arange(s, device=dev)[None, :] >= lens[:, None]
+    for sc in (tc.k_scale, tc.v_scale):           # NaN past each length
+        sc.masked_fill_(stale[:, None, :], float("nan"))
     out = da.decode_attention(q, tc.k, tc.v, lens, k_scale=tc.k_scale,
                               v_scale=tc.v_scale, **kw)
     want = da.decode_attention_plain(q, tc.k, tc.v, lens, k_scale=tc.k_scale,
@@ -562,6 +565,8 @@ def test_cuda_quantized_kernels_match_plain(cuda_device, dtype):
     err = (out.float() - want.float()).abs().amax(-1)
     assert torch.isfinite(out).all()
     assert (err / want.float().abs().amax(-1)).max() <= 1e-2
+    assert torch.equal(out, da.decode_attention(
+        q, tc.k, tc.v, lens, k_scale=tc.k_scale, v_scale=tc.v_scale, **kw))
 
 
 @pytest.mark.cuda

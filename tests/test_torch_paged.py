@@ -585,6 +585,9 @@ def test_cuda_paged_kernels_match_plain(cuda_device):
     assert torch.isfinite(out).all()
     err = (out.float() - ref.float()).abs().amax(-1)
     assert (err <= 1e-2 * ref.float().abs().amax(-1)).all()
+    assert torch.equal(out, decode_attention_paged(q, kp, vp, table, lens))
+    zero = decode_attention_paged(q, kp, vp, table, lens * 0)
+    assert (zero == 0).all()                     # length 0: a zero row
     k2, v2 = kp.clone(), vp.clone()
     rows = torch.tensor([5, 130, 7, 4000], device=cuda_device)
     valid = torch.tensor([True, False, True, True], device=cuda_device)

@@ -663,6 +663,7 @@ def test_cuda_verify_kernels_match_plain(cuda_device, dtype, h, kh, d):
     assert torch.isfinite(out).all()
     assert _row_ratio(out.float().cpu(), ref.float()).max() <= lim
     assert counts[f"{dtype}:t{t}"] == before + 1
+    assert torch.equal(out, da.verify_attention(q, kc, vc, lens, **args))
     wp = s // ps
     table = (torch.randperm(b * wp, generator=torch.Generator().manual_seed(
         1)) + 1).reshape(b, wp).to(dev, torch.int32)

@@ -7,7 +7,9 @@
     python3 chip_smoke.py --slot-orders CHECKOUT
 
 The second form only times the TinyLlama int8 decode step's 89 matmuls
-and its w_gu at a 1024-token prefill through #1, and a decode step's
+and its w_gu at a 1024-token prefill through #1, the Llama-2-7B W4A8 g128
+decode step's 129 matmuls and one Mixtral-8x7B layer's cat experts (the
+row quantizer included, through `dequant_matmul` alone), a decode step's
 attention calls through #3 and #5 (STEP_ATTENTION: 22 TinyLlama bf16
 calls, 32 Llama-2-7B k8v4 ones, 22 paged TinyLlama ones, and single calls
 at the 7B's bf16 and Mixtral's int8 heads, over cache copies past the L2),
@@ -50,15 +52,18 @@ Phases, each printing a line with its wall time:
               config 3): W4A8 g128 weights drawn in quantized form from the
               seed, k8v4 KV, serve's traffic once; the W4A8 g128 variant of
               #1 and the activation quantizer must launch, no other weight
-              variant; then a profiled decode step and the TTFT of a
-              512-token prompt alone on the warm engine
+              variant; then a profiled decode step, which must run the row
+              quantizer once a W4A8 matmul (129 times; its launches and
+              device ms a step are printed), and the TTFT of a 512-token
+              prompt alone on the warm engine
  11. serve[mixtral-8x7b]  Mixtral-8x7B whole (BASELINE config 5: 32
               layers, 8 experts top-2, W4A8 g128 drawn quantized, int8 KV),
               serve's traffic once: prefills of 256 tokens and more take
               the grouped kernels #10 and #9, the rest and every decode
               step the cat path through #1; only W4A8 g128 variants may
               launch and every expert must take routed pairs; then a
-              profiled decode step and a 512-token TTFT
+              profiled decode step (the row quantizer 129 times, as in
+              phase 10) and a 512-token TTFT
  12. spec_serve  phase 6 with prompt-lookup speculation (K = 4 drafts,
               n-gram 3): serve's 8 greedy requests and one at temperature
               0.8; the bf16 verify variant of #3 (tokens = 5) and #2 must
@@ -123,8 +128,10 @@ at full width cut to 2 layers, W4A8 g128 + int8 KV, a 320-token prompt
 path on the CPU with every route recorded on both (at most 1% may flip a
 near-tie). The kernels phase holds the quantized
 variants of #2, #3, #5 and #6, #1 at widths no multiple of 8, and #1's
-int4, grouped and a8 weight variants and the activation quantizer at
-Llama-2-7B's matrices (M = 8 and 512), and the grouped kernels #10 and
+int4, grouped and a8 weight variants at Llama-2-7B's matrices (M = 8
+and 512), the activation quantizer (a cluster of blocks a row) at the
+7B's and Mixtral-8x7B's rows (K up to 114688, M = 8 and 40; a decode
+step's 129 quantizations of each model a row), and the grouped kernels #10 and
 #9 of MoE at Mixtral-8x7B's experts (1024 routed rows) in four weight
 variants too (#10 also, untimed, at mixtral-mini's, tiny-moe's and a ragged
 cat whose column blocks end inside the next expert), and #1's GEMV on one
@@ -152,7 +159,9 @@ the result line {"ok": true, "device": {...}}.
 Any failed check raises: the error goes to stderr and the exit code is 1.
 Without a CUDA device, or without the deeppowers_tpu_torch package beside
 it, the script exits non-zero and prints no result. A watchdog ends the
-process with exit code 1 if the run passes 10 minutes. It starts no child
+process with exit code 1 if the run passes 15 minutes (whole runs take
+7.5-8 minutes on most hosts, past 10 on slow ones; the card's command
+limit is 20). It starts no child
 process but nvcc and nvidia-smi, and writes only under build/.
 """
 
@@ -167,7 +176,7 @@ import threading
 import time
 import traceback
 
-WATCHDOG_S = 600
+WATCHDOG_S = 900
 SEED = 0
 H100_BYTES_PER_S = 3.35e12        # HBM3, NVIDIA data sheet (SXM)
 H100_BF16_FLOPS = 989e12          # dense bf16 tensor-core peak
@@ -345,7 +354,54 @@ def step_ms(torch, cfg) -> dict:
                xp, q_big)], 20) for _ in range(STEP_REPS)]}
     del calls, q_big, xp
     torch.cuda.empty_cache()
+    out.update(a8_step_ms(torch))
     out.update(step_attention_ms(torch, cfg))
+    return out
+
+
+def a8_step_ms(torch) -> dict:
+    """ms of the Llama-2-7B W4A8 g128 decode step's 129 matmuls (8 slots,
+    LLAMA2_MATS, weight copies past the L2) and of one Mixtral-8x7B
+    layer's cat experts (MIXTRAL_GEMV_MATS), the row quantizer included,
+    through `dequant_matmul` alone, by CUDA-graph replay, STEP_REPS times
+    each (`--step-ms`)."""
+    from deeppowers_tpu_torch.ops.kernels import dequant_matmul as dm
+    g = torch.Generator(device="cuda").manual_seed(SEED + 27)
+
+    def calls(mats, copies_of):
+        for k, n, mode, per in mats:
+            qws = [random_qw(torch, g, k, n, 4, 128, 8)
+                   for _ in range(copies_of(k, n))]
+            x = torch.randn(8, 2 * k if mode == "glu" else k, generator=g,
+                            device="cuda").to(torch.bfloat16)
+            kw = {}
+            if mode == "rms":
+                kw["rms_weight"] = (torch.randn(k, generator=g, device="cuda")
+                                    * 0.1 + 1).to(torch.bfloat16)
+            if mode in ("res", "glu"):
+                kw["residual"] = torch.randn(8, n, generator=g,
+                                             device="cuda").to(torch.bfloat16)
+            if mode == "glu":
+                kw["glu"] = True
+            od = torch.float32 if mode == "f32" else torch.bfloat16
+            yield [lambda q=q, x=x, kw=kw, od=od: dm.dequant_matmul(
+                x, q, out_dtype=od, **kw) for q in qws], per
+
+    l7 = list(calls([(k, n, mode, 1 if mode == "f32" else LLAMA2_LAYERS)
+                     for _, k, n, mode in LLAMA2_MATS],
+                    lambda k, n: max(1, -(-200_000_000 // (k // 2 * n)))))
+    out = {"llama2_w4a8g_step_ms": [sum(per * cuda_ms(torch, fns, 50)
+                                        for fns, per in l7)
+                                    for _ in range(STEP_REPS)]}
+    del l7
+    torch.cuda.empty_cache()
+    mx = list(calls([(k, n, "f32", 1) for _, k, n in MIXTRAL_GEMV_MATS],
+                    lambda k, n: 1))
+    out["mixtral_cat_layer_ms"] = [sum(cuda_ms(torch, fns, 20)
+                                       for fns, _ in mx)
+                                   for _ in range(STEP_REPS)]
+    del mx
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1247,9 +1303,9 @@ def check_wquant_kernels(torch):
     against its plain version (2e-2 of max|ref|), timed beside its bound,
     the plain version, torch.matmul on bf16 weights and, for a8 at M =
     512, torch._int_mm on the int8 operands (timed only, never called by
-    the port). Then the activation quantizer at the path's shapes. Rows:
+    the port). Then the activation quantizer (`check_quantizer`). Rows:
     a decode step's 129 matmuls per variant, a prefill's 128 at M = 512,
-    and the quantizer. Inputs from a generator of their own."""
+    and the quantizer's two. Inputs from a generator of their own."""
     from deeppowers_tpu_torch.ops.kernels import dequant_matmul as dm
     from deeppowers_tpu_torch.quant.qtypes import unpack_int4
     g = torch.Generator(device="cuda").manual_seed(SEED + 9)
@@ -1346,21 +1402,61 @@ def check_wquant_kernels(torch):
                 row["int_mm_ms"] = tot["int_mm"]
             rows.append(row)
             torch.cuda.empty_cache()
-    rows.append(check_quantizer(torch, rn))
+    rows += check_quantizer(torch, rn)
     return rows
 
 
+# the row quantizer's cases (mode, K, M): the 7B's rows at a decode step
+# (wqkv and w_gu behind RMSNorm, w_out behind the GLU, plain wo and
+# lm_head rows, which Mixtral's attention and w_gu cat share), Mixtral's
+# cat w_out rows (K = 8 x 14336: a cluster of 16 blocks a row), and those
+# at a verify step's 40 rows (7 blocks a row)
+MIXTRAL_CAT_K = 8 * 14336
+QUANT_CASES = (("rms", 4096, 8), ("glu", 11008, 8), ("plain", 4096, 8),
+               ("plain", MIXTRAL_CAT_K, 8), ("plain", MIXTRAL_CAT_K, 40))
+# a decode step's row quantizations, by case: the 7B's 32 layers x (wqkv,
+# w_gu, w_out, wo) + lm_head; Mixtral's 32 x (wqkv, wo, w_gu cat, w_out
+# cat) + lm_head
+QUANT_STEPS = {
+    "Llama-2-7B": {("rms", 4096, 8): 2 * LLAMA2_LAYERS,
+                   ("glu", 11008, 8): LLAMA2_LAYERS,
+                   ("plain", 4096, 8): LLAMA2_LAYERS + 1},
+    "Mixtral-8x7B": {("rms", 4096, 8): 32, ("plain", 4096, 8): 2 * 32 + 1,
+                     ("plain", MIXTRAL_CAT_K, 8): 32}}
+
+
+# blocks a row the plan sweep times at each case (those that hold the row)
+QUANT_SWEEP_BLOCKS = (1, 2, 3, 4, 8, 16)
+
+
+def quant_plan_sweep(torch, dm, x, k, kw) -> dict:
+    """The row quantizer on the same rows at other cluster sizes: {blocks:
+    ms} by CUDA-graph replay, what `quant_plan`'s rule is set from."""
+    out = {}
+    for blocks in QUANT_SWEEP_BLOCKS:
+        piece = -(-k // blocks)
+        plan = dm.QuantPlan(blocks, -(-piece // dm.QUANT_ITEM) * dm.QUANT_ITEM)
+        if (-(-k // plan.slice) != blocks or plan.slice > dm.QUANT_THREADS
+                * dm.QUANT_ITEM * dm.QUANT_ITEMS):
+            continue
+        out[blocks] = round(cuda_ms(torch, [lambda: dm.quantize_activations(
+            x, k, _plan=plan, **kw)], 100), 6)
+    return out
+
+
 def check_quantizer(torch, rn):
-    """The activation quantizer at the path's shapes, M = 8: the rows of
-    wqkv (RMSNorm, K = 4096) and of w_out (GLU, K = 11008), and plain rows.
-    Plain rows must equal the plain version's bytes and scales exactly;
-    with a norm or a GLU in front, a last-bit difference in the transform
-    may move a byte by one step (limit: one step, and at most 1e-3 of the
-    bytes)."""
+    """The row quantizer (a thread-block cluster of `quant_plan` blocks a
+    row) at the path's shapes (QUANT_CASES). Plain rows must equal the
+    plain version's bytes and scales exactly; with a norm or a GLU in
+    front, a last-bit difference in the transform may move a byte by one
+    step (limit: one step, and at most 1e-3 of the bytes). Rows: the 7B's
+    and Mixtral's decode step's 129 row quantizations each (QUANT_STEPS),
+    timed per case by CUDA-graph replay, bound by x read and q written
+    once."""
     from deeppowers_tpu_torch.ops.kernels import dequant_matmul as dm
-    times, err_max = [], 0.0
-    for k, mode in ((4096, "rms"), (11008, "glu"), (4096, "plain")):
-        x = rn(8, 2 * k if mode == "glu" else k)
+    times, err_max = {}, 0.0
+    for mode, k, m in QUANT_CASES:
+        x = rn(m, 2 * k if mode == "glu" else k)
         kw = {"glu": True} if mode == "glu" else {}
         if mode == "rms":
             kw["rms_weight"] = rn(k, scale=0.1) + 1.0
@@ -1371,9 +1467,10 @@ def check_quantizer(torch, rn):
         err = (q.cpu().float() * xs.cpu() - qr.float() * xr).abs().max().item()
         if mode == "plain" and not (diff.max() == 0 and torch.equal(
                 xs.cpu(), xr)):
-            fail("quantize_activations differs from its plain version")
+            fail(f"quantize_activations[plain, K={k}, M={m}] differs from "
+                 f"its plain version")
         if diff.max() > 1 or (diff > 0).float().mean() > 1e-3:
-            fail(f"quantize_activations[{mode}]: bytes off by "
+            fail(f"quantize_activations[{mode}, K={k}, M={m}]: bytes off by "
                  f"{diff.max().item()} ({(diff > 0).sum().item()} of them)")
         err_max = max(err_max, err)
         t_k = cuda_ms(torch, [lambda: dm.quantize_activations(x, k, **kw)],
@@ -1382,27 +1479,38 @@ def check_quantizer(torch, rn):
             dm._unfused_input(x, k, kw.get("rms_weight"), 1e-6,
                               kw.get("glu", False), "silu"))], 10,
             graph=False)
-        nbytes = x.numel() * 2 + 8 * k + 8 * 4 + (2 * k if mode == "rms" else 0)
-        times.append((mode, k, t_k, t_p, nbytes))
-        log(f"  quantize_activations[{mode}] M=8 K={k}: bytes off "
-            f"{(diff > 0).sum().item()}, max dequant err {err:.3e}, kernel "
-            f"{t_k:.4f} ms, plain {t_p:.4f} ms")
-    # a decode step quantizes the rows of each layer's wqkv and w_gu (rms),
-    # w_out (glu) and wo, and the lm_head's (plain)
-    per = {"rms": 2 * LLAMA2_LAYERS, "glu": LLAMA2_LAYERS,
-           "plain": LLAMA2_LAYERS + 1}
-    ms = sum(per[md] * t for md, _, t, _, _ in times)
-    plain = sum(per[md] * t for md, _, _, t, _ in times)
-    nbytes = sum(per[md] * b for md, _, _, _, b in times)
-    bd, by = bound_ms(nbytes, 0)
-    return {"name": "quantize_activations", "route": "cuda",
+        nbytes = (x.numel() * 2 + m * k + m * 4
+                  + (2 * k if mode == "rms" else 0))
+        times[(mode, k, m)] = (t_k, t_p, nbytes)
+        plan = dm.quant_plan(m, k, mode == "glu")
+        log(f"  quantize_activations[{mode}] M={m} K={k} ({plan.blocks} "
+            f"block(s) a row): bytes off {(diff > 0).sum().item()}, max "
+            f"dequant err {err:.3e}, kernel {t_k:.4f} ms, plain {t_p:.4f} "
+            f"ms, bound {bound_ms(nbytes, 0)[0]:.6f} ms; plan sweep "
+            + json.dumps(quant_plan_sweep(torch, dm, x, k, kw)))
+    rows = []
+    for model, per in QUANT_STEPS.items():
+        ms = sum(n * times[c][0] for c, n in per.items())
+        plain = sum(n * times[c][1] for c, n in per.items())
+        bd, by = bound_ms(sum(n * times[c][2] for c, n in per.items()), 0)
+        big = model.startswith("Mixtral")
+        rows.append({
+            "name": "quantize_activations" + ("[Mixtral step]" if big
+                                              else ""),
+            "route": "cuda",
             "source": "deeppowers_tpu_torch/csrc/dequant_matmul.cu",
             "replaces": "deeppowers_tpu/ops/pallas/dequant_matmul.py:198 "
                         "(qdot's activation quantization, in #1's body)",
             "max_abs_err": err_max, "ms": ms, "plain_ms": plain,
             "bound_ms": bd, "bound_by": by, "library_ms": None,
-            "shape": "Llama-2-7B decode step, 8 slots: 32 layers x (wqkv "
-                     "rms, wo, w_gu rms, w_out glu) + lm_head"}
+            "shape": (f"{model} decode step, 8 slots: 32 layers x (wqkv "
+                      "rms, wo, w_gu " + ("cat, w_out cat rows of 114688"
+                                          if big else "rms, w_out glu")
+                      + ") + lm_head"),
+            "note": "no one PyTorch call quantizes rows by their absmax",
+            "launch_from": ("serve[mixtral-8x7b]" if big
+                            else "serve[llama2-7b]", "quantize_activations")})
+    return rows
 
 
 # Mixtral-8x7B's experts (BASELINE config 5): w_gu (hidden 4096 -> 2 x ffn
@@ -1584,7 +1692,8 @@ MIXTRAL_GEMV_MATS = (("w_gu cat", MIXTRAL_H, MIXTRAL_E * 2 * MIXTRAL_FFN),
 
 def check_mixtral_gemv(torch):
     """#1's GEMV on one Mixtral-8x7B layer's cat experts at M = 8, W4A8
-    g128 (the quantizer included, as the path runs it): each matmul
+    g128 (the row quantizer's launch included, as the path runs it: the
+    cat w_out's rows of 114688 a cluster of 16 blocks each): each matmul
     against its plain version (2e-2 of each row's max|ref|), timed beside
     its bound (the codes and scales read once: about 0.2235 ms), the plain
     version and torch.matmul on the layer's bf16 weights (2.8 GB, made
@@ -3073,6 +3182,7 @@ def serve_llama2(torch, T, counters):
     out.update(kv_bytes=engine.kv_nbytes, param_bytes=T.param_nbytes(params),
                init_s=init_s)
     out["profile"] = profile_decode(torch, engine, tok)
+    check_step_quantizer("serve[llama2-7b]", out["profile"])
     gen = GenerationConfig(max_tokens=1, temperature=0.0)
     ttft = []
     for i in range(TTFT_REPS):
@@ -3363,6 +3473,7 @@ def serve_mixtral(torch, T, counters):
                idle_layers=int((pairs == 0).any(1).sum()),
                forwards=len(routes) // cfg.num_layers)
     out["profile"] = profile_decode(torch, engine, tok)
+    check_step_quantizer("serve[mixtral-8x7b]", out["profile"])
     gen = GenerationConfig(max_tokens=1, temperature=0.0)
     ttft = []
     for i in range(TTFT_REPS):
@@ -3558,6 +3669,8 @@ def profile_decode(torch, engine, tok, steps: int = 5,
     only a kt engine (#7, `combine`) may run the split-attention
     combine_kernel."""
     from deeppowers_tpu_torch.config import GenerationConfig
+    from deeppowers_tpu_torch.ops.kernels.dequant_matmul import (
+        quantize_activations)
     from torch.profiler import ProfilerActivity, profile
     for i in range(engine.num_slots):
         engine.add_request(tok.encode(prompt_text(prompt_bytes, i)),
@@ -3567,6 +3680,7 @@ def profile_decode(torch, engine, tok, steps: int = 5,
     engine.step()
     engine.step()
     torch.cuda.synchronize()
+    q0 = quantize_activations.launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3574,6 +3688,7 @@ def profile_decode(torch, engine, tok, steps: int = 5,
             engine.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    q_launches = (quantize_activations.launches - q0) / steps
     split = host_split(torch, prof, steps)
     if split["busy_ms"] <= 0:
         fail("profile: no device time recorded for the decode steps")
@@ -3582,13 +3697,33 @@ def profile_decode(torch, engine, tok, steps: int = 5,
     if not combine and any("combine_kernel" in e.key for e in dev):
         fail("profile: a decode step ran combine_kernel beside #3 / #5")
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+    quant = [e for e in dev if "quantize_rows_kernel" in e.key]
     while engine.active_requests:
         engine.step()
     engine.pop_finished()
     split.update(wall_ms=wall_ms, idle_share=1.0 - split["busy_ms"] / wall_ms,
                  top=[(e.key[:60], e.self_device_time_total / 1e3 / steps)
-                      for e in top])
+                      for e in top],
+                 quantizer={"launches": q_launches,
+                            "traced": sum(e.count for e in quant) / steps,
+                            "ms": sum(e.self_device_time_total
+                                      for e in quant) / 1e3 / steps})
     return split
+
+
+# the row quantizer's launches in a decode step of the 7B and Mixtral: one
+# a W4A8 matmul (32 layers x 4, and the lm_head)
+A8_STEP_MATMULS = 4 * 32 + 1
+
+
+def check_step_quantizer(phase, profile) -> None:
+    """The profiled decode steps launched the row quantizer once for each
+    of their W4A8 matmuls, and no more (the wrapper's count), and the
+    profiler saw its kernel run."""
+    got = profile["quantizer"]
+    if got["launches"] != A8_STEP_MATMULS or not got["traced"]:
+        fail(f"{phase}: {got['launches']} row quantizer launches a decode "
+             f"step ({got['traced']} traced), expected {A8_STEP_MATMULS}")
 
 
 def profile_prefill(torch, engine, tok, prompts):
@@ -4188,6 +4323,12 @@ def report_serve(name, t0, out, smi_line, n_requests) -> None:
     log(f"{name} decode step host split " + json.dumps(
         {k: pr[k] for k in ("ops", "launches", "syncs", "sync_ms", "allocs",
                             "alloc_ms", "host_top")}))
+    if pr["quantizer"]["launches"]:
+        log(f"{name} decode step: {pr['launches']:.1f} launches, the row "
+            f"quantizer {pr['quantizer']['launches']:.1f} of them "
+            f"({pr['quantizer']['traced']:.1f} traced), "
+            f"{pr['quantizer']['ms']:.4f} device ms, busy "
+            f"{pr['busy_ms']:.3f} ms card={smi_line!r}")
     if "warm" in out:
         log(f"{name} first pass: {out['segments']} cudaMalloc segments; the "
             f"same traffic again on the warm engine " + json.dumps(out["warm"]))
@@ -4574,9 +4715,7 @@ def main(argv) -> int:
         kernel, _, var = name.partition("[")
         var = var.rstrip("]")
         layout = "paged" if kernel in paged_kernels else "contiguous"
-        if kernel == "quantize_activations":
-            phase, key = "serve[llama2-7b]", kernel
-        elif "variant" in row:
+        if "variant" in row:
             key = f"{kernel}[{row['variant']}]"
             phase = next((ph for ph, c in runs.items() if c.get(key, 0) > 0),
                          "serve")

@@ -143,6 +143,15 @@ __device__ __forceinline__ void cluster_sync() {
       "barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
+// cluster_sync's two halves, for work between them: arrive (this thread's
+// shared-memory writes released) and wait (the others' acquired)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
 // the f32 at this block's shared address p in cluster block `rank`
 __device__ __forceinline__ float ld_cluster(const float* p, unsigned rank) {
   uint32_t a;

@@ -43,7 +43,8 @@ SIGNATURES: Dict[str, list] = {
     "dpt_dequant_matmul": [_P, _LL, _P, _P, _P, _I, _I, _P, _P, _P, _LL, _P,
                            _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                            _F, _P],
-    "dpt_quantize_rows": [_P, _LL, _P, _I, _I, _F, _I, _I, _P, _LL, _P, _P],
+    "dpt_quantize_rows": [_P, _LL, _P, _I, _I, _F, _I, _I, _P, _LL, _P, _I,
+                          _I, _P],
     "dpt_stage_rows": [_P, _LL, _P, _I, _I, _F, _I, _I, _P, _LL, _P, _P],
     "dpt_kv_append": [_P, _P, _P, _P, _P, _LL, _P, _LL, _P, _P, _I, _I, _I,
                       _I, _I, _I, _I, _P],

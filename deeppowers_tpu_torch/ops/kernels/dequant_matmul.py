@@ -27,9 +27,13 @@ computes (`_w8a8_matmul`, deeppowers_tpu/ops/matmul.py:44-72, behind
 unfused ops round it to the activation dtype, then per-row int8
 quantization over the whole K (quant/quantize.py `quantize_rows`), exact
 int32 products per group, each group's sum times its scale, the row scale
-last; bias and residual in the f32 epilogue. On the card the quantization
-is a kernel of its own (`quantize_activations`, counted apart): a row
-scale needs the whole row before any product.
+last; bias and residual in the f32 epilogue. On the card a row scale
+needs the whole row before any product, so the row quantizer
+(`quantize_activations`, counted apart: a thread-block cluster of
+`quant_plan` blocks a row) runs first. Folding it into the decode GEMV,
+each column tile quantizing its rows' chunk while it stages, read slower
+at every a8 decode shape of the 7B and Mixtral on an H100 (PERF.md §6):
+the N / 128 tiles each redo the row's work.
 
 Launch counts: `dequant_matmul.launches`, and in
 `dequant_matmul.variant_launches` each launch under its width class ("n8"
@@ -94,6 +98,15 @@ _SMS = 132
 #: and its K splits at most (a portable cluster of a column tile's splits)
 GEMV_BLOCKS = _SMS
 GEMV_SPLITS = 8
+#: the row quantizer's block (csrc QUANT_*): threads, activations an item
+#: (one 16-byte store of int8 out), items a thread takes at most (a
+#: block's slice in its shared memory); and its cluster at most (16
+#: blocks: the non-portable size an H100 grants, where 8 rows of 8 blocks
+#: would leave half the card idle)
+QUANT_THREADS = 256
+QUANT_ITEM = 16
+QUANT_ITEMS = 4
+QUANT_CLUSTER = 16
 
 
 def _act(x: torch.Tensor, act: str) -> torch.Tensor:
@@ -212,14 +225,50 @@ def _padded_rows(m: int, k: int, dtype, device) -> torch.Tensor:
                        device=device)[:, :k]
 
 
+QuantPlan = collections.namedtuple("QuantPlan", "blocks slice")
+
+
+def quant_plan(m: int, k: int, glu: bool = False) -> QuantPlan:
+    """The row quantizer's launch for M rows of K: `blocks` blocks a row,
+    one thread-block cluster, each taking `slice` activations (a multiple
+    of QUANT_ITEM; the last block the rest). From the shape alone:
+    - enough blocks that a block's slice fits its shared memory
+      (QUANT_ITEMS items a thread), since x is read once;
+    - more, up to QUANT_CLUSTER, while M x blocks fills the card once (132
+      SMs) and each thread keeps an item, for a row too long for one block
+      (Mixtral's cat rows of 114688 at a decode step's 8 rows take 16
+      blocks: 128) and for GLU rows, whose act(gate) (an exp and a
+      division a value) is the work to spread (the 7B's 11008 take 3);
+    - plain and RMSNorm rows that one block holds (K <= 16384) take one:
+      a cluster's barrier costs more than such a row's spread saves
+      (chip_smoke.py's plan sweep on an H100, PERF.md §6).
+    A 512-token prefill thus takes one block a row up to K = 16384."""
+    per_thread = QUANT_THREADS * QUANT_ITEM
+    need = -(-k // (per_thread * QUANT_ITEMS))
+    if need > QUANT_CLUSTER:
+        raise NotImplementedError(
+            f"the row quantizer takes K <= "
+            f"{QUANT_CLUSTER * per_thread * QUANT_ITEMS}, got {k}")
+    blocks = need
+    if need > 1 or glu:
+        fill = max(1, _SMS // max(m, 1))
+        blocks = max(need, min(fill, -(-k // per_thread), QUANT_CLUSTER))
+    piece = -(-k // blocks)
+    slice_ = -(-piece // QUANT_ITEM) * QUANT_ITEM
+    return QuantPlan(-(-k // slice_), slice_)
+
+
 def quantize_activations(x: torch.Tensor, k: int, *,
                          rms_weight: Optional[torch.Tensor] = None,
                          rms_eps: float = 1e-6, glu: bool = False,
-                         act: str = "silu", _padded: bool = False):
+                         act: str = "silu", _padded: bool = False,
+                         _plan: Optional[QuantPlan] = None):
     """(q, xs): the a8 matmul's input (x, rms_norm(x), or act(gate) * up
     for x = gate | up) quantized per row to int8, x: (M, K or 2K) ->
     ((M, K) int8, (M, 1) f32). A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel (csrc/dequant_matmul.cu), counted in
+    CUDA tensor launches the kernel (csrc/dequant_matmul.cu, a cluster of
+    `quant_plan` blocks a row, or `_plan`'s: timing other plans at one
+    shape is what sets `quant_plan`), counted in
     `quantize_activations.launches`; `_padded` (the tensor-core route)
     starts q's rows 16 bytes apart."""
     if not x.is_cuda:
@@ -236,10 +285,12 @@ def quantize_activations(x: torch.Tensor, k: int, *,
     else:
         q = torch.empty((m, k), dtype=torch.int8, device=x.device)
     xs = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+    plan = _plan or quant_plan(m, k, glu)
     rc = _build.library().dpt_quantize_rows(
         x.data_ptr(), x.stride(0), None if g is None else g.data_ptr(),
         int(glu), int(act == "gelu"), float(rms_eps), m, k, q.data_ptr(),
-        q.stride(0), xs.data_ptr(), _build.stream())
+        q.stride(0), xs.data_ptr(), plan.blocks, plan.slice,
+        _build.stream())
     _build.check(rc, "quantize_activations")
     quantize_activations.launches += 1
     return q, xs

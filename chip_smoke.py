@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --step-ms CHECKOUT
     python3 chip_smoke.py --ttft CHECKOUT
+    python3 chip_smoke.py --kt-ms CHECKOUT
     python3 chip_smoke.py --slot-orders CHECKOUT
 
 The second form only times the TinyLlama int8 decode step's 89 matmuls
@@ -18,8 +19,10 @@ another checkout of the repo (its root first on sys.path; it builds that
 checkout's kernels), three times each, and prints them as JSON: run it
 for two checkouts in turn (parent, change, change, parent) to pair them
 on one card. `--ttft CHECKOUT` does the same for the TTFT where #4 and
-#9 run (see `ttft_ms`), `--slot-orders CHECKOUT` for the attention calls
-over ATTN_LENS in ten orders of the slots (see `slot_order_ms`).
+#9 run (see `ttft_ms`), `--kt-ms CHECKOUT` for #7 at the 7B's and
+TinyLlama's heads beside #3 on the same caches (see `kt_ms`),
+`--slot-orders CHECKOUT` for the attention calls over ATTN_LENS in ten
+orders of the slots (see `slot_order_ms`).
 
 Phases, each printing a line with its wall time:
   1. device   the card's name and power limit (nvidia-smi), torch and CUDA
@@ -100,11 +103,13 @@ mirror: a 252-token prompt, 5 decode steps (one completes chunk 1, which
 #7 flushes), a verify window of 5 reading the mirror, against the CPU and
 the run without the mirror. The kernels phase also holds #8 (stacked
 appends, four stores, 8 and 40 rows), #7 (int8 and k8v4, tokens 1 and 5,
-Llama-2-7B's and TinyLlama's heads, its kt bytes too) and #11 (bf16,
-int8) against their plain versions. #3 and #5 are one launch a call (a
-cluster of splits a (slot, kv head) combined in distributed shared
-memory, no combine_kernel: every serve phase's profiled decode step but
-the kt one's must show none). The kernels phase also holds #3 at tokens
+Llama-2-7B's and TinyLlama's heads, its kt bytes too, stale chunks that
+must heal and NaN scales past the lengths; timed over cache copies past
+the L2, #3 on the same caches beside it) and #11 (bf16, int8) against
+their plain versions. #3, #5 and #7 are one kernel template, one launch
+a call (a cluster of splits a (slot, kv head) combined in distributed
+shared memory, no combine_kernel: no serve phase's profiled decode step
+may show one). The kernels phase also holds #3 at tokens
 = 1 at Llama-2-7B's heads in k8v4 and bf16 (beside sdpa) and at
 Mixtral-8x7B's in int8, timed over cache copies past the 50 MB L2, and
 #3 and #5 at tokens = 5 in every store (and #3 k8v4 at Llama-2-7B's
@@ -2415,15 +2420,118 @@ KT_LENS = (48, 96, 128, 232, 332, 482, 640, 932)
 KT_PATH_KV = "k8v4"
 
 
+def kt_cases(cfg):
+    """#7's kernel rows: ((name, query heads, kv heads, head dim), V bits,
+    tokens) at Llama-2-7B's heads and `cfg`'s (TinyLlama's)."""
+    heads = (("llama2-7b", 32, 32, 128),
+             ("tinyllama", cfg.num_heads, cfg.kv_heads, cfg.dim_head))
+    return [(h, v_bits, t) for h in heads for v_bits in (8, 4)
+            for t in (1, SPEC_T)]
+
+
+def kt_live_bytes(kh, d, v_bits, t):
+    """Bytes #7 must move at KT_LENS: each live row's K (from kt or k) and
+    V and their f32 scales, and the chunks it flushes written once (q and
+    the output apart)."""
+    f = kh * d
+    fv = f // 2 if v_bits == 4 else f
+    flush = sum(128 * f for n in KT_LENS if n >= 128 and n % 128 < t)
+    return sum(KT_LENS) * (f + fv + 4 * kh * (2 + (v_bits == 4))) + flush
+
+
+def kt_copies(kh, d, v_bits, t):
+    """Cache copies a #7 timing cycles through: past ATTN_COLD_BYTES."""
+    return max(1, -(-ATTN_COLD_BYTES // kt_live_bytes(kh, d, v_bits, t)))
+
+
+def kt_inputs(torch, hq, kh, d, v_bits, t, copies, seed):
+    """#7's operands on the card: 8 slots of a 1024-row cache at KT_LENS,
+    q (8, hq * t, d) folded query rows, lengths, and `copies` caches (kt,
+    k, v, k_scale, v_scale): random int8 K and V codes (V packed int4 at
+    v_bits 4), scales in [0.01, 0.03) with NaN in every third position past
+    each length, the mirror holding each slot's committed chunks and
+    random stale bytes in every other chunk (a rejected window's or a
+    prefix copy's leftovers, which the whole tail chunks must heal)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, s = 8, 1024
+    f = kh * d
+    dev = "cuda"
+    lens = torch.tensor(KT_LENS, device=dev, dtype=torch.int32)
+    pos = torch.arange(s, device=dev)
+    nan_at = ((pos[None, :] >= lens[:, None].long())
+              & (pos % 3 == 0)[None, :])[:, None, :]
+    q = torch.randn(b, t * hq, d, generator=g, device=dev).to(torch.bfloat16)
+    sets = []
+    for _ in range(copies):
+        k = torch.randint(-127, 128, (b, s, f), generator=g, device=dev,
+                          dtype=torch.int8)
+        v = torch.randint(-127, 128, (b, s, f // 2 if v_bits == 4 else f),
+                          generator=g, device=dev, dtype=torch.int8)
+        ks = torch.rand(b, kh, s, generator=g, device=dev) * 0.02 + 0.01
+        vs = torch.rand(b, kh * (2 if v_bits == 4 else 1), s, generator=g,
+                        device=dev) * 0.02 + 0.01
+        for sc in (ks, vs):
+            sc.masked_fill_(nan_at, float("nan"))
+        kt = torch.randint(-127, 128, (b, s // 128, f, 128), generator=g,
+                           device=dev, dtype=torch.int8)
+        for i, n in enumerate(KT_LENS):
+            full = max((n - t) // 128, 0)
+            kt[i, :full] = k[i, :full * 128].reshape(full, 128,
+                                                     f).transpose(1, 2)
+        sets.append((kt, k, v, ks, vs))
+    return q, lens, sets
+
+
+def kt_pair_ms(torch, da, q, lens, sets, t, v_bits, reps=1):
+    """ms a call of #7 and of #3 over the same caches (#3 reads the
+    row-major K and ignores the mirror), by CUDA-graph replay cycling
+    through the copies, in turns #7, #3, `reps` times: two lists."""
+    fk = [lambda c=c: da.decode_attention_kt(
+        q, c[0], c[1], c[2], lens, c[3], c[4], tokens=t, v_bits=v_bits)
+        for c in sets]
+    f3 = [lambda c=c: da.decode_attention(
+        q, c[1], c[2], lens, k_scale=c[3], v_scale=c[4], kv_bits=8,
+        v_bits=v_bits if v_bits == 4 else 0, tokens=t) for c in sets]
+    kt_ms, d3_ms = [], []
+    for _ in range(reps):
+        kt_ms.append(cuda_ms(torch, fk, 20 * len(sets)))
+        d3_ms.append(cuda_ms(torch, f3, 20 * len(sets)))
+    return kt_ms, d3_ms
+
+
+def kt_ms(torch) -> dict:
+    """ms a call of #7 in every case of `kt_cases` (TinyLlama's heads from
+    the preset), each beside #3 on the same caches, over cache copies past
+    the L2, STEP_REPS times: only the wrappers are used, so any checkout's
+    package can be timed (`--kt-ms ROOT`)."""
+    from deeppowers_tpu_torch.models.presets import TINYLLAMA_1_1B
+    from deeppowers_tpu_torch.ops.kernels import decode_attention as da
+    out = {}
+    for (heads, hq, kh, d), v_bits, t in kt_cases(TINYLLAMA_1_1B):
+        q, lens, sets = kt_inputs(torch, hq, kh, d, v_bits, t,
+                                  kt_copies(kh, d, v_bits, t), SEED + 50)
+        k_ms, d3 = kt_pair_ms(torch, da, q, lens, sets, t, v_bits,
+                              STEP_REPS)
+        name = f"{heads},{'k8v4' if v_bits == 4 else 'int8'},t{t}"
+        out[f"kt_ms[{name}]"] = k_ms
+        out[f"decode_attention_ms[{name}]"] = d3
+        del q, lens, sets
+        torch.cuda.empty_cache()
+    return out
+
+
 def check_scan_kt_kernels(torch, cfg):
     """#8 in four stores (8 rows, and a window's 8 x 5 rows, into layer 11
     of TinyLlama's (22, 8, 1024, F') stacked caches; one position past the
     cache, one negative), exact against its plain version, the bf16 rows
     beside one `index_put_` a side on the layer view; #7 int8 and k8v4 at
     tokens 1 and 5, at Llama-2-7B's heads (32 x 128) and TinyLlama's
-    (4 x 64), 8 slots at KT_LENS (committed chunks mirrored, the rest
-    stale), each row within 1e-2 of the plain version's max|ref| and the kt
-    bytes after the launch equal to the plain version's; #11 bf16 and int8
+    (4 x 64), 8 slots at KT_LENS (`kt_inputs`: committed chunks mirrored,
+    stale bytes in the rest, NaN scales past the lengths), each row within
+    1e-2 of the plain version's max|ref|, finite, and the kt bytes after
+    the launch equal to the plain version's with stale chunks healed;
+    timed over cache copies past the L2 beside #3 on the same caches
+    (`kt_pair_ms`); #11 bf16 and int8
     at TinyLlama's heads over ATTN_LENS, bf16 beside sdpa. Every row
     carries `launch_from` (phase, counter): a phase whose counts start at 0
     and whose model and path could launch the row's variant (a note says
@@ -2522,89 +2630,63 @@ def check_scan_kt_kernels(torch, cfg):
         del cache, ref
 
     # -- #7 -----------------------------------------------------------------
-    lens = torch.tensor(KT_LENS, device=dev, dtype=torch.int32)
-    s_kt = 1024
-    for heads, (hq, kh7, d7) in (("llama2-7b", (32, 32, 128)),
-                                 ("tinyllama", (cfg.num_heads, kh, d))):
-        f7 = kh7 * d7
-        for v_bits in (8, 4):
-            store = "k8v4" if v_bits == 4 else "int8"
-            k = torch.randint(-127, 128, (b, s_kt, f7), generator=g,
-                              device=dev, dtype=torch.int8)
-            v = torch.randint(-127, 128, (b, s_kt, f7 // 2 if v_bits == 4
-                                          else f7), generator=g, device=dev,
-                              dtype=torch.int8)
-            ks = torch.rand(b, kh7, s_kt, generator=g, device=dev) * 0.02 \
-                + 0.01
-            vs = torch.rand(b, kh7 * (2 if v_bits == 4 else 1), s_kt,
-                            generator=g, device=dev) * 0.02 + 0.01
-            stale = torch.arange(s_kt, device=dev)[None, :] >= \
-                lens[:, None].long()
-            for a in (ks, vs):
-                a.masked_fill_(stale[:, None, :] & (torch.arange(
-                    s_kt, device=dev) % 3 == 0)[None, None, :], float("nan"))
-            for t in (1, SPEC_T):
-                kt = torch.zeros(b, s_kt // 128, f7, 128, dtype=torch.int8,
-                                 device=dev)
-                for i, n in enumerate(KT_LENS):
-                    full = max((n - t) // 128, 0)
-                    kt[i, :full] = k[i, :full * 128].reshape(
-                        full, 128, f7).transpose(1, 2)
-                kt_ref = kt.clone()
-                q = torch.randn(b, t * hq, d7, generator=g, device=dev).to(
-                    torch.bfloat16)
-                out, _ = da.decode_attention_kt(q, kt, k, v, lens, ks, vs,
-                                                tokens=t, v_bits=v_bits)
-                ref, _ = da.decode_attention_kt_plain(q, kt_ref, k, v, lens,
-                                                      ks, vs, tokens=t,
-                                                      v_bits=v_bits)
-                torch.cuda.synchronize()
-                err, worst = row_errors(out, ref)
-                flushed = int((kt != 0).flatten(2).any(-1).sum())
-                if not (torch.isfinite(out).all() and worst <= 1e-2
-                        and torch.equal(kt, kt_ref)):
-                    fail(f"decode_attention_kt[{store}, {heads}, T={t}]: "
-                         f"worst row ratio {worst:.3g} (limit 1e-2), or "
-                         f"kt bytes differ from the plain version's")
-                t_k = cuda_ms(torch, [lambda: da.decode_attention_kt(
-                    q, kt, k, v, lens, ks, vs, tokens=t, v_bits=v_bits)],
-                    200)
-                t_p = cuda_ms(torch, [lambda: da.decode_attention_kt_plain(
-                    q, kt_ref, k, v, lens, ks, vs, tokens=t,
-                    v_bits=v_bits)], 3, graph=False)
-                live = int(lens.sum())
-                fv = f7 // 2 if v_bits == 4 else f7
-                flush_b = sum(128 * f7 for n in KT_LENS
-                              if n >= 128 and n % 128 < t)
-                nb = (live * (f7 + fv + 4 * kh7 * (1 + (v_bits == 4) + 1))
-                      + 2 * q.numel() * 2 + flush_b)
-                bd, by = verify_bound(torch, lens, t, hq, d7, nb, 0)
-                key = f"decode_attention_kt[{store}" + (
-                    "]" if t == 1 else f":t{t}]")
-                # the 7B's kt phases; at TinyLlama's heads the unrolled
-                # contiguous phases of the store (the mirror off there)
-                if heads == "llama2-7b":
-                    frm = ("serve[llama2-7b,kt]" if t == 1
-                           else "kt_path[llama2-7b]"), key
-                elif t > 1:
-                    frm = f"spec_path[{store},contiguous]", key
-                else:
-                    frm = ("serve[int8]" if store == "int8"
-                           else f"path[{store},contiguous]"), key
-                on = heads == "llama2-7b" and store == KT_PATH_KV
-                log(f"  decode_attention_kt[{store}] {heads} heads "
-                    f"{hq}/{kh7} x {d7}, T={t}, 8 slots {KT_LENS}: "
-                    f"max_abs_err={err:.3e} worst_row_ratio={worst:.3e}, "
-                    f"kt bytes equal ({flushed} chunks non-zero), kernel "
-                    f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {bd:.6f} ms")
-                rows.append(row(
-                    f"decode_attention_kt[{store}" + ("" if t == 1 else
-                                                      f":t{t}") + "]",
-                    "decode_attention_kt.cu", "decode_attention.py:1132",
-                    t_k, t_p, bd, by, err, None, frm, tokens=t, shape=heads,
-                    **({} if on else {"note": "no phase of this run runs "
-                                      "the mirror in this store and "
-                                      "shape"})))
+    for (heads, hq, kh7, d7), v_bits, t in kt_cases(cfg):
+        store = "k8v4" if v_bits == 4 else "int8"
+        copies = kt_copies(kh7, d7, v_bits, t)
+        q, lens, sets = kt_inputs(torch, hq, kh7, d7, v_bits, t, copies,
+                                  SEED + 50)
+        kt, k, v, ks, vs = sets[0]
+        kt_ref = kt.clone()
+        before = kt.clone()
+        out, _ = da.decode_attention_kt(q, kt, k, v, lens, ks, vs, tokens=t,
+                                        v_bits=v_bits)
+        ref, _ = da.decode_attention_kt_plain(q, kt_ref, k, v, lens, ks, vs,
+                                              tokens=t, v_bits=v_bits)
+        torch.cuda.synchronize()
+        err, worst = row_errors(out, ref)
+        healed = int((kt_ref != before).flatten(2).any(-1).sum())
+        if not (torch.isfinite(out).all() and worst <= 1e-2
+                and torch.equal(kt, kt_ref) and healed):
+            fail(f"decode_attention_kt[{store}, {heads}, T={t}]: worst row "
+                 f"ratio {worst:.3g} (limit 1e-2), or kt bytes differ from "
+                 f"the plain version's, or no stale chunk healed")
+        del before, kt_ref
+        t_k, t_3 = kt_pair_ms(torch, da, q, lens, sets, t, v_bits)
+        t_p = cuda_ms(torch, [lambda: da.decode_attention_kt_plain(
+            q, kt, k, v, lens, ks, vs, tokens=t, v_bits=v_bits)], 3,
+            graph=False)
+        bd, by = verify_bound(torch, lens, t, hq, d7,
+                              kt_live_bytes(kh7, d7, v_bits, t),
+                              q.numel() * 2)
+        key = f"decode_attention_kt[{store}" + ("]" if t == 1 else
+                                                f":t{t}]")
+        # the 7B's kt phases; at TinyLlama's heads the unrolled
+        # contiguous phases of the store (the mirror off there)
+        if heads == "llama2-7b":
+            frm = ("serve[llama2-7b,kt]" if t == 1
+                   else "kt_path[llama2-7b]"), key
+        elif t > 1:
+            frm = f"spec_path[{store},contiguous]", key
+        else:
+            frm = ("serve[int8]" if store == "int8"
+                   else f"path[{store},contiguous]"), key
+        on = heads == "llama2-7b" and store == KT_PATH_KV
+        log(f"  decode_attention_kt[{store}] {heads} heads {hq}/{kh7} x "
+            f"{d7}, T={t}, 8 slots {KT_LENS}: max_abs_err={err:.3e} "
+            f"worst_row_ratio={worst:.3e}, kt bytes equal ({healed} stale "
+            f"chunks healed), kernel {t_k[0]:.6f} ms (#3 on the same "
+            f"inputs {t_3[0]:.6f} ms) over {copies} cache copies, plain "
+            f"{t_p:.4f} ms, bound {bd:.6f} ms ({by})")
+        rows.append(row(
+            f"decode_attention_kt[{store}" + ("" if t == 1 else f":t{t}")
+            + "]", "decode_attention_kt.cu", "decode_attention.py:1132",
+            t_k[0], t_p, bd, by, err, None, frm, tokens=t, shape=heads,
+            worst_row_ratio=worst, cache_copies=copies,
+            decode_attention_ms=t_3[0],
+            **({} if on else {"note": "no phase of this run runs the "
+                              "mirror in this store and shape"})))
+        del q, lens, sets, kt, k, v, ks, vs, out, ref
+        torch.cuda.empty_cache()
     # -- #11 ----------------------------------------------------------------
     lens11 = torch.tensor(ATTN_LENS, device=dev, dtype=torch.int32)
     hq = cfg.num_heads
@@ -3264,7 +3346,7 @@ def serve_llama2_kt(torch, T, counters, l7_params):
                            "decode_attention_paged"])
     out = summary(results, wall, sched, launches)
     out["kv_bytes"] = engine.kv_nbytes
-    out["profile"] = profile_decode(torch, engine, tok, combine=True)
+    out["profile"] = profile_decode(torch, engine, tok)
     return out
 
 
@@ -3660,14 +3742,14 @@ def host_split(torch, prof, n: int) -> dict:
 
 
 def profile_decode(torch, engine, tok, steps: int = 5,
-                   tokens_per_step: int = 1, prompt_bytes: int = 64,
-                   combine: bool = False):
+                   tokens_per_step: int = 1, prompt_bytes: int = 64):
     """Device busy share of full-batch decode steps and their host split:
     8 greedy requests, two warm steps, then `steps` steps under
     torch.profiler (each request's budget covers `tokens_per_step` tokens
-    a step, a speculative window's most). #3 and #5 are one launch a call:
-    only a kt engine (#7, `combine`) may run the split-attention
-    combine_kernel."""
+    a step, a speculative window's most), and the device ms a step of the
+    decode attention kernel (#3, #5 and #7 are one template,
+    `attention_kernel`). Every one of them is one launch a call: no step
+    may run a combine_kernel."""
     from deeppowers_tpu_torch.config import GenerationConfig
     from deeppowers_tpu_torch.ops.kernels.dequant_matmul import (
         quantize_activations)
@@ -3694,16 +3776,21 @@ def profile_decode(torch, engine, tok, steps: int = 5,
         fail("profile: no device time recorded for the decode steps")
     dev = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not combine and any("combine_kernel" in e.key for e in dev):
-        fail("profile: a decode step ran combine_kernel beside #3 / #5")
+    if any("combine_kernel" in e.key for e in dev):
+        fail("profile: a decode step ran combine_kernel beside the attention "
+             "kernel")
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
     quant = [e for e in dev if "quantize_rows_kernel" in e.key]
+    attn = [e for e in dev if "attention_kernel" in e.key]
     while engine.active_requests:
         engine.step()
     engine.pop_finished()
     split.update(wall_ms=wall_ms, idle_share=1.0 - split["busy_ms"] / wall_ms,
                  top=[(e.key[:60], e.self_device_time_total / 1e3 / steps)
                       for e in top],
+                 attention={"traced": sum(e.count for e in attn) / steps,
+                            "ms": sum(e.self_device_time_total
+                                      for e in attn) / 1e3 / steps},
                  quantizer={"launches": q_launches,
                             "traced": sum(e.count for e in quant) / steps,
                             "ms": sum(e.self_device_time_total
@@ -4384,6 +4471,15 @@ def main(argv) -> int:
         log(json.dumps({"checkout": argv[1], "card": card_line(),
                         **ttft_ms(torch)}))
         return 0
+    if argv[:1] == ["--kt-ms"] and len(argv) == 2:
+        # #7 and #3 on the same caches, through the package of the
+        # checkout at argv[1], for a paired run of two checkouts on one card
+        sys.path.insert(0, os.path.abspath(argv[1]))
+        from deeppowers_tpu_torch.ops.kernels import _build
+        _build.library()
+        log(json.dumps({"checkout": argv[1], "card": card_line(),
+                        **kt_ms(torch)}))
+        return 0
     if argv[:1] == ["--slot-orders"] and len(argv) == 2:
         # #3 / #5 over slot orders of ATTN_LENS, through the package of the
         # checkout at argv[1], for a paired run of two checkouts on one card
@@ -4395,7 +4491,8 @@ def main(argv) -> int:
         return 0
     if argv:
         sys.stderr.write("usage: chip_smoke.py [--step-ms CHECKOUT | "
-                         "--ttft CHECKOUT | --slot-orders CHECKOUT]\n")
+                         "--ttft CHECKOUT | --kt-ms CHECKOUT | "
+                         "--slot-orders CHECKOUT]\n")
         return 2
     from deeppowers_tpu_torch.config import QuantConfig
     from deeppowers_tpu_torch.models import transformer as T
@@ -4649,11 +4746,18 @@ def main(argv) -> int:
     ktsrv = serve_llama2_kt(torch, T, counters, l7_params)
     report_serve("serve[llama2-7b,kt]", t0, ktsrv, smi_line,
                  len(PROMPT_BYTES))
+    kp, lp = ktsrv["profile"], lsrv["profile"]
     log(f"serve[llama2-7b,kt] tok/s {ktsrv['tok_per_s']:.1f}, decode step "
         f"p50 {ktsrv['decode_step_ms_p50']:.3f} ms, kv_bytes "
         f"{ktsrv['kv_bytes']} against serve[llama2-7b]'s "
         f"{lsrv['tok_per_s']:.1f}, {lsrv['decode_step_ms_p50']:.3f} ms, "
-        f"{lsrv['kv_bytes']} card={smi_line!r}")
+        f"{lsrv['kv_bytes']}; a profiled decode step: device busy "
+        f"{kp['busy_ms']:.4f} ms, #7 {kp['attention']['ms']:.4f} ms "
+        f"({kp['attention']['traced']:.1f} launches), "
+        f"{kp['launches']:.1f} launches, against {lp['busy_ms']:.4f} ms, "
+        f"#3 {lp['attention']['ms']:.4f} ms "
+        f"({lp['attention']['traced']:.1f} launches), "
+        f"{lp['launches']:.1f} launches card={smi_line!r}")
     torch.cuda.empty_cache()
 
     # 10b. the same weights verifying drafts of TinyLlama-1.1B int8

@@ -7,7 +7,13 @@ unchanged; three of them name machinery not ported yet
 (`emit_top_logprobs`, `decode_steps_per_dispatch`,
 `seq_parallel_prefill`), and the port's engine raises NotImplementedError
 when one differs from its default (runtime/engine.py
-`UNPORTED_RUNTIME_DEFAULTS`).
+`UNPORTED_RUNTIME_DEFAULTS`). A fourth, `pipelined_dispatch`, is kept and
+not read yet: the port's engine harvests each decode step before it
+dispatches the next, where JAX's default dispatches step n + 1 first
+(deeppowers_tpu/runtime/engine.py:1512-1537). The tokens are the same
+either way (the device math does not change); only the host's timing
+differs. The field takes effect with the CUDA-graph decode step and
+multi-step dispatch (ROADMAP.md, queue 1 item 1).
 """
 
 from __future__ import annotations
@@ -147,6 +153,7 @@ class RuntimeConfig:
     kv_lazy_slack: int = 64
     enable_prefix_cache: bool = False
     decode_steps_per_dispatch: int = 1
+    # Kept and not read yet (module docstring).
     pipelined_dispatch: bool = True
     # Batch the prefills of an admission round into per-bucket groups.
     batched_admission: bool = True

@@ -1,852 +1,7 @@
-// GQA decode attention over a KV cache, reading only the first lengths[b]
-// positions of each slot (flash-decoding), for one token a slot (decode) or
-// a speculative verify window of T tokens a slot folded into extra query
-// rows, in two row layouts and four store variants that share one kernel
-// template:
-//
-//   contiguous  flat (B, S, F) caches. Replaces the Pallas TPU kernel
-//               deeppowers_tpu/ops/pallas/decode_attention.py
-//               (`decode_attention_mxu` :341, body `_kernel_mxu` :123,
-//               pallas_call :470; `verify_attention_mxu` :501 for T > 1),
-//               no `layer` operand.
-//   paged       (P, page, F) pools read through a (B, WP) page table.
-//               Replaces `decode_attention_paged_mxu` :706 (body
-//               `_kernel_mxu_paged_db` :526, pallas_call :780;
-//               `verify_attention_paged_mxu` :1235 for T > 1).
-//
-// Store variants (K bits, V bits): bf16 (16, 16); int8 (8, 8) with one f32
-// scale per (position, kv head); int4 (4, 4), packed two to a byte
-// half-split along D (low nibble feature j, high nibble feature j + D/2)
-// with two sub-block scales per (position, head), scale rows 2*head + half;
-// k8v4 (8, 4). Scales are head-major: (B, R, S) contiguous, (P, R, page)
-// paged, R = Kh or 2*Kh.
-//
-// What bounds it on an H100: bytes, the live K and V rows read once
-// (2 * sum_b(lengths[b]) * F * 2 for bf16; F and F/2 bytes a row for int8
-// and int4) plus their scales, q and the output; a verify window reads the
-// same rows once for all its T tokens, so its byte bound is decode's. The
-// arithmetic (4 * D operations a query row and position, on the tensor
-// cores) stays far below the 295 operations a byte where they would bound
-// it, even with the query rows padded to 16. In practice a call is a few
-// microseconds of launch, merge and cluster work plus the longest
-// (slot, kv head)'s walk, which is instruction-bound: converting K and V
-// to the tensor cores' operands and the softmax, about 700 instructions a
-// warp for 16 positions at the 7B's k8v4 heads.
-//
-// What held the first design (split partials and a second combine
-// launch) at 5-36x its bound: a block had one warp a query row, so at
-// R = 1 (the 7B's MHA) one warp staged 64 positions x 128 features in 1-
-// and 2-byte loads, about 2 KB in flight an SM where 25-40 KB feed HBM;
-// each 32-row tile ran load, sync, scores, softmax and p.V as one chain;
-// K and V were staged as f32 and multiplied on the CUDA cores; and every
-// split wrote R x D f32 partials (zeros past the length too) that a second
-// kernel read back, with three scratch tensors allocated a call.
-//
-// This design, one launch a call, nothing allocated but the output:
-//  - grid (nsplit, B * Kh): the S splits of one (slot, kv head) are one
-//    thread-block cluster (at most 8, portable), and the blocks take the
-//    slots longest first (ranked on the device from the lengths) so that
-//    the longest walks start in the first wave. The host planner
-//    (`attention_plan` in ops/kernels/decode_attention.py) takes the split
-//    count from the shapes alone, never from the lengths: as many splits
-//    as one wave of blocks holds while every position group keeps two
-//    tiles (TinyLlama's 32 pairs take 4, Mixtral's 64 take 2, the 7B's 256
-//    pass a wave alone and take 1). A block whose stretch lies past the
-//    slot's length reads nothing and joins the cluster with empty partials
-//    (max -1e30, sum 0).
-//  - a block is 8 warps: mg = ceil(R / 16) warps a position group (one
-//    16-row m tile each, R = rep * T query rows of the kv head) and 8 / mg
-//    groups, each walking every group-th 16-position tile of the block's
-//    stretch with its own online softmax. The groups merge in shared
-//    memory in group order, then the cluster's blocks meet in distributed
-//    shared memory and each combines its share of the outputs over the
-//    splits in rank order (a fixed order: the same inputs give the same
-//    bits).
-//  - each group streams its tiles through a cp.async ring of 16-byte
-//    copies (3 stages, or as many as it has tiles, so that the ring's
-//    shared memory admits more blocks), in the stored form (bf16, int8 or
-//    packed int4 bytes) with the f32 scales beside them. Each copy carries
-//    its own address, so the paged layout keeps every page size: a tile
-//    inside one page (any page a multiple of 16) finds its rows through
-//    one table read, any other row through its own, and no tensor map is
-//    encoded per call. Rows past the slot's length, and their scales, are
-//    zero-filled by the copy (src-size 0), never read. Chunks land
-//    XOR-swizzled, so that the fragment loads below meet no bank twice.
-//  - both dots run on the tensor cores, mma.sync m16n8k16 -> f32, in
-//    FlashAttention-2's register arrangement: query rows are the M side,
-//    positions the n8 side of q.K^T with D as its depth (two accumulators
-//    of alternate k-steps halve the chain), and the score fragments become
-//    p's A fragment for p.V in registers. K comes by ldmatrix (bf16) or as
-//    bytes converted exactly in registers: int8 and int4 K meet q in f16
-//    (a byte is the mantissa of the f16 1024 + b, two instructions a pair
-//    where bf16 takes five; f16 holds the bf16 q exactly in its normal
-//    range). V comes by ldmatrix.trans (bf16) or as bytes gathered per
-//    position pair (0x4300 | n is the bf16 128 + n for int4). The order of
-//    D inside a k-step is free for q.K^T (q's fragments follow K's), and
-//    the order of D across p.V's n8 tiles is free too (the output is
-//    written back in order), so every thread reads its K and V bytes
-//    contiguously. wgmma would need 64-row tiles of queries that decode
-//    does not have; at <= 64 query rows the tensor cores are not the
-//    limit, so mma.sync serves.
-//  - the operands round as the TPU kernel's MXU path rounds them: q *
-//    scale in bf16, K and V codes exact, f32 sums; the K scales fold into
-//    the f32 scores (int4 K sums its two D halves in two accumulators,
-//    one per sub-scale), the softmax sums use p before the V-scale fold.
-//    But p (times the V scale where there is one) goes into p.V as two
-//    bf16 terms, hi and lo (exact to about 2^-16; twice p.V's mma.sync):
-//    rounded once, as the TPU rounds it, an int8 row stood 1.18e-2 of its
-//    max from the int8 plain version (which rounds its own normalized
-//    probabilities to bf16) on the card, and an int4 row at Mixtral's
-//    heads 1.28e-2 from the f32 one (positions whose p.V cancel magnify
-//    the rounding), past the 1e-2 gate.
-//  - positions at or past a row's bound (lengths[b], or lengths[b] - (T -
-//    1) + t for window token t) are excluded by a select, never by
-//    multiplying by zero: pages are reused after release and padded
-//    prompt writes leave rows past the length, so garbage or NaN there, in
-//    values or in f32 scales, cannot leak.
-// The TPU kernel's int8_dots branch, which requantizes q and p to int8 for
-// the MXU, is not carried over.
-#include <cuda_fp16.h>
-
-#include "common.cuh"
-#include "dequant_common.cuh"
-#include "wgmma.cuh"
-
-namespace {
-
-constexpr int STAGES = 3;      // cp.async ring depth of a position group
-constexpr int MAX_WARPS = 8;   // mg * pw
-constexpr int MAX_SPLITS = 8;  // a portable cluster
-constexpr int MAX_ROWS = 64;   // query rows a kv head: 4 m tiles
-
-// Contiguous layout: virtual row s of slot b is (major b, minor s).
-struct ContiguousRows {
-  __device__ void operator()(int b, int s, long long& major, int& minor) const {
-    major = b;
-    minor = s;
-  }
-  // whether the n rows from a multiple of n are consecutive in one major
-  __device__ bool whole(int n) const { return true; }
-};
-
-// Paged layout: virtual row s of slot b is row s % page of page
-// tab[b, s / page].
-struct PagedRows {
-  const int* __restrict__ tab;
-  int tab_sb, page;
-  __device__ void operator()(int b, int s, long long& major, int& minor) const {
-    major = tab[(long long)b * tab_sb + s / page];
-    minor = s % page;
-  }
-  __device__ bool whole(int n) const { return page % n == 0; }
-};
-
-// One cache side. Row (major, minor) starts at element major * msb + minor
-// * width of `data` (bf16, int8 or packed bytes; width = the stored row
-// width). Its scale of group g is scale[major * ssb + g * srs + minor].
-struct Side {
-  const void* data;
-  long long msb;
-  int width;
-  const float* scale;
-  long long ssb, srs;
-};
-
-struct Args {
-  const bf16* q;
-  long long q_sb;
-  const int* lens;
-  int S, Kh, R, T;
-  int nsplit, chunk;  // splits (the cluster) and positions a split
-  int tile;           // positions a ring stage, % 16 == 0
-  int pw, mg;         // position groups, warps a group
-  int stages;         // ring stages of a group, 1..STAGES
-  int svec;           // scales come 16 bytes a copy (else 4)
-  float scale;
-  bf16* out;
-  cudaStream_t st;
-};
-
-template <int BITS>
-__host__ __device__ constexpr int n_scales() {
-  return BITS == 16 ? 0 : (BITS == 4 ? 2 : 1);
-}
-
-// Stored bytes of one kv head's row: 2D (bf16), D (int8), D/2 (int4).
-template <int BITS, int D>
-__host__ __device__ constexpr int head_bytes() {
-  return D * BITS / 8;
-}
-
-// 16-byte chunk lam of a tile whose rows are CPR chunks, XOR-swizzled
-// inside its 128-byte line: by the row for rows of >= 128 bytes, by twice
-// the line for shorter rows, so that the fragment loads (eight rows of one
-// chunk, or a thread's own bytes of rows 2c + e) meet no bank twice.
-template <int CPR>
-__device__ __forceinline__ int swz(int lam) {
-  const int line = lam >> 3;
-  if constexpr (CPR >= 8)
-    return lam ^ ((line / (CPR / 8)) & 7);
-  else
-    return lam ^ ((2 * line) & 7);
-}
-
-// byte offset of byte `by` of tile row r
-template <int CPR>
-__device__ __forceinline__ int tile_off(int r, int by) {
-  return (swz<CPR>(r * CPR + (by >> 4)) << 4) | (by & 15);
-}
-
-// N 32-bit words of tile row r from byte `by` (inside one chunk, or whole
-// chunks)
-template <int CPR, int N>
-__device__ __forceinline__ void lds_words(const unsigned char* t, int r,
-                                          int by, unsigned (&w)[N]) {
-  if constexpr (N >= 4) {
-#pragma unroll
-    for (int i = 0; i < N / 4; ++i) {
-      const uint4 x =
-          *reinterpret_cast<const uint4*>(t + tile_off<CPR>(r, by + 16 * i));
-      w[4 * i] = x.x;
-      w[4 * i + 1] = x.y;
-      w[4 * i + 2] = x.z;
-      w[4 * i + 3] = x.w;
-    }
-  } else if constexpr (N == 2) {
-    const uint2 x = *reinterpret_cast<const uint2*>(t + tile_off<CPR>(r, by));
-    w[0] = x.x;
-    w[1] = x.y;
-  } else {
-    w[0] = *reinterpret_cast<const unsigned*>(t + tile_off<CPR>(r, by));
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// the n threads of a position group
-__device__ __forceinline__ void bar_group(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&h);
-}
-
-__device__ __forceinline__ unsigned pack_f16(float lo, float hi) {
-  const __half2 h = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&h);
-}
-
-// bytes (sel & 0xF, (sel >> 8) & 0xF) of u (biased: u ^ 0x80808080) as an
-// exact f16 pair: each byte b becomes the mantissa of the f16 1024 + b,
-// and one subtraction takes 1152 off (sel 0x4140: bytes 0, 1; 0x4342: 2,
-// 3)
-__device__ __forceinline__ unsigned f16x2_bytes(unsigned u, unsigned sel) {
-  const unsigned v = __byte_perm(u, 0x64646464u, sel);
-  unsigned d;
-  asm("sub.f16x2 %0, %1, %2;\n" : "=r"(d) : "r"(v), "r"(0x64806480u));
-  return d;
-}
-
-// the nibbles at bits sh and sh + 16 of u (biased: u ^ 0x88888888) as an
-// exact f16 pair: 0x6400 | n is the f16 1024 + n, less 1032
-__device__ __forceinline__ unsigned f16x2_nibbles(unsigned u, int sh) {
-  const unsigned v = ((u >> sh) & 0x000F000Fu) | 0x64006400u;
-  unsigned d;
-  asm("sub.f16x2 %0, %1, %2;\n" : "=r"(d) : "r"(v), "r"(0x64086408u));
-  return d;
-}
-
-// (x0, x1) as two bf16 pairs whose sum is exact to about 2^-16: hi, and
-// lo = the rest
-__device__ __forceinline__ void split_bf16(float x0, float x1, unsigned& hi,
-                                           unsigned& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  hi = *reinterpret_cast<const unsigned*>(&h);
-  lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
-}
-
-// byte i of two words (biased: w ^ 0x80808080) as an exact bf16 pair,
-// the first word's in the low half
-__device__ __forceinline__ unsigned bf16x2_bytes(unsigned a, unsigned b,
-                                                 int i) {
-  const float f0 =
-      __int_as_float(__byte_perm(a, 0x4B000000u, 0x7440u | i)) - 8388736.f;
-  const float f1 =
-      __int_as_float(__byte_perm(b, 0x4B000000u, 0x7440u | i)) - 8388736.f;
-  return pack_bf16(f0, f1);
-}
-
-// The feature of q.K^T's k index 2c + (i & 1) + 8 (i >> 1) in k-step ks,
-// per K store: ldmatrix's order for bf16; for int8 thread c's D/4
-// contiguous bytes, four a k-step; for int4 (k-steps 0..D/32-1 the low
-// nibbles, the rest the high ones) thread c's D/8 contiguous bytes, whose
-// nibble pairs (bytes 0, 2) and (1, 3) a word make b0 and b1.
-template <int KB, int D>
-__device__ __forceinline__ int k_feature(int ks, int c, int i) {
-  if constexpr (KB == 16) {
-    return 16 * ks + 2 * c + (i & 1) + 8 * (i >> 1);
-  } else if constexpr (KB == 8) {
-    return (D / 4) * c + 4 * ks + i;
-  } else {
-    const int h = ks / (D / 32), kk = ks % (D / 32);
-    return h * (D / 2) + (D / 8) * c + 4 * kk + 2 * (i & 1) + (i >> 1);
-  }
-}
-
-// The feature of output column n of p.V's n8 tile nt, per V store:
-// ldmatrix.trans's order for bf16; thread g's D/8 contiguous bytes for
-// int8 (tile nt = byte nt); for int4, tiles 0..D/16-1 the low nibbles of
-// thread g's D/16 bytes, the rest the high ones.
-template <int VB, int D>
-__device__ __forceinline__ int v_feature(int nt, int n) {
-  if constexpr (VB == 16) {
-    return 8 * nt + n;
-  } else if constexpr (VB == 8) {
-    return n * (D / 8) + nt;
-  } else {
-    const int h = nt / (D / 16), j = nt % (D / 16);
-    return h * (D / 2) + n * (D / 16) + j;
-  }
-}
-
-// The slot of rank r when the B slots are ordered by length, longest first
-// (ties by index), so that the longest slots' blocks are scheduled first:
-// each lane ranks one slot (B <= 32, else slots keep their order).
-__device__ __forceinline__ int slot_by_length(const int* lens, int B, int r,
-                                              int lane) {
-  if (B > 32) return r;
-  const int mine = lane < B ? lens[lane] : -1;
-  int rank = 0;
-  for (int y = 0; y < B; ++y) {
-    const int other = __shfl_sync(0xffffffffu, mine, y);
-    rank += other > mine || (other == mine && y < lane);
-  }
-  return __ffs(__ballot_sync(0xffffffffu, lane < B && rank == r)) - 1;
-}
-
-// The n live rows (of TL) of one side from virtual row t0 of slot b into a
-// tile of CPR-chunk rows, this thread's share of the 16-byte copies: rows
-// at the row stride from (major0, minor0) when `whole`, else each row
-// through `rows`; the rest zero-filled.
-template <int CPR, typename Rows>
-__device__ __forceinline__ void copy_side(
-    unsigned char* dst, const void* data, long long msb, int width, int esz,
-    int hoff, const Rows& rows, bool whole, int b, int t0, int n, int TL,
-    long long major0, int minor0, int tid, int nthr) {
-  const unsigned char* d0 = (const unsigned char*)data;
-  auto row_at = [&](long long major, int minor) {
-    return d0 + (major * msb + (long long)minor * width) * esz + hoff;
-  };
-  const unsigned char* base = row_at(major0, minor0);
-  for (int x = tid; x < TL * CPR; x += nthr) {
-    const int r = x / CPR, q = x % CPR;
-    const bool ok = r < n;
-    const unsigned char* src = base + (long long)r * width * esz;
-    if (ok && !whole) {
-      long long major;
-      int minor;
-      rows(b, t0 + r, major, minor);
-      src = row_at(major, minor);
-    }
-    cp_async<16>(dst + 16 * swz<CPR>(x), ok ? src + 16 * q : d0,
-                 ok ? 16 : 0);
-  }
-}
-
-// Query rows: O = Kh * R rows a slot, R = rep * T per kv head, ordered
-// (kv head, query head, window token t) as the TPU kernel folds a verify
-// window into its output rows (`_fold_tokens` :488); T = 1 is decode. Row
-// t of a window sees the positions below len - (T - 1) + t, where len =
-// lens[b] counts the cached rows and the whole window (:262-266).
-//
-// grid (nsplit, B * Kh), cluster (nsplit, 1, 1), 32 * mg * pw threads.
-// Dynamic shared memory: the groups' rings, pw * stages stages of tile *
-// (K, V and scale bytes a row), reused at the end for the groups'
-// partials (pw * R * (D + 2) + 2 * R floats).
-template <int D, int KB, int VB, typename Rows>
-__global__ void __launch_bounds__(MAX_WARPS * 32)
-    attention_kernel(const Args a, const Side k, const Side v,
-                     const Rows rows) {
-  constexpr int KHB = head_bytes<KB, D>(), VHB = head_bytes<VB, D>();
-  constexpr int KCPR = KHB / 16, VCPR = VHB / 16;
-  constexpr int NK = n_scales<KB>(), NV = n_scales<VB>();
-  constexpr int KE = KB == 16 ? 2 : 1, VE = VB == 16 ? 2 : 1;
-  constexpr int KS = D / 16;   // k-steps of q.K^T
-  constexpr int NO = D / 8;    // n8 tiles of the output
-  extern __shared__ __align__(128) unsigned char sm[];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, c = lane & 3;
-  const int mg = warp % a.mg, pg = warp / a.mg;
-  const int split = blockIdx.x;
-  const int kh = blockIdx.y % a.Kh;
-  const int b = slot_by_length(a.lens, gridDim.y / a.Kh, blockIdx.y / a.Kh,
-                               lane);
-  const int lb = a.lens[b];
-  const int len = max(0, min(lb, a.S));
-  const int s0 = split * a.chunk, s1 = min(s0 + a.chunk, len);
-  const int TL = a.tile;
-  const int kbytes = TL * KHB, vbytes = TL * VHB;
-  const int stage = kbytes + vbytes + 4 * TL * (NK + NV);
-  unsigned char* ring = sm + pg * a.stages * stage;
-  const int gthr = 32 * a.mg, gtid = tid - pg * gthr;
-  const int ntiles = s1 > s0 ? (s1 - s0 + TL - 1) / TL : 0;
-  const int mine = ntiles > pg ? (ntiles - pg + a.pw - 1) / a.pw : 0;
-
-  // this thread's two query rows of the warp's m tile
-  const int r0 = 16 * mg + g, r1 = r0 + 8;
-  const int bound0 = lb - (a.T - 1) + r0 % a.T;
-  const int bound1 = lb - (a.T - 1) + r1 % a.T;
-  float m0 = DPT_NEG_INF, m1 = DPT_NEG_INF, l0 = 0.f, l1 = 0.f;
-  float acc[NO][4];
-#pragma unroll
-  for (int nt = 0; nt < NO; ++nt)
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-
-  // tile i of this group (positions t0..t0 + TL) into its ring stage:
-  // K and V rows in 16-byte copies, then the scales; rows past the
-  // block's stretch (which ends at the length or at a whole tile) are
-  // zero-filled, their table entries and scales never read. A tile that
-  // lies in one page (or slot) finds its rows through one table read.
-  const bool whole = rows.whole(TL);
-  auto load = [&](int i) {
-    const int t0 = s0 + (pg + i * a.pw) * TL;
-    const int n = min(TL, s1 - t0);
-    unsigned char* st = ring + (i % a.stages) * stage;
-    long long major0 = 0;
-    int minor0 = 0;
-    if (whole) rows(b, t0, major0, minor0);
-    copy_side<KCPR>(st, k.data, k.msb, k.width, KE, kh * KHB, rows, whole, b,
-                    t0, n, TL, major0, minor0, gtid, gthr);
-    copy_side<VCPR>(st + kbytes, v.data, v.msb, v.width, VE, kh * VHB, rows,
-                    whole, b, t0, n, TL, major0, minor0, gtid, gthr);
-    if constexpr (NK + NV > 0) {
-      float* sd = reinterpret_cast<float*>(st + kbytes + vbytes);
-      const int per = a.svec ? TL / 4 : TL;
-      for (int x = gtid; x < (NK + NV) * per; x += gthr) {
-        const int hf = x / per, j = (x - hf * per) * (a.svec ? 4 : 1);
-        const int cnt = max(0, min(a.svec ? 4 : 1, n - j));
-        const bool isk = hf < NK;
-        const float* src = isk ? k.scale : v.scale;
-        if (cnt) {
-          long long major = major0;
-          int minor = minor0 + j;
-          if (!whole) rows(b, t0 + j, major, minor);
-          src += major * (isk ? k.ssb : v.ssb) +
-                 (isk ? kh * NK + hf : kh * NV + hf - NK) *
-                     (isk ? k.srs : v.srs) +
-                 minor;
-        }
-        if (a.svec)
-          cp_async<16>(sd + hf * TL + j, src, 4 * cnt);
-        else
-          cp_async<4>(sd + hf * TL + j, src, 4 * cnt);
-      }
-    }
-  };
-
-  if (mine > 0) {
-    for (int i = 0; i < a.stages - 1; ++i) {
-      if (i < mine) load(i);
-      cp_async_commit();
-    }
-    // q * scale in bf16, as A fragments in K's feature order
-    unsigned qa[KS][4];
-    {
-      const bf16* qb = a.q + (long long)b * a.q_sb + (long long)kh * a.R * D;
-      auto qv = [&](int r, int ks, int i) {
-        const int f = k_feature<KB, D>(ks, c, i);
-        return r < a.R ? round_bf16(bf2f(qb[r * D + f]) * a.scale) : 0.f;
-      };
-      // bf16 against bf16 K; f16 against int8 or int4 K (the bf16 value
-      // again, exactly, in f16's normal range)
-      auto pack = [](float lo, float hi) {
-        if constexpr (KB == 16)
-          return pack_bf16(lo, hi);
-        else
-          return pack_f16(lo, hi);
-      };
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        qa[ks][0] = pack(qv(r0, ks, 0), qv(r0, ks, 1));
-        qa[ks][1] = pack(qv(r1, ks, 0), qv(r1, ks, 1));
-        qa[ks][2] = pack(qv(r0, ks, 2), qv(r0, ks, 3));
-        qa[ks][3] = pack(qv(r1, ks, 2), qv(r1, ks, 3));
-      }
-    }
-    for (int i = 0; i < mine; ++i) {
-      // a ring of one stage loads its tile here, after the last one's use
-      if (a.stages == 1) {
-        if (i) bar_group(1 + pg, gthr);
-        load(i);
-        cp_async_commit();
-      }
-      if (a.stages >= 3)
-        cp_async_wait<1>();
-      else
-        cp_async_wait<0>();
-      bar_group(1 + pg, gthr);  // tile i landed; tile i - 1 is consumed
-      if (a.stages > 1 && i + a.stages - 1 < mine) load(i + a.stages - 1);
-      cp_async_commit();
-      const unsigned char* kt = ring + (i % a.stages) * stage;
-      const unsigned char* vt = kt + kbytes;
-      const float* ksc = reinterpret_cast<const float*>(vt + vbytes);
-      const float* vsc = ksc + NK * TL;
-      const int t0 = s0 + (pg + i * a.pw) * TL;
-      const int nsub = min(TL, s1 - t0 + 15) >> 4;
-      for (int sb = 0; sb < nsub; ++sb) {
-        const int rb = 16 * sb;
-        // scores of the 16 rows against positions rb..rb + 15 (two n8
-        // tiles); int4 K: the high half in sh
-        float sc[2][4], sh[2][4], sx[2][4];  // sx: odd k-steps, summed in
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) sc[nt][e] = sh[nt][e] = sx[nt][e] = 0.f;
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          if constexpr (KB == 16) {
-            const uint32_t base = smem_u32(kt);
-#pragma unroll
-            for (int kp = 0; kp < KS / 2; ++kp) {
-              unsigned r[4];
-              ldmatrix_x4(base + tile_off<KCPR>(rb + 8 * nt + (lane & 7),
-                                                16 * (4 * kp + (lane >> 3))),
-                          r);
-              mma_bf16(sc[nt], qa[2 * kp], r[0], r[1]);
-              mma_bf16(sx[nt], qa[2 * kp + 1], r[2], r[3]);
-            }
-          } else if constexpr (KB == 8) {
-            unsigned w[D / 16];
-            lds_words<KCPR>(kt, rb + 8 * nt + g, c * (D / 4), w);
-#pragma unroll
-            for (int ks = 0; ks < KS; ++ks) {
-              const unsigned u = w[ks] ^ 0x80808080u;
-              const unsigned b0 = f16x2_bytes(u, 0x4140);
-              const unsigned b1 = f16x2_bytes(u, 0x4342);
-              if (ks % 2)
-                mma_f16(sx[nt], qa[ks], b0, b1);
-              else
-                mma_f16(sc[nt], qa[ks], b0, b1);
-            }
-          } else {
-            unsigned w[D / 32];
-            lds_words<KCPR>(kt, rb + 8 * nt + g, c * (D / 8), w);
-#pragma unroll
-            for (int kk = 0; kk < D / 32; ++kk) {
-              const unsigned u = w[kk] ^ 0x88888888u;
-              mma_f16(sc[nt], qa[kk], f16x2_nibbles(u, 0),
-                      f16x2_nibbles(u, 8));
-              mma_f16(sh[nt], qa[D / 32 + kk], f16x2_nibbles(u, 4),
-                      f16x2_nibbles(u, 12));
-            }
-          }
-        }
-        if constexpr (KB != 4) {
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) sc[nt][e] += sx[nt][e];
-        }
-        // K scales folded in, positions past each row's bound selected away
-        float mx0 = DPT_NEG_INF, mx1 = DPT_NEG_INF;
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int j = rb + 8 * nt + 2 * c + e;
-            const int pos = t0 + j;
-            float x0 = sc[nt][e], x1 = sc[nt][2 + e];
-            if constexpr (NK == 1) {
-              x0 *= ksc[j];
-              x1 *= ksc[j];
-            } else if constexpr (NK == 2) {
-              x0 = x0 * ksc[j] + sh[nt][e] * ksc[TL + j];
-              x1 = x1 * ksc[j] + sh[nt][2 + e] * ksc[TL + j];
-            }
-            sc[nt][e] = pos < bound0 ? x0 : DPT_NEG_INF;
-            sc[nt][2 + e] = pos < bound1 ? x1 : DPT_NEG_INF;
-            mx0 = fmaxf(mx0, sc[nt][e]);
-            mx1 = fmaxf(mx1, sc[nt][2 + e]);
-          }
-#pragma unroll
-        for (int o = 1; o <= 2; o <<= 1) {
-          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
-          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
-        }
-        const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-        const float al0 = __expf(m0 - mn0), al1 = __expf(m1 - mn1);
-        m0 = mn0;
-        m1 = mn1;
-        float p[2][4];
-        float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int pos = t0 + rb + 8 * nt + 2 * c + e;
-            p[nt][e] = pos < bound0 ? __expf(sc[nt][e] - mn0) : 0.f;
-            p[nt][2 + e] = pos < bound1 ? __expf(sc[nt][2 + e] - mn1) : 0.f;
-            ps0 += p[nt][e];
-            ps1 += p[nt][2 + e];
-          }
-        l0 = l0 * al0 + ps0;
-        l1 = l1 * al1 + ps1;
-        if (__any_sync(0xffffffffu, al0 != 1.f || al1 != 1.f)) {
-#pragma unroll
-          for (int nt = 0; nt < NO; ++nt) {
-            acc[nt][0] *= al0;
-            acc[nt][1] *= al0;
-            acc[nt][2] *= al1;
-            acc[nt][3] *= al1;
-          }
-        }
-        // p (times the V scale of its position and half) as two bf16
-        // terms, hi and lo: the A fragments of p.V, k index = position
-        // rb + k
-        constexpr int NP = NV == 2 ? 2 : 1;
-        unsigned ph[NP][4], pl[NP][4];
-        auto pv = [&](float(&d)[4], int h, unsigned b0, unsigned b1) {
-          mma_bf16(d, ph[h], b0, b1);
-          mma_bf16(d, pl[h], b0, b1);
-        };
-#pragma unroll
-        for (int h = 0; h < NP; ++h) {
-          float f[2][2];
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-            for (int e = 0; e < 2; ++e)
-              f[nt][e] = NV ? vsc[h * TL + rb + 8 * nt + 2 * c + e] : 1.f;
-          const float x[4][2] = {{p[0][0] * f[0][0], p[0][1] * f[0][1]},
-                                 {p[0][2] * f[0][0], p[0][3] * f[0][1]},
-                                 {p[1][0] * f[1][0], p[1][1] * f[1][1]},
-                                 {p[1][2] * f[1][0], p[1][3] * f[1][1]}};
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            split_bf16(x[j][0], x[j][1], ph[h][j], pl[h][j]);
-        }
-        // p.V over the 16 positions
-        if constexpr (VB == 16) {
-          const uint32_t base = smem_u32(vt);
-#pragma unroll
-          for (int nt = 0; nt < NO; nt += 2) {
-            unsigned r[4];
-            ldmatrix_x4_trans(
-                base + tile_off<VCPR>(rb + 8 * ((lane >> 3) & 1) + (lane & 7),
-                                      16 * (nt + (lane >> 4))),
-                r);
-            pv(acc[nt], 0, r[0], r[1]);
-            pv(acc[nt + 1], 0, r[2], r[3]);
-          }
-        } else {
-          // rows rb + 2c + {0, 1, 8, 9}: b0 pairs rows 2c, 2c + 1 and b1
-          // rows 2c + 8, 2c + 9 at one feature
-          constexpr int VW = (VB == 8 ? D / 8 : D / 16) / 4;
-          unsigned w[4][VW];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            lds_words<VCPR>(vt, rb + 2 * c + (e & 1) + 8 * (e >> 1),
-                            g * 4 * VW, w[e]);
-#pragma unroll
-            for (int x = 0; x < VW; ++x)
-              w[e][x] ^= VB == 8 ? 0x80808080u : 0x88888888u;
-          }
-          if constexpr (VB == 8) {
-#pragma unroll
-            for (int nt = 0; nt < NO; ++nt)
-              pv(acc[nt], 0, bf16x2_bytes(w[0][nt / 4], w[1][nt / 4], nt % 4),
-                 bf16x2_bytes(w[2][nt / 4], w[3][nt / 4], nt % 4));
-          } else {
-#pragma unroll
-            for (int j = 0; j < D / 16; ++j) {
-              const unsigned sel = (j % 4) | ((4 + j % 4) << 8);
-              const unsigned u0 = __byte_perm(w[0][j / 4], w[1][j / 4], sel);
-              const unsigned u1 = __byte_perm(w[2][j / 4], w[3][j / 4], sel);
-              pv(acc[j], 0, bf16x2_nibbles(u0, 0), bf16x2_nibbles(u1, 0));
-              pv(acc[D / 16 + j], 1, bf16x2_nibbles(u0, 4),
-                 bf16x2_nibbles(u1, 4));
-            }
-          }
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-#pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, o);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, o);
-  }
-  __syncthreads();  // every ring is consumed: its memory takes the partials
-
-  const int R = a.R;
-  float* pacc = reinterpret_cast<float*>(sm);  // [pw][R][D]
-  float* pm = pacc + a.pw * R * D;             // [pw][R]
-  float* pl = pm + a.pw * R;
-  float* bm = pl + a.pw * R;                   // [R], the block's
-  float* bl = bm + R;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = h ? r1 : r0;
-    if (r >= R) continue;
-    const long long base = (long long)(pg * R + r) * D;
-#pragma unroll
-    for (int nt = 0; nt < NO; ++nt) {
-      pacc[base + v_feature<VB, D>(nt, 2 * c)] = acc[nt][2 * h];
-      pacc[base + v_feature<VB, D>(nt, 2 * c + 1)] = acc[nt][2 * h + 1];
-    }
-    if (c == 0) {
-      pm[pg * R + r] = h ? m1 : m0;
-      pl[pg * R + r] = h ? l1 : l0;
-    }
-  }
-  __syncthreads();
-  // the groups' partials merged, in group order
-  bf16* out = a.out + ((long long)b * a.Kh + kh) * R * D;
-  for (int i = tid; i < R * D; i += blockDim.x) {
-    const int r = i / D;
-    float M = DPT_NEG_INF;
-    for (int p = 0; p < a.pw; ++p) M = fmaxf(M, pm[p * R + r]);
-    float L = 0.f, A = 0.f;
-    for (int p = 0; p < a.pw; ++p) {
-      const float wt = __expf(pm[p * R + r] - M);
-      L += pl[p * R + r] * wt;
-      A += pacc[p * R * D + i] * wt;
-    }
-    if (a.nsplit == 1) {
-      out[i] = f2bf(A / fmaxf(L, 1e-30f));
-    } else {
-      pacc[i] = A;
-      if (i - r * D == 0) {
-        bm[r] = M;
-        bl[r] = L;
-      }
-    }
-  }
-  if (a.nsplit == 1) return;
-  // the cluster's splits, in rank order: block `split` writes every
-  // nsplit-th share of the outputs
-  cluster_sync();
-  for (int i = split * blockDim.x + tid; i < R * D;
-       i += a.nsplit * blockDim.x) {
-    const int r = i / D;
-    // every split's (max, sum, p.V) loaded first, so that the remote loads
-    // overlap
-    float pm_[MAX_SPLITS], pl_[MAX_SPLITS], pa_[MAX_SPLITS];
-#pragma unroll
-    for (int s = 0; s < MAX_SPLITS; ++s) {
-      pm_[s] = DPT_NEG_INF;
-      pl_[s] = pa_[s] = 0.f;
-      if (s < a.nsplit) {
-        pm_[s] = ld_cluster(bm + r, s);
-        pl_[s] = ld_cluster(bl + r, s);
-        pa_[s] = ld_cluster(pacc + i, s);
-      }
-    }
-    float M = DPT_NEG_INF;
-#pragma unroll
-    for (int s = 0; s < MAX_SPLITS; ++s) M = fmaxf(M, pm_[s]);
-    float L = 0.f, A = 0.f;
-#pragma unroll
-    for (int s = 0; s < MAX_SPLITS; ++s) {
-      const float wt = __expf(pm_[s] - M);
-      L += pl_[s] * wt;
-      A += pa_[s] * wt;
-    }
-    out[i] = f2bf(A / fmaxf(L, 1e-30f));
-  }
-  cluster_sync();  // no block leaves while its partials are read
-}
-
-template <int D, int KB, int VB, typename Rows>
-int launch(const Args& a, const Side& k, const Side& v, Rows rows, int B) {
-  constexpr int NK = n_scales<KB>(), NV = n_scales<VB>();
-  const size_t stage = (size_t)a.tile * (head_bytes<KB, D>() +
-                                         head_bytes<VB, D>() + 4 * (NK + NV));
-  const size_t ring = (size_t)a.pw * a.stages * stage;
-  const size_t part = ((size_t)a.pw * a.R * (D + 2) + 2 * a.R) * 4;
-  const size_t smem = ring > part ? ring : part;
-  auto kern = attention_kernel<D, KB, VB, Rows>;
-  static size_t sized = 48 * 1024;
-  if (smem > sized) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    sized = smem;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.nsplit, B * a.Kh);
-  cfg.blockDim = dim3(32 * a.mg * a.pw);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = a.st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = a.nsplit;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, kern, a, k, v, rows);
-}
-
-template <int D, typename Rows>
-int by_bits(const Args& a, const Side& k, const Side& v, Rows rows, int B,
-            int kb, int vb) {
-  if (kb == 16 && vb == 16) return launch<D, 16, 16>(a, k, v, rows, B);
-  if (kb == 8 && vb == 8) return launch<D, 8, 8>(a, k, v, rows, B);
-  if (kb == 4 && vb == 4) return launch<D, 4, 4>(a, k, v, rows, B);
-  if (kb == 8 && vb == 4) return launch<D, 8, 4>(a, k, v, rows, B);
-  return (int)cudaErrorInvalidValue;
-}
-
-// The plan's rules (ops/kernels/decode_attention.py `attention_plan`) and
-// the 16-byte alignment the copies need; the scales' copies are 16 bytes
-// wide where their rows allow it.
-template <typename Rows>
-int dispatch(Args a, const Side& k, const Side& v, Rows rows, int B, int D,
-             int kb, int vb, int scale_step) {
-  const bool quant = kb != 16;
-  const int esk = kb == 16 ? 2 : 1, esv = vb == 16 ? 2 : 1;
-  if (a.R < 1 || a.R > MAX_ROWS || a.T < 1 || a.R % a.T || a.tile < 16 ||
-      a.tile % 16 || a.chunk % a.tile || a.nsplit < 1 ||
-      a.nsplit > MAX_SPLITS || (long long)a.nsplit * a.chunk < a.S ||
-      (long long)(a.nsplit - 1) * a.chunk >= a.S ||
-      a.mg != (a.R + 15) / 16 || a.pw < 1 || a.mg * a.pw > MAX_WARPS ||
-      a.stages < 1 || a.stages > STAGES ||
-      (uintptr_t)k.data % 16 || (uintptr_t)v.data % 16 ||
-      (k.msb * esk) % 16 || (v.msb * esv) % 16)
-    return (int)cudaErrorInvalidValue;
-  a.svec = !quant || ((uintptr_t)k.scale % 16 == 0 &&
-                      (uintptr_t)v.scale % 16 == 0 && k.ssb % 4 == 0 &&
-                      v.ssb % 4 == 0 && k.srs % 4 == 0 && v.srs % 4 == 0 &&
-                      scale_step % 4 == 0);
-  if (D == 64) return by_bits<64>(a, k, v, rows, B, kb, vb);
-  if (D == 128) return by_bits<128>(a, k, v, rows, B, kb, vb);
-  return (int)cudaErrorInvalidValue;
-}
-
-// Stored row width of a side: Kh*D (bf16, int8) or Kh*D/2 (packed int4).
-int store_width(int Kh, int D, int bits) {
-  return bits == 4 ? Kh * D / 2 : Kh * D;
-}
-
-// Scale rows of a side: Kh (int8), 2*Kh (int4), 0 (bf16).
-int scale_rows(int Kh, int bits) {
-  return bits == 16 ? 0 : (bits == 4 ? 2 * Kh : Kh);
-}
-
-}  // namespace
+// The contiguous and paged entry points of GQA decode / verify attention
+// (kernels #3, #5 and, through the contiguous one, #11); the kernel
+// template and its design are decode_attention.cuh's.
+#include "decode_attention.cuh"
 
 // q: (B, O, D) bf16 query rows, O = Kh * rows (rows = rep * tokens a kv
 // head, ordered (kv head, query head, window token)), contiguous, slot

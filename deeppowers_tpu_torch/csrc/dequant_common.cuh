@@ -21,6 +21,23 @@ __device__ __forceinline__ float act_fn(float g, int gelu) {
   return g / (1.f + expf(-g));
 }
 
+// act(x) as XLA's unfused bf16 ops compute it (ops/activation.py), every
+// op rounded to bf16: silu = x * (1 / (1 + exp(-x))), the tanh GELU with
+// its constants in bf16 and the cube as x * x * x. act_fn above is the f32
+// function of the Pallas fold, rounded once after the product with up.
+__device__ __forceinline__ float act_ops(float x, int gelu) {
+  if (gelu) {
+    const float c = 0.796875f;         // bf16(sqrt(2 / pi))
+    const float a = 0.044677734375f;   // bf16(0.044715)
+    const float x3 = round_bf16(round_bf16(x * x) * x);
+    const float u = round_bf16(c * round_bf16(x + round_bf16(a * x3)));
+    const float h = round_bf16(0.5f * round_bf16(1.f + round_bf16(tanhf(u))));
+    return round_bf16(x * h);
+  }
+  const float d = round_bf16(1.f + round_bf16(expf(-x)));
+  return round_bf16(x * round_bf16(__frcp_rn(d)));   // 1 / d, IEEE-rounded
+}
+
 // One staged activation value: x (plain), bf16(x * g) (RMSNorm folded in),
 // or bf16(act(gate) * up) (GLU; the row holds gate | up, 2K wide).
 __device__ __forceinline__ float stage_value(const bf16* xrow, const bf16* g,

@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import QuantConfig, QuantMode
+from ..ops.activation import activation
 from ..ops.attention import (attention_chunk, attention_decode_auto,
                              attention_prefill)
 from ..ops.kernels.decode_attention import (decode_attention_kt,
@@ -441,9 +442,10 @@ def _dense(x, p, out_dtype=None):
 
 
 def _act(x, cfg: TransformerConfig):
-    if cfg.activation == "silu":
-        return F.silu(x)
-    return F.gelu(x, approximate="tanh")
+    """cfg.activation as JAX's unfused ops compute it (transformer.py:394-
+    396): op by op in x's dtype below f32, F.silu / F.gelu on f32
+    (ops/activation.py)."""
+    return activation(x, cfg.activation)
 
 
 def _mlp(x, p, cfg: TransformerConfig):

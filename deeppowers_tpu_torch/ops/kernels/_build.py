@@ -31,7 +31,7 @@ BUILD_ROOT = _PKG.parent / "build" / "deeppowers_tpu_torch"
 SOURCES = ("dequant_matmul.cu", "gemv.cu", "kv_append.cu",
            "decode_attention.cu", "decode_attention_kt.cu",
            "flash_attention.cu")
-HEADERS = ("common.cuh", "attention_combine.cuh", "wgmma.cuh",
+HEADERS = ("common.cuh", "decode_attention.cuh", "wgmma.cuh",
            "dequant_common.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -56,8 +56,8 @@ SIGNATURES: Dict[str, list] = {
                              _LL, _P] + [_I] * 14 + [_F, _P, _P],
     "dpt_decode_attention_paged": [_P, _LL, _P, _P, _P, _P, _P, _I, _I, _P]
                                   + [_I] * 14 + [_F, _P, _P],
-    "dpt_decode_attention_kt": [_P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                _I, _I, _I, _I, _F, _P, _P, _P, _P, _P],
+    "dpt_decode_attention_kt": [_P, _LL, _P, _P, _P, _P, _P, _P]
+                               + [_I] * 13 + [_F, _P, _P],
     "dpt_grouped_mma": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I,
                         _I, _I, _I, _P],
     "dpt_quantize_segments": [_P, _I, _I, _I, _P, _P, _P, _P],

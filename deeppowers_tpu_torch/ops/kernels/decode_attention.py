@@ -1,18 +1,24 @@
 """GQA decode attention over bf16 or quantized KV: wrappers, plain
-versions and launch counts for the contiguous and the paged layout, for
-one token a slot (decode) or a speculative verify window of T tokens a
-slot. CUDA sources: csrc/decode_attention.cu (one kernel template, two row
-addressings, four store variants) and csrc/decode_attention_kt.cu (#7).
+versions and launch counts for the contiguous, the paged and the kt-mirror
+layout, for one token a slot (decode) or a speculative verify window of T
+tokens a slot. CUDA sources: csrc/decode_attention.cuh (one kernel
+template, three row layouts, four store variants) with the entry points
+of csrc/decode_attention.cu (contiguous, paged) and
+csrc/decode_attention_kt.cu (the mirror, #7).
 
 `decode_attention_kt` / `verify_attention_kt` replace the Pallas TPU
 kernel `decode_attention_kt` :1081 (pallas_call :1132, body `_kt_kernel`
 :845) and `verify_attention_kt` :1148: attention over an int8-K cache that
 carries the chunk-transposed mirror kt (runtime/kvcache.py), reading
 committed chunks from kt and the rest from the row-major k, and flushing
-every chunk its tail completes into kt in place. Their plain version
-walks the TPU kernel's units in its order, with its roundings (bf16 q
-after the scale, bf16 probabilities times V scales), so that greedy
-streams follow the JAX engine's. `decode_attention_kernel` is the older
+every chunk its tail completes into kt in place. On the card they launch
+#3's kernel over its mirror layout (one launch, `attention_plan`'s plan,
+p in two bf16 terms as below), which reads a committed tile's K
+feature-major and flushes the whole tail chunks it walks. Their plain
+version walks the TPU kernel's units in its order, with its roundings
+(bf16 q after the scale, bf16 probabilities times V scales), so that
+greedy streams follow the JAX engine's; the kernel is held to it at 1e-2
+of a row's max. `decode_attention_kernel` is the older
 per-head kernel (:1160, pallas_call :1219, body `_kernel` :42), which
 nothing in the JAX package calls: its entry point launches the contiguous
 kernel on the flat view of its (B, S, Kh, D) caches, which computes its
@@ -281,14 +287,6 @@ def _aligned(t: torch.Tensor, lead_stride: int, what: str) -> None:
     if t.data_ptr() % 16 or (lead_stride * t.element_size()) % 16:
         raise ValueError(f"{what} must be 16-byte aligned (base and slot "
                          f"stride), got stride {lead_stride}")
-
-
-def _scratch(q, b, o, d, nsplit):
-    pm = torch.empty((b * o * nsplit,), dtype=torch.float32, device=q.device)
-    pacc = torch.empty((b * o * nsplit * d,), dtype=torch.float32,
-                       device=q.device)
-    out = torch.empty((b, o, d), dtype=torch.bfloat16, device=q.device)
-    return pm, torch.empty_like(pm), pacc, out
 
 
 def _kv_heads(name, k_cache_width, k_scale, d):
@@ -665,12 +663,13 @@ def decode_attention_kt(q: torch.Tensor, kt: torch.Tensor, k: torch.Tensor,
         q = q.contiguous()
     lens = lengths.to(torch.int32).contiguous()
     scale = scale if scale is not None else d ** -0.5
-    pm, pl, pacc, out = _scratch(q, b, o, d, c_n)
+    plan = attention_plan(b, kh, c_n * KT_CHUNK, rows, d)
+    out = torch.empty((b, o, d), dtype=torch.bfloat16, device=q.device)
     rc = _build.library().dpt_decode_attention_kt(
         q.data_ptr(), q.stride(0), kt.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), lens.data_ptr(), b, c_n, kh,
-        rows, tokens, d, v_bits, float(scale), pm.data_ptr(), pl.data_ptr(),
-        pacc.data_ptr(), out.data_ptr(), _build.stream())
+        rows, tokens, d, v_bits, *plan, float(scale), out.data_ptr(),
+        _build.stream())
     _build.check(rc, "decode_attention_kt")
     _count(decode_attention_kt, "k8v4" if v_bits == 4 else "int8", tokens)
     return out, kt

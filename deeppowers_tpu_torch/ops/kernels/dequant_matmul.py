@@ -23,8 +23,8 @@ weight row is that of its group, the group of unpacked row k being k // g
 
 W8A8 / W4A8 (act_bits 8) computes what the JAX package's XLA path
 computes (`_w8a8_matmul`, deeppowers_tpu/ops/matmul.py:44-72, behind
-`rms_matmul` / `glu_matmul` :134-197): the norm or the GLU first, as the
-unfused ops round it to the activation dtype, then per-row int8
+`rms_matmul` / `glu_matmul` :134-197): the norm or the GLU first, as
+XLA computes the unfused ops (`_unfused_input`), then per-row int8
 quantization over the whole K (quant/quantize.py `quantize_rows`), exact
 int32 products per group, each group's sum times its scale, the row scale
 last; bias and residual in the f32 epilogue. On the card a row scale
@@ -59,10 +59,10 @@ import math
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from ...quant.qtypes import INT4_QMAX, QuantizedTensor, unpack_int4
 from ...quant.quantize import quantize_rows
+from ..activation import activation
 from ..normalization import rms_norm
 from . import _build
 
@@ -109,10 +109,6 @@ QUANT_ITEMS = 4
 QUANT_CLUSTER = 16
 
 
-def _act(x: torch.Tensor, act: str) -> torch.Tensor:
-    return F.silu(x) if act == "silu" else F.gelu(x, approximate="tanh")
-
-
 def _groups(scales: torch.Tensor, k: int, n: int):
     """(scale rows G, group length g) of a (G, N) scale table; G = 1 is
     per-channel."""
@@ -121,10 +117,14 @@ def _groups(scales: torch.Tensor, k: int, n: int):
 
 
 def _unfused_input(x, k, rms_weight, rms_eps, glu, act):
-    """The a8 matmul's input before quantization, as the unfused ops
-    compute it in x's dtype: rms_norm(x), act(gate) * up, or x."""
+    """The a8 matmul's input before quantization, as XLA computes the
+    unfused ops (JAX ops/matmul.py:150, :171-173): rms_norm(x) in x's
+    dtype; act(gate) op by op in x's dtype (ops/activation.py) times up in
+    f32, not rounded (XLA keeps a bf16 product whose consumer converts it
+    to f32 in f32: the quantizer's `astype(float32)`, :57; the product of
+    two bf16 values is exact in f32); or x."""
     if glu:
-        return _act(x[..., :k], act) * x[..., k:]
+        return activation(x[..., :k], act).float() * x[..., k:].float()
     if rms_weight is not None:
         return rms_norm(x, rms_weight, eps=rms_eps)
     return x
@@ -165,7 +165,7 @@ def dequant_matmul_plain(x, data, scales, *, bits=8, act_bits=0,
         y = (_int_dot(xq, q, s, rows, bits) * xs).reshape(*lead, n)
     else:
         if glu:
-            a = _act(xf[..., :k], act) * xf[..., k:]
+            a = activation(xf[..., :k], act) * xf[..., k:]
         elif rms_weight is not None:
             a = xf * rms_weight.float()
         else:
@@ -307,7 +307,7 @@ def stage_activations_plain(x, k, *, rms_weight=None, rms_eps=1e-6,
     norm."""
     xf = x.float()
     if glu:
-        a = _act(xf[..., :k], act) * xf[..., k:]
+        a = activation(xf[..., :k], act) * xf[..., k:]
     elif rms_weight is not None:
         a = xf * rms_weight.float()
     else:

@@ -9,8 +9,9 @@ weight or shape the kernels do not take raises. Float weights take a plain
 f32-accumulated product.
 
 With act_bits = 8 (W8A8 / W4A8) `rms_matmul` and `glu_matmul` compute what
-the JAX package's XLA path computes: the norm or the GLU rounded to the
-activation dtype, then int8 per row over the whole K (ROADMAP.md,
+the JAX package's XLA path computes: the norm rounded to the activation
+dtype, or the GLU with its activation op by op in that dtype and the
+product with up in f32, then int8 per row over the whole K (ROADMAP.md,
 Decisions); residual and bias are added in f32 before the one cast.
 """
 
@@ -19,9 +20,9 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import torch
-import torch.nn.functional as F
 
 from ..quant.qtypes import QuantizedTensor
+from .activation import activation
 from .kernels.dequant_matmul import dequant_matmul
 from .normalization import rms_norm
 
@@ -66,7 +67,7 @@ def glu_matmul(gu: torch.Tensor, w: Weight, *, act: str = "silu",
         return dequant_matmul(gu, w, glu=True, act=act, residual=residual,
                               bias=bias, out_dtype=out_dtype)
     gate, up = torch.chunk(gu, 2, dim=-1)
-    a = F.silu(gate) if act == "silu" else F.gelu(gate, approximate="tanh")
+    a = activation(gate, act)     # JAX's unfused ops' rounding (:172)
     y = _float_matmul(a * up, w, out_dtype)
     if bias is not None:
         y = y + bias.to(y.dtype)

@@ -8,9 +8,12 @@ lengths >= max_seq - 1 (engine.py:370-381), so an append never runs past
 the cache.
 
 Eager PyTorch needs none of the JAX engine's compile machinery (jit caches,
-donation, multi-step dispatch, pipelined harvests, window buckets): each
-step() runs one decode forward over all slots and one host transfer of the
-per-slot results. Decode attention bounds its reads per slot by length in
+donation, window buckets): each step() runs one decode forward over all
+slots and one host transfer of the per-slot results. Multi-step dispatch
+and pipelined harvests are not ported yet (`decode_steps_per_dispatch`
+raises; `pipelined_dispatch` is kept and not read, config.py): the host
+is most of a step's time on the card (PERF.md §5), so they come with the
+CUDA-graph decode step. Decode attention bounds its reads per slot by length in
 the kernel. The KV cache is contiguous or paged (`kv_layout="paged"`, JAX
 engine.py:635-665). `RuntimeConfig.scan_layers` decides as in JAX
 (:615-630): "auto" (the default) stacks the layers of a model with 16 or

@@ -90,17 +90,20 @@ def _seq_sum(v):
 
 
 def _act(gate):
-    """The kernels' SiLU in f32: g / (1 + exp(-g))."""
+    """The row quantizer's SiLU (`act_ops`), as XLA's unfused bf16 ops
+    compute it: g * (1 / (1 + exp(-g))), each op rounded to bf16."""
     gate = gate.astype(F32)
-    return (gate / (F32(1) + np.exp(-gate))).astype(F32)
+    e = _bf16(np.exp(-gate).astype(F32))
+    r = _bf16((F32(1) / _bf16(F32(1) + e)).astype(F32))
+    return _bf16(gate * r)
 
 
 def _a8_values(x, g, mode, k, rf):
     """The a8 matmul's input as both kernels compute it (`a8_of`):
-    round_bf16(x * rf * g) with the row factor rf (M, 1), round_bf16(
-    round_bf16(act(gate)) * up), or x."""
+    round_bf16(x * rf * g) with the row factor rf (M, 1), act(gate) * up
+    with act in bf16 op by op and the product in f32 (exact), or x."""
     if mode == "glu":
-        return _bf16(_bf16(_act(x[:, :k])) * x[:, k:])
+        return (_act(x[:, :k]) * x[:, k:]).astype(F32)
     if mode == "rms":
         return _bf16((x * rf).astype(F32) * g)
     return x
@@ -160,20 +163,13 @@ def _port_reference(x, g, mode, k):
     return q.numpy(), s.numpy()[:, 0]
 
 
-def _port_glu(x, k):
-    """The GLU's bf16 values as the port's unfused ops compute them."""
-    xt = torch.from_numpy(x).to(torch.bfloat16)
-    return (dm._act(xt[:, :k], "silu") * xt[:, k:]).float().numpy()
-
-
 def _jax_reference(x, g, mode, k):
     """The JAX package's own: its RMSNorm in bf16 (as `rms_matmul`
     computes it ahead of `_w8a8_matmul`), then the first lines of
     `_w8a8_matmul` (deeppowers_tpu/ops/matmul.py:57-59) jitted, as the JAX
     engine runs them; a copy, since the package returns only products of
-    the bytes. The GLU's values are the port's (`_port_glu`): XLA's SiLU
-    differs from PyTorch's in the last bits on a third of bf16 gates, a
-    difference of the activation, not of the quantizer."""
+    the bytes. GLU rows are act(gate) * up as `glu_matmul`'s XLA path
+    computes them (ops/matmul.py:171-173)."""
     import jax
     import jax.numpy as jnp
     from deeppowers_tpu.ops.normalization import rms_norm as jrms
@@ -181,13 +177,14 @@ def _jax_reference(x, g, mode, k):
     @jax.jit
     def run(xb, gb):
         a = jrms(xb, gb, eps=EPS) if mode == "rms" else xb
+        if mode == "glu":
+            a = jax.nn.silu(xb[:, :k]) * xb[:, k:]
         xf = a.astype(jnp.float32)
         absmax = jnp.max(jnp.abs(xf), axis=-1, keepdims=True)
         xs = jnp.maximum(absmax, 1e-8) / 127.0
         return jnp.clip(jnp.round(xf / xs), -127, 127).astype(jnp.int8), xs
 
-    xin = _port_glu(x, k) if mode == "glu" else x
-    q, s = run(jnp.asarray(xin).astype(jnp.bfloat16),
+    q, s = run(jnp.asarray(x).astype(jnp.bfloat16),
                jnp.asarray(g).astype(jnp.bfloat16))
     return np.asarray(q), np.asarray(s)[:, 0]
 
@@ -238,7 +235,8 @@ def test_port_quantizer_matches_the_packages_w8a8_path(mode):
     (`quantized_matmul`; `rms_matmul` for RMSNorm rows), with an int8
     identity weight of unit scales, each output is f32(q) * s: the port's
     plain quantizer behind its unfused ops equals it bit for bit at K = 64
-    and 4096. GLU rows go in as the port's GLU values (`_port_glu`)."""
+    and 4096. GLU rows are `glu_matmul`'s XLA path: JAX's own SiLU, then
+    the product (ops/matmul.py:171-173)."""
     import jax
     import jax.numpy as jnp
     from deeppowers_tpu.ops import matmul as jmm
@@ -251,11 +249,14 @@ def test_port_quantizer_matches_the_packages_w8a8_path(mode):
         if mode == "rms":
             fn = jax.jit(lambda v: jmm.rms_matmul(v, gb, eye, eps=EPS,
                                                   out_dtype=jnp.float32))
+        elif mode == "glu":
+            fn = jax.jit(lambda v: jmm.quantized_matmul(
+                jax.nn.silu(v[:, :k]) * v[:, k:], eye,
+                out_dtype=jnp.float32, prefer_pallas=False))
         else:
             fn = jax.jit(lambda v: jmm.quantized_matmul(
                 v, eye, out_dtype=jnp.float32, prefer_pallas=False))
-        xin = _port_glu(x, k) if mode == "glu" else x
-        ref = np.asarray(fn(jnp.asarray(xin).astype(jnp.bfloat16)))
+        ref = np.asarray(fn(jnp.asarray(x).astype(jnp.bfloat16)))
         q, s = _port_reference(x, g, mode, k)
         np.testing.assert_array_equal(q.astype(F32) * s[:, None], ref)
 

@@ -447,18 +447,20 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("t", [1, 5])
-@pytest.mark.parametrize("v_bits", [8, 4])
-@pytest.mark.parametrize("kh, d, h", [(32, 128, 32), (4, 64, 32)])
-def test_cuda_kt_matches_plain(cuda_device, kh, d, h, v_bits, t):
-    """#7 at Llama-2-7B's and TinyLlama's heads, 8 slots over S = 1024,
-    committed chunks mirrored and the rest stale: each row within 1e-2 of
-    the plain version's max, and the kt bytes after the launch (the chunks
-    it flushed) equal to the plain version's."""
-    dev = cuda_device
-    g = torch.Generator(device=dev).manual_seed(kh + v_bits + t)
-    b, s = 8, 1024
+#: the 8 slots' lengths (the window's T rows included) at T: "serve" mixes
+#: short and long slots; "edges" has an empty slot at T = 1 (a window
+#: alone at T = 5), lengths at and just past chunk ends, and a full cache
+KT_CASES = {
+    "serve": lambda t: [n + t for n in (0, 126, 127, 250, 256, 300, 511,
+                                        700)],
+    "edges": lambda t: [0 if t == 1 else t, 128, 129, 640, 641, 127 + t,
+                        1024, 768 + t]}
+
+
+def _kt_inputs(dev, g, b, s, kh, d, h, v_bits, t, lengths):
+    """Random int8 K, V (int8 or packed int4), scales with NaN past each
+    length, the mirror holding the committed chunks and stale bytes in
+    every other chunk, and bf16 q, on the card."""
     f = kh * d
     k = torch.randint(-127, 128, (b, s, f), generator=g, device=dev,
                       dtype=torch.int8)
@@ -467,24 +469,50 @@ def test_cuda_kt_matches_plain(cuda_device, kh, d, h, v_bits, t):
     ks = torch.rand(b, kh, s, generator=g, device=dev) * 0.02 + 0.01
     vs = torch.rand(b, 2 * kh if v_bits == 4 else kh, s, generator=g,
                     device=dev) * 0.02 + 0.01
-    cached = torch.tensor([0, 126, 127, 250, 256, 300, 511, 700], device=dev)
-    kt = torch.zeros(b, s // 128, f, 128, dtype=torch.int8, device=dev)
-    for i, n in enumerate(cached.tolist()):
-        full = n // 128
+    lens = torch.tensor(lengths, device=dev)
+    past = torch.arange(s, device=dev)[None, :] >= lens[:, None]
+    for sc in (ks, vs):
+        sc.masked_fill_(past[:, None, :], float("nan"))
+    kt = torch.randint(-127, 128, (b, s // 128, f, 128), generator=g,
+                       device=dev, dtype=torch.int8)
+    for i, n in enumerate(lens.tolist()):
+        full = max((n - t) // 128, 0)
         kt[i, :full] = k[i, :full * 128].reshape(full, 128, f).transpose(1, 2)
     q = torch.randn(b, t, h, d, generator=g, device=dev).to(torch.bfloat16)
+    return q, kt, k, v, ks, vs, lens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(KT_CASES))
+@pytest.mark.parametrize("t", [1, 5])
+@pytest.mark.parametrize("v_bits", [8, 4])
+@pytest.mark.parametrize("kh, d, h", [(32, 128, 32), (4, 64, 32)])
+def test_cuda_kt_matches_plain(cuda_device, kh, d, h, v_bits, t, case):
+    """#7 at Llama-2-7B's heads (D = 128, R = 1 or 5 a kv head) and
+    TinyLlama's (D = 64, R = 8 or 40), 8 slots over S = 1024, committed
+    chunks mirrored and stale bytes in the rest, NaN in the scales past
+    each length: each row within 1e-2 of the plain version's max, finite
+    (an empty slot's rows 0), and the kt bytes after the launch (the whole
+    tail chunks flushed, stale ones healed) equal to the plain
+    version's."""
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(kh + v_bits + t)
+    b, s = 8, 1024
+    q, kt, k, v, ks, vs, lens = _kt_inputs(dev, g, b, s, kh, d, h, v_bits, t,
+                                           KT_CASES[case](t))
     kt_ref = kt.cpu()
+    cpu = [x.cpu() for x in (k, v, ks, vs)]
     if t == 1:
-        out, _ = da.decode_attention_kt(q[:, 0], kt, k, v, cached + 1, ks, vs,
+        out, _ = da.decode_attention_kt(q[:, 0], kt, k, v, lens, ks, vs,
                                         v_bits=v_bits)
-        ref, _ = da.decode_attention_kt(q[:, 0].cpu(), kt_ref, k.cpu(),
-                                        v.cpu(), (cached + 1).cpu(), ks.cpu(),
-                                        vs.cpu(), v_bits=v_bits)
+        ref, _ = da.decode_attention_kt(q[:, 0].cpu(), kt_ref, cpu[0], cpu[1],
+                                        lens.cpu(), cpu[2], cpu[3],
+                                        v_bits=v_bits)
     else:
-        out, _ = da.verify_attention_kt(q, kt, k, v, cached, ks, vs,
+        out, _ = da.verify_attention_kt(q, kt, k, v, lens - t, ks, vs,
                                         v_bits=v_bits)
-        ref, _ = da.verify_attention_kt(q.cpu(), kt_ref, k.cpu(), v.cpu(),
-                                        cached.cpu(), ks.cpu(), vs.cpu(),
+        ref, _ = da.verify_attention_kt(q.cpu(), kt_ref, cpu[0], cpu[1],
+                                        (lens - t).cpu(), cpu[2], cpu[3],
                                         v_bits=v_bits)
     torch.cuda.synchronize()
     got, want = out.float().cpu().numpy(), ref.float().numpy()
@@ -493,6 +521,41 @@ def test_cuda_kt_matches_plain(cuda_device, kh, d, h, v_bits, t):
                                                     1e-30)
     assert ratio.max() <= 1e-2
     assert torch.equal(kt.cpu(), kt_ref)
+    empty = (lens == 0).cpu().numpy()
+    assert (got.reshape(b, -1)[empty] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 5])
+@pytest.mark.parametrize("kh, d, h", [(32, 128, 32), (4, 64, 32)])
+def test_cuda_kt_is_one_launch(cuda_device, kh, d, h, t):
+    """One kernel a call at a k8v4 step (no combine kernel, no scratch
+    memsets), the same bytes on a second call, and one count under its
+    store and window."""
+    dev, b, s = cuda_device, 8, 1024
+    g = torch.Generator(device=dev).manual_seed(7 + t)
+    q, kt, k, v, ks, vs, lens = _kt_inputs(dev, g, b, s, kh, d, h, 4, t,
+                                           KT_CASES["serve"](t))
+    q = q[:, 0] if t == 1 else q.transpose(1, 2).reshape(b, h * t, d)
+    key = "k8v4" if t == 1 else f"k8v4:t{t}"
+    before = da.decode_attention_kt.variant_launches[key]
+    call = lambda: da.decode_attention_kt(  # noqa: E731
+        q, kt, k, v, lens, ks, vs, tokens=t, v_bits=4)[0]
+    first = call()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        again = call()
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "memcpy" not in e.name.lower()]
+    assert len([n for n in kernels if "attention_kernel" in n]) == 1, kernels
+    assert not any("combine_kernel" in n or "memset" in n.lower()
+                   for n in kernels), kernels
+    assert torch.equal(first, again)
+    assert da.decode_attention_kt.variant_launches[key] == before + 2
 
 
 @pytest.mark.cuda

@@ -6,6 +6,7 @@
     python3 chip_smoke.py --ttft CHECKOUT
     python3 chip_smoke.py --kt-ms CHECKOUT
     python3 chip_smoke.py --slot-orders CHECKOUT
+    python3 chip_smoke.py --fold-ms CHECKOUT
 
 The second form only times the TinyLlama int8 decode step's 89 matmuls
 and its w_gu at a 1024-token prefill through #1, the Llama-2-7B W4A8 g128
@@ -22,7 +23,9 @@ on one card. `--ttft CHECKOUT` does the same for the TTFT where #4 and
 #9 run (see `ttft_ms`), `--kt-ms CHECKOUT` for #7 at the 7B's and
 TinyLlama's heads beside #3 on the same caches (see `kt_ms`),
 `--slot-orders CHECKOUT` for the attention calls over ATTN_LENS in ten
-orders of the slots (see `slot_order_ms`).
+orders of the slots (see `slot_order_ms`), `--fold-ms CHECKOUT` for the
+attention that writes a step's rows beside the writer + attention pair
+(see `fold_ms`; a checkout without the fold times the pair only).
 
 Phases, each printing a line with its wall time:
   1. device   the card's name and power limit (nvidia-smi), torch and CUDA
@@ -161,6 +164,24 @@ with the scheduler's thread under torch.profiler (the served run's host
 split). Then one JSON line with every kernel's numbers and, last,
 the result line {"ok": true, "device": {...}}.
 
+The row writers #2, #6 and #8 are folded into the attention launch of a
+decode or verify step (kvcache.append_attend: #3 writes the step's rows
+before it reads them, #5 on the paged layout). The kernels phase holds the
+fold (rows "decode_attention+scatter_rows[...]" (#3+2),
+"decode_attention+scatter_rows_stacked[...]" (#3+8) and
+"decode_attention_paged+scatter_pool_rows[...]" (#5+6): every store,
+tokens 1 and 5, TinyLlama's and Llama-2-7B's heads) against its plain
+route, bytes and scales exact and each output row within 1e-2, with NaN
+in the rows' slots first, and times it beside the writer + attention pair
+it replaces, over cache copies past the L2. Every path, scan, spec and
+serve phase whose layout folds gates that its decode and verify forwards
+launched no row writer (the count "step_writers": #2, #6 and #8 launches
+made inside forward_decode / forward_verify) and that the attention's
+"+rows" variant launched; prefills and chunks still write through #2, #6
+and #8, and the kt-mirror phases keep #2 before #7. Each serve phase prints
+its profiled decode step's launches, device-busy ms, row-writer launches
+and folded attention calls a step.
+
 Any failed check raises: the error goes to stderr and the exit code is 1.
 Without a CUDA device, or without the deeppowers_tpu_torch package beside
 it, the script exits non-zero and prints no result. A watchdog ends the
@@ -172,6 +193,7 @@ process but nvcc and nvidia-smi, and writes only under build/.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import random
@@ -2520,6 +2542,306 @@ def kt_ms(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the row writers folded into the attention launch (#3+2, #3+8, #5+6)
+# ---------------------------------------------------------------------------
+
+#: (heads, query heads, kv heads, head dim) the fold is held and timed at
+FOLD_HEADS = (("tinyllama", 32, 4, 64), ("llama2-7b", 32, 32, 128))
+#: (layout, attention, the writer it folds in, its tag, the writer's
+#: pallas_call, the attention's)
+FOLD_LAYOUTS = (
+    ("contiguous", "decode_attention", "scatter_rows", "#3+2",
+     "deeppowers_tpu/ops/pallas/kv_append.py:104",
+     "deeppowers_tpu/ops/pallas/decode_attention.py:470"),
+    ("stacked", "decode_attention", "scatter_rows_stacked", "#3+8",
+     "deeppowers_tpu/ops/pallas/kv_append.py:315",
+     "deeppowers_tpu/ops/pallas/decode_attention.py:470"),
+    ("paged", "decode_attention_paged", "scatter_pool_rows", "#5+6",
+     "deeppowers_tpu/ops/pallas/kv_append.py:207",
+     "deeppowers_tpu/ops/pallas/decode_attention.py:780"))
+
+
+def same_bits(torch, x, y) -> bool:
+    """Equal bytes (NaN included)."""
+    dt = {1: torch.int8, 2: torch.int16, 4: torch.int32}[x.element_size()]
+    return torch.equal(x.view(dt), y.view(dt))
+
+
+def fold_inputs(torch, store, hq, kh, d, layout, t, copies, seed):
+    """A decode (t = 1) or verify (t = 5) step's operands over ATTN_LENS (8
+    slots; the lengths count the step's rows): q (8, H*T, D), the step's
+    rows k, v (8, T, Kh*D) bf16 at positions lens - T + j (and their pool
+    rows), `copies` cache states of a 1024-row layout (stacked: a 2-layer
+    stack whose layer 1 is used; paged: pools of ATTN_PAGE pages in a
+    shuffled table), and `bind(state)`: (the attention's args, its
+    kwargs, the writer of the same rows as a call, the rows' slots filled
+    with NaN or the byte 77)."""
+    from deeppowers_tpu_torch.ops.kernels import decode_attention as da
+    from deeppowers_tpu_torch.ops.kernels import kv_append as ka
+    from deeppowers_tpu_torch.quant.kvquant import STORE_BITS
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, s = 8, 1024
+    kb, vb = STORE_BITS[store]
+    lens = torch.tensor(ATTN_LENS, device="cuda", dtype=torch.int32)
+    wp = s // ATTN_PAGE
+    table = (torch.randperm(b * wp, generator=torch.Generator().manual_seed(
+        seed)) + 1).reshape(b, wp).to(device="cuda", dtype=torch.int32)
+    q = torch.randn(b, hq * t, d, generator=g, device="cuda").to(
+        torch.bfloat16)
+    k_new, v_new = (torch.randn(b, t, kh * d, generator=g, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    pos = (lens[:, None] - t + torch.arange(t, device="cuda")).to(
+        torch.int32).contiguous()
+    prow = (table.long().gather(1, (pos // ATTN_PAGE).long()) * ATTN_PAGE
+            + pos % ATTN_PAGE).to(torch.int32).reshape(-1)
+    # a package without the fold (the parent of a paired run) has no
+    # NewRows: the same fields in a tuple of that name serve its writers
+    rows_t = getattr(da, "NewRows", None) or collections.namedtuple(
+        "NewRows", "k v pos rows valid")
+    new = rows_t(k_new, v_new, pos, prow,
+                 torch.ones_like(prow, dtype=torch.bool))
+    flat_k, flat_v = k_new.reshape(b * t, -1), v_new.reshape(b * t, -1)
+    slots = (torch.arange(b, device="cuda", dtype=torch.int32)
+             .repeat_interleave(t) if t > 1 else None)
+    layer = torch.ones(1, dtype=torch.int32, device="cuda")
+    lead = (2,) if layout == "stacked" else ()
+
+    def side(bits):
+        width = kh * d // 2 if bits == 4 else kh * d
+        shape = ((b * wp + 1, ATTN_PAGE, width) if layout == "paged"
+                 else (*lead, b, s, width))
+        if bits == 16:
+            return [torch.randn(shape, generator=g, device="cuda").to(
+                torch.bfloat16)]
+        r = kh * (2 if bits == 4 else 1)
+        sshape = ((b * wp + 1, r, ATTN_PAGE) if layout == "paged"
+                  else (*lead, b, r, s))
+        return [torch.randint(-128, 128, shape, generator=g, device="cuda",
+                              dtype=torch.int8),
+                0.001 + 0.02 * torch.rand(sshape, generator=g, device="cuda")]
+
+    def bind(state):
+        kc, vc = state[0], state[2 if store != "bf16" else 1]
+        ks, vs = (state[1], state[3]) if store != "bf16" else (None, None)
+        full = {} if store == "bf16" else dict(k_scale=ks, v_scale=vs,
+                                              kv_bits=kb, v_bits=vb)
+        if layout == "stacked":
+            kw = {} if store == "bf16" else dict(full, k_scale=ks[1],
+                                                v_scale=vs[1])
+            args = (q, kc[1], vc[1], lens)
+            write = lambda: ka.scatter_rows_stacked(  # noqa: E731
+                kc, vc, flat_k, flat_v, layer, pos.reshape(-1), slots=slots,
+                **full)
+        elif layout == "paged":
+            kw, args = full, (q, kc, vc, table, lens)
+            write = lambda: ka.scatter_pool_rows(  # noqa: E731
+                kc, vc, flat_k, flat_v, new.rows, new.valid, **full)
+        else:
+            kw, args = full, (q, kc, vc, lens)
+            write = lambda: ka.scatter_rows(  # noqa: E731
+                kc, vc, flat_k, flat_v, pos.reshape(-1), slots=slots, **full)
+        return args, kw, write
+
+    def stale(state):
+        for x in state:
+            if layout == "paged":
+                p = new.rows.long()
+                if x.dim() == 3 and x.shape[1] == ATTN_PAGE and \
+                        x.dtype != torch.float32:
+                    x.view(-1, x.shape[2])[p] = (
+                        77 if x.dtype == torch.int8 else float("nan"))
+                else:
+                    x[p // ATTN_PAGE, :, p % ATTN_PAGE] = float("nan")
+                continue
+            y = x[1] if layout == "stacked" else x
+            bi = torch.arange(b, device="cuda")[:, None].expand(b, t)
+            p = pos.long()
+            if y.dtype == torch.float32:                  # (B, R, S)
+                y.permute(0, 2, 1)[bi, p] = float("nan")
+            else:                                         # (B, S, F')
+                y[bi, p] = 77 if y.dtype == torch.int8 else float("nan")
+
+    states = [side(kb) + side(vb) for _ in range(copies)]
+    return q, lens, new, states, bind, stale
+
+
+def fold_launch_from(layout, heads, store, t):
+    """((phase, counter) that gives a fold row its launches, note): the
+    note says when no phase of the run takes that store, layout and window
+    at those heads (the counter is then read from a phase of the same
+    model and layout)."""
+    attn = "decode_attention_paged" if layout == "paged" else \
+        "decode_attention"
+    key = fold_key(attn, store, t)
+    if heads == "llama2-7b":
+        phase = {("contiguous", "k8v4", 1): "serve[llama2-7b]",
+                 ("contiguous", "k8v4", SPEC_T):
+                     "spec_serve[llama2-7b+draft]",
+                 ("stacked", "k8v4", 1): "scan_path[llama2-7b]"}.get(
+            (layout, store, t))
+        if phase:
+            return (phase, key), None
+        return ("path[llama2-7b]", key), (
+            "no phase of this run runs the 7B in this store, layout and "
+            "window")
+    if layout == "stacked":
+        phase = {("bf16", 1): "scan_serve", ("bf16", SPEC_T):
+                 "scan_serve[spec]", ("k8v4", 1): "scan_path[k8v4]"}.get(
+            (store, t))
+        if phase:
+            return (phase, key), None
+        return ("scan_serve", key), (
+            "no phase of this run runs the stacked cache of TinyLlama in "
+            "this store and window")
+    lay = "paged" if layout == "paged" else "contiguous"
+    phase = {("contiguous", "bf16", 1): "serve",
+             ("contiguous", "int8", 1): "serve[int8]",
+             ("contiguous", "bf16", SPEC_T): "spec_serve",
+             ("paged", "bf16", 1): "paged_serve",
+             ("paged", "k8v4", 1): "paged_serve[k8v4]",
+             ("paged", "k8v4", SPEC_T): "spec_paged_serve[k8v4]"}.get(
+        (lay, store, t))
+    return (phase or (f"path[{store},{lay}]" if t == 1
+                      else f"spec_path[{store},{lay}]"), key), None
+
+
+def fold_cases(torch):
+    """Each fold case in turn (FOLD_HEADS x FOLD_LAYOUTS x STORES x tokens
+    1, 5), as a dict: its labels, `live` (the bytes of the attention's
+    live rows at ATTN_LENS, the step's rows among them), `copies` (cache
+    copies past the L2) and `fold_inputs`' operands."""
+    i = 0
+    for heads, hq, kh, d in FOLD_HEADS:
+        for layout, attn, writer, tag, line, attn_line in FOLD_LAYOUTS:
+            for store in STORES:
+                for t in (1, SPEC_T):
+                    i += 1
+                    page = ATTN_PAGE if layout == "paged" else None
+                    live = attention_live_bytes(store, kh, d, ATTN_LENS,
+                                                page)
+                    copies = max(1, -(-ATTN_COLD_BYTES // live))
+                    q, lens, new, states, bind, stale = fold_inputs(
+                        torch, store, hq, kh, d, layout, t, copies,
+                        SEED + 60 + i)
+                    yield dict(heads=heads, hq=hq, d=d, layout=layout,
+                               attn=attn, writer=writer, tag=tag, line=line,
+                               attn_line=attn_line, store=store, t=t,
+                               live=live, copies=copies, q=q, lens=lens,
+                               new=new, states=states, bind=bind,
+                               stale=stale)
+                    del q, lens, new, states, bind, stale
+                    torch.cuda.empty_cache()
+
+
+def fold_case_ms(torch, fn, case, order: str) -> dict:
+    """ms a call of a fold case by CUDA-graph replay over its cache copies,
+    in the turns `order` names: "p" the writer + attention pair, "f" the
+    attention that writes the rows. {"p": [ms, ...], "f": [ms, ...]}."""
+    t, new = case["t"], case["new"]
+    bound = [case["bind"](st) for st in case["states"]]
+    calls = {"p": [lambda a=a, k=k, w=w: (w(), fn(*a, tokens=t, **k))
+                   for a, k, w in bound],
+             "f": [lambda a=a, k=k: fn(*a, tokens=t, new=new, **k)
+                   for a, k, _ in bound]}
+    out = {"p": [], "f": []}
+    for turn in order:
+        out[turn].append(cuda_ms(torch, calls[turn], 20 * case["copies"]))
+    return out
+
+
+def fold_ms(torch) -> dict:
+    """ms a call of each fold case, the attention that writes the rows
+    (when the package has the fold) and the writer + attention pair, in
+    turns pair, fold, STEP_REPS times (`fold_case_ms`): only the wrappers
+    are used, so any checkout's package can be timed (`--fold-ms ROOT`)."""
+    from deeppowers_tpu_torch.ops.kernels import decode_attention as da
+    order = ("pf" if hasattr(da, "NewRows") else "p") * STEP_REPS
+    out = {}
+    for c in fold_cases(torch):
+        name = f"{c['tag']},{c['heads']},{c['store']},t{c['t']}"
+        ms = fold_case_ms(torch, getattr(da, c["attn"]), c, order)
+        out[f"pair_ms[{name}]"] = ms["p"]
+        if ms["f"]:
+            out[f"fold_ms[{name}]"] = ms["f"]
+    return out
+
+
+def check_fold_kernels(torch):
+    """#3+2, #3+8 and #5+6: the attention launch that writes the step's
+    rows before it reads them, at tokens 1 and 5, TinyLlama's and the 7B's
+    heads, every store, over ATTN_LENS. Against its plain route (the
+    writer's plain version, then the attention's) on a clone of the same
+    cache, with NaN or stale bytes in the rows' slots first: cache bytes
+    and scales equal, each (slot, row) within 1e-2 of its max|ref|,
+    finite. Timed over cache copies past the L2 beside the writer +
+    attention pair it replaces, in turns pair, fold, fold, pair
+    (`fold_case_ms`). The bound counts what the one function moves: the
+    live rows and scales once (the step's rows among them, written in
+    their stored form, never read back), the step's bf16 rows, their
+    positions (and pool rows) and q read, the output written."""
+    from deeppowers_tpu_torch.ops.kernels import decode_attention as da
+    rows = []
+    for c in fold_cases(torch):
+        attn, store, t, new, q = c["attn"], c["store"], c["t"], c["new"], \
+            c["q"]
+        fn = getattr(da, attn)
+        plain = getattr(da, attn + "_plain")
+        name = (f"{attn}+{c['writer']}[{store}"
+                + ("" if t == 1 else f":t{t}") + f", {c['heads']}]")
+        state = c["states"][0]
+        c["stale"](state)
+        ref_state = [x.clone() for x in state]
+        args, kw, _ = c["bind"](state)
+        ref_args, ref_kw, _ = c["bind"](ref_state)
+        key = (store if t == 1 else f"{store}:t{t}") + "+rows"
+        before = fn.variant_launches[key]
+        out = fn(*args, tokens=t, new=new, **kw)
+        ref = plain(*ref_args, tokens=t, new=new, **ref_kw)
+        torch.cuda.synchronize()
+        if fn.variant_launches[key] != before + 1:
+            fail(f"{name}: the call was not counted under {key}")
+        if not all(same_bits(torch, x, y) for x, y in zip(state, ref_state)):
+            fail(f"{name}: cache bytes or scales differ from the plain "
+                 f"route's")
+        err, worst = row_errors(out, ref)
+        if not (torch.isfinite(out).all() and worst <= 1e-2):
+            fail(f"{name}: a (slot, row) error is {worst:.3g} of its "
+                 f"max|ref| (limit 1e-2), or not finite")
+        ms = fold_case_ms(torch, fn, c, "pffp")
+        p_ms, f_ms = ms["p"], ms["f"]
+        t_p = cuda_ms(torch, [lambda: plain(
+            *ref_args, tokens=t, new=new, **ref_kw)], 3, graph=False)
+        index = new.pos.numel() * 4 + (
+            new.rows.numel() * 4 + new.valid.numel()
+            if c["layout"] == "paged" else 0)
+        nb = c["live"] + 2 * new.k.numel() * 2 + index + 2 * q.numel() * 2
+        bd, by = bound_ms(nb, 4 * int(c["lens"].sum()) * c["hq"] * t * c["d"])
+        log(f"  {name} ({c['tag']}): max_abs_err={err:.3e} "
+            f"worst_row_ratio={worst:.3e}, bytes and scales exact; fold "
+            f"{f_ms[0]:.4f} / {f_ms[1]:.4f} ms, writer + attention "
+            f"{p_ms[0]:.4f} / {p_ms[1]:.4f} ms over {c['copies']} cache "
+            f"copies, plain {t_p:.4f} ms, bound {bd:.6f} ms ({by})")
+        frm, note = fold_launch_from(c["layout"], c["heads"], store, t)
+        row = {"name": name, "route": "cuda",
+               "source": "deeppowers_tpu_torch/csrc/decode_attention.cuh",
+               "replaces": c["line"], "attention_replaces": c["attn_line"],
+               "fold": c["tag"], "max_abs_err": err,
+               "ms": sum(f_ms) / 2, "ms_runs": f_ms,
+               "pair_ms": sum(p_ms) / 2, "pair_ms_runs": p_ms,
+               "plain_ms": t_p, "bound_ms": bd, "bound_by": by,
+               "library_ms": None,
+               "library_note": "no one PyTorch call writes the rows and "
+                               "attends",
+               "worst_row_ratio": worst, "cache_copies": c["copies"],
+               "tokens": t, "launch_from": frm}
+        if note:
+            row["note"] = note
+        rows.append(row)
+        del out, ref, args, kw, ref_args, ref_kw, state, ref_state
+    return rows
+
+
 def check_scan_kt_kernels(torch, cfg):
     """#8 in four stores (8 rows, and a window's 8 x 5 rows, into layer 11
     of TinyLlama's (22, 8, 1024, F') stacked caches; one position past the
@@ -2874,6 +3196,8 @@ def lm124_path(torch, T, kvcache, counters, device="cuda"):
     launches = read_counts(counters)
     if len(res.token_ids) != 8 or launches.get("dequant_matmul[n4]", 0) < 1:
         fail(f"path[lm124]: {len(res.token_ids)} tokens, launches {launches}")
+    check_variants("path[lm124]", launches,
+                   [fold_key("decode_attention", "bf16")], ["step_writers"])
     got = forced_logits(torch, T, kvcache, params, lcfg, ids, forced, device)
     ref = forced_logits(torch, T, kvcache, tree_to(params, "cpu"), lcfg, ids,
                         forced, "cpu")
@@ -2933,12 +3257,15 @@ def teacher_forced(torch, T, kvcache, params, cfg, ids, forced, device,
 
 
 def scan_variants(kv, scan):
-    """The row writer and attention that a path on `kv` must launch, and
-    the row writer it must not: #8 and #3 on the stacked cache, #2 and #3
-    on the unrolled one."""
+    """The row writer and attention that a path on `kv` must launch (#8 and
+    #3 on the stacked cache, #2 and #3 on the unrolled one: the prompt's
+    rows through the writer, the decode rows through #3's fold), and what
+    it must not: the other writer, and any writer inside a decode or
+    verify forward."""
     own = "scatter_rows_stacked" if scan else "scatter_rows"
     other = "scatter_rows" if scan else "scatter_rows_stacked"
-    return [f"{own}[{kv}]", f"decode_attention[{kv}]"], [other]
+    return ([f"{own}[{kv}]", f"decode_attention[{kv}]",
+             fold_key("decode_attention", kv)], [other, "step_writers"])
 
 
 def llama2_path(torch, T, kvcache, counters, scan=False):
@@ -3095,8 +3422,9 @@ def scan_path(torch, T, kvcache, params, cfg, ids, forced, counters,
         launches[store] = read_counts(counters)
         check_variants(f"scan_path[{store}]", launches[store],
                        [f"scatter_rows_stacked[{store}]",
-                        f"decode_attention[{store}]"] + ROUTES_ON,
-                       ["scatter_rows"])
+                        f"decode_attention[{store}]",
+                        fold_key("decode_attention", store)] + ROUTES_ON,
+                       ["scatter_rows", "step_writers"])
         ref = scan_forced_logits(torch, T, stacked_cpu, cfg, ids, forced,
                                  "cpu", store)
         rel = max(((g - r).norm() / r.norm()).item()
@@ -3254,10 +3582,11 @@ def serve_llama2(torch, T, counters):
         LLAMA2_ON_PATH + ROUTES_ON + ["flash_attention_prefill",
                           "flash_attention_chunk",
                           f"scatter_rows[{LLAMA2_KV}]",
-                          f"decode_attention[{LLAMA2_KV}]"],
+                          f"decode_attention[{LLAMA2_KV}]",
+                          fold_key("decode_attention", LLAMA2_KV)],
         LLAMA2_OFF_PATH + ["scatter_pool_rows", "decode_attention_paged",
                            "grouped_dequant_matmul",
-                           "grouped_dequant_matmul_ncat"]
+                           "grouped_dequant_matmul_ncat", "step_writers"]
         + [f"{k}[{v}]" for k in ("scatter_rows", "decode_attention")
            for v in KV_CACHE_DTYPES if v != LLAMA2_KV])
     out = summary(results, wall, sched, launches)
@@ -3533,8 +3862,10 @@ def serve_mixtral(torch, T, counters):
         MIXTRAL_ON_PATH + ROUTES_ON + ["flash_attention_prefill",
                            "flash_attention_chunk",
                            f"scatter_rows[{MIXTRAL_KV}]",
-                           f"decode_attention[{MIXTRAL_KV}]"],
-        MIXTRAL_OFF_PATH + ["scatter_pool_rows", "decode_attention_paged"]
+                           f"decode_attention[{MIXTRAL_KV}]",
+                           fold_key("decode_attention", MIXTRAL_KV)],
+        MIXTRAL_OFF_PATH + ["scatter_pool_rows", "decode_attention_paged",
+                            "step_writers"]
         + [f"{k}[{v}]" for k in ("scatter_rows", "decode_attention")
            for v in KV_CACHE_DTYPES if v != MIXTRAL_KV])
     # random weights make every token's hidden state alike after a few
@@ -3574,7 +3905,8 @@ def spec_path(torch, T, params, cfg, counters):
     """The teacher-forced verify window on the card: a 40-token prompt, then
     forward_verify over T = 5 forced tokens, through each store on each
     layout, with launch counts from 0 (the tokens = 5 variant of #3 or #5
-    must launch once a layer, and the window's rows go through #2 or #6).
+    must launch once a layer, writing the window's rows itself: no row
+    writer inside the verify or the decode forwards).
     Held against the same on the plain path on the CPU and against five
     sequential forward_decode steps on the card, rel L2 <= 5e-2 per window
     row (both keep the residual stream in bf16 and differ in rounding
@@ -3600,13 +3932,15 @@ def spec_path(torch, T, params, cfg, counters):
             launches = out[(dtype, layout)] = read_counts(counters)
             attn = ("decode_attention_paged" if paged else
                     "decode_attention") + f"[{dtype}:t{SPEC_T}]"
-            app = ("scatter_pool_rows" if paged else "scatter_rows") + \
-                f"[{dtype}]"
+            fold = attn[:-1] + "+rows]"
             if launches.get(attn, 0) != cfg.num_layers or \
-                    launches.get(app, 0) < 2 * cfg.num_layers:
+                    launches.get(fold, 0) != cfg.num_layers or \
+                    launches.get("step_writers", 0):
                 fail(f"spec_path[{dtype},{layout}]: {attn} launched "
                      f"{launches.get(attn, 0)} times for {cfg.num_layers} "
-                     f"layers, {app} {launches.get(app, 0)}")
+                     f"layers, {launches.get(fold, 0)} of them writing the "
+                     f"window's rows; row writers inside the forwards "
+                     f"{launches.get('step_writers', 0)}")
             ref, _ = verify_logits(torch, T, cpu_params, cfg, ids, window,
                                    "cpu", paged, dtype, sequential=False)
             r_cpu, r_seq = rel(got, ref), rel(got, seq)
@@ -3751,9 +4085,20 @@ def profile_decode(torch, engine, tok, steps: int = 5,
     `attention_kernel`). Every one of them is one launch a call: no step
     may run a combine_kernel."""
     from deeppowers_tpu_torch.config import GenerationConfig
+    from deeppowers_tpu_torch.ops.kernels import decode_attention as da
+    from deeppowers_tpu_torch.ops.kernels import kv_append as ka
     from deeppowers_tpu_torch.ops.kernels.dequant_matmul import (
         quantize_activations)
     from torch.profiler import ProfilerActivity, profile
+
+    def writers():
+        return sum(f.launches for f in (ka.scatter_rows, ka.scatter_pool_rows,
+                                        ka.scatter_rows_stacked))
+
+    def folds():
+        return sum(n for f in (da.decode_attention, da.decode_attention_paged)
+                   for k, n in f.variant_launches.items()
+                   if k.endswith("+rows"))
     for i in range(engine.num_slots):
         engine.add_request(tok.encode(prompt_text(prompt_bytes, i)),
                            GenerationConfig(
@@ -3762,7 +4107,7 @@ def profile_decode(torch, engine, tok, steps: int = 5,
     engine.step()
     engine.step()
     torch.cuda.synchronize()
-    q0 = quantize_activations.launches
+    q0, w0, f0 = quantize_activations.launches, writers(), folds()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3771,6 +4116,7 @@ def profile_decode(torch, engine, tok, steps: int = 5,
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     q_launches = (quantize_activations.launches - q0) / steps
+    w_launches, f_launches = (writers() - w0) / steps, (folds() - f0) / steps
     split = host_split(torch, prof, steps)
     if split["busy_ms"] <= 0:
         fail("profile: no device time recorded for the decode steps")
@@ -3791,6 +4137,7 @@ def profile_decode(torch, engine, tok, steps: int = 5,
                  attention={"traced": sum(e.count for e in attn) / steps,
                             "ms": sum(e.self_device_time_total
                                       for e in attn) / 1e3 / steps},
+                 row_writers=w_launches, folded_attention=f_launches,
                  quantizer={"launches": q_launches,
                             "traced": sum(e.count for e in quant) / steps,
                             "ms": sum(e.self_device_time_total
@@ -3852,6 +4199,62 @@ def profile_prefill(torch, engine, tok, prompts):
 def segments(torch) -> int:
     """cudaMalloc calls PyTorch's caching allocator has made so far."""
     return torch.cuda.memory_stats().get("segment.all.allocated", 0)
+
+
+class StepWriters:
+    """The row writers' (#2, #6, #8) launches made inside decode and verify
+    forwards, where the attention launch writes the rows: 0 on every
+    layout but the kt mirror's. Registered among the counters as
+    "step_writers" by `count_step_writers`."""
+    launches = 0
+
+
+def count_step_writers(counters) -> None:
+    """Wrap forward_decode and forward_verify where the package calls them
+    (the transformer module, whose scan forwards call them, the engine and
+    speculative decoding), so that counters["step_writers"] adds the row
+    writers' launches made inside them."""
+    from deeppowers_tpu_torch.models import transformer
+    from deeppowers_tpu_torch.runtime import engine, speculative
+    writers = [counters[k] for k in ("scatter_rows", "scatter_pool_rows",
+                                     "scatter_rows_stacked")]
+    step = counters.setdefault("step_writers", StepWriters())
+
+    def wrap(fn):
+        def counted(*args, **kw):
+            before = sum(w.launches for w in writers)
+            try:
+                return fn(*args, **kw)
+            finally:
+                step.launches += sum(w.launches for w in writers) - before
+        return counted
+
+    names = ("forward_decode", "forward_verify")
+    originals = {n: getattr(transformer, n) for n in names}
+    for mod in (transformer, engine, speculative):
+        for n in names:
+            if hasattr(mod, n):
+                setattr(mod, n, wrap(originals[n]))
+
+
+def cpu_references_take_kernel_functions() -> None:
+    """The CPU references of this run's path phases compute the card
+    kernels' functions, as they did before the CPU engine took JAX's XLA
+    function for weight-only products (ops/matmul.py): the weight-only
+    products of CPU tensors go to the kernels' plain versions
+    (`dequant_matmul_plain`). Those two functions differ by a bf16 rounding
+    of the weight, which 22 layers and an int4 KV store amplify to 9e-2 of
+    the logits (rel L2, TinyLlama). CUDA tensors never take that route, so
+    the card's side of every phase is unchanged."""
+    from deeppowers_tpu_torch.ops import matmul
+    matmul.cpu_weight_only_function("kernel")
+
+
+def fold_key(attn: str, store: str, t: int = 1) -> str:
+    """The launch count of the attention `attn` ("decode_attention",
+    "decode_attention_paged") that also wrote the step's rows, for a store
+    and window: decode_attention[int8+rows], [int8:t5+rows]."""
+    return f"{attn}[{store}{'' if t == 1 else f':t{t}'}+rows]"
 
 
 def reset_counts(counters) -> None:
@@ -3997,13 +4400,17 @@ def serve(torch, params, cfg, counters, kv_cache_dtype="bf16",
     results, launches, wall, sched = run_requests(
         torch, engine, prompts, MAX_TOKENS, counters, tok)
     seg1 = segments(torch)
-    own = [f"{k}[{kv_cache_dtype}]" for k in ("scatter_rows",
-                                             "decode_attention")]
+    # a quantized store's prompt rows go through #2; a bf16 prompt is
+    # written by indexing, and every decode row through #3's fold
+    own = [f"decode_attention[{kv_cache_dtype}]",
+           fold_key("decode_attention", kv_cache_dtype)] + (
+        [f"scatter_rows[{kv_cache_dtype}]"] if kv_cache_dtype != "bf16"
+        else [])
     check_variants(
         f"serve[{kv_cache_dtype}]", launches,
         ["dequant_matmul", "flash_attention_prefill",
          "flash_attention_chunk"] + ROUTES_ON + own,
-        ["scatter_pool_rows", "decode_attention_paged"]
+        ["scatter_pool_rows", "decode_attention_paged", "step_writers"]
         + [f"{k}[{v}]" for k in ("scatter_rows", "decode_attention")
            for v in KV_CACHE_DTYPES if v != kv_cache_dtype])
     out = summary(results, wall, sched, launches)
@@ -4126,11 +4533,17 @@ def serve_paged(torch, params, cfg, counters, kv_cache_dtype="bf16",
         fail("paged serve: no request went through 2 or more chunks")
     attn = f"decode_attention_paged[{kv_cache_dtype}]"
     verify = f"decode_attention_paged[{kv_cache_dtype}:t{spec_k + 1}]"
+    # a quantized store's chunks go through #6; bf16 chunks are written by
+    # indexing, and every decode and verify row through #5's fold
     check_variants(
         f"paged serve[{kv_cache_dtype}]", launches,
-        [f"scatter_pool_rows[{kv_cache_dtype}]", verify if spec_k else attn,
-         "flash_attention_chunk"] + ROUTES_ON,
-        ["scatter_rows", "decode_attention"] + ([attn] if spec_k else [])
+        ([f"scatter_pool_rows[{kv_cache_dtype}]"]
+         if kv_cache_dtype != "bf16" else [])
+        + [verify if spec_k else attn,
+           fold_key("decode_attention_paged", kv_cache_dtype, spec_k + 1),
+           "flash_attention_chunk"] + ROUTES_ON,
+        ["scatter_rows", "decode_attention", "step_writers"]
+        + ([attn] if spec_k else [])
         + [f"{k}[{v}]" for k in ("scatter_pool_rows", "decode_attention_paged")
            for v in KV_CACHE_DTYPES if v != kv_cache_dtype])
     out["kv_bytes"] = engine.kv_nbytes
@@ -4177,11 +4590,12 @@ def serve_spec(torch, params, cfg, counters, plain_tokens):
         torch, engine, prompts, MAX_TOKENS, counters, tok, temps=temps)
     check_variants(
         "spec_serve", launches,
-        [f"decode_attention[bf16:t{SPEC_T}]", "scatter_rows[bf16]",
+        [f"decode_attention[bf16:t{SPEC_T}]",
+         fold_key("decode_attention", "bf16", SPEC_T),
          "dequant_matmul", "flash_attention_prefill",
          "flash_attention_chunk"] + ROUTES_ON,
         ["decode_attention[bf16]", "scatter_pool_rows",
-         "decode_attention_paged"])
+         "decode_attention_paged", "step_writers"])
     out = summary(results, wall, sched, launches)
     out["speculative"] = sched.stats()["speculative"]
     out["spec_mean_accepted"] = engine.spec_mean_accepted
@@ -4229,9 +4643,11 @@ def serve_scan(torch, params, cfg, counters):
     res2, launches2, wall2, sched2 = run_requests(
         torch, engine, prompts, MAX_TOKENS, counters, tok)
     on = ["scatter_rows_stacked[bf16]", "decode_attention[bf16]",
+          fold_key("decode_attention", "bf16"),
           "dequant_matmul", "flash_attention_prefill",
           "stage_activations"] + ROUTES_ON
-    off = ["scatter_rows", "scatter_pool_rows", "decode_attention_paged"]
+    off = ["scatter_rows", "scatter_pool_rows", "decode_attention_paged",
+           "step_writers"]
     check_variants("scan_serve", launches, on + ["flash_attention_chunk"],
                    off)
     # the second pass prefills from its prefix matches in chunks; a prompt
@@ -4270,8 +4686,9 @@ def serve_scan(torch, params, cfg, counters):
     sl = read_counts(counters)
     check_variants("scan_serve (speculative request)", sl,
                    [f"decode_attention[bf16:t{SPEC_T}]",
+                    fold_key("decode_attention", "bf16", SPEC_T),
                     "scatter_rows_stacked[bf16]"] + ROUTES_ON,
-                   ["scatter_rows", "decode_attention[bf16]"])
+                   ["scatter_rows", "decode_attention[bf16]", "step_writers"])
     out["speculative"] = {"scan": spec.scan_layers,
                           "tokens": len(r.token_ids),
                           "spec_steps": spec.spec_steps,
@@ -4355,9 +4772,12 @@ def serve_llama2_spec(torch, T, counters, l7_params, tiny_params, tiny_cfg):
         ROUTES_ON + [f"decode_attention[{LLAMA2_KV}:t{SPEC_T}]",
          f"decode_attention[{LLAMA2_KV}]", "dequant_matmul[w4a8g]",
          "dequant_matmul[w8]", "quantize_activations",
-         f"scatter_rows[{LLAMA2_KV}]"],
+         f"scatter_rows[{LLAMA2_KV}]",
+         fold_key("decode_attention", LLAMA2_KV, SPEC_T),
+         fold_key("decode_attention", LLAMA2_KV)],
         ["scatter_pool_rows", "decode_attention_paged",
-         f"decode_attention[bf16:t{SPEC_T}]", "decode_attention[bf16]"])
+         f"decode_attention[bf16:t{SPEC_T}]", "decode_attention[bf16]",
+         "step_writers"])
     out = summary(results, wall, sched, launches)
     out["speculative"] = sched.stats()["speculative"]
     out["spec_mean_accepted"] = engine.spec_mean_accepted
@@ -4410,6 +4830,10 @@ def report_serve(name, t0, out, smi_line, n_requests) -> None:
     log(f"{name} decode step host split " + json.dumps(
         {k: pr[k] for k in ("ops", "launches", "syncs", "sync_ms", "allocs",
                             "alloc_ms", "host_top")}))
+    log(f"{name} profiled decode step: {pr['launches']:.1f} launches, "
+        f"device busy {pr['busy_ms']:.3f} ms, row writers (#2, #6, #8) "
+        f"{pr['row_writers']:.1f} and attention calls that wrote their rows "
+        f"{pr['folded_attention']:.1f} a step card={smi_line!r}")
     if pr["quantizer"]["launches"]:
         log(f"{name} decode step: {pr['launches']:.1f} launches, the row "
             f"quantizer {pr['quantizer']['launches']:.1f} of them "
@@ -4489,10 +4913,19 @@ def main(argv) -> int:
         log(json.dumps({"checkout": argv[1], "card": card_line(),
                         **slot_order_ms(torch)}))
         return 0
+    if argv[:1] == ["--fold-ms"] and len(argv) == 2:
+        # the attention that writes the step's rows, and the writer +
+        # attention pair, through the package of the checkout at argv[1]
+        sys.path.insert(0, os.path.abspath(argv[1]))
+        from deeppowers_tpu_torch.ops.kernels import _build
+        _build.library()
+        log(json.dumps({"checkout": argv[1], "card": card_line(),
+                        **fold_ms(torch)}))
+        return 0
     if argv:
         sys.stderr.write("usage: chip_smoke.py [--step-ms CHECKOUT | "
                          "--ttft CHECKOUT | --kt-ms CHECKOUT | "
-                         "--slot-orders CHECKOUT]\n")
+                         "--slot-orders CHECKOUT | --fold-ms CHECKOUT]\n")
         return 2
     from deeppowers_tpu_torch.config import QuantConfig
     from deeppowers_tpu_torch.models import transformer as T
@@ -4527,6 +4960,8 @@ def main(argv) -> int:
                 "scatter_rows_stacked": scatter_rows_stacked,
                 "decode_attention_kt": decode_attention_kt,
                 "decode_attention_kernel": decode_attention_kernel}
+    count_step_writers(counters)
+    cpu_references_take_kernel_functions()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -4555,6 +4990,7 @@ def main(argv) -> int:
     rows += check_grouped_kernels(torch)
     rows += check_mixtral_gemv(torch)
     rows += check_scan_kt_kernels(torch, cfg)
+    rows += check_fold_kernels(torch)
     phase_line("kernels", t0, checked=len(rows))
 
     # 4. path: full-width TinyLlama, teacher-forced against the plain path
@@ -4567,7 +5003,11 @@ def main(argv) -> int:
     rng = torch.Generator().manual_seed(SEED + 2)
     ids = torch.randint(0, cfg.vocab_size, (40,), generator=rng).tolist()
     forced = torch.randint(0, cfg.vocab_size, (3,), generator=rng).tolist()
+    reset_counts(counters)
     got = forced_logits(torch, T, kvcache, params, cfg, ids, forced, "cuda")
+    torch.cuda.synchronize()
+    check_variants("path", read_counts(counters),
+                   [fold_key("decode_attention", "bf16")], ["step_writers"])
     ref = forced_logits(torch, T, kvcache, tree_to(params, "cpu"), cfg, ids,
                         forced, "cpu")
     # Tolerance: both paths keep the residual stream in bf16 (8 significant
@@ -4584,8 +5024,13 @@ def main(argv) -> int:
 
     # 5. paged path: the same through the paged cache
     t0 = time.perf_counter()
+    reset_counts(counters)
     got_p = forced_logits(torch, T, kvcache, params, cfg, ids, forced, "cuda",
                           paged=True)
+    torch.cuda.synchronize()
+    check_variants("paged_path", read_counts(counters),
+                   [fold_key("decode_attention_paged", "bf16")],
+                   ["step_writers"])
     ref_p = forced_logits(torch, T, kvcache, tree_to(params, "cpu"), cfg, ids,
                           forced, "cpu", paged=True)
     rel_p = max(((g - r).norm() / r.norm()).item()
@@ -4612,6 +5057,12 @@ def main(argv) -> int:
             torch.cuda.synchronize()
             layout = "paged" if paged else "contiguous"
             path_launches[(kv_dtype, layout)] = read_counts(counters)
+            check_variants(
+                f"path[{kv_dtype},{layout}]",
+                path_launches[(kv_dtype, layout)],
+                [fold_key("decode_attention_paged" if paged
+                          else "decode_attention", kv_dtype)],
+                ["step_writers"])
             ref_q = forced_logits(torch, T, kvcache, tree_to(params, "cpu"),
                                   cfg, ids, forced, "cpu", paged=paged,
                                   kv_cache_dtype=kv_dtype)
@@ -4814,6 +5265,10 @@ def main(argv) -> int:
             phase, key = row.pop("launch_from")
             row["launches"] = runs[phase].get(key, 0)
             row["launches_phase"] = phase
+            if key.startswith(("scatter_rows[bf16", "scatter_pool_rows[bf16"))\
+                    and not row["launches"]:
+                row["note"] = ("a window's rows are written inside the "
+                               "attention launch; a bf16 prompt by indexing")
             continue
         name = row["name"]
         kernel, _, var = name.partition("[")
@@ -4833,6 +5288,11 @@ def main(argv) -> int:
             phase, key = f"path[{var},{layout}]", name
         row["launches"] = runs[phase].get(key, 0)
         row["launches_phase"] = phase
+        if kernel in ("scatter_rows", "scatter_pool_rows") and \
+                not row["launches"]:
+            row["note"] = ("decode and verify rows are written inside the "
+                           "attention launch (the #3+2 / #5+6 rows); a bf16 "
+                           "prompt or chunk is written by indexing")
         if "variant" in row and not row["launches"]:
             row["note"] = ("no model of the repo has a weight of this width"
                            if row["variant"].startswith("n") else

@@ -140,6 +140,39 @@
 //    the launch writes. A chunk that a rejected speculative window or a
 //    prefix copy left stale heals this way before it becomes committed
 //    (runtime/kvcache.py, the mirror's invariant).
+//  - the step's new rows (kernels #2, #6 and #8 folded in): a decode or
+//    verify call may carry the K/V rows of its step's T tokens a slot, bf16
+//    as the model made them, with their positions (and, paged, their pool
+//    rows). The launch writes them into the cache before it reads the
+//    cache, so the step needs no writer launch of its own. Who writes
+//    what: the cluster (b, kv head h) owns head h of slot b's new rows, and
+//    inside it the split whose stretch [split * chunk, (split + 1) * chunk)
+//    holds position p writes row p's head-h bytes and that head's scale
+//    entries (at (slot * R + g) * S + p, or through the pool row); no other
+//    block touches those bytes (another head's cluster writes and reads
+//    other bytes of the row, another split other positions). A window of T
+//    rows may straddle two tiles or two splits: each split writes its own.
+//    A position below 0 or at or past S, and a paged row marked invalid or
+//    outside the pool, writes nothing, as kv_append.cu's kernels drop it.
+//    The bytes are kv_append.cu's (kv_store.cuh, bit for bit).
+//    The tail tile must never be read stale: the rows lie inside the
+//    length (attended lengths count the step's rows), so the ring's zero-
+//    fill does not cover them. The owning block writes its rows to device
+//    memory, one warp a (row, side), and meets the block's barrier before
+//    it issues its first cp.async; bar.sync orders the writes before every
+//    later read of the block's threads, and the copies are such reads
+//    (cp.async of this kind runs in the generic proxy). Two later
+//    schedules were built and timed against this one and lost in every
+//    case (PERF.md section 6): writing after the ring's first copies are
+//    issued, when none of them lands a new row (0.7-6.4% slower), and
+//    having the position group that walks a row's tile write it just
+//    before the group barrier that precedes the copy (up to 1.86x slower
+//    at tokens 5: a window's rows serialize onto one group's warps). Dropping the row's
+//    stored form into its landed, swizzled tile from registers instead
+//    would have to hold those chunks' copies back and place a quantized
+//    row's bytes into every store's swizzle. The kt mirror's cache keeps a
+//    writer launch (#2) before its attention (#7): its flush reads the
+//    tail from the landed tiles, and its route is the layout's.
 // The TPU kernel's int8_dots branch, which requantizes q and p to int8 for
 // the MXU, is not carried over.
 #include <cuda_fp16.h>
@@ -148,6 +181,7 @@
 
 #include "common.cuh"
 #include "dequant_common.cuh"
+#include "kv_store.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -159,6 +193,22 @@ constexpr int MAX_ROWS = 64;   // query rows a kv head: 4 m tiles
 
 constexpr int KT_CHUNK = 128;  // positions a chunk of the kt mirror
 
+// The step's new rows, which the launch writes before it reads the cache:
+// row t of slot b (T a slot) holds bf16 K at k + b * k_sb + t * k_ts and V
+// at v + b * v_sb + t * v_ts (elements), goes to position pos[b * T + t]
+// (below 0: nowhere) and, paged, to pool row prow[b * T + t] where
+// valid[b * T + t] and the row is below `limit` (P * page). pos null: no
+// new rows.
+struct NewRows {
+  const bf16* k;
+  const bf16* v;
+  long long k_sb, k_ts, v_sb, v_ts;
+  const int* pos;
+  const int* prow;
+  const bool* valid;
+  long long limit;
+};
+
 // Contiguous layout: virtual row s of slot b is (major b, minor s).
 struct ContiguousRows {
   static constexpr bool kMirror = false;
@@ -168,6 +218,13 @@ struct ContiguousRows {
   }
   // whether the n rows from a multiple of n are consecutive in one major
   __device__ bool whole(int n) const { return true; }
+  // where new row i (position p of slot b) goes
+  __device__ bool new_row(const NewRows& nr, int b, int i, int p,
+                          long long& major, int& minor) const {
+    major = b;
+    minor = p;
+    return true;
+  }
 };
 
 // Paged layout: virtual row s of slot b is row s % page of page
@@ -181,6 +238,15 @@ struct PagedRows {
     minor = s % page;
   }
   __device__ bool whole(int n) const { return page % n == 0; }
+  // new row i goes to its pool row (`row_ids`'), if valid and in the pool
+  __device__ bool new_row(const NewRows& nr, int b, int i, int p,
+                          long long& major, int& minor) const {
+    const long long r = nr.prow[i];
+    if (!nr.valid[i] || r < 0 || r >= nr.limit) return false;
+    major = r / page;
+    minor = (int)(r % page);
+    return true;
+  }
 };
 
 // Mirror layout: the contiguous rows, and the kt mirror (B, C, F, 128)
@@ -490,6 +556,55 @@ __device__ __forceinline__ void flush_kt(const unsigned char* tile,
   }
 }
 
+// One side of a new row's head kh, x its bf16 values, into row (major,
+// minor) of the store and the head's scale entries, by one warp.
+template <int BITS, int D>
+__device__ __forceinline__ void store_new(const Side& s, const bf16* x,
+                                          int kh, long long major, int minor,
+                                          int lane) {
+  constexpr int NS = n_scales<BITS>();
+  unsigned char* out = (unsigned char*)s.data +
+                       (major * s.msb + (long long)minor * s.width) *
+                           (BITS == 16 ? 2 : 1) +
+                       kh * head_bytes<BITS, D>();
+  float* sc = nullptr;
+  if constexpr (NS > 0)
+    sc = (float*)s.scale + major * s.ssb + (long long)kh * NS * s.srs + minor;
+  store_head<BITS>(x, out, sc, NS == 2 ? sc + s.srs : nullptr, D, lane);
+}
+
+// Whether block `split` owns a new row of slot b: a position in [0, S)
+// inside its stretch
+__device__ __forceinline__ bool owns_new(const NewRows& nr, int i, int S,
+                                         int chunk, int split) {
+  const int p = nr.pos[i];
+  return p >= 0 && p < S && p / chunk == split;
+}
+
+// The new rows of slot b, head kh, that block `split` owns: one warp a
+// (row, side).
+template <int D, int KB, int VB, typename Rows>
+__device__ __forceinline__ void write_new_rows(const NewRows& nr,
+                                               const Side& k, const Side& v,
+                                               const Rows& rows, int b,
+                                               int kh, int T, int S,
+                                               int chunk, int split) {
+  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  for (int x = threadIdx.x >> 5; x < 2 * T; x += nw) {
+    const int t = x >> 1, i = b * T + t;
+    if (!owns_new(nr, i, S, chunk, split)) continue;
+    long long major;
+    int minor;
+    if (!rows.new_row(nr, b, i, nr.pos[i], major, minor)) continue;
+    if (x & 1)
+      store_new<VB, D>(v, nr.v + b * nr.v_sb + t * nr.v_ts + kh * D, kh,
+                       major, minor, lane);
+    else
+      store_new<KB, D>(k, nr.k + b * nr.k_sb + t * nr.k_ts + kh * D, kh,
+                       major, minor, lane);
+  }
+}
+
 // Query rows: O = Kh * R rows a slot, R = rep * T per kv head, ordered
 // (kv head, query head, window token t) as the TPU kernel folds a verify
 // window into its output rows (`_fold_tokens` :488); T = 1 is decode. Row
@@ -507,7 +622,7 @@ __device__ __forceinline__ void flush_kt(const unsigned char* tile,
 template <int D, int KB, int VB, typename Rows>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
     attention_kernel(const Args a, const Side k, const Side v,
-                     const Rows rows) {
+                     const Rows rows, const NewRows nr) {
   constexpr int KHB = head_bytes<KB, D>(), VHB = head_bytes<VB, D>();
   constexpr int KCPR = KHB / 16, VCPR = VHB / 16;
   constexpr int NK = n_scales<KB>(), NV = n_scales<VB>();
@@ -530,6 +645,19 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
                                    : 0;
   const int s0 = split * a.chunk, s1 = min(s0 + a.chunk, len);
   const int TL = a.tile;
+  // the step's new rows this block owns, in the cache before any copy
+  if constexpr (!Rows::kMirror) {
+    if (nr.pos != nullptr) {
+      bool owns = false;
+      for (int t = 0; t < a.T; ++t)
+        owns |= owns_new(nr, b * a.T + t, a.S, a.chunk, split);
+      if (owns) {
+        write_new_rows<D, KB, VB>(nr, k, v, rows, b, kh, a.T, a.S, a.chunk,
+                                  split);
+        __syncthreads();
+      }
+    }
+  }
   const int kbytes = TL * KHB, vbytes = TL * VHB;
   const int stage = kbytes + vbytes + 4 * TL * (NK + NV);
   unsigned char* ring = sm + pg * a.stages * stage;
@@ -955,7 +1083,8 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
 }
 
 template <int D, int KB, int VB, typename Rows>
-int launch(const Args& a, const Side& k, const Side& v, Rows rows, int B) {
+int launch(const Args& a, const Side& k, const Side& v, Rows rows,
+           const NewRows& nr, int B) {
   constexpr int NK = n_scales<KB>(), NV = n_scales<VB>();
   const size_t stage = (size_t)a.tile * (head_bytes<KB, D>() +
                                          head_bytes<VB, D>() + 4 * (NK + NV));
@@ -982,20 +1111,20 @@ int launch(const Args& a, const Side& k, const Side& v, Rows rows, int B) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, kern, a, k, v, rows);
+  return (int)cudaLaunchKernelEx(&cfg, kern, a, k, v, rows, nr);
 }
 
 template <int D, typename Rows>
-int by_bits(const Args& a, const Side& k, const Side& v, Rows rows, int B,
-            int kb, int vb) {
+int by_bits(const Args& a, const Side& k, const Side& v, Rows rows,
+            const NewRows& nr, int B, int kb, int vb) {
   if constexpr (Rows::kMirror) {   // int8 K: int8 or int4 V
-    if (kb == 8 && vb == 8) return launch<D, 8, 8>(a, k, v, rows, B);
-    if (kb == 8 && vb == 4) return launch<D, 8, 4>(a, k, v, rows, B);
+    if (kb == 8 && vb == 8) return launch<D, 8, 8>(a, k, v, rows, nr, B);
+    if (kb == 8 && vb == 4) return launch<D, 8, 4>(a, k, v, rows, nr, B);
   } else {
-    if (kb == 16 && vb == 16) return launch<D, 16, 16>(a, k, v, rows, B);
-    if (kb == 8 && vb == 8) return launch<D, 8, 8>(a, k, v, rows, B);
-    if (kb == 4 && vb == 4) return launch<D, 4, 4>(a, k, v, rows, B);
-    if (kb == 8 && vb == 4) return launch<D, 8, 4>(a, k, v, rows, B);
+    if (kb == 16 && vb == 16) return launch<D, 16, 16>(a, k, v, rows, nr, B);
+    if (kb == 8 && vb == 8) return launch<D, 8, 8>(a, k, v, rows, nr, B);
+    if (kb == 4 && vb == 4) return launch<D, 4, 4>(a, k, v, rows, nr, B);
+    if (kb == 8 && vb == 4) return launch<D, 8, 4>(a, k, v, rows, nr, B);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1003,9 +1132,11 @@ int by_bits(const Args& a, const Side& k, const Side& v, Rows rows, int B,
 // The plan's rules (ops/kernels/decode_attention.py `attention_plan`) and
 // the 16-byte alignment the copies need; the scales' copies are 16 bytes
 // wide where their rows allow it.
+// New rows need both sides; the mirror layout takes none.
 template <typename Rows>
-int dispatch(Args a, const Side& k, const Side& v, Rows rows, int B, int D,
-             int kb, int vb, int scale_step) {
+int dispatch(Args a, const Side& k, const Side& v, Rows rows,
+             const NewRows& nr, int B, int D, int kb, int vb,
+             int scale_step) {
   const bool quant = kb != 16;
   const int esk = kb == 16 ? 2 : 1, esv = vb == 16 ? 2 : 1;
   if (a.R < 1 || a.R > MAX_ROWS || a.T < 1 || a.R % a.T || a.tile < 16 ||
@@ -1015,14 +1146,15 @@ int dispatch(Args a, const Side& k, const Side& v, Rows rows, int B, int D,
       a.mg != (a.R + 15) / 16 || a.pw < 1 || a.mg * a.pw > MAX_WARPS ||
       a.stages < 1 || a.stages > STAGES ||
       (uintptr_t)k.data % 16 || (uintptr_t)v.data % 16 ||
-      (k.msb * esk) % 16 || (v.msb * esv) % 16)
+      (k.msb * esk) % 16 || (v.msb * esv) % 16 ||
+      (nr.pos && (Rows::kMirror || !nr.k || !nr.v)))
     return (int)cudaErrorInvalidValue;
   a.svec = !quant || ((uintptr_t)k.scale % 16 == 0 &&
                       (uintptr_t)v.scale % 16 == 0 && k.ssb % 4 == 0 &&
                       v.ssb % 4 == 0 && k.srs % 4 == 0 && v.srs % 4 == 0 &&
                       scale_step % 4 == 0);
-  if (D == 64) return by_bits<64>(a, k, v, rows, B, kb, vb);
-  if (D == 128) return by_bits<128>(a, k, v, rows, B, kb, vb);
+  if (D == 64) return by_bits<64>(a, k, v, rows, nr, B, kb, vb);
+  if (D == 128) return by_bits<128>(a, k, v, rows, nr, B, kb, vb);
   return (int)cudaErrorInvalidValue;
 }
 

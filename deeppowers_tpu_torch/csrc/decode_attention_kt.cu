@@ -31,5 +31,5 @@ extern "C" int dpt_decode_attention_kt(
   mirror.kt_sb = (long long)C * Kh * D * KT_CHUNK;
   mirror.F = Kh * D;
   if ((uintptr_t)kt % 16 || KT_CHUNK % tile) return (int)cudaErrorInvalidValue;
-  return dispatch(a, kside, vside, mirror, B, D, 8, v_bits, 4);
+  return dispatch(a, kside, vside, mirror, NewRows{}, B, D, 8, v_bits, 4);
 }

@@ -26,12 +26,10 @@
 // feature j + D/2 in its high one). Scales are head-major (B, R, S) or
 // (P, R, page) arrays (R = Kh, or 2*Kh for int4). The rows arrive as the
 // model's bf16 (B, Kh*D) and are quantized inside the launch with
-// quant/kvquant.py's arithmetic, bit for bit: f32 absmax, fmaxf(absmax,
-// 1e-8f), IEEE division by 127 (or 7) and by the scale (this library builds
-// without --use_fast_math; keep it so), rintf (half to even), clamp,
-// nibbles as (hi << 4) | (lo & 0xF). The TPU kernel scatters rows that XLA
-// quantized in some ten separate ops per side; here the quantization is
-// fused into the one launch that writes K, V and both sides' scales.
+// quant/kvquant.py's arithmetic, bit for bit (kv_store.cuh). The TPU
+// kernel scatters rows that XLA quantized in some ten separate ops per
+// side; here the quantization is fused into the one launch that writes K,
+// V and both sides' scales.
 //
 // What bounds it on an H100: bytes, 2 * B * F * 2 read and at most as many
 // written (8 KB for TinyLlama's 8 slots, F = 256), far below a launch's
@@ -50,9 +48,16 @@
 // kernel's select and JAX's scatter drop it. The TPU kernel's 8-row read-
 // modify-write exists for the TPU's tiling; a GPU writes the row alone. A
 // bf16 side is copied by all threads; for a quantized side each warp takes
-// one kv head of the row: it reduces the head's (or each half's) absmax with
-// shuffles, lane 0 writes the scale, and the lanes write the head's bytes.
+// one kv head of the row (kv_store.cuh's `store_head`, which the attention
+// launch also runs when it writes a decode or verify step's rows itself):
+// it reduces the head's (or each half's) absmax with shuffles, lane 0
+// writes the scale, and the lanes write the head's bytes.
+//
+// Since the attention launch writes decode and verify rows (the fold,
+// decode_attention.cuh), these kernels write prefill rows, chunks and the
+// kt-mirror cache's decode rows.
 #include "common.cuh"
+#include "kv_store.cuh"
 
 namespace {
 
@@ -117,10 +122,6 @@ struct PoolDst {
   __device__ int minor_len() const { return page; }
 };
 
-__device__ __forceinline__ int quant_to(float x, float s, float lo, float hi) {
-  return (int)fminf(fmaxf(rintf(x / s), lo), hi);
-}
-
 // One side of an append: the slot's bf16 row into a bf16 (bits 16), int8
 // (bits 8) or packed int4 (bits 4) store and, when quantized, its scale
 // column.
@@ -151,39 +152,15 @@ __global__ void __launch_bounds__(128) kv_append_kernel(Side k, Side v,
     for (int i = threadIdx.x; i < Kh * D; i += blockDim.x) out[i] = src[i];
   } else if (sd.bits == 8) {
     int8_t* out = (int8_t*)sd.store + row * (long long)(Kh * D);
-    for (int h = warp; h < Kh; h += nwarp) {
-      const bf16* x = src + h * D;
-      float am = 0.f;
-      for (int j = lane; j < D; j += 32) am = fmaxf(am, fabsf(bf2f(x[j])));
-      am = warp_max(am);
-      const float s = fmaxf(am, 1e-8f) / 127.0f;
-      if (lane == 0) sd.scale[(major * Kh + h) * L + minor] = s;
-      for (int j = lane; j < D; j += 32)
-        out[h * D + j] = (int8_t)quant_to(bf2f(x[j]), s, -128.f, 127.f);
-    }
+    for (int h = warp; h < Kh; h += nwarp)
+      store_head<8>(src + h * D, out + h * D,
+                    sd.scale + (major * Kh + h) * L + minor, nullptr, D, lane);
   } else {
     const int hd = D / 2;
     int8_t* out = (int8_t*)sd.store + row * (long long)(Kh * hd);
     for (int h = warp; h < Kh; h += nwarp) {
-      const bf16* x = src + h * D;
-      float a0 = 0.f, a1 = 0.f;
-      for (int j = lane; j < hd; j += 32) {
-        a0 = fmaxf(a0, fabsf(bf2f(x[j])));
-        a1 = fmaxf(a1, fabsf(bf2f(x[hd + j])));
-      }
-      a0 = warp_max(a0);
-      a1 = warp_max(a1);
-      const float s0 = fmaxf(a0, 1e-8f) / 7.0f;
-      const float s1 = fmaxf(a1, 1e-8f) / 7.0f;
-      if (lane == 0) {
-        sd.scale[(major * 2 * Kh + 2 * h) * L + minor] = s0;
-        sd.scale[(major * 2 * Kh + 2 * h + 1) * L + minor] = s1;
-      }
-      for (int j = lane; j < hd; j += 32) {
-        const unsigned lo = (unsigned)quant_to(bf2f(x[j]), s0, -8.f, 7.f);
-        const unsigned hi = (unsigned)quant_to(bf2f(x[hd + j]), s1, -8.f, 7.f);
-        out[h * hd + j] = (int8_t)(uint8_t)(((hi & 0xFu) << 4) | (lo & 0xFu));
-      }
+      float* sc = sd.scale + (major * 2 * Kh + 2 * h) * L + minor;
+      store_head<4>(src + h * D, out + h * hd, sc, sc + L, D, lane);
     }
   }
 }

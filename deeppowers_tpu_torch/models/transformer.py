@@ -21,12 +21,16 @@ stacked layout of scan-over-layers (runtime/kvcache_stacked.py, JAX
 stacked parameters (`stack_layer_params`) and loop over their per-layer
 views where JAX's `lax.scan` walks the stacked leaves; their rows go
 through kernel #8 and their attention reads layer i's views of the stacked
-cache, which copy nothing. An int8-K contiguous cache may carry the kt
-mirror (runtime/kvcache.py); decode and verify over it take kernel #7
-(JAX `_kt_path` :1259-1285). Decode over a paged cache calls the
-table-walking attention kernel on the pools directly and never gathers;
-decode over a quantized cache reads the raw stores and folds the scales in
-the kernel (JAX `_decode_attn` :1288-1330). Chunked prefill attends over
+cache, which copy nothing. A decode or verify step writes each layer's
+rows and attends in one call, `kvcache.append_attend` (JAX `_decode_attn`
+:1288-1330, `_verify_attn` :1215-1256 and their stacked forms :1166-1212):
+the attention launch (#3, or #5 paged) writes the rows before it reads
+them, where JAX appends first. An int8-K contiguous cache may carry the kt
+mirror (runtime/kvcache.py); decode and verify over it append through #2,
+then take kernel #7 (JAX `_kt_path` :1259-1285). Decode over a paged cache
+calls the table-walking attention kernel on the pools directly and never
+gathers; decode over a quantized cache reads the raw stores and folds the
+scales in the kernel. Chunked prefill attends over
 the slot's dequantized rows, the chunk's own included (JAX :1103), and a
 whole-prompt prefill over its fresh K/V (JAX :1040-1046), so greedy
 streams follow JAX's.
@@ -42,13 +46,7 @@ import torch.nn.functional as F
 
 from ..config import QuantConfig, QuantMode
 from ..ops.activation import activation
-from ..ops.attention import (attention_chunk, attention_decode_auto,
-                             attention_prefill)
-from ..ops.kernels.decode_attention import (decode_attention_kt,
-                                            decode_attention_paged,
-                                            verify_attention,
-                                            verify_attention_kt,
-                                            verify_attention_paged)
+from ..ops.attention import attention_chunk, attention_prefill
 from ..ops.kernels.grouped_matmul import (expert_tiles,
                                          grouped_dequant_matmul,
                                          grouped_dequant_matmul_ncat)
@@ -804,46 +802,6 @@ def forward_prefill_chunk(params: Params, cfg: TransformerConfig,
     return logits, tuple(caches)
 
 
-def _decode_attn_stacked(cache, i, q1, attn_lengths):
-    """Decode attention over layer i of the stacked cache (JAX
-    `_decode_attn_stacked` :1166-1190): layer i's (B, S, F') stores and
-    (B, R, S) scales are views of the stacked tensors, which kernel #3
-    reads in place, as the TPU kernel's `layer=` index map reads the
-    stacked arrays; no copy of the layer is made."""
-    return attention_decode_auto(q1, cache.k[i], cache.v[i], attn_lengths,
-                                 **st.store_args(cache, i))
-
-
-def _verify_attn_stacked(cache, i, q, lengths):
-    """Verify-window attention over layer i of the stacked cache (JAX
-    `_verify_attn_stacked` :1193-1212), as `_decode_attn_stacked`."""
-    return verify_attention(q, cache.k[i], cache.v[i], lengths,
-                            **st.store_args(cache, i))
-
-
-def _decode_attn(cache, q1, attn_lengths):
-    """Single-token decode attention over any layout and store (JAX
-    `_decode_attn` :1288-1330, `_decode_attn_kt` :1268): the paged layout
-    walks its pools (and scale pools) through the table in kernel #5; a
-    contiguous cache with the kt mirror takes kernel #7, which flushes the
-    chunks its tail completes into the mirror in place; other contiguous
-    caches hand their raw bf16, int8 or packed int4 stores and their
-    scales to kernel #3, never a dequantized copy; a stacked layer reads
-    its views of the stacked cache."""
-    if isinstance(cache, st.StackedLayer):
-        return _decode_attn_stacked(cache.cache, cache.index, q1,
-                                    attn_lengths)
-    if getattr(cache, "kt", None) is not None:
-        return decode_attention_kt(q1, cache.kt, cache.k, cache.v,
-                                   attn_lengths, cache.k_scale,
-                                   cache.v_scale, v_bits=cache.vbits)[0]
-    store = kvcache.store_args(cache)
-    if kvcache._is_paged(cache):
-        return decode_attention_paged(q1, cache.k_pool, cache.v_pool,
-                                      cache.table, attn_lengths, **store)
-    return attention_decode_auto(q1, cache.k, cache.v, attn_lengths, **store)
-
-
 def forward_decode(params: Params, cfg: TransformerConfig,
                    token_ids: torch.Tensor, caches, lengths: torch.Tensor, *,
                    dtype=torch.bfloat16, active: Optional[torch.Tensor] = None):
@@ -866,37 +824,15 @@ def forward_decode(params: Params, cfg: TransformerConfig,
                                 torch.full_like(positions, -1))
         attn_lengths = torch.where(active, attn_lengths,
                                    torch.zeros_like(attn_lengths))
-    rows = kvcache.decode_rows(caches[0], write_pos)
+    at = kvcache.decode_rows(caches[0], write_pos[:, None])
     for layer, cache in zip(_scan_layers(params), caches):
         ap = layer["attn"]
         q, k, v = _qkv_norm(x, layer, cfg)
         if cfg.positions == "rope":
             q, k = apply_rope_tables(q, *rope), apply_rope_tables(k, *rope)
-        kvcache.append_token(cache, k[:, 0], v[:, 0], write_pos, rows)
-        attn = _decode_attn(cache, q[:, 0], attn_lengths)
+        attn = kvcache.append_attend(cache, q, k, v, attn_lengths, at)
         x = _attn_tail(x, attn.reshape(b, 1, cfg.q_size), ap, layer, cfg)
     return _logits(params, cfg, x)[:, 0], tuple(caches)
-
-
-def _verify_attn(cache, q, lengths):
-    """Verify-window attention (JAX `_verify_attn` :1215-1256): q (B, T, H,
-    D) over either layout and any store, the T tokens folded into query
-    rows of kernel #5 (paged) or #3 (contiguous) over the raw stores and
-    their scales, one length-bounded pass for the whole window. lengths:
-    tokens cached before the window. Returns (B, T, H, D). A cache with
-    the kt mirror takes kernel #7's verify form (JAX `_verify_attn_kt`
-    :1278); a stacked layer reads its views of the stacked cache."""
-    if isinstance(cache, st.StackedLayer):
-        return _verify_attn_stacked(cache.cache, cache.index, q, lengths)
-    if getattr(cache, "kt", None) is not None:
-        return verify_attention_kt(q, cache.kt, cache.k, cache.v, lengths,
-                                   cache.k_scale, cache.v_scale,
-                                   v_bits=cache.vbits)[0]
-    store = kvcache.store_args(cache)
-    if kvcache._is_paged(cache):
-        return verify_attention_paged(q, cache.k_pool, cache.v_pool,
-                                      cache.table, lengths, **store)
-    return verify_attention(q, cache.k, cache.v, lengths, **store)
 
 
 def forward_verify(params: Params, cfg: TransformerConfig,
@@ -922,22 +858,20 @@ def forward_verify(params: Params, cfg: TransformerConfig,
                positions.clamp(max=cfg.max_seq_len - 1), dtype)
     if cfg.positions == "rope":
         rope = rope_tables(positions, cfg.dim_head, theta=cfg.rope_theta)
-    attn_lengths = lengths
+    attn_lengths = lengths + t
     write_pos = positions
     if active is not None:
         write_pos = torch.where(active[:, None], positions,
                                 torch.full_like(positions, -1))
-        # the attention kernel adds T: an inactive slot's length is 0
-        attn_lengths = torch.where(active, lengths,
-                                   torch.full_like(lengths, -t))
-    rows = kvcache.decode_rows(caches[0], write_pos)
+        attn_lengths = torch.where(active, attn_lengths,
+                                   torch.zeros_like(attn_lengths))
+    at = kvcache.decode_rows(caches[0], write_pos)
     for layer, cache in zip(_scan_layers(params), caches):
         ap = layer["attn"]
         q, k, v = _qkv_norm(x, layer, cfg)
         if cfg.positions == "rope":
             q, k = apply_rope_tables(q, *rope), apply_rope_tables(k, *rope)
-        kvcache.append_tokens(cache, k, v, write_pos, rows)
-        attn = _verify_attn(cache, q, attn_lengths)
+        attn = kvcache.append_attend(cache, q, k, v, attn_lengths, at)
         x = _attn_tail(x, attn.reshape(b, t, cfg.q_size), ap, layer, cfg)
     return _logits(params, cfg, x), tuple(caches)
 

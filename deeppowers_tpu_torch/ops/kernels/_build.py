@@ -32,7 +32,7 @@ SOURCES = ("dequant_matmul.cu", "gemv.cu", "kv_append.cu",
            "decode_attention.cu", "decode_attention_kt.cu",
            "flash_attention.cu")
 HEADERS = ("common.cuh", "decode_attention.cuh", "wgmma.cuh",
-           "dequant_common.cuh")
+           "dequant_common.cuh", "kv_store.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -53,9 +53,12 @@ SIGNATURES: Dict[str, list] = {
     "dpt_kv_append_pool": [_P, _P, _P, _P, _P, _LL, _P, _LL, _P, _P, _I, _I,
                            _I, _I, _I, _I, _I, _P],
     "dpt_decode_attention": [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _LL, _P, _LL,
-                             _LL, _P] + [_I] * 14 + [_F, _P, _P],
+                             _LL, _P] + [_I] * 14 + [_F, _P]
+                            + [_P, _LL, _LL, _P, _LL, _LL, _P, _P],
     "dpt_decode_attention_paged": [_P, _LL, _P, _P, _P, _P, _P, _I, _I, _P]
-                                  + [_I] * 14 + [_F, _P, _P],
+                                  + [_I] * 14 + [_F, _P, _I]
+                                  + [_P, _LL, _LL, _P, _LL, _LL, _P, _P, _P,
+                                     _P],
     "dpt_decode_attention_kt": [_P, _LL, _P, _P, _P, _P, _P, _P]
                                + [_I] * 13 + [_F, _P, _P],
     "dpt_grouped_mma": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I,

@@ -46,6 +46,21 @@ lengths + T, and row t sees the positions below lengths + 1 + t (:262-266,
 are kept per store and per T: `variant_launches["bf16"]` for decode,
 `["bf16:t5"]` for a window of 5.
 
+The step's new rows (`new`, a `NewRows`): `decode_attention` and
+`decode_attention_paged` (and so `verify_attention` /
+`verify_attention_paged`) may carry the K/V rows of the step's T tokens a
+slot, bf16 as the model made them, with their positions (B, T) and, paged,
+their pool rows. The launch writes them into the cache (quantized for a
+quantized store, with their scales) before it reads the cache: the row
+writers #2 (`scatter_rows`), #8 (`scatter_rows_stacked`, whose layer views
+reach `decode_attention`) and #6 (`scatter_pool_rows`) of
+ops/kernels/kv_append.py fold into #3 / #5, one launch a layer and step
+fewer. The plain version is the writer's plain version, then the
+attention's, in that order; on the card the same bytes and scales land
+(csrc/kv_store.cuh is kv_append.cu's code), and the outputs are held to
+the attention's limits. Such a launch also counts under
+`variant_launches["<variant>+rows"]` ("int8+rows", "int8:t5+rows").
+
 Store variants, named as quant/kvquant.py's `store_variant` names them:
 "bf16" (no scales); with head-major f32 scales k_scale / v_scale ((B, R, S), or
 (P, R, page) paged) and `kv_bits` / `v_bits` as JAX takes them: "int8"
@@ -93,6 +108,7 @@ import torch
 from ...quant.kvquant import (STORE_BITS, dequant_side, gather_scale,
                               scale_heads, store_variant, unpack4)
 from . import _build
+from .kv_append import scatter_pool_rows_plain, scatter_rows_plain
 
 NEG_INF = -1e30
 #: query rows a kv head the CUDA kernel takes: four 16-row m tiles
@@ -116,6 +132,14 @@ SM_WARPS = {64: 16, 128: 8}
 #: of them a position group; a block of `pw` position groups of `mg` warps
 #: (one 16-row m tile each).
 Plan = collections.namedtuple("Plan", "nsplit chunk tile pw mg stages")
+
+#: The step's new rows, written by the attention launch before it reads
+#: them: k, v (B, T, Kh*D) bf16 unquantized rows (contiguous features);
+#: pos (B, T) int32 positions, -1 for none (an inactive slot); rows, valid
+#: the paged layout's (B*T,) int32 pool rows and bool validity
+#: (runtime/kvcache_paged.py `row_ids`), None on the contiguous layouts.
+NewRows = collections.namedtuple("NewRows", "k v pos rows valid",
+                                  defaults=(None, None))
 
 
 def attention_plan(b: int, kh: int, s: int, rows: int, d: int,
@@ -224,14 +248,28 @@ def attention_decode_quantized(q, k_q, v_q, k_scale, v_scale, lengths, *,
     return out.reshape(b, o, d).to(q.dtype)
 
 
+def _flat_rows(new: NewRows):
+    """The new rows as (B*T, F) K and V rows, row b*T + t slot b's t."""
+    b, t = new.pos.shape
+    return new.k.reshape(b * t, -1), new.v.reshape(b * t, -1)
+
+
 def decode_attention_plain(q, k_cache, v_cache, lengths, *, k_scale=None,
                            v_scale=None, kv_bits: int = 8, v_bits: int = 0,
-                           scale: Optional[float] = None,
-                           tokens: int = 1) -> torch.Tensor:
+                           scale: Optional[float] = None, tokens: int = 1,
+                           new: Optional[NewRows] = None) -> torch.Tensor:
     """q: (B, H*T, D) query rows (T = tokens, folded as `fold_tokens`
     folds them); caches: (B, S, F') flat stores; scales (B, R, S) when
     quantized; lengths: (B,), including the T window rows. The JAX
-    package's CPU numerics per variant (module docstring)."""
+    package's CPU numerics per variant (module docstring). `new`: first
+    `scatter_rows_plain` writes the step's rows (in place)."""
+    if new is not None:
+        b, t = new.pos.shape
+        scatter_rows_plain(
+            k_cache, v_cache, *_flat_rows(new), new.pos.reshape(-1),
+            slots=None if t == 1 else torch.arange(
+                b, device=new.pos.device).repeat_interleave(t),
+            k_scale=k_scale, v_scale=v_scale, kv_bits=kv_bits, v_bits=v_bits)
     b, o, d = q.shape
     s = k_cache.shape[1]
     scale = scale if scale is not None else d ** -0.5
@@ -253,11 +291,39 @@ def decode_attention_plain(q, k_cache, v_cache, lengths, *, k_scale=None,
                         scale, tokens)
 
 
-def _count(fn, name: str, tokens: int) -> None:
+def _count(fn, name: str, tokens: int, new: bool = False) -> None:
     """One launch, counted under its store and window: "int8" for decode,
-    "int8:t5" for a verify window of 5."""
+    "int8:t5" for a verify window of 5; one that wrote the step's rows
+    also under "int8+rows", "int8:t5+rows"."""
+    key = name if tokens == 1 else f"{name}:t{tokens}"
     fn.launches += 1
-    fn.variant_launches[name if tokens == 1 else f"{name}:t{tokens}"] += 1
+    fn.variant_launches[key] += 1
+    if new:
+        fn.variant_launches[key + "+rows"] += 1
+
+
+def _new_args(new: Optional[NewRows], b: int, tokens: int, f: int):
+    """The launch's new-row operands (nk, nk_sb, nk_ts, nv, nv_sb, nv_ts,
+    npos), after checking what the kernel takes; None pointers without
+    rows."""
+    if new is None:
+        return [None, 0, 0, None, 0, 0, None]
+    for t in (new.k, new.v, new.pos):
+        _build.require_cuda(t, "new rows")
+    for r in (new.k, new.v):
+        if r.dtype != torch.bfloat16 or r.shape != (b, tokens, f) or \
+                r.stride(2) != 1:
+            raise ValueError(f"new rows must be bf16 (B, T, F) = "
+                             f"{(b, tokens, f)} with contiguous features, "
+                             f"got {tuple(r.shape)} {r.dtype}")
+    if new.pos.dtype != torch.int32 or new.pos.shape != (b, tokens) or \
+            not new.pos.is_contiguous():
+        raise ValueError(f"new row positions must be contiguous int32 "
+                         f"{(b, tokens)}, got {tuple(new.pos.shape)} "
+                         f"{new.pos.dtype}")
+    return [new.k.data_ptr(), new.k.stride(0), new.k.stride(1),
+            new.v.data_ptr(), new.v.stride(0), new.v.stride(1),
+            new.pos.data_ptr()]
 
 
 def _check_common(q, o, d, kh, tokens, name, caches, scales, wrapper):
@@ -305,29 +371,31 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      k_scale: Optional[torch.Tensor] = None,
                      v_scale: Optional[torch.Tensor] = None,
                      kv_bits: int = 8, v_bits: int = 0,
-                     scale: Optional[float] = None,
-                     tokens: int = 1) -> torch.Tensor:
+                     scale: Optional[float] = None, tokens: int = 1,
+                     new: Optional[NewRows] = None) -> torch.Tensor:
     """q: (B, H*T, D) query rows, T = tokens (folded as `fold_tokens`
     folds a window); k_cache, v_cache: (B, S, F') stores (bf16 F' = Kh*D;
     int8 Kh*D; packed int4 Kh*D/2); k_scale, v_scale: (B, R, S) f32 when
     quantized; lengths: (B,) valid positions per slot (including the
-    current token, or all T window tokens). Returns (B, H*T, D). A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel or
-    raises."""
+    current token, or all T window tokens); `new`: the step's rows, written
+    by the same launch before it reads them (module docstring). Returns
+    (B, H*T, D). A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel or raises."""
     if not q.is_cuda:
         return decode_attention_plain(q, k_cache, v_cache, lengths,
                                       k_scale=k_scale, v_scale=v_scale,
                                       kv_bits=kv_bits, v_bits=v_bits,
-                                      scale=scale, tokens=tokens)
+                                      scale=scale, tokens=tokens, new=new)
     out = _launch(q, k_cache, v_cache, lengths, k_scale=k_scale,
                   v_scale=v_scale, kv_bits=kv_bits, v_bits=v_bits,
-                  scale=scale, tokens=tokens)
-    _count(decode_attention, store_variant(k_scale, kv_bits, v_bits), tokens)
+                  scale=scale, tokens=tokens, new=new)
+    _count(decode_attention, store_variant(k_scale, kv_bits, v_bits), tokens,
+           new is not None)
     return out
 
 
 def _launch(q, k_cache, v_cache, lengths, *, k_scale, v_scale, kv_bits,
-            v_bits, scale, tokens):
+            v_bits, scale, tokens, new=None):
     """Check the operands of the contiguous kernel and launch it (not
     counted: its callers count their own launches)."""
     name = store_variant(k_scale, kv_bits, v_bits)
@@ -372,7 +440,7 @@ def _launch(q, k_cache, v_cache, lengths, *, k_scale, v_scale, kv_bits,
         q.data_ptr(), q.stride(0), k_cache.data_ptr(), k_cache.stride(0),
         v_cache.data_ptr(), v_cache.stride(0), *sc_args, lens.data_ptr(), b,
         s, kh, rows, tokens, d, kb, vb, *plan, float(scale), out.data_ptr(),
-        _build.stream())
+        *_new_args(new, b, tokens, kh * d), _build.stream())
     _build.check(rc, "decode_attention")
     return out
 
@@ -385,13 +453,20 @@ def decode_attention_paged_plain(q, k_pool, v_pool, table, lengths, *,
                                  k_scale=None, v_scale=None, kv_bits: int = 8,
                                  v_bits: int = 0,
                                  scale: Optional[float] = None,
-                                 tokens: int = 1) -> torch.Tensor:
+                                 tokens: int = 1,
+                                 new: Optional[NewRows] = None
+                                 ) -> torch.Tensor:
     """q: (B, H*T, D); pools: (P, page, F'); scale pools (P, R, page) when
-    quantized; table: (B, WP); lengths: (B,). Gathers each slot's pages
-    (and their scales) into its virtual (B, WP*page, F') view and applies
-    decode_attention_plain, whose selects keep stale rows and stale scales
-    (a released page's previous occupant, NaN included) out of the
-    output."""
+    quantized; table: (B, WP); lengths: (B,). `new`: first
+    `scatter_pool_rows_plain` writes the step's rows (in place). Gathers
+    each slot's pages (and their scales) into its virtual (B, WP*page, F')
+    view and applies decode_attention_plain, whose selects keep stale rows
+    and stale scales (a released page's previous occupant, NaN included)
+    out of the output."""
+    if new is not None:
+        scatter_pool_rows_plain(k_pool, v_pool, *_flat_rows(new), new.rows,
+                                new.valid, k_scale=k_scale, v_scale=v_scale,
+                                kv_bits=kv_bits, v_bits=v_bits)
     b, wp = table.shape
     ids = table.reshape(-1).long()
 
@@ -413,20 +488,21 @@ def decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
                            k_scale: Optional[torch.Tensor] = None,
                            v_scale: Optional[torch.Tensor] = None,
                            kv_bits: int = 8, v_bits: int = 0,
-                           scale: Optional[float] = None,
-                           tokens: int = 1) -> torch.Tensor:
+                           scale: Optional[float] = None, tokens: int = 1,
+                           new: Optional[NewRows] = None) -> torch.Tensor:
     """q: (B, H*T, D) query rows, T = tokens; k_pool, v_pool: (P, page,
     F') stores; k_scale, v_scale: (P, R, page) f32 when quantized; table:
     (B, WP) int32 page ids; lengths: (B,) valid positions per slot
     (including the current token, or all T window tokens), at most WP *
-    page. Returns (B, H*T, D). A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel or raises."""
+    page; `new`: the step's rows with their pool rows, written by the same
+    launch before it reads them. Returns (B, H*T, D). A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel or raises."""
     name = store_variant(k_scale, kv_bits, v_bits)
     if not q.is_cuda:
         return decode_attention_paged_plain(
             q, k_pool, v_pool, table, lengths, k_scale=k_scale,
             v_scale=v_scale, kv_bits=kv_bits, v_bits=v_bits, scale=scale,
-            tokens=tokens)
+            tokens=tokens, new=new)
     b, o, d = q.shape
     p, ps = k_pool.shape[0], k_pool.shape[1]
     wp = table.shape[1]
@@ -460,15 +536,30 @@ def decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
     tab = table if table.dtype == torch.int32 else table.to(torch.int32)
     lens = lengths.to(torch.int32).contiguous()
     scale = scale if scale is not None else d ** -0.5
+    nargs = _new_args(new, b, tokens, kh * d)
+    rows_args = [None, None]
+    if new is not None:
+        for t in (new.rows, new.valid):
+            _build.require_cuda(t, "new rows")
+        if new.rows.dtype != torch.int32 or new.valid.dtype != torch.bool \
+                or new.rows.shape != (b * tokens,) \
+                or new.valid.shape != (b * tokens,) \
+                or not new.rows.is_contiguous() \
+                or not new.valid.is_contiguous():
+            raise ValueError(f"new pool rows must be contiguous int32 and "
+                             f"bool ({b * tokens},), got "
+                             f"{tuple(new.rows.shape)} {new.rows.dtype}, "
+                             f"{tuple(new.valid.shape)} {new.valid.dtype}")
+        rows_args = [new.rows.data_ptr(), new.valid.data_ptr()]
     plan = attention_plan(b, kh, wp * ps, rows, d, page=ps)
     out = torch.empty((b, o, d), dtype=torch.bfloat16, device=q.device)
     rc = _build.library().dpt_decode_attention_paged(
         q.data_ptr(), q.stride(0), k_pool.data_ptr(), v_pool.data_ptr(),
         ks_ptr, vs_ptr, tab.data_ptr(), tab.stride(0), ps, lens.data_ptr(), b,
         wp, kh, rows, tokens, d, kb, vb, *plan, float(scale), out.data_ptr(),
-        _build.stream())
+        p, *nargs, *rows_args, _build.stream())
     _build.check(rc, "decode_attention_paged")
-    _count(decode_attention_paged, name, tokens)
+    _count(decode_attention_paged, name, tokens, new is not None)
     return out
 
 

@@ -4,15 +4,36 @@ deeppowers_tpu/ops/matmul.py:75-197.
 Quantized weights (int8 or int4, per-channel or per-group scales, bf16 or
 dynamic int8 activations) go through the dequant-matmul kernel wrapper
 (ops/kernels/dequant_matmul.py): the CUDA kernels for CUDA tensors, their
-plain versions for CPU tensors. There is no silent fallback: on CUDA a
-weight or shape the kernels do not take raises. Float weights take a plain
-f32-accumulated product.
+plain versions for CPU tensors, except that weight-only weights on a CPU
+tensor take JAX's XLA function (below). There is no silent fallback: on
+CUDA a weight or shape the kernels do not take raises. Float weights take
+a plain f32-accumulated product.
 
 With act_bits = 8 (W8A8 / W4A8) `rms_matmul` and `glu_matmul` compute what
 the JAX package's XLA path computes: the norm rounded to the activation
 dtype, or the GLU with its activation op by op in that dtype and the
 product with up in f32, then int8 per row over the whole K (ROADMAP.md,
 Decisions); residual and bias are added in f32 before the one cast.
+
+Weight-only weights (act_bits = 0) take a route chosen by the device, as
+the JAX package's do (its Pallas kernel only on a TPU, `_pallas_eligible`
+:199-206, its XLA path elsewhere). A CUDA tensor launches the kernel,
+which computes the Pallas kernel's function (the norm's x * g before the
+product and its row factor after it, an f32 GLU, bias and residual in an
+f32 epilogue). A CPU tensor takes `_xla_matmul`, the XLA path's function
+(:28-41, :120-123 and the unfused ops :149-196): the weight dequantized in
+the dtype JAX picks, bf16(bf16(q) * bf16(s)) for a bf16 output and f32
+otherwise, group by group; the dot with f32 sums, then the cast; the norm
+and the GLU as the unfused ops round them, `a * up` rounded to the
+activation dtype before the dot (a probe of the jitted JAX functions on
+the CPU: the product reaches the dot rounded, unlike the a8 quantizer's
+input); bias, then residual, added after the cast, in the output dtype.
+That is XLA's function for two rows or more; for a single row its CPU
+compiler fuses the dequantization (and parts of the unfused ops) into a
+vector-matrix dot and keeps some products in f32, which the port does not
+copy (ROADMAP.md, queue 3). `cpu_weight_only_function("kernel")` gives
+CPU tensors the kernels' function instead (their plain versions), for a
+CPU reference that is held against the card's results.
 """
 
 from __future__ import annotations
@@ -21,9 +42,9 @@ from typing import Optional, Union
 
 import torch
 
-from ..quant.qtypes import QuantizedTensor
+from ..quant.qtypes import QuantizedTensor, unpack_int4
 from .activation import activation
-from .kernels.dequant_matmul import dequant_matmul
+from .kernels.dequant_matmul import _check_weight, dequant_matmul
 from .normalization import rms_norm
 
 Weight = Union[QuantizedTensor, torch.Tensor]
@@ -33,6 +54,52 @@ def _float_matmul(x, w, out_dtype):
     return torch.matmul(x.float(), w.float()).to(out_dtype)
 
 
+#: what a weight-only product of a CPU tensor computes: "xla" or "kernel"
+_cpu_function = "xla"
+
+
+def cpu_weight_only_function(name: str) -> str:
+    """Choose what a weight-only product of a CPU tensor computes, and
+    return the former choice. "xla" (the default): the JAX package's XLA
+    function, what its CPU engine computes. "kernel": the card kernels'
+    function, through their plain versions (`dequant_matmul_plain`), for
+    a CPU reference that is held against the card's results (the path
+    phases of chip_smoke.py). CUDA tensors take the kernels either way."""
+    global _cpu_function
+    if name not in ("xla", "kernel"):
+        raise ValueError(f"cpu_weight_only_function: {name!r} is neither "
+                         f"'xla' nor 'kernel'")
+    old, _cpu_function = _cpu_function, name
+    return old
+
+
+def _xla_route(x: torch.Tensor, w: Weight) -> bool:
+    """A weight-only QuantizedTensor on a CPU tensor, while the CPU's
+    function is "xla": JAX's XLA function."""
+    return (isinstance(w, QuantizedTensor) and w.act_bits == 0
+            and not x.is_cuda and _cpu_function == "xla")
+
+
+def _xla_matmul(x, w: QuantizedTensor, out_dtype):
+    """JAX `quantized_matmul`'s XLA path (:120-123) behind
+    `_dequant_weights` (:28-41): the weight dequantized into bf16 for a
+    bf16 output (each product rounded), else f32, x cast to that dtype,
+    f32 sums, one cast."""
+    _check_weight(w)
+    dt = torch.bfloat16 if out_dtype == torch.bfloat16 else torch.float32
+    q = unpack_int4(w.data) if w.bits == 4 else w.data
+    k, n = q.shape
+    rows = w.scales.numel() // n
+    wd = (q.to(dt).reshape(rows, k // rows, n)
+          * w.scales.reshape(rows, 1, n).to(dt)).reshape(k, n)
+    return torch.matmul(x.to(dt).float(), wd.float()).to(out_dtype)
+
+
+def _add(y, t):
+    """y + t in y's dtype, as the unfused ops add after the cast."""
+    return y if t is None else y + t.to(y.dtype)
+
+
 def quantized_matmul(x: torch.Tensor, w: Weight, *,
                      out_dtype=None) -> torch.Tensor:
     """x @ w where w may be quantized. x: (..., K), w: (K, N). f32
@@ -40,6 +107,8 @@ def quantized_matmul(x: torch.Tensor, w: Weight, *,
     out_dtype = out_dtype or x.dtype
     if not isinstance(w, QuantizedTensor):
         return _float_matmul(x, w, out_dtype)
+    if _xla_route(x, w):
+        return _xla_matmul(x, w, out_dtype)
     return dequant_matmul(x, w, out_dtype=out_dtype)
 
 
@@ -49,11 +118,14 @@ def rms_matmul(x: torch.Tensor, rms_weight: torch.Tensor, w: Weight, *,
     """rmsnorm(x; rms_weight, eps) @ w (+ bias), the norm folded into the
     kernel for quantized weights."""
     out_dtype = out_dtype or x.dtype
+    if _xla_route(x, w):                # JAX :149-154
+        return _add(_xla_matmul(rms_norm(x, rms_weight, eps=eps), w,
+                                out_dtype), bias)
     if isinstance(w, QuantizedTensor):
         return dequant_matmul(x, w, rms_weight=rms_weight, rms_eps=eps,
                               bias=bias, out_dtype=out_dtype)
     y = _float_matmul(rms_norm(x, rms_weight, eps=eps), w, out_dtype)
-    return y if bias is None else y + bias.to(y.dtype)
+    return _add(y, bias)
 
 
 def glu_matmul(gu: torch.Tensor, w: Weight, *, act: str = "silu",
@@ -63,17 +135,16 @@ def glu_matmul(gu: torch.Tensor, w: Weight, *, act: str = "silu",
     """(act(gate) * up) @ w (+ bias) (+ residual), gu = gate|up on the last
     axis, the GLU elementwise and the adds folded into the kernel."""
     out_dtype = out_dtype or gu.dtype
-    if isinstance(w, QuantizedTensor):
+    if isinstance(w, QuantizedTensor) and not _xla_route(gu, w):
         return dequant_matmul(gu, w, glu=True, act=act, residual=residual,
                               bias=bias, out_dtype=out_dtype)
     gate, up = torch.chunk(gu, 2, dim=-1)
     a = activation(gate, act)     # JAX's unfused ops' rounding (:172)
-    y = _float_matmul(a * up, w, out_dtype)
-    if bias is not None:
-        y = y + bias.to(y.dtype)
-    if residual is not None:
-        y = y + residual.to(y.dtype)
-    return y
+    if isinstance(w, QuantizedTensor):  # JAX :170-180
+        y = _xla_matmul(a * up, w, out_dtype)
+    else:
+        y = _float_matmul(a * up, w, out_dtype)
+    return _add(_add(y, bias), residual)
 
 
 def matmul_residual(x: torch.Tensor, w: Weight, residual: torch.Tensor, *,
@@ -81,10 +152,9 @@ def matmul_residual(x: torch.Tensor, w: Weight, residual: torch.Tensor, *,
                     out_dtype=None) -> torch.Tensor:
     """x @ w (+ bias) + residual, the adds folded into the kernel."""
     out_dtype = out_dtype or x.dtype
+    if _xla_route(x, w):                # JAX :190-196
+        return _add(_add(_xla_matmul(x, w, out_dtype), bias), residual)
     if isinstance(w, QuantizedTensor):
         return dequant_matmul(x, w, residual=residual, bias=bias,
                               out_dtype=out_dtype)
-    y = _float_matmul(x, w, out_dtype)
-    if bias is not None:
-        y = y + bias.to(y.dtype)
-    return y + residual.to(y.dtype)
+    return _add(_add(_float_matmul(x, w, out_dtype), bias), residual)

@@ -32,6 +32,13 @@ stale by a rejected speculative window or a prefix copy heal before they
 are read. `kt_auto` is JAX's policy (:268-293): off on any backend but the
 TPU unless `DPT_KV_KT=1`.
 
+A decode or verify step writes its rows and attends in one call,
+`append_attend`, which hands the step's rows to the attention launch
+(ops/kernels/decode_attention.py `NewRows`): the kernel writes them before
+it reads the cache, so the row writers #2 / #6 / #8 do not launch in a
+decode or verify step. The cache with the kt mirror keeps #2 before #7.
+`append_token` / `append_tokens` stay for other callers.
+
 Unlike the JAX version, which returns new (donated) buffers, writes here
 update the tensors IN PLACE; each function still returns the cache so call
 sites read the same.
@@ -45,7 +52,11 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..ops.kernels.decode_attention import KT_CHUNK
+from ..ops.kernels.decode_attention import (KT_CHUNK, NewRows,
+                                            decode_attention,
+                                            decode_attention_kt,
+                                            decode_attention_paged,
+                                            fold_tokens, unfold_tokens)
 from ..ops.kernels.kv_append import scatter_rows
 from ..quant.kvquant import dequant_side, flat_heads, new_store, store_args
 from . import kvcache_paged, kvcache_stacked
@@ -235,24 +246,61 @@ def write_chunk(cache, k_new: torch.Tensor, v_new: torch.Tensor, slot: int,
     return cache
 
 
-def decode_rows(cache, positions: torch.Tensor):
-    """What `append_token` / `append_tokens` can share across the layers of
-    one step: a paged cache's pool rows for `positions` (B,) or (B, T) (one
-    table serves every layer), None for the contiguous layout."""
+def decode_rows(cache, positions: torch.Tensor) -> NewRows:
+    """What `append_attend` shares across the layers of one step, computed
+    once: the write positions (B, T) as int32 (-1 writes nothing) and, on
+    the paged layout, their pool rows and validity (`row_ids`; one table
+    serves every layer). The rows themselves are left empty."""
+    pos = positions.to(torch.int32).reshape(positions.shape[0], -1)
+    rows = (kvcache_paged.row_ids(cache, pos) if _is_paged(cache)
+            else (None, None))
+    return NewRows(None, None, pos.contiguous(), *rows)
+
+
+def append_attend(cache, q: torch.Tensor, k_new: torch.Tensor,
+                  v_new: torch.Tensor, lengths: torch.Tensor,
+                  at: NewRows) -> torch.Tensor:
+    """A decode (T = 1) or verify step of one layer: the T tokens' K/V
+    (B, T, K, D) a slot written at `at`'s positions (`decode_rows`), then
+    attention of q (B, T, H, D) over `lengths` (B,) rows a slot, the T rows
+    included (0 for an inactive slot). One kernel launch writes and attends
+    (#3 contiguous or a stacked layer's views, #5 paged); on the CPU the
+    writer's plain version, then the attention's. The kt-mirror cache runs
+    #2, then #7. Returns (B, T, H, D)."""
+    t = q.shape[1]
+    qf = fold_tokens(q)
+    if getattr(cache, "kt", None) is not None:
+        if t == 1:
+            append_token(cache, k_new[:, 0], v_new[:, 0], at.pos[:, 0])
+        else:
+            append_tokens(cache, k_new, v_new, at.pos)
+        out = decode_attention_kt(qf, cache.kt, cache.k, cache.v, lengths,
+                                  cache.k_scale, cache.v_scale, tokens=t,
+                                  v_bits=cache.vbits)[0]
+        return unfold_tokens(out, t)
+    new = at._replace(k=flat_heads(k_new), v=flat_heads(v_new))
     if _is_paged(cache):
-        return kvcache_paged.row_ids(cache, positions)
-    return None
+        out = decode_attention_paged(qf, cache.k_pool, cache.v_pool,
+                                     cache.table, lengths, tokens=t, new=new,
+                                     **store_args(cache))
+    elif isinstance(cache, kvcache_stacked.StackedLayer):
+        st, i = cache.cache, cache.index
+        out = decode_attention(qf, st.k[i], st.v[i], lengths, tokens=t,
+                               new=new, **kvcache_stacked.store_args(st, i))
+    else:
+        out = decode_attention(qf, cache.k, cache.v, lengths, tokens=t,
+                               new=new, **store_args(cache))
+    return unfold_tokens(out, t)
 
 
 def append_token(cache, k_new: torch.Tensor, v_new: torch.Tensor,
-                 positions: torch.Tensor, rows=None):
+                 positions: torch.Tensor):
     """One token's K/V (B, K, D) per slot at positions (B,), in place
     through the kv_append kernels (their plain versions on the CPU), which
     quantize the rows for a quantized cache. A position outside the cache
-    writes nothing. `rows` is `decode_rows(cache, positions)`, or None to
-    compute it here."""
+    writes nothing."""
     if _is_paged(cache):
-        return kvcache_paged.append_token(cache, k_new, v_new, positions, rows)
+        return kvcache_paged.append_token(cache, k_new, v_new, positions)
     if isinstance(cache, kvcache_stacked.StackedLayer):
         return kvcache_stacked.append_token_layer(cache.cache, cache.index,
                                                   k_new, v_new, positions)
@@ -262,16 +310,14 @@ def append_token(cache, k_new: torch.Tensor, v_new: torch.Tensor,
 
 
 def append_tokens(cache, k_new: torch.Tensor, v_new: torch.Tensor,
-                  positions: torch.Tensor, rows=None):
+                  positions: torch.Tensor):
     """T tokens' K/V (B, T, K, D) per slot at positions (B, T): a
     speculative verify window, in place, all B*T rows in one kv_append
     launch (per-row slots), quantized inside it for a quantized cache.
     Positions at or past the cache end, or negative (an inactive slot),
-    are dropped, as JAX's scatter drops them (JAX :445-454). `rows` is
-    `decode_rows(cache, positions)` on the paged layout."""
+    are dropped, as JAX's scatter drops them (JAX :445-454)."""
     if _is_paged(cache):
-        return kvcache_paged.append_tokens(cache, k_new, v_new, positions,
-                                           rows)
+        return kvcache_paged.append_tokens(cache, k_new, v_new, positions)
     if isinstance(cache, kvcache_stacked.StackedLayer):
         return kvcache_stacked.append_tokens_layer(cache.cache, cache.index,
                                                    k_new, v_new, positions)

@@ -196,22 +196,19 @@ def row_ids(cache: PagedLayerKVCache, positions: torch.Tensor
 
 
 def append_token(cache: PagedLayerKVCache, k_new: torch.Tensor,
-                 v_new: torch.Tensor, positions: torch.Tensor,
-                 rows: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                 v_new: torch.Tensor, positions: torch.Tensor
                  ) -> PagedLayerKVCache:
     """One token's K/V (B, Kh, D) per slot at positions (B,), in place
     through the scatter_pool_rows kernel (its plain version on the CPU).
-    An invalid position writes nothing. `rows` is `row_ids(cache,
-    positions)` when the caller has it already."""
-    rows, valid = row_ids(cache, positions) if rows is None else rows
+    An invalid position writes nothing."""
+    rows, valid = row_ids(cache, positions)
     scatter_pool_rows(cache.k_pool, cache.v_pool, flat_heads(k_new),
                       flat_heads(v_new), rows, valid, **store_args(cache))
     return cache
 
 
 def append_tokens(cache: PagedLayerKVCache, k_new: torch.Tensor,
-                  v_new: torch.Tensor, positions: torch.Tensor,
-                  rows: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                  v_new: torch.Tensor, positions: torch.Tensor
                   ) -> PagedLayerKVCache:
     """A speculative window's K/V (B, T, Kh, D) at positions (B, T), all
     B*T rows in one scatter_pool_rows launch (JAX `append_tokens` :305 /
@@ -219,7 +216,7 @@ def append_tokens(cache: PagedLayerKVCache, k_new: torch.Tensor,
     in-range position maps to an allocated page; positions at or past
     max_seq write nothing."""
     b, t = positions.shape
-    rows, valid = row_ids(cache, positions) if rows is None else rows
+    rows, valid = row_ids(cache, positions)
     scatter_pool_rows(cache.k_pool, cache.v_pool,
                       flat_heads(k_new).reshape(b * t, -1),
                       flat_heads(v_new).reshape(b * t, -1), rows, valid,

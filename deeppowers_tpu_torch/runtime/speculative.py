@@ -12,8 +12,10 @@ Ported from deeppowers_tpu/runtime/speculative.py (`init_history` :47,
    (after a window that accepted every draft, one more draft step first
    writes the last draft's row, which JAX's draft cache lacks).
 2. Verify the K + 1 window positions in one target forward
-   (models/transformer.py::forward_verify, kernels #2/#6 for the window's
-   K/V and the verify variants of #3/#5 for its attention).
+   (models/transformer.py::forward_verify: the verify variants of #3/#5
+   write the window's K/V and attend in one launch, through
+   runtime/kvcache.py::append_attend; the kt-mirror cache keeps #2, then
+   #7).
 3. Accept each draft d with probability min(1, p(d) / q(d)) under the
    slot's full sampling chain p (ops/sampling.py::processed_probs; q is a
    point mass for prompt lookup); on the first rejection resample from the

@@ -114,10 +114,8 @@ def _bf16_tree(tree):
 def test_bf16_greedy_streams_match_jax_engine(name):
     """bf16 activations, float weights in bf16 and a bf16 KV cache on both
     engines: SiLU (tiny-llama) and the tanh GELU (tiny-test) in JAX's
-    rounding keep the greedy streams equal token for token. (With int8
-    weight-only matrices the streams part at the weight-only product,
-    which the port computes as the Pallas kernel does and the JAX
-    engine's CPU path does not: ROADMAP.md, queue 3.)"""
+    rounding keep the greedy streams equal token for token. (Weight-only
+    matrices in bf16: tests/test_torch_weight_only_bf16.py.)"""
     jcfg = getattr(jpresets, name)()
     cfg = getattr(presets, name)()
     jparams = JT.quantize_params(

@@ -36,6 +36,7 @@ from deeppowers_tpu_torch.models import presets
 from deeppowers_tpu_torch.models import transformer as T
 from deeppowers_tpu_torch.models.convert import params_from_numpy
 from deeppowers_tpu_torch.ops.kernels import kv_append as ka
+from deeppowers_tpu_torch.runtime import kvcache
 from deeppowers_tpu_torch.runtime import kvcache_stacked as st
 from deeppowers_tpu_torch.runtime.engine import InferenceEngine
 
@@ -213,7 +214,7 @@ def test_stacked_layer_attention_reads_the_stacked_cache_in_place(
                           cfg.dim_head, dtype=torch.float32,
                           kv_cache_dtype="int8")
     seen = []
-    real = T.attention_decode_auto
+    real = kvcache.decode_attention
 
     def spy(q, k, v, lengths, **kw):
         for got, stack in ((k, cache.k), (v, cache.v),
@@ -224,7 +225,7 @@ def test_stacked_layer_attention_reads_the_stacked_cache_in_place(
         seen.append((k.data_ptr() - cache.k.data_ptr()) // k[0].numel())
         return real(q, k, v, lengths, **kw)
 
-    monkeypatch.setattr(T, "attention_decode_auto", spy)
+    monkeypatch.setattr(kvcache, "decode_attention", spy)
     toks = torch.tensor([3, 5, 7, 9], dtype=torch.int32)
     lens = torch.tensor([10, 40, 100, 200], dtype=torch.int32)
     T.forward_decode_scan(params, cfg, toks, cache, lens, dtype=torch.float32)
@@ -469,8 +470,9 @@ def test_chip_smoke_scan_teacher_forced_runs_on_cpu(moe):
     for a, b in zip(out[True], out[False]):
         assert ((a - b).norm() / b.norm()).item() <= 5e-2
     assert cs.scan_variants("int8", True) == (
-        ["scatter_rows_stacked[int8]", "decode_attention[int8]"],
-        ["scatter_rows"])
+        ["scatter_rows_stacked[int8]", "decode_attention[int8]",
+         "decode_attention[int8+rows]"],
+        ["scatter_rows", "step_writers"])
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,10 @@ TinyLlama's heads beside #3 on the same caches (see `kt_ms`),
 orders of the slots (see `slot_order_ms`), `--fold-ms CHECKOUT` for the
 attention that writes a step's rows beside the writer + attention pair
 (see `fold_ms`; a checkout without the fold times the pair only).
+`--kt-ms` and `--fold-ms` run with DPT_ATTN_INT8=0, so #3 is its bf16-dot
+kernel in every checkout; `--step-ms` and `--slot-orders` time each
+checkout's default (#3's int8-dot variant for int8 and k8v4 KV since it
+exists).
 
 Phases, each printing a line with its wall time:
   1. device   the card's name and power limit (nvidia-smi), torch and CUDA
@@ -181,6 +185,27 @@ made inside forward_decode / forward_verify) and that the attention's
 and #8, and the kt-mirror phases keep #2 before #7. Each serve phase prints
 its profiled decode step's launches, device-busy ms, row-writer launches
 and folded attention calls a step.
+
+#3 takes its int8-dot variant (3i, the TPU kernel's default `int8_dots`:
+q and p requantized to int8, exact integer q.K^T) wherever the JAX
+package's TPU route would: a K stored as int8 bytes (int8, int4, k8v4),
+unless DPT_ATTN_INT8=0. So every quantized contiguous or stacked decode
+and verify of the path, scan, spec and serve phases runs it, and their
+CPU references compute its function (`cpu_attention_function("kernel")`).
+The kernel rows of the earlier slices run with DPT_ATTN_INT8=0 and keep
+holding #3's bf16-dot kernel against `decode_attention_plain`; those
+rows count only that kernel's launches (the wrapper counts the variant's
+under the store's key too, and under "i8:" + the key). The kernels phase
+then holds the variant (rows "decode_attention_int8_dots[...]": int8,
+int4 and k8v4 at TinyLlama's heads, k8v4 at the 7B's, int8 at
+Mixtral's, tokens 1 and 5, contiguous and stacked, writing the step's
+rows) against `decode_attention_int8_dots_plain`, bytes and scales
+exact, each row within 1e-2, and times it beside the bf16-dot kernel on
+the same caches. serve[int8], serve[llama2-7b] (its stacked engine's
+decode steps too) and serve[mixtral-8x7b] must launch the variant, and
+each profiles a decode step again with DPT_ATTN_INT8=0, which must launch
+none (both steps' device-busy ms and #3's ms are printed); the margins
+hold both of #3's functions.
 
 Any failed check raises: the error goes to stderr and the exit code is 1.
 Without a CUDA device, or without the deeppowers_tpu_torch package beside
@@ -2842,6 +2867,148 @@ def check_fold_kernels(torch):
     return rows
 
 
+class int8_dots_off:
+    """DPT_ATTN_INT8=0 inside the block, the JAX package's switch: #3 takes
+    its bf16-dot kernel, which the kernel rows of the earlier slices hold
+    against `decode_attention_plain`; the old value comes back after."""
+
+    def __enter__(self):
+        self.old = os.environ.get("DPT_ATTN_INT8")
+        os.environ["DPT_ATTN_INT8"] = "0"
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            os.environ.pop("DPT_ATTN_INT8", None)
+        else:
+            os.environ["DPT_ATTN_INT8"] = self.old
+
+
+#: the heads of #3's int8-dot rows: TinyLlama's in every store, the 7B's
+#: in its k8v4, Mixtral's in its int8 (name, query heads, kv heads, head
+#: dim, stores)
+I8_HEADS = (("tinyllama", 32, 4, 64, ("int8", "int4", "k8v4")),
+            ("llama2-7b", 32, 32, 128, ("k8v4",)),
+            ("mixtral-8x7b", 32, 8, 128, ("int8",)))
+
+
+def i8_launch_from(heads, layout, store, t):
+    """((phase, counter), note) of an int8-dot row's launches: the phase
+    whose decode (or verify) steps run that store, layout and window at
+    those heads, else a phase of the same model whose counts were reset
+    before it, with a note."""
+    key = f"decode_attention[i8:{store}{'' if t == 1 else f':t{t}'}+rows]"
+    phase = {("tinyllama", "contiguous", "int8", 1): "serve[int8]",
+             ("tinyllama", "contiguous", "int4", 1): "path[int4,contiguous]",
+             ("tinyllama", "contiguous", "k8v4", 1): "path[k8v4,contiguous]",
+             ("tinyllama", "stacked", "k8v4", 1): "scan_path[k8v4]",
+             ("llama2-7b", "contiguous", "k8v4", 1): "serve[llama2-7b]",
+             ("llama2-7b", "contiguous", "k8v4", SPEC_T):
+                 "spec_serve[llama2-7b+draft]",
+             ("llama2-7b", "stacked", "k8v4", 1): "serve[llama2-7b,scan]",
+             ("mixtral-8x7b", "contiguous", "int8", 1): "serve[mixtral-8x7b]",
+             ("mixtral-8x7b", "stacked", "int8", 1):
+                 "scan_path[mixtral-8x7b]"}.get((heads, layout, store, t))
+    if phase is None and heads == "tinyllama" and layout == "contiguous":
+        phase = f"spec_path[{store},contiguous]"
+    if phase:
+        return (phase, key), None
+    home = {"tinyllama": "scan_serve", "llama2-7b": "path[llama2-7b]",
+            "mixtral-8x7b": "path[mixtral-8x7b]"}[heads]
+    return (home, key), ("no phase of this run runs this model in this "
+                         "store, layout and window")
+
+
+def check_i8_kernels(torch):
+    """3i, #3's int8-dot variant (the TPU kernel's default for a K stored
+    as int8 bytes): the launch that writes the step's rows and attends
+    with int8_dots, at tokens 1 and 5, contiguous and on a stacked cache's
+    layer views, over ATTN_LENS (8 slots of a 1024-row cache; at the 7B's
+    heads the JAX block is 512, so the slots of 632 and 932 cross one) at
+    I8_HEADS. Against `decode_attention_int8_dots_plain` on a clone of the
+    same cache, with NaN or stale bytes in the rows' slots first: cache
+    bytes and scales equal, each (slot, row) within 1e-2 of its max|ref|,
+    finite, one launch counted under the variant's key. Timed over cache
+    copies past the L2 beside the bf16-dot kernel on the same caches and
+    rows, in turns bf16, int8, int8, bf16. The bound is the fold rows':
+    the live rows and scales once, the step's rows, their positions, q and
+    the output."""
+    from deeppowers_tpu_torch.ops.kernels import decode_attention as da
+    rows = []
+    i = 0
+    for heads, hq, kh, d, stores in I8_HEADS:
+        for layout in ("contiguous", "stacked"):
+            for store in stores:
+                for t in (1, SPEC_T):
+                    i += 1
+                    rows.append(i8_case(torch, da, heads, hq, kh, d, layout,
+                                        store, t, SEED + 80 + i))
+                    torch.cuda.empty_cache()
+    return rows
+
+
+def i8_case(torch, da, heads, hq, kh, d, layout, store, t, seed):
+    """One row of `check_i8_kernels`."""
+    live = attention_live_bytes(store, kh, d, ATTN_LENS)
+    copies = max(1, -(-ATTN_COLD_BYTES // live))
+    q, lens, new, states, bind, stale = fold_inputs(
+        torch, store, hq, kh, d, layout, t, copies, seed)
+    fn, plain = da.decode_attention, da.decode_attention_int8_dots_plain
+    name = (f"decode_attention_int8_dots[{store}"
+            + ("" if t == 1 else f":t{t}") + f", {heads}, {layout}]")
+    state = states[0]
+    stale(state)
+    ref_state = [x.clone() for x in state]
+    args, kw, _ = bind(state)
+    ref_args, ref_kw, _ = bind(ref_state)
+    key = "i8:" + (store if t == 1 else f"{store}:t{t}") + "+rows"
+    before = fn.variant_launches[key]
+    out = fn(*args, tokens=t, new=new, int8_dots=True, **kw)
+    ref = plain(*ref_args, tokens=t, new=new, **ref_kw)
+    torch.cuda.synchronize()
+    if fn.variant_launches[key] != before + 1:
+        fail(f"{name}: the call was not counted under {key}")
+    if not all(same_bits(torch, x, y) for x, y in zip(state, ref_state)):
+        fail(f"{name}: cache bytes or scales differ from the plain route's")
+    err, worst = row_errors(out, ref)
+    if not (torch.isfinite(out).all() and worst <= 1e-2):
+        fail(f"{name}: a (slot, row) error is {worst:.3g} of its max|ref| "
+             f"(limit 1e-2), or not finite")
+    bound = [bind(st)[:2] for st in states]
+    calls = {dots: [lambda a=a, k=k, dots=dots: fn(
+        *a, tokens=t, new=new, int8_dots=dots, **k) for a, k in bound]
+        for dots in (False, True)}
+    ms = {False: [], True: []}
+    for dots in (False, True, True, False):
+        ms[dots].append(cuda_ms(torch, calls[dots], 20 * copies))
+    t_p = cuda_ms(torch, [lambda: plain(*ref_args, tokens=t, new=new,
+                                        **ref_kw)], 3, graph=False)
+    nb = live + 2 * new.k.numel() * 2 + new.pos.numel() * 4 + \
+        2 * q.numel() * 2
+    bd, by = bound_ms(nb, 4 * int(lens.sum()) * hq * t * d)
+    block = da.int8_dots_block(args[1].shape[1], args[1].shape[2])
+    log(f"  {name}: max_abs_err={err:.3e} worst_row_ratio={worst:.3e}, "
+        f"bytes and scales exact; int8 dots {ms[True][0]:.4f} / "
+        f"{ms[True][1]:.4f} ms, bf16 dots {ms[False][0]:.4f} / "
+        f"{ms[False][1]:.4f} ms over {copies} cache copies (block "
+        f"{block}), plain {t_p:.4f} ms, bound {bd:.6f} ms ({by})")
+    frm, note = i8_launch_from(heads, layout, store, t)
+    row = {"name": name, "route": "cuda",
+           "source": "deeppowers_tpu_torch/csrc/decode_attention.cuh",
+           "replaces": "deeppowers_tpu/ops/pallas/decode_attention.py:196",
+           "pallas_call": "deeppowers_tpu/ops/pallas/decode_attention.py:470",
+           "max_abs_err": err, "ms": sum(ms[True]) / 2, "ms_runs": ms[True],
+           "bf16_dots_ms": sum(ms[False]) / 2, "bf16_dots_ms_runs": ms[False],
+           "plain_ms": t_p, "bound_ms": bd, "bound_by": by,
+           "library_ms": None,
+           "library_note": "no one PyTorch call requantizes q and p to int8 "
+                           "and attends",
+           "worst_row_ratio": worst, "cache_copies": copies, "tokens": t,
+           "block_s": block, "launch_from": frm}
+    if note:
+        row["note"] = note
+    return row
+
+
 def check_scan_kt_kernels(torch, cfg):
     """#8 in four stores (8 rows, and a window's 8 x 5 rows, into layer 11
     of TinyLlama's (22, 8, 1024, F') stacked caches; one position past the
@@ -3583,7 +3750,8 @@ def serve_llama2(torch, T, counters):
                           "flash_attention_chunk",
                           f"scatter_rows[{LLAMA2_KV}]",
                           f"decode_attention[{LLAMA2_KV}]",
-                          fold_key("decode_attention", LLAMA2_KV)],
+                          fold_key("decode_attention", LLAMA2_KV)]
+        + i8_keys(LLAMA2_KV),
         LLAMA2_OFF_PATH + ["scatter_pool_rows", "decode_attention_paged",
                            "grouped_dequant_matmul",
                            "grouped_dequant_matmul_ncat", "step_writers"]
@@ -3594,6 +3762,8 @@ def serve_llama2(torch, T, counters):
                init_s=init_s)
     out["profile"] = profile_decode(torch, engine, tok)
     check_step_quantizer("serve[llama2-7b]", out["profile"])
+    out["profile_bf16_dots"] = profile_bf16_dots(torch, engine, tok,
+                                                 "serve[llama2-7b]")
     gen = GenerationConfig(max_tokens=1, temperature=0.0)
     ttft = []
     for i in range(TTFT_REPS):
@@ -3628,6 +3798,14 @@ def serve_llama2(torch, T, counters):
         ttft.append((time.perf_counter() - t1) * 1e3)
     scan.pop_finished()
     out["ttft_512_scan_ms"] = ttft
+    # and decode steps of 8 slots on the stacked cache, counted from 0:
+    # #3's int8-dot variant over the layer views
+    reset_counts(counters)
+    out["profile_scan"] = profile_decode(torch, scan, tok, steps=2)
+    torch.cuda.synchronize()
+    out["launches_scan"] = read_counts(counters)
+    check_variants("serve[llama2-7b] scan decode", out["launches_scan"],
+                   i8_keys(LLAMA2_KV), ["scatter_rows", "step_writers"])
     del scan
     torch.cuda.empty_cache()
     out["params"] = params          # spec_serve[llama2-7b+draft] reuses them
@@ -3863,7 +4041,8 @@ def serve_mixtral(torch, T, counters):
                            "flash_attention_chunk",
                            f"scatter_rows[{MIXTRAL_KV}]",
                            f"decode_attention[{MIXTRAL_KV}]",
-                           fold_key("decode_attention", MIXTRAL_KV)],
+                           fold_key("decode_attention", MIXTRAL_KV)]
+        + i8_keys(MIXTRAL_KV),
         MIXTRAL_OFF_PATH + ["scatter_pool_rows", "decode_attention_paged",
                             "step_writers"]
         + [f"{k}[{v}]" for k in ("scatter_rows", "decode_attention")
@@ -3887,6 +4066,8 @@ def serve_mixtral(torch, T, counters):
                forwards=len(routes) // cfg.num_layers)
     out["profile"] = profile_decode(torch, engine, tok)
     check_step_quantizer("serve[mixtral-8x7b]", out["profile"])
+    out["profile_bf16_dots"] = profile_bf16_dots(torch, engine, tok,
+                                                 "serve[mixtral-8x7b]")
     gen = GenerationConfig(max_tokens=1, temperature=0.0)
     ttft = []
     for i in range(TTFT_REPS):
@@ -3963,8 +4144,10 @@ def margins(torch, T, kvcache, cfg, params) -> None:
     """The card gates with the least room, held again over MARGIN_SEEDS
     other seeds so that the run shows how close each sits to its limit:
     #3's worst (slot, head) row ratio against its plain version per store
-    at the kernels phase's shapes (limit 1e-2; #5 reads the same rows
-    through its table), and the teacher-forced logits' rel L2 against the
+    at the kernels phase's shapes (limit 1e-2), the int8-dot variant that
+    the main path runs against `decode_attention_int8_dots_plain` and the
+    bf16-dot kernel (DPT_ATTN_INT8=0, which #5 shares) against
+    `decode_attention_plain`, and the teacher-forced logits' rel L2 against the
     plain path on the CPU, contiguous layout, for the two stores closest
     to its limit of 5e-2 (int4, k8v4). A seed picks the attention inputs
     and the token ids; the weights stay seed 0's."""
@@ -3991,13 +4174,18 @@ def margins(torch, T, kvcache, cfg, params) -> None:
             kw = dict(k_scale=ks.transpose(1, 2).contiguous(),
                       v_scale=vs.transpose(1, 2).contiguous(), kv_bits=kb,
                       v_bits=vb)
-            got = da.decode_attention(q, kc, vc, lens, **kw)
-            ref = da.decode_attention_plain(q, kc, vc, lens, **kw)
-            line[f"attn_row_ratio[{dtype}]"] = worst = row_errors(got,
-                                                                  ref)[1]
-            if not (torch.isfinite(got).all() and worst <= 1e-2):
-                fail(f"margins seed {seed}: decode_attention[{dtype}] row "
-                     f"error {worst:.3g} of its max|ref| (limit 1e-2)")
+            for dots, plain, tag in (
+                    (False, da.decode_attention_plain, ""),
+                    (True, da.decode_attention_int8_dots_plain, "i8:")):
+                got = da.decode_attention(q, kc, vc, lens, int8_dots=dots,
+                                          **kw)
+                ref = plain(q, kc, vc, lens, **kw)
+                line[f"attn_row_ratio[{tag}{dtype}]"] = worst = row_errors(
+                    got, ref)[1]
+                if not (torch.isfinite(got).all() and worst <= 1e-2):
+                    fail(f"margins seed {seed}: decode_attention[{tag}"
+                         f"{dtype}] row error {worst:.3g} of its max|ref| "
+                         f"(limit 1e-2)")
         rng = torch.Generator().manual_seed(2000 + seed)
         ids = torch.randint(0, cfg.vocab_size, (40,), generator=rng).tolist()
         forced = torch.randint(0, cfg.vocab_size, (3,), generator=rng).tolist()
@@ -4095,10 +4283,10 @@ def profile_decode(torch, engine, tok, steps: int = 5,
         return sum(f.launches for f in (ka.scatter_rows, ka.scatter_pool_rows,
                                         ka.scatter_rows_stacked))
 
-    def folds():
+    def folds():     # the "i8:" keys count the same launches again
         return sum(n for f in (da.decode_attention, da.decode_attention_paged)
                    for k, n in f.variant_launches.items()
-                   if k.endswith("+rows"))
+                   if k.endswith("+rows") and not k.startswith("i8:"))
     for i in range(engine.num_slots):
         engine.add_request(tok.encode(prompt_text(prompt_bytes, i)),
                            GenerationConfig(
@@ -4143,6 +4331,29 @@ def profile_decode(torch, engine, tok, steps: int = 5,
                             "ms": sum(e.self_device_time_total
                                       for e in quant) / 1e3 / steps})
     return split
+
+
+def i8_keys(store: str) -> list:
+    """The counters of #3's int8-dot variant in a decode step of `store`:
+    its launches, and those that wrote the step's rows."""
+    return [f"decode_attention[i8:{store}]",
+            f"decode_attention[i8:{store}+rows]"]
+
+
+def profile_bf16_dots(torch, engine, tok, phase: str) -> dict:
+    """`profile_decode` again with DPT_ATTN_INT8=0: #3's bf16-dot kernel
+    in place of its int8-dot variant, which must then not launch."""
+    from deeppowers_tpu_torch.ops.kernels import decode_attention as da
+
+    def i8():
+        return sum(n for k, n in da.decode_attention.variant_launches.items()
+                   if k.startswith("i8:"))
+    before = i8()
+    with int8_dots_off():
+        prof = profile_decode(torch, engine, tok)
+    if i8() != before:
+        fail(f"{phase}: DPT_ATTN_INT8=0 launched #3's int8-dot variant")
+    return prof
 
 
 # the row quantizer's launches in a decode step of the 7B and Mixtral: one
@@ -4245,9 +4456,14 @@ def cpu_references_take_kernel_functions() -> None:
     (`dequant_matmul_plain`). Those two functions differ by a bf16 rounding
     of the weight, which 22 layers and an int4 KV store amplify to 9e-2 of
     the logits (rel L2, TinyLlama). CUDA tensors never take that route, so
-    the card's side of every phase is unchanged."""
+    the card's side of every phase is unchanged. Likewise #3 on a CPU
+    tensor computes the int8-dot function wherever the card takes #3's
+    int8-dot variant (`cpu_attention_function`), not the JAX package's
+    CPU function (bf16 dots), which parts from it by up to 5% of a row."""
     from deeppowers_tpu_torch.ops import matmul
+    from deeppowers_tpu_torch.ops.kernels import decode_attention as da
     matmul.cpu_weight_only_function("kernel")
+    da.cpu_attention_function("kernel")
 
 
 def fold_key(attn: str, store: str, t: int = 1) -> str:
@@ -4273,6 +4489,26 @@ def read_counts(counters) -> dict:
         for var, n in getattr(fn, "variant_launches", {}).items():
             out[f"{name}[{var}]"] = n
     return out
+
+
+#: the stores whose K is int8 bytes: #3 takes its int8-dot variant there
+I8_STORES = ("int8", "int4", "k8v4")
+I8_NOTE = ("the main path takes #3's int8-dot variant here (the "
+           "decode_attention_int8_dots rows); this kernel runs with "
+           "DPT_ATTN_INT8=0")
+
+
+def bf16_dot_launches(counts: dict, key: str) -> int:
+    """A counter's launches in a run; for #3 over a store of I8_STORES
+    ("decode_attention[k8v4+rows]"), those of its bf16-dot kernel: the
+    wrapper counts the int8-dot variant's launches under the store's key
+    too, and under "i8:" + that key ("decode_attention[i8:k8v4+rows]")."""
+    kernel, _, var = key.partition("[")
+    n = counts.get(key, 0)
+    if kernel == "decode_attention" and \
+            var.split(":")[0].split("+")[0].split("]")[0] in I8_STORES:
+        n -= counts.get(f"{kernel}[i8:{var}", 0)
+    return n
 
 
 def check_variants(phase, launches, want, zero) -> None:
@@ -4404,8 +4640,8 @@ def serve(torch, params, cfg, counters, kv_cache_dtype="bf16",
     # written by indexing, and every decode row through #3's fold
     own = [f"decode_attention[{kv_cache_dtype}]",
            fold_key("decode_attention", kv_cache_dtype)] + (
-        [f"scatter_rows[{kv_cache_dtype}]"] if kv_cache_dtype != "bf16"
-        else [])
+        [f"scatter_rows[{kv_cache_dtype}]"] + i8_keys(kv_cache_dtype)
+        if kv_cache_dtype != "bf16" else [])
     check_variants(
         f"serve[{kv_cache_dtype}]", launches,
         ["dequant_matmul", "flash_attention_prefill",
@@ -4419,6 +4655,9 @@ def serve(torch, params, cfg, counters, kv_cache_dtype="bf16",
     out["kv_bytes"] = engine.kv_nbytes
     # the profiler's first use in the process stays on the main thread
     out["profile"] = profile_decode(torch, engine, tok)
+    if kv_cache_dtype != "bf16":
+        out["profile_bf16_dots"] = profile_bf16_dots(
+            torch, engine, tok, f"serve[{kv_cache_dtype}]")
     if not passes:
         return out
     out["prefill"] = profile_prefill(torch, engine, tok, prompts)
@@ -4861,6 +5100,23 @@ def report_serve(name, t0, out, smi_line, n_requests) -> None:
 
 # ---------------------------------------------------------------------------
 
+def log_dots(phase, out, smi_line) -> None:
+    """A serve phase's profiled decode step with #3's int8-dot variant
+    (the default) beside the same step with its bf16-dot kernel
+    (DPT_ATTN_INT8=0), and the 7B's on its stacked cache."""
+    p, q = out["profile"], out["profile_bf16_dots"]
+    scan = out.get("profile_scan")
+    log(f"{phase} a profiled decode step: device busy {p['busy_ms']:.4f} "
+        f"ms, #3 {p['attention']['ms']:.4f} ms "
+        f"({p['attention']['traced']:.1f} launches) with the int8-dot "
+        f"variant; {q['busy_ms']:.4f} ms, #3 {q['attention']['ms']:.4f} ms "
+        f"({q['attention']['traced']:.1f} launches) with the bf16-dot "
+        f"kernel (DPT_ATTN_INT8=0)"
+        + (f"; on the stacked cache {scan['busy_ms']:.4f} ms, #3 "
+           f"{scan['attention']['ms']:.4f} ms" if scan else "")
+        + f" card={smi_line!r}")
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4901,8 +5157,9 @@ def main(argv) -> int:
         sys.path.insert(0, os.path.abspath(argv[1]))
         from deeppowers_tpu_torch.ops.kernels import _build
         _build.library()
-        log(json.dumps({"checkout": argv[1], "card": card_line(),
-                        **kt_ms(torch)}))
+        with int8_dots_off():       # #3's bf16-dot kernel, as in phase 3
+            log(json.dumps({"checkout": argv[1], "card": card_line(),
+                            **kt_ms(torch)}))
         return 0
     if argv[:1] == ["--slot-orders"] and len(argv) == 2:
         # #3 / #5 over slot orders of ATTN_LENS, through the package of the
@@ -4919,8 +5176,9 @@ def main(argv) -> int:
         sys.path.insert(0, os.path.abspath(argv[1]))
         from deeppowers_tpu_torch.ops.kernels import _build
         _build.library()
-        log(json.dumps({"checkout": argv[1], "card": card_line(),
-                        **fold_ms(torch)}))
+        with int8_dots_off():       # #3's bf16-dot kernel, as in phase 3
+            log(json.dumps({"checkout": argv[1], "card": card_line(),
+                            **fold_ms(torch)}))
         return 0
     if argv:
         sys.stderr.write("usage: chip_smoke.py [--step-ms CHECKOUT | "
@@ -4981,16 +5239,19 @@ def main(argv) -> int:
                per_source_s=json.dumps(_build.build_info.get("compile_s")),
                link_s=_build.build_info.get("link_s"))
 
-    # 3. kernels
+    # 3. kernels (#3's rows of the earlier slices with its bf16-dot
+    # kernel, DPT_ATTN_INT8=0; then its int8-dot variant's rows)
     t0 = time.perf_counter()
-    rows = check_kernels(torch, cfg)
-    rows += check_wquant_kernels(torch)
-    rows += check_verify_matmuls(torch, cfg)
-    route_sweep(torch, cfg)
-    rows += check_grouped_kernels(torch)
-    rows += check_mixtral_gemv(torch)
-    rows += check_scan_kt_kernels(torch, cfg)
-    rows += check_fold_kernels(torch)
+    with int8_dots_off():
+        rows = check_kernels(torch, cfg)
+        rows += check_wquant_kernels(torch)
+        rows += check_verify_matmuls(torch, cfg)
+        route_sweep(torch, cfg)
+        rows += check_grouped_kernels(torch)
+        rows += check_mixtral_gemv(torch)
+        rows += check_scan_kt_kernels(torch, cfg)
+        rows += check_fold_kernels(torch)
+    rows += check_i8_kernels(torch)
     phase_line("kernels", t0, checked=len(rows))
 
     # 4. path: full-width TinyLlama, teacher-forced against the plain path
@@ -5166,6 +5427,7 @@ def main(argv) -> int:
     qsrv = serve(torch, params, cfg, counters, kv_cache_dtype="int8",
                  passes=False)
     report_serve("serve[int8]", t0, qsrv, smi_line, len(PROMPT_BYTES))
+    log_dots("serve[int8]", qsrv, smi_line)
     t0 = time.perf_counter()
     qpsrv = serve_paged(torch, params, cfg, counters, kv_cache_dtype="k8v4")
     report_serve("paged_serve[k8v4]", t0, qpsrv, smi_line,
@@ -5180,7 +5442,9 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     lsrv = serve_llama2(torch, T, counters)
     report_serve("serve[llama2-7b]", t0, lsrv, smi_line, len(PROMPT_BYTES))
+    log_dots("serve[llama2-7b]", lsrv, smi_line)
     l7_served = {"launches": lsrv["launches"]}
+    l7_scan_launches = lsrv["launches_scan"]
     tt = sorted(lsrv["ttft_512_ms"])
     ts = sorted(lsrv["ttft_512_scan_ms"])
     log(f"serve[llama2-7b] params {lsrv['param_bytes']} bytes (drawn in "
@@ -5227,6 +5491,7 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     msrv = serve_mixtral(torch, T, counters)
     report_serve("serve[mixtral-8x7b]", t0, msrv, smi_line, len(PROMPT_BYTES))
+    log_dots("serve[mixtral-8x7b]", msrv, smi_line)
     tt = sorted(msrv["ttft_512_ms"])
     log(f"serve[mixtral-8x7b] params {msrv['param_bytes']} bytes (drawn and "
         f"fused in {msrv['init_s']:.2f} s), KV {msrv['kv_bytes']} bytes; "
@@ -5259,12 +5524,15 @@ def main(argv) -> int:
     runs["scan_serve[spec]"] = scsrv["speculative"]["launches"]
     runs.update({f"scan_path[{v}]": c for v, c in scan_launches.items()})
     runs["kt_path[llama2-7b]"] = kt_launches
+    runs["serve[llama2-7b,scan]"] = l7_scan_launches
     paged_kernels = ("scatter_pool_rows", "decode_attention_paged")
     for row in rows:
         if "launch_from" in row:
             phase, key = row.pop("launch_from")
-            row["launches"] = runs[phase].get(key, 0)
+            row["launches"] = bf16_dot_launches(runs[phase], key)
             row["launches_phase"] = phase
+            if runs[phase].get(key, 0) and not row["launches"]:
+                row.setdefault("note", I8_NOTE)
             if key.startswith(("scatter_rows[bf16", "scatter_pool_rows[bf16"))\
                     and not row["launches"]:
                 row["note"] = ("a window's rows are written inside the "
@@ -5286,13 +5554,15 @@ def main(argv) -> int:
             key = name
         else:
             phase, key = f"path[{var},{layout}]", name
-        row["launches"] = runs[phase].get(key, 0)
+        row["launches"] = bf16_dot_launches(runs[phase], key)
         row["launches_phase"] = phase
         if kernel in ("scatter_rows", "scatter_pool_rows") and \
                 not row["launches"]:
             row["note"] = ("decode and verify rows are written inside the "
                            "attention launch (the #3+2 / #5+6 rows); a bf16 "
                            "prompt or chunk is written by indexing")
+        if runs[phase].get(key, 0) and not row["launches"]:
+            row.setdefault("note", I8_NOTE)
         if "variant" in row and not row["launches"]:
             row["note"] = ("no model of the repo has a weight of this width"
                            if row["variant"].startswith("n") else

@@ -173,8 +173,32 @@
 //    row's bytes into every store's swizzle. The kt mirror's cache keeps a
 //    writer launch (#2) before its attention (#7): its flush reads the
 //    tail from the landed tiles, and its route is the layout's.
-// The TPU kernel's int8_dots branch, which requantizes q and p to int8 for
-// the MXU, is not carried over.
+//  - the int8-dot variant (template flag I8; entry point
+//    decode_attention_i8.cu; "3i"): the TPU kernel's `int8_dots` branch
+//    (`_kernel_mxu` :196-216, :219-237, :283-301), its default wherever K
+//    is stored as int8 bytes (int8, int4, k8v4), contiguous layout only
+//    (#5 has no such branch in JAX). Its function: q * scale in f32, qs =
+//    max(|row|, 1e-30) * fl(1/127) (XLA's form of JAX's `/ 127.0`), codes
+//    rint(q / qs) clipped to +-127; q.K^T as exact s32 sums on
+//    mma.sync.m16n8k32 with B straight from the landed int8 tile (s8) or
+//    the packed tile's nibbles read as v + 8 (u8, less 8 * the row's code
+//    sum of that half): no K code is converted; the K scales and qs in
+//    the TPU kernel's order, unfused. p (times its V scale, per half for
+//    packed V) is requantized per row over each block of `blk` positions
+//    of the TPU kernel's grid (`int8_dots_block`): rs = max(p, 1e-30) *
+//    fl(1/127), codes rint(p / rs) in 0..127, and p.V runs on bf16
+//    mma.sync of the integer codes (exact in bf16; a 16-position partial
+//    is exact in f32), scaled by rs into the f32 accumulator. A block's
+//    granule spans the splits of the cluster (TinyLlama's 1024 positions
+//    are one block over four splits), so every split walks each block
+//    twice: a first pass over K and the scales finds each row's max score
+//    and max p * vs relative to it, which meet over the groups in shared
+//    memory and over the splits in distributed shared memory (a cluster
+//    barrier a block; the maxima are kept by block parity, so one barrier
+//    suffices); the second recomputes the same scores and runs the online
+//    softmax in the frame max(m, the block's max), the codes and p.V.
+//    This costs a second K read (from the L2) and a second pipeline ramp
+//    a block; its time stands beside the bf16-dot kernel's in PERF.md.
 #include <cuda_fp16.h>
 
 #include <type_traits>
@@ -287,6 +311,7 @@ struct Args {
   float scale;
   bf16* out;
   cudaStream_t st;
+  int blk;            // int8-dot path: positions a block of p's granule
 };
 
 template <int BITS>
@@ -417,6 +442,22 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, unsigned& hi,
   lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
 }
 
+// D(16 x 8) += A(16 x 32) B(32 x 8): s8 A, s8 or u8 B, exact s32 sums
+__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
+                                       unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void mma_s8u8(int (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // byte i of two words (biased: w ^ 0x80808080) as an exact bf16 pair,
 // the first word's in the low half
 __device__ __forceinline__ unsigned bf16x2_bytes(unsigned a, unsigned b,
@@ -442,6 +483,21 @@ __device__ __forceinline__ int k_feature(int ks, int c, int i) {
   } else {
     const int h = ks / (D / 32), kk = ks % (D / 32);
     return h * (D / 2) + (D / 8) * c + 4 * kk + 2 * (i & 1) + (i >> 1);
+  }
+}
+
+// The feature of q.K^T's k index 4c + (i & 3) + 16 (i >> 2) in k-step ks
+// of m16n8k32 (the int8-dot path): thread c's bytes of the stored row,
+// eight a k-step (b0 the first word, b1 the second). int8: its D/4
+// contiguous bytes; int4 (k-steps 0..D/64-1 the low nibbles, the rest the
+// high ones): its D/8 contiguous bytes, a word's four nibbles of one half.
+template <int KB, int D>
+__device__ __forceinline__ int k_feature_i8(int ks, int c, int i) {
+  if constexpr (KB == 8) {
+    return (D / 4) * c + 8 * ks + i;
+  } else {
+    const int h = ks / (D / 64), kk = ks % (D / 64);
+    return h * (D / 2) + (D / 8) * c + 8 * kk + i;
   }
 }
 
@@ -605,6 +661,57 @@ __device__ __forceinline__ void write_new_rows(const NewRows& nr,
   }
 }
 
+// p.V's B operands over the 16 positions from rb of a landed V tile: one
+// call pv(n8 output tile, V half, b0, b1) a tile. bf16 by ldmatrix.trans;
+// int8 and int4 as exact bf16 pairs of the bytes of p's k indices 2c, 2c
+// + 1 (b0) and 2c + 8, 2c + 9 (b1): rows rb + 2c + {0, 1, 8, 9}, or rb +
+// 4c + {0, 2, 1, 3} in a feature-major tile's order (FM), at one feature.
+template <int VB, int D, bool FM, typename PV>
+__device__ __forceinline__ void v_operands(const unsigned char* vt, int rb,
+                                           int lane, PV&& pv) {
+  constexpr int VCPR = head_bytes<VB, D>() / 16;
+  constexpr int NO = D / 8;
+  const int g = lane >> 2, c = lane & 3;
+  if constexpr (VB == 16) {
+    const uint32_t base = smem_u32(vt);
+#pragma unroll
+    for (int nt = 0; nt < NO; nt += 2) {
+      unsigned r[4];
+      ldmatrix_x4_trans(
+          base + tile_off<VCPR>(rb + 8 * ((lane >> 3) & 1) + (lane & 7),
+                                16 * (nt + (lane >> 4))),
+          r);
+      pv(nt, 0, r[0], r[1]);
+      pv(nt + 1, 0, r[2], r[3]);
+    }
+  } else {
+    constexpr int VW = (VB == 8 ? D / 8 : D / 16) / 4;
+    unsigned w[4][VW];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      lds_words<VCPR>(vt, rb + tpos<FM>(e >> 1, e & 1, c), g * 4 * VW, w[e]);
+#pragma unroll
+      for (int x = 0; x < VW; ++x)
+        w[e][x] ^= VB == 8 ? 0x80808080u : 0x88888888u;
+    }
+    if constexpr (VB == 8) {
+#pragma unroll
+      for (int nt = 0; nt < NO; ++nt)
+        pv(nt, 0, bf16x2_bytes(w[0][nt / 4], w[1][nt / 4], nt % 4),
+           bf16x2_bytes(w[2][nt / 4], w[3][nt / 4], nt % 4));
+    } else {
+#pragma unroll
+      for (int j = 0; j < D / 16; ++j) {
+        const unsigned sel = (j % 4) | ((4 + j % 4) << 8);
+        const unsigned u0 = __byte_perm(w[0][j / 4], w[1][j / 4], sel);
+        const unsigned u1 = __byte_perm(w[2][j / 4], w[3][j / 4], sel);
+        pv(j, 0, bf16x2_nibbles(u0, 0), bf16x2_nibbles(u1, 0));
+        pv(D / 16 + j, 1, bf16x2_nibbles(u0, 4), bf16x2_nibbles(u1, 4));
+      }
+    }
+  }
+}
+
 // Query rows: O = Kh * R rows a slot, R = rep * T per kv head, ordered
 // (kv head, query head, window token t) as the TPU kernel folds a verify
 // window into its output rows (`_fold_tokens` :488); T = 1 is decode. Row
@@ -619,10 +726,12 @@ __device__ __forceinline__ void write_new_rows(const NewRows& nr,
 // Dynamic shared memory: the groups' rings, pw * stages stages of tile *
 // (K, V and scale bytes a row), reused at the end for the groups'
 // partials (pw * R * (D + 2) + 2 * R floats).
-template <int D, int KB, int VB, typename Rows>
+template <int D, int KB, int VB, typename Rows, bool I8 = false>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
     attention_kernel(const Args a, const Side k, const Side v,
                      const Rows rows, const NewRows nr) {
+  static_assert(!I8 || (KB != 16 && !Rows::kMirror),
+                "the int8-dot path takes contiguous int8-byte K");
   constexpr int KHB = head_bytes<KB, D>(), VHB = head_bytes<VB, D>();
   constexpr int KCPR = KHB / 16, VCPR = VHB / 16;
   constexpr int NK = n_scales<KB>(), NV = n_scales<VB>();
@@ -681,10 +790,12 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
   // zero-filled, their table entries and scales never read. A tile that
   // lies in one page (or slot) finds its rows through one table read.
   const bool whole = rows.whole(TL);
-  auto load = [&](int i) {
-    const int t0 = s0 + (pg + i * a.pw) * TL;
+  // tile j of the block's stretch into ring stage stg (the V rows too
+  // unless the int8-dot path's first pass asks only for K and the scales)
+  auto load_at = [&](int j, int stg, bool with_v) {
+    const int t0 = s0 + j * TL;
     const int n = min(TL, s1 - t0);
-    unsigned char* st = ring + (i % a.stages) * stage;
+    unsigned char* st = ring + stg * stage;
     long long major0 = 0;
     int minor0 = 0;
     if (whole) rows(b, t0, major0, minor0);
@@ -700,8 +811,9 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
     } else {
       k_rows();
     }
-    copy_side<VCPR>(st + kbytes, v.data, v.msb, v.width, VE, kh * VHB, rows,
-                    whole, b, t0, n, TL, major0, minor0, gtid, gthr);
+    if (with_v)
+      copy_side<VCPR>(st + kbytes, v.data, v.msb, v.width, VE, kh * VHB,
+                      rows, whole, b, t0, n, TL, major0, minor0, gtid, gthr);
     if constexpr (NK + NV > 0) {
       float* sd = reinterpret_cast<float*>(st + kbytes + vbytes);
       const int per = a.svec ? TL / 4 : TL;
@@ -726,8 +838,341 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
       }
     }
   };
+  // tile i of this group
+  auto load = [&](int i) { load_at(pg + i * a.pw, i % a.stages, true); };
 
-  if (mine > 0) {
+  if constexpr (I8) {
+    // The int8-dot path (the TPU kernel's `int8_dots`, _kernel_mxu
+    // :196-216, :219-237, :283-301): q quantized per row, exact s8 / u8
+    // dots for q.K^T, p requantized per row and per JAX block of a.blk
+    // positions. A block's granule may span the cluster's splits, so each
+    // block takes two passes over this split's tiles in it: the first
+    // finds each row's max score and max of p times the V scale (relative
+    // to that max), met across the groups in shared memory and across the
+    // splits in distributed shared memory; the second recomputes the same
+    // scores and runs the online softmax, the codes and p.V.
+    constexpr int KS8 = D / 32;           // m16n8k32 k-steps over D
+    constexpr int NP = NV == 2 ? 2 : 1;   // p granules: one per V half
+    const int R = a.R;
+    // q codes as A fragments (k_feature_i8's order), qs per row and, for
+    // int4 K, 8 * the row's code sum over each D half
+    unsigned qa[KS8][4];
+    float qs[2], qsum8[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+    {
+      const bf16* qb = a.q + (long long)b * a.q_sb + (long long)kh * R * D;
+      auto qv = [&](int h, int f) {
+        const int r = h ? r1 : r0;
+        return r < R ? bf2f(qb[r * D + f]) * a.scale : 0.f;
+      };
+      float am[2] = {0.f, 0.f};
+#pragma unroll
+      for (int ks = 0; ks < KS8; ++ks)
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            am[h] = fmaxf(am[h], fabsf(qv(h, k_feature_i8<KB, D>(ks, c, i))));
+      int sum[2][2] = {{0, 0}, {0, 0}};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int o = 1; o <= 2; o <<= 1)
+          am[h] = fmaxf(am[h], __shfl_xor_sync(0xffffffffu, am[h], o));
+        qs[h] = fmaxf(am[h], 1e-30f) * (1.f / 127.f);   // XLA's `/ 127.0`
+#pragma unroll
+        for (int ks = 0; ks < KS8; ++ks)
+#pragma unroll
+          for (int w = 0; w < 2; ++w) {
+            unsigned word = 0;
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float x = qv(h, k_feature_i8<KB, D>(ks, c, 4 * w + i));
+              const int code =
+                  (int)fminf(fmaxf(rintf(x / qs[h]), -127.f), 127.f);
+              word |= (unsigned)(code & 0xFF) << (8 * i);
+              if constexpr (KB == 4) sum[ks / (D / 64)][h] += code;
+            }
+            qa[ks][2 * w + h] = word;   // rows g, g + 8; k 4c.., 16 + 4c..
+          }
+      }
+      if constexpr (KB == 4) {
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            int x = sum[hf][h];
+            x += __shfl_xor_sync(0xffffffffu, x, 1);
+            x += __shfl_xor_sync(0xffffffffu, x, 2);
+            qsum8[hf][h] = 8.f * (float)x;
+          }
+      }
+    }
+    // scores of rows r0 (e 0, 1) and r1 (e 2, 3) at positions rb + 8 nt +
+    // 2c + (e & 1) of a landed tile: exact integer dots, the scales in the
+    // TPU kernel's order (no contraction), positions past a bound masked
+    auto scores = [&](const unsigned char* kt, const float* ksc, int t0,
+                      int rb, float(&s)[2][4]) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        int d0[4] = {0, 0, 0, 0}, d1[4] = {0, 0, 0, 0};
+        if constexpr (KB == 8) {
+          unsigned w[D / 16];
+          lds_words<KCPR>(kt, rb + 8 * nt + g, c * (D / 4), w);
+#pragma unroll
+          for (int ks = 0; ks < KS8; ++ks)
+            mma_s8(d0, qa[ks], w[2 * ks], w[2 * ks + 1]);
+        } else {
+          // nibbles read as v + 8 (0..15), the dot less 8 * the code sum
+          unsigned w[D / 32];
+          lds_words<KCPR>(kt, rb + 8 * nt + g, c * (D / 8), w);
+#pragma unroll
+          for (int kk = 0; kk < D / 64; ++kk) {
+            const unsigned u0 = w[2 * kk], u1 = w[2 * kk + 1];
+            mma_s8u8(d0, qa[kk], (u0 & 0x0F0F0F0Fu) ^ 0x08080808u,
+                     (u1 & 0x0F0F0F0Fu) ^ 0x08080808u);
+            mma_s8u8(d1, qa[D / 64 + kk],
+                     ((u0 >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u,
+                     ((u1 >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u);
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1, j = rb + 8 * nt + 2 * c + (e & 1);
+          float x;
+          if constexpr (KB == 8) {
+            x = __fmul_rn(__fmul_rn((float)d0[e], qs[h]), ksc[j]);
+          } else {
+            const float x0 = (float)d0[e] - qsum8[0][h];
+            const float x1 = (float)d1[e] - qsum8[1][h];
+            x = __fmul_rn(
+                __fadd_rn(__fmul_rn(x0, ksc[j]), __fmul_rn(x1, ksc[TL + j])),
+                qs[h]);
+          }
+          s[nt][e] = t0 + j < (h ? bound1 : bound0) ? x : DPT_NEG_INF;
+        }
+      }
+    };
+    // the group's tiles j = pg (mod pw) in [jlo, jhi) through its ring
+    auto walk = [&](int jlo, int jhi, bool with_v, auto&& body) {
+      const int jf = jlo + ((pg - jlo) % a.pw + a.pw) % a.pw;
+      const int n = jf < jhi ? (jhi - jf + a.pw - 1) / a.pw : 0;
+      if (n == 0) return;
+      bar_group(1 + pg, gthr);  // the previous walk's tiles are consumed
+      for (int i = 0; i < a.stages - 1; ++i) {
+        if (i < n) load_at(jf + i * a.pw, i, with_v);
+        cp_async_commit();
+      }
+      for (int i = 0; i < n; ++i) {
+        if (a.stages == 1) {
+          if (i) bar_group(1 + pg, gthr);
+          load_at(jf + i * a.pw, 0, with_v);
+          cp_async_commit();
+        }
+        if (a.stages >= 3)
+          cp_async_wait<1>();
+        else
+          cp_async_wait<0>();
+        bar_group(1 + pg, gthr);
+        if (a.stages > 1 && i + a.stages - 1 < n)
+          load_at(jf + (i + a.stages - 1) * a.pw, (i + a.stages - 1) % a.stages,
+                  with_v);
+        cp_async_commit();
+        const int t0 = s0 + (jf + i * a.pw) * TL;
+        body(ring + (i % a.stages) * stage, t0, min(TL, s1 - t0 + 15) >> 4);
+      }
+    };
+    // the exchange, past the rings and the partials: each group's (max,
+    // max p.vs per half) a row, then the block's, by block parity
+    const int ring_b = a.pw * a.stages * stage;
+    const int part_b = (a.pw * R * (D + 2) + 2 * R) * 4;
+    float* xg = reinterpret_cast<float*>(
+        sm + ((ring_b > part_b ? ring_b : part_b) + 15) / 16 * 16);
+    float* xb = xg + a.pw * R * 3;
+    auto xload = [&](const float* p, int rank) {
+      return a.nsplit > 1 ? ld_cluster(p, rank) : *p;
+    };
+    const int bs = a.blk;
+    const int nblk = len > 0 ? (len + bs - 1) / bs : 0;
+    for (int kb = 0; kb < nblk; ++kb) {
+      const int par = kb & 1;
+      const int lo = kb * bs - s0, hi = (kb + 1) * bs - s0;
+      const int jlo = lo <= 0 ? 0 : min(ntiles, (lo + TL - 1) / TL);
+      const int jhi = hi <= 0 ? 0 : min(ntiles, (hi + TL - 1) / TL);
+      // pass 1: per row, the max score ml and the max of exp(s - ml) * vs
+      float ml[2] = {DPT_NEG_INF, DPT_NEG_INF};
+      float wl[NP][2];
+#pragma unroll
+      for (int hv = 0; hv < NP; ++hv) wl[hv][0] = wl[hv][1] = 0.f;
+      walk(jlo, jhi, false, [&](const unsigned char* kt, int t0, int nsub) {
+        const float* ksc = reinterpret_cast<const float*>(kt + kbytes + vbytes);
+        const float* vsc = ksc + NK * TL;
+        for (int sb = 0; sb < nsub; ++sb) {
+          float sc[2][4];
+          scores(kt, ksc, t0, 16 * sb, sc);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float mx = fmaxf(fmaxf(sc[0][2 * h], sc[0][2 * h + 1]),
+                                   fmaxf(sc[1][2 * h], sc[1][2 * h + 1]));
+            if (mx > ml[h]) {
+              const float f = __expf(ml[h] - mx);
+#pragma unroll
+              for (int hv = 0; hv < NP; ++hv) wl[hv][h] *= f;
+              ml[h] = mx;
+            }
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int j = 16 * sb + 8 * nt + 2 * c + e;
+                if (t0 + j < (h ? bound1 : bound0)) {
+                  const float p = __expf(sc[nt][2 * h + e] - ml[h]);
+#pragma unroll
+                  for (int hv = 0; hv < NP; ++hv)
+                    wl[hv][h] = fmaxf(wl[hv][h], p * vsc[hv * TL + j]);
+                }
+              }
+          }
+        }
+      });
+      // the quad's, then the block's groups (in order), then the splits'
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float M = ml[h];
+#pragma unroll
+        for (int o = 1; o <= 2; o <<= 1)
+          M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, o));
+        const int r = h ? r1 : r0;
+#pragma unroll
+        for (int hv = 0; hv < NP; ++hv) {
+          float W = wl[hv][h] * __expf(ml[h] - M);
+#pragma unroll
+          for (int o = 1; o <= 2; o <<= 1)
+            W = fmaxf(W, __shfl_xor_sync(0xffffffffu, W, o));
+          if (c == 0 && r < R) xg[(pg * R + r) * 3 + 1 + hv] = W;
+        }
+        if (c == 0 && r < R) xg[(pg * R + r) * 3] = M;
+      }
+      __syncthreads();
+      if (tid < R) {
+        float M = DPT_NEG_INF, W[2] = {0.f, 0.f};
+        for (int p = 0; p < a.pw; ++p) M = fmaxf(M, xg[(p * R + tid) * 3]);
+        for (int p = 0; p < a.pw; ++p) {
+          const float* x = xg + (p * R + tid) * 3;
+          const float f = __expf(x[0] - M);
+#pragma unroll
+          for (int hv = 0; hv < NP; ++hv) W[hv] = fmaxf(W[hv], x[1 + hv] * f);
+        }
+        float* y = xb + (par * R + tid) * 3;
+        y[0] = M;
+        y[1] = W[0];
+        y[2] = W[1];
+      }
+      if (a.nsplit > 1)
+        cluster_sync();
+      else
+        __syncthreads();
+      // pass 2 in the frame m = max(m, the block's max), rs per row and
+      // granule: the block's max of p * vs in that frame, / 127
+      float rsv[NP][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = h ? r1 : r0;
+        float Ms[MAX_SPLITS], Ws[NP][MAX_SPLITS];
+        float Mb = DPT_NEG_INF, Wb[NP];
+#pragma unroll
+        for (int hv = 0; hv < NP; ++hv) Wb[hv] = 0.f;
+        if (r < R) {
+#pragma unroll
+          for (int sp = 0; sp < MAX_SPLITS; ++sp) {
+            Ms[sp] = DPT_NEG_INF;
+#pragma unroll
+            for (int hv = 0; hv < NP; ++hv) Ws[hv][sp] = 0.f;
+            if (sp < a.nsplit) {
+              const float* y = xb + (par * R + r) * 3;
+              Ms[sp] = xload(y, sp);
+#pragma unroll
+              for (int hv = 0; hv < NP; ++hv)
+                Ws[hv][sp] = xload(y + 1 + hv, sp);
+            }
+          }
+#pragma unroll
+          for (int sp = 0; sp < MAX_SPLITS; ++sp) Mb = fmaxf(Mb, Ms[sp]);
+#pragma unroll
+          for (int sp = 0; sp < MAX_SPLITS; ++sp) {
+            const float f = __expf(Ms[sp] - Mb);
+#pragma unroll
+            for (int hv = 0; hv < NP; ++hv)
+              Wb[hv] = fmaxf(Wb[hv], Ws[hv][sp] * f);
+          }
+        }
+        float& m = h ? m1 : m0;
+        float& l = h ? l1 : l0;
+        const float mn = fmaxf(m, Mb), al = __expf(m - mn);
+        m = mn;
+        l *= al;
+#pragma unroll
+        for (int nt = 0; nt < NO; ++nt) {
+          acc[nt][2 * h] *= al;
+          acc[nt][2 * h + 1] *= al;
+        }
+#pragma unroll
+        for (int hv = 0; hv < NP; ++hv) {
+          rsv[hv][h] =
+              fmaxf(Wb[hv] * __expf(Mb - mn), 1e-30f) * (1.f / 127.f);
+        }
+      }
+      walk(jlo, jhi, true, [&](const unsigned char* kt, int t0, int nsub) {
+        const unsigned char* vt = kt + kbytes;
+        const float* ksc = reinterpret_cast<const float*>(vt + vbytes);
+        const float* vsc = ksc + NK * TL;
+        for (int sb = 0; sb < nsub; ++sb) {
+          const int rb = 16 * sb;
+          float sc[2][4];
+          scores(kt, ksc, t0, rb, sc);
+          // p, its sums, and its codes per granule as p.V's A fragments
+          unsigned pa[NP][4];
+          float cd[NP][2][4];
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int h = e >> 1, j = rb + 8 * nt + 2 * c + (e & 1);
+              const float p = t0 + j < (h ? bound1 : bound0)
+                                  ? __expf(sc[nt][e] - (h ? m1 : m0))
+                                  : 0.f;
+              if (h)
+                l1 += p;
+              else
+                l0 += p;
+#pragma unroll
+              for (int hv = 0; hv < NP; ++hv)
+                cd[hv][nt][e] =
+                    fminf(rintf(p * vsc[hv * TL + j] / rsv[hv][h]), 127.f);
+            }
+#pragma unroll
+          for (int hv = 0; hv < NP; ++hv) {
+            pa[hv][0] = pack_bf16(cd[hv][0][0], cd[hv][0][1]);
+            pa[hv][1] = pack_bf16(cd[hv][0][2], cd[hv][0][3]);
+            pa[hv][2] = pack_bf16(cd[hv][1][0], cd[hv][1][1]);
+            pa[hv][3] = pack_bf16(cd[hv][1][2], cd[hv][1][3]);
+          }
+          // the codes' exact dot over these 16 positions, then times rs
+          auto pv = [&](float(&d)[4], int hv, unsigned b0, unsigned b1) {
+            float t[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_bf16(t, pa[hv], b0, b1);
+            d[0] = fmaf(t[0], rsv[hv][0], d[0]);
+            d[1] = fmaf(t[1], rsv[hv][0], d[1]);
+            d[2] = fmaf(t[2], rsv[hv][1], d[2]);
+            d[3] = fmaf(t[3], rsv[hv][1], d[3]);
+          };
+          v_operands<VB, D, false>(
+              vt, rb, lane, [&](int nt, int h, unsigned b0, unsigned b1) {
+                pv(acc[nt], h, b0, b1);
+              });
+        }
+      });
+    }
+  } else if (mine > 0) {
     for (int i = 0; i < a.stages - 1; ++i) {
       if (i < mine) load(i);
       cp_async_commit();
@@ -942,49 +1387,10 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
             split_bf16(x[j][0], x[j][1], ph[h][j], pl[h][j]);
         }
         // p.V over the 16 positions
-        if constexpr (VB == 16) {
-          const uint32_t base = smem_u32(vt);
-#pragma unroll
-          for (int nt = 0; nt < NO; nt += 2) {
-            unsigned r[4];
-            ldmatrix_x4_trans(
-                base + tile_off<VCPR>(rb + 8 * ((lane >> 3) & 1) + (lane & 7),
-                                      16 * (nt + (lane >> 4))),
-                r);
-            pv(acc[nt], 0, r[0], r[1]);
-            pv(acc[nt + 1], 0, r[2], r[3]);
-          }
-        } else {
-          // the positions of p's k indices 2c, 2c + 1 (b0) and 2c + 8,
-          // 2c + 9 (b1): rows rb + 2c + {0, 1, 8, 9}, or rb + 4c + {0, 2,
-          // 1, 3} in a feature-major tile's order, at one feature
-          constexpr int VW = (VB == 8 ? D / 8 : D / 16) / 4;
-          unsigned w[4][VW];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            lds_words<VCPR>(vt, rb + tpos<FM>(e >> 1, e & 1, c), g * 4 * VW,
-                            w[e]);
-#pragma unroll
-            for (int x = 0; x < VW; ++x)
-              w[e][x] ^= VB == 8 ? 0x80808080u : 0x88888888u;
-          }
-          if constexpr (VB == 8) {
-#pragma unroll
-            for (int nt = 0; nt < NO; ++nt)
-              pv(acc[nt], 0, bf16x2_bytes(w[0][nt / 4], w[1][nt / 4], nt % 4),
-                 bf16x2_bytes(w[2][nt / 4], w[3][nt / 4], nt % 4));
-          } else {
-#pragma unroll
-            for (int j = 0; j < D / 16; ++j) {
-              const unsigned sel = (j % 4) | ((4 + j % 4) << 8);
-              const unsigned u0 = __byte_perm(w[0][j / 4], w[1][j / 4], sel);
-              const unsigned u1 = __byte_perm(w[2][j / 4], w[3][j / 4], sel);
-              pv(acc[j], 0, bf16x2_nibbles(u0, 0), bf16x2_nibbles(u1, 0));
-              pv(acc[D / 16 + j], 1, bf16x2_nibbles(u0, 4),
-                 bf16x2_nibbles(u1, 4));
-            }
-          }
-        }
+        v_operands<VB, D, FM>(vt, rb, lane,
+                              [&](int nt, int h, unsigned b0, unsigned b1) {
+                                pv(acc[nt], h, b0, b1);
+                              });
       };
       if constexpr (Rows::kMirror) {
         if (t0 < kt_end) {
@@ -1082,7 +1488,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
   cluster_sync();  // no block leaves while its partials are read
 }
 
-template <int D, int KB, int VB, typename Rows>
+template <int D, int KB, int VB, bool I8 = false, typename Rows>
 int launch(const Args& a, const Side& k, const Side& v, Rows rows,
            const NewRows& nr, int B) {
   constexpr int NK = n_scales<KB>(), NV = n_scales<VB>();
@@ -1090,8 +1496,12 @@ int launch(const Args& a, const Side& k, const Side& v, Rows rows,
                                          head_bytes<VB, D>() + 4 * (NK + NV));
   const size_t ring = (size_t)a.pw * a.stages * stage;
   const size_t part = ((size_t)a.pw * a.R * (D + 2) + 2 * a.R) * 4;
-  const size_t smem = ring > part ? ring : part;
-  auto kern = attention_kernel<D, KB, VB, Rows>;
+  size_t smem = ring > part ? ring : part;
+  // the int8-dot path's exchange: (max, two granule maxima) a row, for
+  // each group and for the block's two parities
+  if constexpr (I8)
+    smem = (smem + 15) / 16 * 16 + ((size_t)a.pw * a.R + 2 * a.R) * 3 * 4;
+  auto kern = attention_kernel<D, KB, VB, Rows, I8>;
   static size_t sized = 48 * 1024;
   if (smem > sized) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -1114,10 +1524,14 @@ int launch(const Args& a, const Side& k, const Side& v, Rows rows,
   return (int)cudaLaunchKernelEx(&cfg, kern, a, k, v, rows, nr);
 }
 
-template <int D, typename Rows>
+template <int D, bool I8, typename Rows>
 int by_bits(const Args& a, const Side& k, const Side& v, Rows rows,
             const NewRows& nr, int B, int kb, int vb) {
-  if constexpr (Rows::kMirror) {   // int8 K: int8 or int4 V
+  if constexpr (I8) {   // contiguous stores whose K is int8 bytes
+    if (kb == 8 && vb == 8) return launch<D, 8, 8, true>(a, k, v, rows, nr, B);
+    if (kb == 4 && vb == 4) return launch<D, 4, 4, true>(a, k, v, rows, nr, B);
+    if (kb == 8 && vb == 4) return launch<D, 8, 4, true>(a, k, v, rows, nr, B);
+  } else if constexpr (Rows::kMirror) {   // int8 K: int8 or int4 V
     if (kb == 8 && vb == 8) return launch<D, 8, 8>(a, k, v, rows, nr, B);
     if (kb == 8 && vb == 4) return launch<D, 8, 4>(a, k, v, rows, nr, B);
   } else {
@@ -1132,11 +1546,15 @@ int by_bits(const Args& a, const Side& k, const Side& v, Rows rows,
 // The plan's rules (ops/kernels/decode_attention.py `attention_plan`) and
 // the 16-byte alignment the copies need; the scales' copies are 16 bytes
 // wide where their rows allow it.
-// New rows need both sides; the mirror layout takes none.
-template <typename Rows>
+// New rows need both sides; the mirror layout takes none. The int8-dot
+// path (I8) takes a block of p's granule that covers S or is a whole
+// number of tiles.
+template <bool I8 = false, typename Rows>
 int dispatch(Args a, const Side& k, const Side& v, Rows rows,
              const NewRows& nr, int B, int D, int kb, int vb,
              int scale_step) {
+  if (I8 && (a.blk < 1 || (a.blk < a.S && a.blk % a.tile)))
+    return (int)cudaErrorInvalidValue;
   const bool quant = kb != 16;
   const int esk = kb == 16 ? 2 : 1, esv = vb == 16 ? 2 : 1;
   if (a.R < 1 || a.R > MAX_ROWS || a.T < 1 || a.R % a.T || a.tile < 16 ||
@@ -1153,8 +1571,8 @@ int dispatch(Args a, const Side& k, const Side& v, Rows rows,
                       (uintptr_t)v.scale % 16 == 0 && k.ssb % 4 == 0 &&
                       v.ssb % 4 == 0 && k.srs % 4 == 0 && v.srs % 4 == 0 &&
                       scale_step % 4 == 0);
-  if (D == 64) return by_bits<64>(a, k, v, rows, nr, B, kb, vb);
-  if (D == 128) return by_bits<128>(a, k, v, rows, nr, B, kb, vb);
+  if (D == 64) return by_bits<64, I8>(a, k, v, rows, nr, B, kb, vb);
+  if (D == 128) return by_bits<128, I8>(a, k, v, rows, nr, B, kb, vb);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -30,6 +30,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "deeppowers_tpu_torch"
 SOURCES = ("dequant_matmul.cu", "gemv.cu", "kv_append.cu",
            "decode_attention.cu", "decode_attention_kt.cu",
+           "decode_attention_i8.cu",
            "flash_attention.cu")
 HEADERS = ("common.cuh", "decode_attention.cuh", "wgmma.cuh",
            "dequant_common.cuh", "kv_store.cuh")
@@ -55,6 +56,9 @@ SIGNATURES: Dict[str, list] = {
     "dpt_decode_attention": [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _LL, _P, _LL,
                              _LL, _P] + [_I] * 14 + [_F, _P]
                             + [_P, _LL, _LL, _P, _LL, _LL, _P, _P],
+    "dpt_decode_attention_i8": [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _LL,
+                                _P, _LL, _LL, _P] + [_I] * 14 + [_F, _P]
+                               + [_P, _LL, _LL, _P, _LL, _LL, _P, _I, _P],
     "dpt_decode_attention_paged": [_P, _LL, _P, _P, _P, _P, _P, _I, _I, _P]
                                   + [_I] * 14 + [_F, _P, _I]
                                   + [_P, _LL, _LL, _P, _LL, _LL, _P, _P, _P,

@@ -2,9 +2,29 @@
 versions and launch counts for the contiguous, the paged and the kt-mirror
 layout, for one token a slot (decode) or a speculative verify window of T
 tokens a slot. CUDA sources: csrc/decode_attention.cuh (one kernel
-template, three row layouts, four store variants) with the entry points
-of csrc/decode_attention.cu (contiguous, paged) and
+template, three row layouts, four store variants, and the int8-dot
+variant) with the entry points of csrc/decode_attention.cu (contiguous,
+paged), csrc/decode_attention_i8.cu (the int8-dot variant, "3i") and
 csrc/decode_attention_kt.cu (the mirror, #7).
+
+The int8-dot variant: the TPU kernel's `int8_dots` branch of
+`_kernel_mxu` (:196-216, :219-237, :283-301), which its TPU route takes
+by default wherever K is stored as int8 bytes (int8, int4, k8v4), decode
+and verify, per-layer and stacked: q requantized to int8 per row, exact
+integer dots for q.K^T, p (times its V scale) requantized to int8 per
+row and per S block of the TPU kernel's grid (`int8_dots_block`), whose
+p.V sums are exact. `decode_attention` takes it on the card as the JAX
+package's call sites do (`int8_dots_default`: the switch DPT_ATTN_INT8,
+"0" off, and the S >= 128 rule of `attention_decode_auto` for the int8
+store and of the stacked route); `int8_dots=` overrides, as on
+`decode_attention_mxu`. Its plain version is
+`decode_attention_int8_dots_plain`, the function held against Pallas in
+interpret mode. A CPU tensor keeps the JAX package's CPU function
+(`decode_attention_plain`, which never takes the Pallas kernel) unless
+`cpu_attention_function("kernel")` gives it the card's. Its launches
+count under the store's keys and under "i8:" + the key ("i8:int8",
+"i8:k8v4:t5+rows"). The bf16-dot kernel described below stays the path
+of bf16 stores, of #5 and #11, and of every store with DPT_ATTN_INT8=0.
 
 `decode_attention_kt` / `verify_attention_kt` replace the Pallas TPU
 kernel `decode_attention_kt` :1081 (pallas_call :1132, body `_kt_kernel`
@@ -101,6 +121,7 @@ more than the kernel's whole limit against the plain version (1e-2).
 from __future__ import annotations
 
 import collections
+import os
 from typing import Optional
 
 import torch
@@ -254,6 +275,16 @@ def _flat_rows(new: NewRows):
     return new.k.reshape(b * t, -1), new.v.reshape(b * t, -1)
 
 
+def _write_plain(k_cache, v_cache, new: NewRows, **store):
+    """The step's rows into a contiguous cache by `scatter_rows_plain`, in
+    place (row b*T + t is slot b's token t)."""
+    b, t = new.pos.shape
+    scatter_rows_plain(
+        k_cache, v_cache, *_flat_rows(new), new.pos.reshape(-1),
+        slots=None if t == 1 else torch.arange(
+            b, device=new.pos.device).repeat_interleave(t), **store)
+
+
 def decode_attention_plain(q, k_cache, v_cache, lengths, *, k_scale=None,
                            v_scale=None, kv_bits: int = 8, v_bits: int = 0,
                            scale: Optional[float] = None, tokens: int = 1,
@@ -264,12 +295,8 @@ def decode_attention_plain(q, k_cache, v_cache, lengths, *, k_scale=None,
     package's CPU numerics per variant (module docstring). `new`: first
     `scatter_rows_plain` writes the step's rows (in place)."""
     if new is not None:
-        b, t = new.pos.shape
-        scatter_rows_plain(
-            k_cache, v_cache, *_flat_rows(new), new.pos.reshape(-1),
-            slots=None if t == 1 else torch.arange(
-                b, device=new.pos.device).repeat_interleave(t),
-            k_scale=k_scale, v_scale=v_scale, kv_bits=kv_bits, v_bits=v_bits)
+        _write_plain(k_cache, v_cache, new, k_scale=k_scale, v_scale=v_scale,
+                     kv_bits=kv_bits, v_bits=v_bits)
     b, o, d = q.shape
     s = k_cache.shape[1]
     scale = scale if scale is not None else d ** -0.5
@@ -291,15 +318,179 @@ def decode_attention_plain(q, k_cache, v_cache, lengths, *, k_scale=None,
                         scale, tokens)
 
 
-def _count(fn, name: str, tokens: int, new: bool = False) -> None:
+#: what `decode_attention` computes for a CPU tensor: "xla" or "kernel"
+_cpu_function = "xla"
+
+
+def cpu_attention_function(name: str) -> str:
+    """Choose what `decode_attention` computes for a CPU tensor, and return
+    the former choice. "xla" (the default): `decode_attention_plain`, the
+    JAX package's CPU function, which never takes the Pallas kernel.
+    "kernel": the card's function, the int8-dot plain version wherever
+    the card takes the int8-dot variant (`int8_dots_default`), for a CPU
+    reference that is held against the card's results (the path phases of
+    chip_smoke.py, beside ops/matmul.py's `cpu_weight_only_function`).
+    CUDA tensors take the kernels either way."""
+    global _cpu_function
+    if name not in ("xla", "kernel"):
+        raise ValueError(f"cpu_attention_function: {name!r} is neither "
+                         f"'xla' nor 'kernel'")
+    old, _cpu_function = _cpu_function, name
+    return old
+
+
+def int8_dots_default(name: str, s: int, stacked: bool = False) -> bool:
+    """Whether #3 takes its int8-dot path for a store `name` of S
+    positions, as the TPU route of the JAX package decides: the switch
+    DPT_ATTN_INT8 ("0" turns it off; anything else, or unset, on,
+    decode_attention.py:393-399) and K stored as int8 bytes (int8, int4,
+    k8v4), at the call sites that reach the kernel (models/transformer.py
+    :1179-1183, :1236-1250, :1309-1323): a stacked cache (`layer=`) of S
+    >= 128, the int8 store (`attention_decode_auto`, ops/attention.py
+    :283-287, and `_verify_attn`) at S >= 128, int4 and k8v4 at any S."""
+    if name == "bf16" or os.environ.get("DPT_ATTN_INT8", "1") == "0":
+        return False
+    return s >= 128 if stacked or name == "int8" else True
+
+
+def _resolve_dots(int8_dots: Optional[bool], name: str, s: int) -> bool:
+    """None: `int8_dots_default` of a per-layer cache; True only where K
+    is stored as int8 bytes (JAX :399)."""
+    if int8_dots is None:
+        return int8_dots_default(name, s)
+    return bool(int8_dots) and name != "bf16"
+
+
+def int8_dots_block(s: int, f: int, block_s: Optional[int] = None) -> int:
+    """Positions of one S block of the TPU kernel's grid over S positions
+    of F bytes a K row (JAX `_auto_block_s` :325-335): the largest multiple
+    of 128 whose K block fits 2 MiB, at most 1024, or the whole S when it
+    fits. The int8-dot path requantizes p per block, so the block is part
+    of its function: 1024 at TinyLlama's and Mixtral's heads, 512 at the
+    7B's k8v4 (F = 4096)."""
+    if block_s is None:
+        block_s = min(max((2 << 20) // f // 128 * 128, 128), 1024)
+    return s if s <= block_s else block_s
+
+
+def decode_attention_int8_dots_plain(q, k_cache, v_cache, lengths, *,
+                                     k_scale, v_scale, kv_bits: int = 8,
+                                     v_bits: int = 0,
+                                     scale: Optional[float] = None,
+                                     tokens: int = 1,
+                                     new: Optional[NewRows] = None,
+                                     block_s: Optional[int] = None
+                                     ) -> torch.Tensor:
+    """The int8-dot path of the TPU kernel (`_kernel_mxu` with int8_dots,
+    decode_attention.py:196-216, :219-237, :283-301) in plain PyTorch,
+    over the stores of `decode_attention_plain` whose K is int8 bytes
+    (int8, int4, k8v4; per-layer or a stacked layer's views), for decode
+    or a folded verify window. `new`: first `scatter_rows_plain` writes
+    the step's rows (in place). Per kv head and query row:
+      - qs = max(max|q * scale|, 1e-30) * fl(1 / 127) (q * scale in f32;
+        XLA computes JAX's `/ 127.0` so), codes wi8 = clip(round(q *
+        scale / qs), -127, 127), half to even;
+      - scores: the exact integer dot of wi8 and the K codes, then
+        (dot * qs) * k_scale for int8 K; for packed int4 K each D half's
+        dot against its nibbles (v + 8, less 8 * the half's code sum),
+        (dot0 * ks0 + dot1 * ks1) * qs;
+      - then per S block of `int8_dots_block` positions, in order, the
+        online softmax in f32, and p times the V scale (per half for
+        packed V) requantized per row and block: rs = max(max p, 1e-30) *
+        fl(1 / 127), pi8 = clip(round(p / rs), 0, 127); acc = acc * alpha
+        + (pi8 . V codes) * rs.
+    Positions at or past a row's bound are selected away, their scales
+    never multiplied into a sum (the TPU kernel multiplies a zero
+    probability into a stale V scale, so a NaN there gives NaN)."""
+    if new is not None:
+        _write_plain(k_cache, v_cache, new, k_scale=k_scale, v_scale=v_scale,
+                     kv_bits=kv_bits, v_bits=v_bits)
+    b, o, d = q.shape
+    s, fk = k_cache.shape[1], k_cache.shape[2]
+    name = store_variant(k_scale, kv_bits, v_bits)
+    if name == "bf16":
+        raise ValueError("the int8-dot path takes a K stored as int8 bytes")
+    kb, vb = STORE_BITS[name]
+    kh = scale_heads(k_scale, kb)
+    rep = o // kh
+    bs = int8_dots_block(s, fk, block_s)
+    dev = q.device
+    zero = torch.zeros((), device=dev)
+    sc = torch.tensor(scale if scale is not None else d ** -0.5,
+                      dtype=torch.float32)
+    qf = q.float().reshape(b, kh, rep, d) * sc
+    # XLA turns JAX's division by the constant 127 into a product with
+    # fl(1 / 127) (the jitted kernel's qs and rs, bit for bit)
+    inv127 = torch.ones((), dtype=torch.float32) / 127.0
+    qs = qf.abs().amax(-1, keepdim=True).clamp_min(1e-30) * inv127
+    k4 = k_cache.reshape(b, s, kh, -1)
+    v4 = v_cache.reshape(b, s, kh, -1)
+    if kb == 4:
+        halves = (qf[..., :d // 2], qf[..., d // 2:])
+        k_codes = unpack4(k4)
+        ks = k_scale.float().reshape(b, kh, 2, s)
+    else:
+        halves, k_codes = (qf,), (k4,)
+        ks = k_scale.float()[:, :, None]
+    # exact integer dots (every partial sum below 2^24), then the scales
+    parts = [torch.einsum("bkrd,bskd->bkrs",
+                          torch.clamp(torch.round(h / qs), -127, 127),
+                          c.float()) for h, c in zip(halves, k_codes)]
+    if kb == 4:
+        scores = (parts[0] * ks[:, :, None, 0]
+                  + parts[1] * ks[:, :, None, 1]) * qs
+    else:
+        scores = (parts[0] * qs) * ks
+    valid, seen = _masks(q, s, lengths, tokens)
+    seen = seen.reshape(b, kh, rep, s)
+    scores = torch.where(seen, scores, torch.full((), NEG_INF, device=dev))
+    if vb == 4:
+        lo, hi = unpack4(v4)
+        v_parts = (lo.float(), hi.float())
+        vs = v_scale.float().reshape(b, kh, 2, s)
+        v_scales = (vs[:, :, None, 0], vs[:, :, None, 1])
+    else:
+        v_parts = (v4.float(),)
+        v_scales = (v_scale.float()[:, :, None],)
+    v_parts = [torch.where(valid[:, :, None, None], v, zero) for v in v_parts]
+    m = torch.full((b, kh, rep, 1), NEG_INF, device=dev)
+    l = torch.zeros((b, kh, rep, 1), device=dev)
+    acc = [torch.zeros((b, kh, rep, v.shape[-1]), device=dev)
+           for v in v_parts]
+    lens = lengths.to(dev).long()
+    for lo_s in range(0, s, bs):
+        hi_s = min(lo_s + bs, s)
+        live = (lo_s < lens)[:, None, None, None]
+        blk = scores[..., lo_s:hi_s]
+        sn = seen[..., lo_s:hi_s]
+        m_new = torch.maximum(m, blk.amax(-1, keepdim=True))
+        p = torch.where(sn, torch.exp(blk - m_new), zero)
+        alpha = torch.exp(m - m_new)
+        l = torch.where(live, l * alpha + p.sum(-1, keepdim=True), l)
+        for i, (v, vsc) in enumerate(zip(v_parts, v_scales)):
+            pv = torch.where(sn, p * vsc[..., lo_s:hi_s], zero)
+            rs = pv.amax(-1, keepdim=True).clamp_min(1e-30) * inv127
+            pi8 = torch.clamp(torch.round(pv / rs), 0, 127)
+            di = torch.einsum("bkrs,bskd->bkrd", pi8, v[:, lo_s:hi_s])
+            acc[i] = torch.where(live, acc[i] * alpha + di * rs, acc[i])
+        m = torch.where(live, m_new, m)
+    l_inv = 1.0 / l.clamp_min(1e-30)
+    out = torch.cat([a * l_inv for a in acc], -1)
+    return out.reshape(b, o, d).to(q.dtype)
+
+
+def _count(fn, name: str, tokens: int, new: bool = False,
+           dots: bool = False) -> None:
     """One launch, counted under its store and window: "int8" for decode,
     "int8:t5" for a verify window of 5; one that wrote the step's rows
-    also under "int8+rows", "int8:t5+rows"."""
+    also under "int8+rows", "int8:t5+rows"; one of the int8-dot variant
+    also under each of those keys with "i8:" before it ("i8:int8",
+    "i8:int8:t5+rows")."""
     key = name if tokens == 1 else f"{name}:t{tokens}"
+    keys = [key, key + "+rows"] if new else [key]
     fn.launches += 1
-    fn.variant_launches[key] += 1
-    if new:
-        fn.variant_launches[key + "+rows"] += 1
+    for k in keys + (["i8:" + k for k in keys] if dots else []):
+        fn.variant_launches[k] += 1
 
 
 def _new_args(new: Optional[NewRows], b: int, tokens: int, f: int):
@@ -372,32 +563,39 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_scale: Optional[torch.Tensor] = None,
                      kv_bits: int = 8, v_bits: int = 0,
                      scale: Optional[float] = None, tokens: int = 1,
-                     new: Optional[NewRows] = None) -> torch.Tensor:
+                     new: Optional[NewRows] = None,
+                     int8_dots: Optional[bool] = None) -> torch.Tensor:
     """q: (B, H*T, D) query rows, T = tokens (folded as `fold_tokens`
     folds a window); k_cache, v_cache: (B, S, F') stores (bf16 F' = Kh*D;
     int8 Kh*D; packed int4 Kh*D/2); k_scale, v_scale: (B, R, S) f32 when
     quantized; lengths: (B,) valid positions per slot (including the
     current token, or all T window tokens); `new`: the step's rows, written
-    by the same launch before it reads them (module docstring). Returns
-    (B, H*T, D). A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel or raises."""
+    by the same launch before it reads them (module docstring);
+    `int8_dots`: the int8-dot path, as JAX's `decode_attention_mxu` takes
+    it (None: `int8_dots_default` of a per-layer cache). Returns (B, H*T,
+    D). A CPU tensor takes the plain version of `cpu_attention_function`'s
+    choice; a CUDA tensor launches the kernel or raises."""
+    name = store_variant(k_scale, kv_bits, v_bits)
+    dots = _resolve_dots(int8_dots, name, k_cache.shape[1])
     if not q.is_cuda:
-        return decode_attention_plain(q, k_cache, v_cache, lengths,
-                                      k_scale=k_scale, v_scale=v_scale,
-                                      kv_bits=kv_bits, v_bits=v_bits,
-                                      scale=scale, tokens=tokens, new=new)
+        plain = (decode_attention_int8_dots_plain
+                 if dots and _cpu_function == "kernel"
+                 else decode_attention_plain)
+        return plain(q, k_cache, v_cache, lengths, k_scale=k_scale,
+                     v_scale=v_scale, kv_bits=kv_bits, v_bits=v_bits,
+                     scale=scale, tokens=tokens, new=new)
     out = _launch(q, k_cache, v_cache, lengths, k_scale=k_scale,
                   v_scale=v_scale, kv_bits=kv_bits, v_bits=v_bits,
-                  scale=scale, tokens=tokens, new=new)
-    _count(decode_attention, store_variant(k_scale, kv_bits, v_bits), tokens,
-           new is not None)
+                  scale=scale, tokens=tokens, new=new, int8_dots=dots)
+    _count(decode_attention, name, tokens, new is not None, dots)
     return out
 
 
 def _launch(q, k_cache, v_cache, lengths, *, k_scale, v_scale, kv_bits,
-            v_bits, scale, tokens, new=None):
-    """Check the operands of the contiguous kernel and launch it (not
-    counted: its callers count their own launches)."""
+            v_bits, scale, tokens, new=None, int8_dots=False):
+    """Check the operands of the contiguous kernel and launch it, or its
+    int8-dot variant (not counted: its callers count their own
+    launches)."""
     name = store_variant(k_scale, kv_bits, v_bits)
     b, o, d = q.shape
     s = k_cache.shape[1]
@@ -436,11 +634,16 @@ def _launch(q, k_cache, v_cache, lengths, *, k_scale, v_scale, kv_bits,
     scale = scale if scale is not None else d ** -0.5
     plan = attention_plan(b, kh, s, rows, d)
     out = torch.empty((b, o, d), dtype=torch.bfloat16, device=q.device)
-    rc = _build.library().dpt_decode_attention(
-        q.data_ptr(), q.stride(0), k_cache.data_ptr(), k_cache.stride(0),
-        v_cache.data_ptr(), v_cache.stride(0), *sc_args, lens.data_ptr(), b,
-        s, kh, rows, tokens, d, kb, vb, *plan, float(scale), out.data_ptr(),
-        *_new_args(new, b, tokens, kh * d), _build.stream())
+    lib = _build.library()
+    args = [q.data_ptr(), q.stride(0), k_cache.data_ptr(), k_cache.stride(0),
+            v_cache.data_ptr(), v_cache.stride(0), *sc_args, lens.data_ptr(),
+            b, s, kh, rows, tokens, d, kb, vb, *plan, float(scale),
+            out.data_ptr(), *_new_args(new, b, tokens, kh * d)]
+    if int8_dots:
+        rc = lib.dpt_decode_attention_i8(*args, int8_dots_block(s, kw),
+                                         _build.stream())
+    else:
+        rc = lib.dpt_decode_attention(*args, _build.stream())
     _build.check(rc, "decode_attention")
     return out
 

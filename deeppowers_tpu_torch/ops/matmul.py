@@ -28,10 +28,15 @@ and the GLU as the unfused ops round them, `a * up` rounded to the
 activation dtype before the dot (a probe of the jitted JAX functions on
 the CPU: the product reaches the dot rounded, unlike the a8 quantizer's
 input); bias, then residual, added after the cast, in the output dtype.
-That is XLA's function for two rows or more; for a single row its CPU
-compiler fuses the dequantization (and parts of the unfused ops) into a
-vector-matrix dot and keeps some products in f32, which the port does not
-copy (ROADMAP.md, queue 3). `cpu_weight_only_function("kernel")` gives
+That is XLA's function for two rows or more, and for one row of a
+rank-3 input. For a single row of rank 2, (1, K), its CPU compiler fuses
+the dequantization and the GLU's product into a vector-matrix dot, and
+`_xla_matmul` follows what that keeps in f32 (a probe of the jitted
+functions, bf16 outputs):
+per-channel weights as q * bf16(s) unrounded (grouped ones still round
+each product to bf16), the GLU's a * up unrounded, the norm rounded as
+before. The f32 order of the dot's sums stays PyTorch's (ROADMAP.md,
+Decisions). `cpu_weight_only_function("kernel")` gives
 CPU tensors the kernels' function instead (their plain versions), for a
 CPU reference that is held against the card's results.
 """
@@ -80,19 +85,35 @@ def _xla_route(x: torch.Tensor, w: Weight) -> bool:
             and not x.is_cuda and _cpu_function == "xla")
 
 
-def _xla_matmul(x, w: QuantizedTensor, out_dtype):
+def _one_row(x: torch.Tensor) -> bool:
+    """Whether x is a single row of rank 2, (1, K): there XLA's CPU
+    compiler fuses the dequantization into a vector-matrix dot and drops
+    the bf16 rounding of its products; a (1, 1, K) operand (a decode step
+    of one slot) keeps the rounding, as two rows do (a probe of the
+    optimized HLO: `multiply_dot_fusion` against `convert_dot_fusion`)."""
+    return x.dim() == 2 and x.shape[0] == 1
+
+
+def _xla_matmul(x, w: QuantizedTensor, out_dtype, cast: bool = True):
     """JAX `quantized_matmul`'s XLA path (:120-123) behind
     `_dequant_weights` (:28-41): the weight dequantized into bf16 for a
     bf16 output (each product rounded), else f32, x cast to that dtype,
-    f32 sums, one cast."""
+    f32 sums, one cast. At one row with per-channel scales the fused dot
+    keeps each q * bf16(s) in f32 instead (grouped weights still round).
+    `cast=False` dots x as it comes (the one-row GLU's f32 product)."""
     _check_weight(w)
     dt = torch.bfloat16 if out_dtype == torch.bfloat16 else torch.float32
     q = unpack_int4(w.data) if w.bits == 4 else w.data
     k, n = q.shape
     rows = w.scales.numel() // n
-    wd = (q.to(dt).reshape(rows, k // rows, n)
-          * w.scales.reshape(rows, 1, n).to(dt)).reshape(k, n)
-    return torch.matmul(x.to(dt).float(), wd.float()).to(out_dtype)
+    one = _one_row(x)
+    if one and rows == 1:
+        wd = q.float() * w.scales.reshape(1, n).to(dt).float()
+    else:
+        wd = (q.to(dt).reshape(rows, k // rows, n)
+              * w.scales.reshape(rows, 1, n).to(dt)).reshape(k, n)
+    return torch.matmul((x.to(dt) if cast else x).float(),
+                        wd.float()).to(out_dtype)
 
 
 def _add(y, t):
@@ -141,7 +162,10 @@ def glu_matmul(gu: torch.Tensor, w: Weight, *, act: str = "silu",
     gate, up = torch.chunk(gu, 2, dim=-1)
     a = activation(gate, act)     # JAX's unfused ops' rounding (:172)
     if isinstance(w, QuantizedTensor):  # JAX :170-180
-        y = _xla_matmul(a * up, w, out_dtype)
+        # at one row the fused dot takes a * up unrounded, in f32
+        one = _one_row(a)
+        y = _xla_matmul(a.float() * up.float() if one else a * up, w,
+                        out_dtype, cast=not one)
     else:
         y = _float_matmul(a * up, w, out_dtype)
     return _add(_add(y, bias), residual)

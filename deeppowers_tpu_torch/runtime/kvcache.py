@@ -56,9 +56,11 @@ from ..ops.kernels.decode_attention import (KT_CHUNK, NewRows,
                                             decode_attention,
                                             decode_attention_kt,
                                             decode_attention_paged,
-                                            fold_tokens, unfold_tokens)
+                                            fold_tokens, int8_dots_default,
+                                            unfold_tokens)
 from ..ops.kernels.kv_append import scatter_rows
-from ..quant.kvquant import dequant_side, flat_heads, new_store, store_args
+from ..quant.kvquant import (dequant_side, flat_heads, new_store, store_args,
+                             store_variant)
 from . import kvcache_paged, kvcache_stacked
 
 
@@ -285,8 +287,14 @@ def append_attend(cache, q: torch.Tensor, k_new: torch.Tensor,
                                      **store_args(cache))
     elif isinstance(cache, kvcache_stacked.StackedLayer):
         st, i = cache.cache, cache.index
+        kw = kvcache_stacked.store_args(st, i)
+        # JAX's stacked route reaches the kernel (and its int8-dot path)
+        # at S >= 128 for every store (transformer.py:1166-1215)
+        dots = int8_dots_default(store_variant(kw.get("k_scale"), st.bits,
+                                               st.v_bits), st.k.shape[2],
+                                 stacked=True)
         out = decode_attention(qf, st.k[i], st.v[i], lengths, tokens=t,
-                               new=new, **kvcache_stacked.store_args(st, i))
+                               new=new, int8_dots=dots, **kw)
     else:
         out = decode_attention(qf, cache.k, cache.v, lengths, tokens=t,
                                new=new, **store_args(cache))

@@ -313,11 +313,14 @@ CARD_CASES = [(m, lay, t) for m in ("tinyllama", "llama2-7b")
 @pytest.mark.cuda
 @pytest.mark.parametrize("store", STORES)
 @pytest.mark.parametrize("case", CARD_CASES, ids=str)
-def test_cuda_fold_matches_plain(cuda_device, case, store):
+def test_cuda_fold_matches_plain(cuda_device, case, store, monkeypatch):
     """The fold on the card against its plain route on copies of the same
     cache (8 slots, S = 1024, stale NaN in the rows' slots): cache bytes
     and scales equal, every output row within 1e-2 of its max|ref| and
-    finite; one counted launch a call."""
+    finite; one counted launch a call. #3's bf16-dot kernel
+    (DPT_ATTN_INT8=0): the int8-dot variant's fold cases are
+    tests/test_torch_decode_attention.py's."""
+    monkeypatch.setenv("DPT_ATTN_INT8", "0")
     model, layout, t = case
     hq, kh, d = MODELS[model]
     b, s = 8, 1024

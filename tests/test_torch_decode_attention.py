@@ -193,12 +193,15 @@ HEADS = dict(MODELS, **{"r64-d64": (64, 1, 64), "r64-d128": (16, 1, 128)})
 @pytest.mark.cuda
 @pytest.mark.parametrize("store", STORES)
 @pytest.mark.parametrize("case", CARD_CASES, ids=str)
-def test_cuda_decode_attention_matches_plain(cuda_device, case, store):
+def test_cuda_decode_attention_matches_plain(cuda_device, case, store,
+                                             monkeypatch):
     """#3 (contiguous, layer and window views) and #5 (paged) against their
     plain versions at lengths 0, 1 and around each tile, split and page
     edge, with NaN in stale rows and stale scales: every (slot, row) within
     1e-2 of its max|ref|, finite; two calls give identical bytes; each call
-    one counted launch."""
+    one counted launch. #3's bf16-dot kernel (DPT_ATTN_INT8=0; the
+    int8-dot variant's cases are below)."""
+    monkeypatch.setenv("DPT_ATTN_INT8", "0")
     model, t, layout = case
     hq, kh, d = HEADS[model]
     dev, s = cuda_device, MAX_SEQ
@@ -283,3 +286,154 @@ def test_cuda_decode_attention_is_one_launch(cuda_device, model, paged):
     assert len(ours) == 1, kernels
     assert not any("combine_kernel" in k or "memset" in k.lower()
                    for k in kernels), kernels
+
+
+# ---------------------------------------------------------------------------
+# #3's int8-dot variant (3i)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("store", ("int8", "int4", "k8v4"))
+@pytest.mark.parametrize("model", sorted(MODELS))
+def test_int8_dots_plan_fits(model, store):
+    """The int8-dot variant launches #3's plan with a block of p's granule
+    that covers S or is a whole number of tiles (`int8_dots_block`), and
+    its shared memory (the rings or the partials, then the exchange: (max,
+    two granule maxima) a row for each group and for two blocks) fits a
+    block, at every R = 1..64 and the served rows."""
+    hq, kh, d = MODELS[model]
+    kb, vb = STORE_BITS[store]
+    width = kh * d // 2 if kb == 4 else kh * d
+    rep = hq // kh
+    for s in (128, 1000, MAX_SEQ, 4096):
+        bs = da.int8_dots_block(s, width)
+        for rows in sorted(set(range(1, da.MAX_ROWS + 1)) | {rep, rep * 5}):
+            plan = da.attention_plan(8, kh, s, rows, d)
+            assert bs >= s or bs % plan.tile == 0
+            smem = -(-_smem(plan, rows, d, kb, vb) // 16) * 16 + \
+                (plan.pw * rows + 2 * rows) * 3 * 4
+            assert smem <= SMEM_LIMIT
+
+
+def _i8_lengths(bs, s, t):
+    """Lengths 0, 1, inside, at and past a block's end (or S), and S; a
+    window's keep its T rows."""
+    lens = [0, 1, 17, bs - 1, min(bs, s), min(bs + 1, s), 700, s]
+    return [n if n == 0 else max(n, t) for n in lens]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_rows", [False, True], ids=["read", "rows"])
+@pytest.mark.parametrize("layout", ["contiguous", "stacked", "window"])
+@pytest.mark.parametrize("t", [1, 5])
+@pytest.mark.parametrize("store", ["int8", "int4", "k8v4"])
+@pytest.mark.parametrize("model", sorted(MODELS))
+def test_cuda_int8_dots_matches_plain(cuda_device, model, store, t, layout,
+                                      with_rows):
+    """The int8-dot variant against `decode_attention_int8_dots_plain` at
+    the served models' heads, S = 1024 (the 7B's k8v4 block is 512, so
+    lengths cross it), lengths 0, 1 and around a block's end, NaN in the
+    scales past each length; with `rows`, the step's rows written by the
+    launch first (over NaN scales and stale bytes in their slots): cache
+    bytes and scales equal to the plain route's, every (slot, row) within
+    1e-2 of its max|ref|, finite; two calls identical; each call counted
+    under "i8:" + its store and window (and "+rows")."""
+    hq, kh, d = MODELS[model]
+    dev, s, b = cuda_device, MAX_SEQ, 8
+    kb, vb = STORE_BITS[store]
+    g = torch.Generator(device=dev).manual_seed(
+        sum(map(ord, model + store + layout)) + t + with_rows)
+    width = kh * d // 2 if kb == 4 else kh * d
+    lens = _i8_lengths(da.int8_dots_block(s, width), s, t)
+    lead, extra = {"stacked": ((2,), 0), "window": ((), 64)}.get(layout,
+                                                                ((), 0))
+    kc, vc, kw = _cache(store, b, s, kh, d, lens, g, dev, lead, extra)
+    q = torch.randn(b, hq * t, d, generator=g, device=dev).to(torch.bfloat16)
+    lengths = torch.tensor(lens, device=dev)
+    new = None
+    if with_rows:
+        k_new, v_new = (torch.randn(b, t, kh * d, generator=g, device=dev)
+                        .to(torch.bfloat16) for _ in range(2))
+        pos = torch.tensor([[n - t + j if n else -1 for j in range(t)]
+                            for n in lens], device=dev, dtype=torch.int32)
+        new = da.NewRows(k_new, v_new, pos)
+        for sc in (kw["k_scale"], kw["v_scale"]):
+            sc[torch.arange(b, device=dev)[:, None].expand(b, t).clamp(
+                0), :, pos.clamp(0).long()] = float("nan")
+    state = [kc, vc, kw["k_scale"], kw["v_scale"]]
+    ref_state = [x.clone() for x in state]
+    ref_kw = dict(kw, k_scale=ref_state[2], v_scale=ref_state[3])
+    ref = da.decode_attention_int8_dots_plain(q, ref_state[0], ref_state[1],
+                                              lengths, tokens=t, new=new,
+                                              **ref_kw)
+    key = "i8:" + (store if t == 1 else f"{store}:t{t}")
+    before = da.decode_attention.variant_launches[key]
+    rows_before = da.decode_attention.variant_launches[key + "+rows"]
+    out = da.decode_attention(q, kc, vc, lengths, tokens=t, new=new,
+                              int8_dots=True, **kw)
+    again = da.decode_attention(q, kc, vc, lengths, tokens=t, new=new,
+                                int8_dots=True, **kw)
+    torch.cuda.synchronize()
+    _check_rows(out, ref)
+    assert torch.equal(out, again)
+    for x, y in zip(state, ref_state):     # bytes, NaN scales included
+        bits = torch.int8 if x.dtype == torch.int8 else torch.int32
+        assert torch.equal(x.view(bits), y.view(bits))
+    assert da.decode_attention.variant_launches[key] == before + 2
+    assert da.decode_attention.variant_launches[key + "+rows"] == \
+        rows_before + (2 if with_rows else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", ["int8", "int4", "k8v4"])
+def test_cuda_int8_dots_switch(cuda_device, store, monkeypatch):
+    """DPT_ATTN_INT8 as the JAX package reads it: unset, the default call
+    is the int8-dot variant (bit for bit with int8_dots=True, counted under
+    "i8:"); "0", it is the bf16-dot kernel (bit for bit with
+    int8_dots=False, no "i8:" count); and the two differ."""
+    hq, kh, d = MODELS["tinyllama"]
+    dev, s, b = cuda_device, MAX_SEQ, 8
+    g = torch.Generator(device=dev).manual_seed(11)
+    lens = [48, 96, 132, 232, 332, 482, 632, 932]
+    kc, vc, kw = _cache(store, b, s, kh, d, lens, g, dev)
+    q = torch.randn(b, hq, d, generator=g, device=dev).to(torch.bfloat16)
+    lengths = torch.tensor(lens, device=dev)
+    counts = da.decode_attention.variant_launches
+
+    def call(**extra):
+        return da.decode_attention(q, kc, vc, lengths, **kw, **extra)
+    dots, plain = call(int8_dots=True), call(int8_dots=False)
+    monkeypatch.delenv("DPT_ATTN_INT8", raising=False)
+    n = counts["i8:" + store]
+    assert torch.equal(call(), dots) and counts["i8:" + store] == n + 1
+    monkeypatch.setenv("DPT_ATTN_INT8", "0")
+    assert torch.equal(call(), plain) and counts["i8:" + store] == n + 1
+    assert not torch.equal(dots, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["tinyllama", "llama2-7b"])
+def test_cuda_int8_dots_is_one_launch(cuda_device, model):
+    """One kernel a call for the int8-dot variant too (its block maxima
+    meet in shared and distributed shared memory, not in a second
+    launch): a k8v4 decode step over lengths that cross the 7B's block."""
+    dev, b, s = cuda_device, 8, MAX_SEQ
+    hq, kh, d = MODELS[model]
+    g = torch.Generator(device=dev).manual_seed(6)
+    lens = [48, 96, 132, 232, 332, 482, 632, 932]
+    kc, vc, kw = _cache("k8v4", b, s, kh, d, lens, g, dev)
+    q = torch.randn(b, hq, d, generator=g, device=dev).to(torch.bfloat16)
+    lengths = torch.tensor(lens, device=dev)
+    call = lambda: da.decode_attention(q, kc, vc, lengths,  # noqa: E731
+                                       int8_dots=True, **kw)
+    call()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "memcpy" not in e.name.lower()]
+    assert len([k for k in kernels if "attention_kernel" in k]) == 1, kernels
+    assert not any("memset" in k.lower() for k in kernels), kernels

@@ -507,9 +507,12 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_cuda_quantized_kernels_match_plain(cuda_device, dtype):
+def test_cuda_quantized_kernels_match_plain(cuda_device, dtype, monkeypatch):
     """#2 and #6 exact (bytes and scale bits), #3 and #5 within 1e-2 of each
-    row's max|ref| with NaN in stale pool rows and stale scales."""
+    row's max|ref| with NaN in stale pool rows and stale scales. #3's
+    bf16-dot kernel (DPT_ATTN_INT8=0; the int8-dot variant is
+    tests/test_torch_decode_attention.py's)."""
+    monkeypatch.setenv("DPT_ATTN_INT8", "0")
     dev = cuda_device
     g = torch.Generator(device=dev).manual_seed(0)
     kb, vb = BITS[dtype]

@@ -622,13 +622,17 @@ def cuda_device():
 @pytest.mark.parametrize("dtype", STORES)
 @pytest.mark.parametrize("h, kh, d", [(32, 4, 64), (32, 32, 128),
                                       (32, 8, 128)])
-def test_cuda_verify_kernels_match_plain(cuda_device, dtype, h, kh, d):
+def test_cuda_verify_kernels_match_plain(cuda_device, dtype, h, kh, d,
+                                         monkeypatch):
     """#3 and #5 at tokens = 5 against their plain versions on the card
     (TinyLlama's 40 rows a kv head, Llama-2-7B's 5, Mixtral's 20): each
     row within 1e-2 of its max|ref| (2e-2 for int8 at 20 rows of D = 128,
     where the plain version's bf16 probabilities alone part by up to
     1.14e-2 on these inputs), finite with NaN in stale scales; each launch
-    counted under the store's `:t5` variant."""
+    counted under the store's `:t5` variant. #3's bf16-dot kernel
+    (DPT_ATTN_INT8=0; the int8-dot variant is
+    tests/test_torch_decode_attention.py's)."""
+    monkeypatch.setenv("DPT_ATTN_INT8", "0")
     dev = cuda_device
     g = torch.Generator(device=dev).manual_seed(0)
     b, s, t, ps = 8, 1024, 5, 128

@@ -7,6 +7,7 @@
     python3 chip_smoke.py --kt-ms CHECKOUT
     python3 chip_smoke.py --slot-orders CHECKOUT
     python3 chip_smoke.py --fold-ms CHECKOUT
+    python3 chip_smoke.py --i8-ms CHECKOUT
 
 The second form only times the TinyLlama int8 decode step's 89 matmuls
 and its w_gu at a 1024-token prefill through #1, the Llama-2-7B W4A8 g128
@@ -25,11 +26,13 @@ TinyLlama's heads beside #3 on the same caches (see `kt_ms`),
 `--slot-orders CHECKOUT` for the attention calls over ATTN_LENS in ten
 orders of the slots (see `slot_order_ms`), `--fold-ms CHECKOUT` for the
 attention that writes a step's rows beside the writer + attention pair
-(see `fold_ms`; a checkout without the fold times the pair only).
+(see `fold_ms`; a checkout without the fold times the pair only),
+`--i8-ms CHECKOUT` for #3's int8-dot variant at I8_HEADS beside the
+bf16-dot kernel on the same caches (see `i8_ms`).
 `--kt-ms` and `--fold-ms` run with DPT_ATTN_INT8=0, so #3 is its bf16-dot
 kernel in every checkout; `--step-ms` and `--slot-orders` time each
 checkout's default (#3's int8-dot variant for int8 and k8v4 KV since it
-exists).
+exists); `--i8-ms` names each kernel by `int8_dots=`.
 
 Phases, each printing a line with its wall time:
   1. device   the card's name and power limit (nvidia-smi), torch and CUDA
@@ -2946,6 +2949,43 @@ def check_i8_kernels(torch):
     return rows
 
 
+def i8_ms(torch) -> dict:
+    """ms a call of the int8-dot variant and of the bf16-dot kernel, each
+    writing the step's rows, at every case of `check_i8_kernels` (its
+    inputs and seeds) over cache copies past the L2, in turns int8, bf16,
+    STEP_REPS times: only the wrapper is used, so any checkout's package
+    that has the variant can be timed (`--i8-ms ROOT`)."""
+    from deeppowers_tpu_torch.ops.kernels import decode_attention as da
+    out = {}
+    i = 0
+    for heads, hq, kh, d, stores in I8_HEADS:
+        for layout in ("contiguous", "stacked"):
+            for store in stores:
+                for t in (1, SPEC_T):
+                    i += 1
+                    live = attention_live_bytes(store, kh, d, ATTN_LENS)
+                    copies = max(1, -(-ATTN_COLD_BYTES // live))
+                    q, lens, new, states, bind, stale = fold_inputs(
+                        torch, store, hq, kh, d, layout, t, copies,
+                        SEED + 80 + i)
+                    calls = {dots: [lambda a=a, k=k, dots=dots:
+                                    da.decode_attention(
+                                        *a, tokens=t, new=new,
+                                        int8_dots=dots, **k)
+                                    for a, k in (bind(st)[:2]
+                                                 for st in states)]
+                             for dots in (True, False)}
+                    name = f"{heads},{layout},{store},t{t}"
+                    for dots in (True, False) * STEP_REPS:
+                        out.setdefault(
+                            f"{'i8' if dots else 'bf16_dots'}_ms[{name}]",
+                            []).append(cuda_ms(torch, calls[dots],
+                                               20 * copies))
+                    del q, lens, new, states, bind, stale, calls
+                    torch.cuda.empty_cache()
+    return out
+
+
 def i8_case(torch, da, heads, hq, kh, d, layout, store, t, seed):
     """One row of `check_i8_kernels`."""
     live = attention_live_bytes(store, kh, d, ATTN_LENS)
@@ -5180,10 +5220,20 @@ def main(argv) -> int:
             log(json.dumps({"checkout": argv[1], "card": card_line(),
                             **fold_ms(torch)}))
         return 0
+    if argv[:1] == ["--i8-ms"] and len(argv) == 2:
+        # #3's int8-dot variant beside its bf16-dot kernel, through the
+        # package of the checkout at argv[1]
+        sys.path.insert(0, os.path.abspath(argv[1]))
+        from deeppowers_tpu_torch.ops.kernels import _build
+        _build.library()
+        log(json.dumps({"checkout": argv[1], "card": card_line(),
+                        **i8_ms(torch)}))
+        return 0
     if argv:
         sys.stderr.write("usage: chip_smoke.py [--step-ms CHECKOUT | "
                          "--ttft CHECKOUT | --kt-ms CHECKOUT | "
-                         "--slot-orders CHECKOUT | --fold-ms CHECKOUT]\n")
+                         "--slot-orders CHECKOUT | --fold-ms CHECKOUT | "
+                         "--i8-ms CHECKOUT]\n")
         return 2
     from deeppowers_tpu_torch.config import QuantConfig
     from deeppowers_tpu_torch.models import transformer as T

@@ -190,15 +190,37 @@
 //    mma.sync of the integer codes (exact in bf16; a 16-position partial
 //    is exact in f32), scaled by rs into the f32 accumulator. A block's
 //    granule spans the splits of the cluster (TinyLlama's 1024 positions
-//    are one block over four splits), so every split walks each block
-//    twice: a first pass over K and the scales finds each row's max score
-//    and max p * vs relative to it, which meet over the groups in shared
-//    memory and over the splits in distributed shared memory (a cluster
-//    barrier a block; the maxima are kept by block parity, so one barrier
-//    suffices); the second recomputes the same scores and runs the online
-//    softmax in the frame max(m, the block's max), the codes and p.V.
-//    This costs a second K read (from the L2) and a second pipeline ramp
-//    a block; its time stands beside the bf16-dot kernel's in PERF.md.
+//    are one block over four splits), so every split walks each block in
+//    two passes: the first over K and the scales keeps each position's
+//    final score (after qs, the K scales and the mask) in shared memory
+//    (i8_smem: R rows of tile + 8 floats a tile; 8-40 KB a block at the
+//    served heads) and finds each row's max score and max p * vs relative
+//    to it, which meet over the groups in shared memory and over the
+//    splits in distributed shared memory (a cluster barrier a block; the
+//    maxima are kept by block parity, so one barrier suffices); the second
+//    reads V and its scales alone and runs the online softmax on the kept
+//    scores in the frame max(m, the block's max), the codes and p.V. A
+//    group's items (its tiles' K, then their V, block after block) stream
+//    through one ring of 2 * stages stages of K or V: a block's V copies
+//    are issued before its barrier and land while it waits, the next
+//    block's K while its second pass runs, so the ring ramps once a
+//    split. Where a group cannot keep its whole share of a block (many
+//    rows a kv head at long S; `int8_dots_keep`), its stages hold K and V
+//    and the second pass reads K again for the tiles past `keep`.
+//    q is quantized once a block, a warp a row, into shared memory.
+//    Zeros (masked p, padding rows of an m tile, zero q) have code 0 and
+//    divide 1 by 1 instead: a zero dividend can take IEEE division's slow
+//    path, and the padding rows' zeros (15 of 16 rows at the 7B's heads)
+//    did. Timed against two walks a block and other designs by
+//    `chip_smoke.py --i8-ms` (PERF.md section 6; ms a call past the L2,
+//    TinyLlama int8 / 7B k8v4 / Mixtral int8, tokens 1): two walks a
+//    block 0.0240 / 0.0928 / 0.0430; this design 0.0187 / 0.0455 /
+//    0.0275; K read again in the second pass, one ring (no kept scores)
+//    0.0191 / 0.0469 / 0.0289; kept scores with q quantized in every
+//    thread and the zeros divided 0.0226 / 0.0753 / 0.0391; q quantized
+//    by all the block's threads at once 0.0195 / 0.0508 / 0.0292; twice
+//    the plan's tile 0.0189 / 0.0470 / 0.0245 (faster at Mixtral's heads
+//    only).
 #include <cuda_fp16.h>
 
 #include <type_traits>
@@ -312,7 +334,41 @@ struct Args {
   bf16* out;
   cudaStream_t st;
   int blk;            // int8-dot path: positions a block of p's granule
+  int keep;           // int8-dot path: tiles a group keeps the scores of
 };
+
+// The int8-dot path's tiles of one position group in one block of p's
+// granule, at most: the split's tiles in the block over the groups.
+__host__ __device__ inline int i8_share(const Args& a) {
+  const int tiles = a.chunk / a.tile < (a.blk + a.tile - 1) / a.tile
+                        ? a.chunk / a.tile
+                        : (a.blk + a.tile - 1) / a.tile;
+  return (tiles + a.pw - 1) / a.pw;
+}
+
+// The int8-dot path's shared memory (bytes): each group's ring of 2 *
+// stages stages, a stage a data region (K at 0, and V at `voff`) then the
+// scales (K's NK rows of `tile`, then V's), and after the rings the kept
+// scores, `keep` tiles of R rows a group (a row padded to tile + 8 floats,
+// so that the quads' 8-byte stores meet no bank twice). When the group
+// keeps the scores of its whole share of a block a stage holds K or V,
+// never both (`compact`); else V's stages carry K again for the tiles
+// whose scores were not kept.
+struct I8Smem {
+  bool compact;
+  int data, voff, stage, ring, kept;
+};
+__host__ __device__ inline I8Smem i8_smem(const Args& a, int khb, int vhb,
+                                          int nscales) {
+  I8Smem m;
+  m.compact = a.keep >= i8_share(a);
+  m.data = a.tile * (m.compact ? (khb > vhb ? khb : vhb) : khb + vhb);
+  m.voff = m.compact ? 0 : a.tile * khb;
+  m.stage = m.data + 4 * a.tile * nscales;
+  m.ring = a.pw * 2 * a.stages * m.stage;
+  m.kept = a.pw * a.keep * a.R * (a.tile + 8) * 4;
+  return m;
+}
 
 template <int BITS>
 __host__ __device__ constexpr int n_scales() {
@@ -725,11 +781,14 @@ __device__ __forceinline__ void v_operands(const unsigned char* vt, int rb,
 // grid (nsplit, B * Kh), cluster (nsplit, 1, 1), 32 * mg * pw threads.
 // Dynamic shared memory: the groups' rings, pw * stages stages of tile *
 // (K, V and scale bytes a row), reused at the end for the groups'
-// partials (pw * R * (D + 2) + 2 * R floats).
-template <int D, int KB, int VB, typename Rows, bool I8 = false>
-__global__ void __launch_bounds__(MAX_WARPS * 32)
-    attention_kernel(const Args a, const Side k, const Side v,
-                     const Rows rows, const NewRows nr) {
+// partials (pw * R * (D + 2) + 2 * R floats); the int8-dot path's rings
+// and kept scores are `i8_smem`'s, its exchange and q's codes follow.
+// The kernels below launch it: `attention_kernel`, and the int8-dot path's
+// `attention_kernel_i8`.
+template <int D, int KB, int VB, typename Rows, bool I8>
+__device__ __forceinline__ void attention_body(const Args a, const Side k,
+                                               const Side v, const Rows rows,
+                                               const NewRows nr) {
   static_assert(!I8 || (KB != 16 && !Rows::kMirror),
                 "the int8-dot path takes contiguous int8-byte K");
   constexpr int KHB = head_bytes<KB, D>(), VHB = head_bytes<VB, D>();
@@ -790,34 +849,37 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
   // zero-filled, their table entries and scales never read. A tile that
   // lies in one page (or slot) finds its rows through one table read.
   const bool whole = rows.whole(TL);
-  // tile j of the block's stretch into ring stage stg (the V rows too
-  // unless the int8-dot path's first pass asks only for K and the scales)
-  auto load_at = [&](int j, int stg, bool with_v) {
+  // tile j of the block's stretch: its K rows into kd and its V rows into
+  // vd (the int8-dot path's items: each unless null), and its scale rows
+  // from hf0 on (K's NK, then V's NV, TL floats each) into sd
+  auto load_at = [&](int j, unsigned char* kd, unsigned char* vd, float* sd,
+                     int hf0) {
     const int t0 = s0 + j * TL;
     const int n = min(TL, s1 - t0);
-    unsigned char* st = ring + stg * stage;
     long long major0 = 0;
     int minor0 = 0;
     if (whole) rows(b, t0, major0, minor0);
     auto k_rows = [&] {
-      copy_side<KCPR>(st, k.data, k.msb, k.width, KE, kh * KHB, rows, whole,
+      copy_side<KCPR>(kd, k.data, k.msb, k.width, KE, kh * KHB, rows, whole,
                       b, t0, n, TL, major0, minor0, gtid, gthr);
     };
-    if constexpr (Rows::kMirror) {
-      if (t0 < kt_end)
-        copy_kt<D>(st, rows, b, t0, kh, TL, gtid, gthr);
-      else
+    if (!I8 || kd != nullptr) {
+      if constexpr (Rows::kMirror) {
+        if (t0 < kt_end)
+          copy_kt<D>(kd, rows, b, t0, kh, TL, gtid, gthr);
+        else
+          k_rows();
+      } else {
         k_rows();
-    } else {
-      k_rows();
+      }
     }
-    if (with_v)
-      copy_side<VCPR>(st + kbytes, v.data, v.msb, v.width, VE, kh * VHB,
-                      rows, whole, b, t0, n, TL, major0, minor0, gtid, gthr);
+    if (!I8 || vd != nullptr)
+      copy_side<VCPR>(vd, v.data, v.msb, v.width, VE, kh * VHB, rows, whole,
+                      b, t0, n, TL, major0, minor0, gtid, gthr);
     if constexpr (NK + NV > 0) {
-      float* sd = reinterpret_cast<float*>(st + kbytes + vbytes);
       const int per = a.svec ? TL / 4 : TL;
-      for (int x = gtid; x < (NK + NV) * per; x += gthr) {
+      for (int x = gtid + (I8 ? hf0 * per : 0); x < (NK + NV) * per;
+           x += gthr) {
         const int hf = x / per, j = (x - hf * per) * (a.svec ? 4 : 1);
         const int cnt = max(0, min(a.svec ? 4 : 1, n - j));
         const bool isk = hf < NK;
@@ -838,8 +900,12 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
       }
     }
   };
-  // tile i of this group
-  auto load = [&](int i) { load_at(pg + i * a.pw, i % a.stages, true); };
+  // tile i of this group into its ring stage
+  auto load = [&](int i) {
+    unsigned char* st = ring + (i % a.stages) * stage;
+    load_at(pg + i * a.pw, st, st + kbytes,
+            reinterpret_cast<float*>(st + kbytes + vbytes), 0);
+  };
 
   if constexpr (I8) {
     // The int8-dot path (the TPU kernel's `int8_dots`, _kernel_mxu
@@ -847,64 +913,155 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
     // dots for q.K^T, p requantized per row and per JAX block of a.blk
     // positions. A block's granule may span the cluster's splits, so each
     // block takes two passes over this split's tiles in it: the first
-    // finds each row's max score and max of p times the V scale (relative
-    // to that max), met across the groups in shared memory and across the
-    // splits in distributed shared memory; the second recomputes the same
-    // scores and runs the online softmax, the codes and p.V.
+    // reads K and the scales, keeps each position's final score and finds
+    // each row's max score and max of p times the V scale (relative to
+    // that max), met across the groups in shared memory and across the
+    // splits in distributed shared memory; the second reads V and its
+    // scales and runs the online softmax on the kept scores, the codes and
+    // p.V. Both passes of every block stream through one ring a group.
     constexpr int KS8 = D / 32;           // m16n8k32 k-steps over D
     constexpr int NP = NV == 2 ? 2 : 1;   // p granules: one per V half
     const int R = a.R;
-    // q codes as A fragments (k_feature_i8's order), qs per row and, for
-    // int4 K, 8 * the row's code sum over each D half
+    const int bs = a.blk;
+    const int nblk = len > 0 ? (len + bs - 1) / bs : 0;
+    const I8Smem ism = i8_smem(a, KHB, VHB, NK + NV);
+    const int RS = 2 * a.stages;          // the ring's stages
+    const int KP = TL + 8;                // floats a kept score row
+    // a padding row of the m tile (r >= R) sees no position: its scores
+    // are masked and its p is 0
+    const int ib0 = r0 < R ? bound0 : 0, ib1 = r1 < R ? bound1 : 0;
+    unsigned char* iring = sm + pg * RS * ism.stage;
+    float* kept = reinterpret_cast<float*>(sm + ism.ring) +
+                  (long long)pg * a.keep * R * KP;
+    // this group's tiles of block kb: the first, jf, and how many, n
+    auto share = [&](int kb, int& jf, int& n) {
+      const int lo = kb * bs - s0, hi = lo + bs;
+      const int jlo = lo <= 0 ? 0 : min(ntiles, (lo + TL - 1) / TL);
+      const int jhi = hi <= 0 ? 0 : min(ntiles, (hi + TL - 1) / TL);
+      jf = jlo + ((pg - jlo) % a.pw + a.pw) % a.pw;
+      n = jf < jhi ? (jhi - jf + a.pw - 1) / a.pw : 0;
+    };
+    // The ring's items in order: for each block, its pass-1 items (K and
+    // every scale of each of the group's tiles in it), then its pass-2
+    // items (V and its scales; K and its scales again for a tile at or
+    // past `keep`, whose scores were not kept). The producer's cursor
+    // (block pk, pass pv, item pi of pn from tile pjf) runs RS - 1 items
+    // ahead of the consumer, across the passes and the blocks: a block's V
+    // lands while its exchange waits, the next block's K while its pass 2
+    // runs.
+    int pk = 0, pv = 0, pi = 0, pjf = 0, pn = 0, issued = 0, taken = 0;
+    auto seek = [&] {
+      for (; pk < nblk; ++pk) {
+        share(pk, pjf, pn);
+        if (pn) break;
+      }
+    };
+    auto produce = [&] {
+      if (pk < nblk) {
+        unsigned char* st = iring + (issued++ % RS) * ism.stage;
+        const bool with_k = !pv || pi >= a.keep;
+        load_at(pjf + pi * a.pw, with_k ? st : nullptr,
+                pv ? st + ism.voff : nullptr,
+                reinterpret_cast<float*>(st + ism.data), with_k ? 0 : NK);
+        if (++pi == pn) {
+          pi = 0;
+          if (!pv) {
+            pv = 1;
+          } else {
+            pv = 0;
+            ++pk;
+            seek();
+          }
+        }
+      }
+      cp_async_commit();
+    };
+    // the next item's stage, once it landed and the group consumed the one
+    // before (whose stage takes the item RS - 1 ahead)
+    auto next = [&]() -> const unsigned char* {
+      if (RS >= 6)
+        cp_async_wait<4>();
+      else if (RS >= 4)
+        cp_async_wait<2>();
+      else
+        cp_async_wait<0>();
+      bar_group(1 + pg, gthr);
+      produce();
+      return iring + (taken++ % RS) * ism.stage;
+    };
+    seek();
+    for (int i = 0; i < RS - 1; ++i) produce();
+    // the exchange, past the rings, the kept scores and the partials: each
+    // group's (max, max p.vs per half) a row, then the block's, by block
+    // parity; then q's codes
+    const int part_b = (a.pw * R * (D + 2) + 2 * R) * 4;
+    const int used_b = ism.ring + ism.kept;
+    float* xg = reinterpret_cast<float*>(
+        sm + ((used_b > part_b ? used_b : part_b) + 15) / 16 * 16);
+    float* xb = xg + a.pw * R * 3;
+    // q quantized once a block, a warp a row (a rolled loop: the same
+    // work unrolled in every thread, 16 rows an m tile whatever R, took a
+    // third of the 7B's call, PERF.md section 6): x = q * scale in f32,
+    // qs = max(max|x|, 1e-30) * fl(1/127) (XLA's `/ 127.0`), codes
+    // rint(x / qs) clipped to +-127 into qcd (R rows of D), qs into qsr
+    // and, for int4 K, 8 * the code sum of each D half into qhs
+    signed char* qcd = reinterpret_cast<signed char*>(xg) +
+                       ((a.pw * R + 2 * R) * 3 * 4 + 15) / 16 * 16;
+    float* qsr = reinterpret_cast<float*>(qcd + R * D);
+    float* qhs = qsr + R;
+    {
+      constexpr int PL = D / 32;   // features a lane
+      const bf16* qb = a.q + (long long)b * a.q_sb + (long long)kh * R * D;
+      for (int r = warp; r < R; r += a.mg * a.pw) {
+        float x[PL], am = 0.f;
+#pragma unroll
+        for (int i = 0; i < PL; ++i) {
+          x[i] = bf2f(qb[r * D + lane * PL + i]) * a.scale;
+          am = fmaxf(am, fabsf(x[i]));
+        }
+        const float qsv = fmaxf(warp_max(am), 1e-30f) * (1.f / 127.f);
+        int sum = 0;
+#pragma unroll
+        for (int i = 0; i < PL; ++i) {
+          // a zero has code 0 and divides 1 by 1 instead: a zero dividend
+          // can take IEEE division's slow path
+          const bool z = x[i] == 0.f;
+          const float qt = (z ? 1.f : x[i]) / (z ? 1.f : qsv);
+          const int code =
+              z ? 0 : (int)fminf(fmaxf(rintf(qt), -127.f), 127.f);
+          qcd[r * D + lane * PL + i] = (signed char)code;
+          sum += code;
+        }
+        if constexpr (KB == 4) {   // lanes 0-15 hold the first half
+#pragma unroll
+          for (int o = 1; o < 16; o <<= 1)
+            sum += __shfl_xor_sync(0xffffffffu, sum, o);
+          if (lane % 16 == 0) qhs[2 * r + lane / 16] = 8.f * (float)sum;
+        }
+        if (lane == 0) qsr[r] = qsv;
+      }
+    }
+    __syncthreads();
+    // this thread's rows as A fragments (k_feature_i8's order: four
+    // consecutive features a word); padding rows 0
     unsigned qa[KS8][4];
     float qs[2], qsum8[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-    {
-      const bf16* qb = a.q + (long long)b * a.q_sb + (long long)kh * R * D;
-      auto qv = [&](int h, int f) {
-        const int r = h ? r1 : r0;
-        return r < R ? bf2f(qb[r * D + f]) * a.scale : 0.f;
-      };
-      float am[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = h ? r1 : r0;
+      qs[h] = r < R ? qsr[r] : 1.f;
 #pragma unroll
       for (int ks = 0; ks < KS8; ++ks)
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            am[h] = fmaxf(am[h], fabsf(qv(h, k_feature_i8<KB, D>(ks, c, i))));
-      int sum[2][2] = {{0, 0}, {0, 0}};
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-#pragma unroll
-        for (int o = 1; o <= 2; o <<= 1)
-          am[h] = fmaxf(am[h], __shfl_xor_sync(0xffffffffu, am[h], o));
-        qs[h] = fmaxf(am[h], 1e-30f) * (1.f / 127.f);   // XLA's `/ 127.0`
-#pragma unroll
-        for (int ks = 0; ks < KS8; ++ks)
-#pragma unroll
-          for (int w = 0; w < 2; ++w) {
-            unsigned word = 0;
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const float x = qv(h, k_feature_i8<KB, D>(ks, c, 4 * w + i));
-              const int code =
-                  (int)fminf(fmaxf(rintf(x / qs[h]), -127.f), 127.f);
-              word |= (unsigned)(code & 0xFF) << (8 * i);
-              if constexpr (KB == 4) sum[ks / (D / 64)][h] += code;
-            }
-            qa[ks][2 * w + h] = word;   // rows g, g + 8; k 4c.., 16 + 4c..
-          }
-      }
+        for (int w = 0; w < 2; ++w)   // rows g, g + 8; k 4c.., 16 + 4c..
+          qa[ks][2 * w + h] =
+              r < R ? *reinterpret_cast<const unsigned*>(
+                          qcd + r * D + k_feature_i8<KB, D>(ks, c, 4 * w))
+                    : 0u;
       if constexpr (KB == 4) {
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            int x = sum[hf][h];
-            x += __shfl_xor_sync(0xffffffffu, x, 1);
-            x += __shfl_xor_sync(0xffffffffu, x, 2);
-            qsum8[hf][h] = 8.f * (float)x;
-          }
+          qsum8[hf][h] = r < R ? qhs[2 * r + hf] : 0.f;
       }
     }
     // scores of rows r0 (e 0, 1) and r1 (e 2, 3) at positions rb + 8 nt +
@@ -948,67 +1105,61 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
                 __fadd_rn(__fmul_rn(x0, ksc[j]), __fmul_rn(x1, ksc[TL + j])),
                 qs[h]);
           }
-          s[nt][e] = t0 + j < (h ? bound1 : bound0) ? x : DPT_NEG_INF;
+          s[nt][e] = t0 + j < (h ? ib1 : ib0) ? x : DPT_NEG_INF;
         }
       }
     };
-    // the group's tiles j = pg (mod pw) in [jlo, jhi) through its ring
-    auto walk = [&](int jlo, int jhi, bool with_v, auto&& body) {
-      const int jf = jlo + ((pg - jlo) % a.pw + a.pw) % a.pw;
-      const int n = jf < jhi ? (jhi - jf + a.pw - 1) / a.pw : 0;
-      if (n == 0) return;
-      bar_group(1 + pg, gthr);  // the previous walk's tiles are consumed
-      for (int i = 0; i < a.stages - 1; ++i) {
-        if (i < n) load_at(jf + i * a.pw, i, with_v);
-        cp_async_commit();
-      }
-      for (int i = 0; i < n; ++i) {
-        if (a.stages == 1) {
-          if (i) bar_group(1 + pg, gthr);
-          load_at(jf + i * a.pw, 0, with_v);
-          cp_async_commit();
+    // a tile's scores kept (kp: its R rows of KP floats) and read back, by
+    // the thread that computed them; rows past R read as masked
+    auto keep_scores = [&](float* kp, int rb, const float(&s)[2][4]) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = h ? r1 : r0;
+        if (r < R) {
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+            *reinterpret_cast<float2*>(kp + r * KP + rb + 8 * nt + 2 * c) =
+                make_float2(s[nt][2 * h], s[nt][2 * h + 1]);
         }
-        if (a.stages >= 3)
-          cp_async_wait<1>();
-        else
-          cp_async_wait<0>();
-        bar_group(1 + pg, gthr);
-        if (a.stages > 1 && i + a.stages - 1 < n)
-          load_at(jf + (i + a.stages - 1) * a.pw, (i + a.stages - 1) % a.stages,
-                  with_v);
-        cp_async_commit();
-        const int t0 = s0 + (jf + i * a.pw) * TL;
-        body(ring + (i % a.stages) * stage, t0, min(TL, s1 - t0 + 15) >> 4);
       }
     };
-    // the exchange, past the rings and the partials: each group's (max,
-    // max p.vs per half) a row, then the block's, by block parity
-    const int ring_b = a.pw * a.stages * stage;
-    const int part_b = (a.pw * R * (D + 2) + 2 * R) * 4;
-    float* xg = reinterpret_cast<float*>(
-        sm + ((ring_b > part_b ? ring_b : part_b) + 15) / 16 * 16);
-    float* xb = xg + a.pw * R * 3;
+    auto kept_scores = [&](const float* kp, int rb, float(&s)[2][4]) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = h ? r1 : r0;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          float2 x = make_float2(DPT_NEG_INF, DPT_NEG_INF);
+          if (r < R)
+            x = *reinterpret_cast<const float2*>(kp + r * KP + rb + 8 * nt +
+                                                 2 * c);
+          s[nt][2 * h] = x.x;
+          s[nt][2 * h + 1] = x.y;
+        }
+      }
+    };
     auto xload = [&](const float* p, int rank) {
       return a.nsplit > 1 ? ld_cluster(p, rank) : *p;
     };
-    const int bs = a.blk;
-    const int nblk = len > 0 ? (len + bs - 1) / bs : 0;
     for (int kb = 0; kb < nblk; ++kb) {
       const int par = kb & 1;
-      const int lo = kb * bs - s0, hi = (kb + 1) * bs - s0;
-      const int jlo = lo <= 0 ? 0 : min(ntiles, (lo + TL - 1) / TL);
-      const int jhi = hi <= 0 ? 0 : min(ntiles, (hi + TL - 1) / TL);
+      int jf, n;
+      share(kb, jf, n);
       // pass 1: per row, the max score ml and the max of exp(s - ml) * vs
       float ml[2] = {DPT_NEG_INF, DPT_NEG_INF};
       float wl[NP][2];
 #pragma unroll
       for (int hv = 0; hv < NP; ++hv) wl[hv][0] = wl[hv][1] = 0.f;
-      walk(jlo, jhi, false, [&](const unsigned char* kt, int t0, int nsub) {
-        const float* ksc = reinterpret_cast<const float*>(kt + kbytes + vbytes);
+      for (int i = 0; i < n; ++i) {
+        const unsigned char* kt = next();
+        const int t0 = s0 + (jf + i * a.pw) * TL;
+        const int nsub = min(TL, s1 - t0 + 15) >> 4;
+        const float* ksc = reinterpret_cast<const float*>(kt + ism.data);
         const float* vsc = ksc + NK * TL;
         for (int sb = 0; sb < nsub; ++sb) {
           float sc[2][4];
           scores(kt, ksc, t0, 16 * sb, sc);
+          if (i < a.keep) keep_scores(kept + i * R * KP, 16 * sb, sc);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const float mx = fmaxf(fmaxf(sc[0][2 * h], sc[0][2 * h + 1]),
@@ -1024,7 +1175,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
 #pragma unroll
               for (int e = 0; e < 2; ++e) {
                 const int j = 16 * sb + 8 * nt + 2 * c + e;
-                if (t0 + j < (h ? bound1 : bound0)) {
+                if (t0 + j < (h ? ib1 : ib0)) {
                   const float p = __expf(sc[nt][2 * h + e] - ml[h]);
 #pragma unroll
                   for (int hv = 0; hv < NP; ++hv)
@@ -1033,7 +1184,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
               }
           }
         }
-      });
+      }
       // the quad's, then the block's groups (in order), then the splits'
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -1121,14 +1272,22 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
               fmaxf(Wb[hv] * __expf(Mb - mn), 1e-30f) * (1.f / 127.f);
         }
       }
-      walk(jlo, jhi, true, [&](const unsigned char* kt, int t0, int nsub) {
-        const unsigned char* vt = kt + kbytes;
-        const float* ksc = reinterpret_cast<const float*>(vt + vbytes);
+      // pass 2: V and its scales; the kept scores (or, past the `keep`,
+      // K again)
+      for (int i = 0; i < n; ++i) {
+        const unsigned char* kt = next();
+        const int t0 = s0 + (jf + i * a.pw) * TL;
+        const int nsub = min(TL, s1 - t0 + 15) >> 4;
+        const unsigned char* vt = kt + ism.voff;
+        const float* ksc = reinterpret_cast<const float*>(kt + ism.data);
         const float* vsc = ksc + NK * TL;
         for (int sb = 0; sb < nsub; ++sb) {
           const int rb = 16 * sb;
           float sc[2][4];
-          scores(kt, ksc, t0, rb, sc);
+          if (i < a.keep)
+            kept_scores(kept + i * R * KP, rb, sc);
+          else
+            scores(kt, ksc, t0, rb, sc);
           // p, its sums, and its codes per granule as p.V's A fragments
           unsigned pa[NP][4];
           float cd[NP][2][4];
@@ -1137,17 +1296,23 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int h = e >> 1, j = rb + 8 * nt + 2 * c + (e & 1);
-              const float p = t0 + j < (h ? bound1 : bound0)
+              const float p = t0 + j < (h ? ib1 : ib0)
                                   ? __expf(sc[nt][e] - (h ? m1 : m0))
                                   : 0.f;
               if (h)
                 l1 += p;
               else
                 l0 += p;
+              // a zero p (masked, or a padding row's) has code 0 and
+              // divides 1 by 1 instead, as q's zeros do (0 / 1 alone was
+              // slower still)
+              const bool z = !(p > 0.f);
 #pragma unroll
-              for (int hv = 0; hv < NP; ++hv)
-                cd[hv][nt][e] =
-                    fminf(rintf(p * vsc[hv * TL + j] / rsv[hv][h]), 127.f);
+              for (int hv = 0; hv < NP; ++hv) {
+                const float qt = (z ? 1.f : p * vsc[hv * TL + j]) /
+                                 (z ? 1.f : rsv[hv][h]);
+                cd[hv][nt][e] = z ? 0.f : fminf(rintf(qt), 127.f);
+              }
             }
 #pragma unroll
           for (int hv = 0; hv < NP; ++hv) {
@@ -1170,7 +1335,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
                 pv(acc[nt], h, b0, b1);
               });
         }
-      });
+      }
     }
   } else if (mine > 0) {
     for (int i = 0; i < a.stages - 1; ++i) {
@@ -1488,20 +1653,51 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
   cluster_sync();  // no block leaves while its partials are read
 }
 
+template <int D, int KB, int VB, typename Rows>
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+    attention_kernel(const Args a, const Side k, const Side v,
+                     const Rows rows, const NewRows nr) {
+  attention_body<D, KB, VB, Rows, false>(a, k, v, rows, nr);
+}
+
+// At D = 64 the int8-dot path is held to two blocks an SM, as the plan
+// counts (SM_WARPS): unbounded, ptxas gave its int4 instantiation 151
+// registers a thread, and the bf16-dot kernels more than 128 when every
+// instantiation was bounded by one block (both slower).
+template <int D, int KB, int VB, typename Rows>
+__global__ void __launch_bounds__(MAX_WARPS * 32, D == 64 ? 2 : 1)
+    attention_kernel_i8(const Args a, const Side k, const Side v,
+                        const Rows rows, const NewRows nr) {
+  attention_body<D, KB, VB, Rows, true>(a, k, v, rows, nr);
+}
+
 template <int D, int KB, int VB, bool I8 = false, typename Rows>
 int launch(const Args& a, const Side& k, const Side& v, Rows rows,
            const NewRows& nr, int B) {
   constexpr int NK = n_scales<KB>(), NV = n_scales<VB>();
   const size_t stage = (size_t)a.tile * (head_bytes<KB, D>() +
                                          head_bytes<VB, D>() + 4 * (NK + NV));
-  const size_t ring = (size_t)a.pw * a.stages * stage;
+  size_t ring = (size_t)a.pw * a.stages * stage;
   const size_t part = ((size_t)a.pw * a.R * (D + 2) + 2 * a.R) * 4;
+  // the int8-dot path: its rings and kept scores (i8_smem), then its
+  // exchange ((max, two granule maxima) a row, for each group and for the
+  // block's two parities) and q's codes (qs, two code sums and D codes a
+  // row)
+  if constexpr (I8) {
+    const I8Smem m = i8_smem(a, head_bytes<KB, D>(), head_bytes<VB, D>(),
+                             NK + NV);
+    ring = (size_t)m.ring + m.kept;
+  }
   size_t smem = ring > part ? ring : part;
-  // the int8-dot path's exchange: (max, two granule maxima) a row, for
-  // each group and for the block's two parities
   if constexpr (I8)
-    smem = (smem + 15) / 16 * 16 + ((size_t)a.pw * a.R + 2 * a.R) * 3 * 4;
-  auto kern = attention_kernel<D, KB, VB, Rows, I8>;
+    smem = (smem + 15) / 16 * 16 +
+           (((size_t)a.pw * a.R + 2 * a.R) * 3 * 4 + 15) / 16 * 16 +
+           (size_t)a.R * (D + 3 * 4);
+  void (*kern)(Args, Side, Side, Rows, NewRows);
+  if constexpr (I8)
+    kern = attention_kernel_i8<D, KB, VB, Rows>;
+  else
+    kern = attention_kernel<D, KB, VB, Rows>;
   static size_t sized = 48 * 1024;
   if (smem > sized) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -1553,8 +1749,6 @@ template <bool I8 = false, typename Rows>
 int dispatch(Args a, const Side& k, const Side& v, Rows rows,
              const NewRows& nr, int B, int D, int kb, int vb,
              int scale_step) {
-  if (I8 && (a.blk < 1 || (a.blk < a.S && a.blk % a.tile)))
-    return (int)cudaErrorInvalidValue;
   const bool quant = kb != 16;
   const int esk = kb == 16 ? 2 : 1, esv = vb == 16 ? 2 : 1;
   if (a.R < 1 || a.R > MAX_ROWS || a.T < 1 || a.R % a.T || a.tile < 16 ||
@@ -1566,6 +1760,9 @@ int dispatch(Args a, const Side& k, const Side& v, Rows rows,
       (uintptr_t)k.data % 16 || (uintptr_t)v.data % 16 ||
       (k.msb * esk) % 16 || (v.msb * esv) % 16 ||
       (nr.pos && (Rows::kMirror || !nr.k || !nr.v)))
+    return (int)cudaErrorInvalidValue;
+  if (I8 && (a.blk < 1 || (a.blk < a.S && a.blk % a.tile) || a.keep < 0 ||
+             a.keep > i8_share(a)))
     return (int)cudaErrorInvalidValue;
   a.svec = !quant || ((uintptr_t)k.scale % 16 == 0 &&
                       (uintptr_t)v.scale % 16 == 0 && k.ssb % 4 == 0 &&

@@ -58,7 +58,8 @@ SIGNATURES: Dict[str, list] = {
                             + [_P, _LL, _LL, _P, _LL, _LL, _P, _P],
     "dpt_decode_attention_i8": [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _LL,
                                 _P, _LL, _LL, _P] + [_I] * 14 + [_F, _P]
-                               + [_P, _LL, _LL, _P, _LL, _LL, _P, _I, _P],
+                               + [_P, _LL, _LL, _P, _LL, _LL, _P, _I, _I,
+                                  _P],
     "dpt_decode_attention_paged": [_P, _LL, _P, _P, _P, _P, _P, _I, _I, _P]
                                   + [_I] * 14 + [_F, _P, _I]
                                   + [_P, _LL, _LL, _P, _LL, _LL, _P, _P, _P,

@@ -13,7 +13,10 @@ by default wherever K is stored as int8 bytes (int8, int4, k8v4), decode
 and verify, per-layer and stacked: q requantized to int8 per row, exact
 integer dots for q.K^T, p (times its V scale) requantized to int8 per
 row and per S block of the TPU kernel's grid (`int8_dots_block`), whose
-p.V sums are exact. `decode_attention` takes it on the card as the JAX
+p.V sums are exact. On the card each split walks a block in two passes,
+K then V, through one ring, and keeps the first pass's scores for the
+second (`int8_dots_keep` tiles a position group; `int8_dots_smem`).
+`decode_attention` takes it on the card as the JAX
 package's call sites do (`int8_dots_default`: the switch DPT_ATTN_INT8,
 "0" off, and the S >= 128 rule of `attention_decode_auto` for the int8
 store and of the stacked route); `int8_dots=` overrides, as on
@@ -121,6 +124,7 @@ more than the kernel's whole limit against the plain version (1e-2).
 from __future__ import annotations
 
 import collections
+import functools
 import os
 from typing import Optional
 
@@ -144,6 +148,8 @@ STAGES = 3
 TILE = 16
 #: streaming multiprocessors of the H100 SXM, which the split count fills
 SMS = 132
+#: dynamic shared memory a block may use on an H100 (bytes)
+SMEM_BLOCK = 232_448
 #: warps an SM holds of the kernel at head_dim 64 / 128: ptxas gives it
 #: about 128 / 165-210 registers a thread
 SM_WARPS = {64: 16, 128: 8}
@@ -371,6 +377,50 @@ def int8_dots_block(s: int, f: int, block_s: Optional[int] = None) -> int:
     if block_s is None:
         block_s = min(max((2 << 20) // f // 128 * 128, 128), 1024)
     return s if s <= block_s else block_s
+
+
+def _i8_share(plan: Plan, blk: int) -> int:
+    """A position group's tiles in one block of p's granule, at most
+    (csrc `i8_share`)."""
+    tiles = min(plan.chunk // plan.tile, -(-blk // plan.tile))
+    return -(-tiles // plan.pw)
+
+
+def int8_dots_smem(plan: Plan, rows: int, d: int, kb: int, vb: int,
+                   blk: int, keep: int) -> int:
+    """The int8-dot launch's dynamic shared memory in bytes (csrc
+    `i8_smem` and `launch`): each group's ring of 2 * stages stages (K or
+    V of a tile and its scales; K and V where the group does not keep the
+    scores of its whole share of a block), the kept scores (`keep` tiles
+    of `rows` rows a group, a row padded to tile + 8 floats), or the
+    partials the groups merge at the end where larger, then the exchange
+    and q's codes (D codes, qs and two code sums a row)."""
+    khb, vhb = d * kb // 8, d * vb // 8
+    scales = (2 if kb == 4 else 1) + (2 if vb == 4 else 1)
+    compact = keep >= _i8_share(plan, blk)
+    data = plan.tile * (max(khb, vhb) if compact else khb + vhb)
+    ring = plan.pw * 2 * plan.stages * (data + 4 * plan.tile * scales)
+    kept = plan.pw * keep * rows * (plan.tile + 8) * 4
+    part = (plan.pw * rows * (d + 2) + 2 * rows) * 4
+    exchange = (plan.pw * rows + 2 * rows) * 3 * 4
+    return -(-max(ring + kept, part) // 16) * 16 + \
+        -(-exchange // 16) * 16 + rows * (d + 3 * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def int8_dots_keep(plan: Plan, rows: int, d: int, kb: int, vb: int,
+                   blk: int) -> int:
+    """The tiles of one block of p's granule whose scores a position group
+    keeps from the first pass for the second, which then reads V alone:
+    its whole share where that fits a block's shared memory (SMEM_BLOCK),
+    else as many as fit beside rings that hold K and V (the second pass
+    reads K again for the rest)."""
+    share = _i8_share(plan, blk)
+    keep = share
+    while keep > 0 and int8_dots_smem(plan, rows, d, kb, vb, blk,
+                                      keep) > SMEM_BLOCK:
+        keep -= 1
+    return keep
 
 
 def decode_attention_int8_dots_plain(q, k_cache, v_cache, lengths, *,
@@ -640,8 +690,9 @@ def _launch(q, k_cache, v_cache, lengths, *, k_scale, v_scale, kv_bits,
             b, s, kh, rows, tokens, d, kb, vb, *plan, float(scale),
             out.data_ptr(), *_new_args(new, b, tokens, kh * d)]
     if int8_dots:
-        rc = lib.dpt_decode_attention_i8(*args, int8_dots_block(s, kw),
-                                         _build.stream())
+        blk = int8_dots_block(s, kw)
+        keep = int8_dots_keep(plan, rows, d, kb, vb, blk)
+        rc = lib.dpt_decode_attention_i8(*args, blk, keep, _build.stream())
     else:
         rc = lib.dpt_decode_attention(*args, _build.stream())
     _build.check(rc, "decode_attention")

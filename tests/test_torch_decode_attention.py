@@ -23,6 +23,8 @@ MODELS = {"tinyllama": (32, 4, 64), "llama2-7b": (32, 32, 128),
 MAX_SEQ = 1024
 #: shared memory a block may use on an H100 (bytes)
 SMEM_LIMIT = 232_448
+#: shared memory of an H100 SM, 1 KB of it reserved a block (bytes)
+SM_SMEM = 233_472
 
 
 def _smem(plan, rows, d, kb, vb):
@@ -292,14 +294,53 @@ def test_cuda_decode_attention_is_one_launch(cuda_device, model, paged):
 # #3's int8-dot variant (3i)
 # ---------------------------------------------------------------------------
 
+def _i8_smem(plan, rows, d, kb, vb, share, keep):
+    """The int8-dot variant's dynamic shared memory: each group's ring of 2
+    * stages stages (a tile's K or V and the f32 scales where the group
+    keeps the scores of its whole share of a block; K and V where it keeps
+    fewer), the kept scores (keep tiles of `rows` rows of tile + 8 floats a
+    group), or the partials where larger; then the exchange ((max, two
+    granule maxima) a row for each group and for two blocks) and q's codes
+    (D codes, qs and two code sums a row)."""
+    scales = (2 if kb == 4 else 1) + (2 if vb == 4 else 1)
+    khb, vhb = d * kb // 8, d * vb // 8
+    data = max(khb, vhb) if keep >= share else khb + vhb
+    ring = plan.pw * 2 * plan.stages * plan.tile * (data + 4 * scales)
+    kept = plan.pw * keep * rows * (plan.tile + 8) * 4
+    part = (plan.pw * rows * (d + 2) + 2 * rows) * 4
+    exchange = (plan.pw * rows + 2 * rows) * 3 * 4
+    return -(-max(ring + kept, part) // 16) * 16 + \
+        -(-exchange // 16) * 16 + rows * (d + 3 * 4)
+
+
+def _group_tiles_per_block(plan, s, bs):
+    """The most tiles one position group walks in one block of p's granule,
+    over every split and group of the plan (the slot at length S)."""
+    most = 0
+    for split in range(plan.nsplit):
+        s0 = split * plan.chunk
+        ntiles = -(-(min(s0 + plan.chunk, s) - s0) // plan.tile)
+        for blk in range(-(-s // bs)):
+            tiles = [j for j in range(ntiles)
+                     if blk * bs <= s0 + j * plan.tile < (blk + 1) * bs]
+            for pg in range(plan.pw):
+                most = max(most, sum(j % plan.pw == pg for j in tiles))
+    return most
+
+
 @pytest.mark.parametrize("store", ("int8", "int4", "k8v4"))
 @pytest.mark.parametrize("model", sorted(MODELS))
 def test_int8_dots_plan_fits(model, store):
     """The int8-dot variant launches #3's plan with a block of p's granule
     that covers S or is a whole number of tiles (`int8_dots_block`), and
-    its shared memory (the rings or the partials, then the exchange: (max,
-    two granule maxima) a row for each group and for two blocks) fits a
-    block, at every R = 1..64 and the served rows."""
+    its shared memory (the rings, the kept scores and the partials, then
+    the exchange and q's codes: `_i8_smem`, which `int8_dots_smem` gives
+    too) fits a block, at every R = 1..64 and the served rows. A group
+    keeps the scores of at most its share of a block, which bounds the
+    tiles it walks in any block (so that a ring of K-or-V stages never
+    needs both), and as many tiles as fit; at the served rows up to
+    max_seq 1024 all of them, and at 1024 with the blocks an SM the plan
+    counts on."""
     hq, kh, d = MODELS[model]
     kb, vb = STORE_BITS[store]
     width = kh * d // 2 if kb == 4 else kh * d
@@ -309,16 +350,32 @@ def test_int8_dots_plan_fits(model, store):
         for rows in sorted(set(range(1, da.MAX_ROWS + 1)) | {rep, rep * 5}):
             plan = da.attention_plan(8, kh, s, rows, d)
             assert bs >= s or bs % plan.tile == 0
-            smem = -(-_smem(plan, rows, d, kb, vb) // 16) * 16 + \
-                (plan.pw * rows + 2 * rows) * 3 * 4
+            share = -(-min(plan.chunk // plan.tile, -(-bs // plan.tile))
+                      // plan.pw)
+            assert _group_tiles_per_block(plan, s, bs) <= share
+            keep = da.int8_dots_keep(plan, rows, d, kb, vb, bs)
+            assert 0 <= keep <= share
+            smem = _i8_smem(plan, rows, d, kb, vb, share, keep)
+            assert smem == da.int8_dots_smem(plan, rows, d, kb, vb, bs, keep)
             assert smem <= SMEM_LIMIT
+            if keep < share:
+                assert _i8_smem(plan, rows, d, kb, vb, share,
+                                keep + 1) > SMEM_LIMIT
+            if rows in (rep, rep * 5) and s <= MAX_SEQ:
+                assert keep == share
+            if rows in (rep, rep * 5) and s == MAX_SEQ:
+                blocks = max(1, da.SM_WARPS[d] // (plan.mg * plan.pw))
+                assert blocks * (smem + 1024) <= SM_SMEM
 
 
-def _i8_lengths(bs, s, t):
-    """Lengths 0, 1, inside, at and past a block's end (or S), and S; a
-    window's keep its T rows."""
-    lens = [0, 1, 17, bs - 1, min(bs, s), min(bs + 1, s), 700, s]
-    return [n if n == 0 else max(n, t) for n in lens]
+def _i8_lengths(bs, chunk, s, t):
+    """Two sets of 8 lengths: 0, 1, inside, at and past a block's end (or
+    S), and S; then at a split's end and around it (multiples of the
+    plan's chunk, or S). A window's keep its T rows."""
+    sets = ([0, 1, 17, bs - 1, min(bs, s), min(bs + 1, s), 700, s],
+            [0, chunk - 1, chunk, min(chunk + 1, s), min(2 * chunk, s),
+             min(2 * chunk + 1, s), min(3 * chunk, s), s])
+    return [[n if n == 0 else max(n, t) for n in lens] for lens in sets]
 
 
 @pytest.mark.cuda
@@ -331,56 +388,96 @@ def test_cuda_int8_dots_matches_plain(cuda_device, model, store, t, layout,
                                       with_rows):
     """The int8-dot variant against `decode_attention_int8_dots_plain` at
     the served models' heads, S = 1024 (the 7B's k8v4 block is 512, so
-    lengths cross it), lengths 0, 1 and around a block's end, NaN in the
-    scales past each length; with `rows`, the step's rows written by the
-    launch first (over NaN scales and stale bytes in their slots): cache
-    bytes and scales equal to the plain route's, every (slot, row) within
-    1e-2 of its max|ref|, finite; two calls identical; each call counted
-    under "i8:" + its store and window (and "+rows")."""
+    lengths cross it), lengths 0, 1, around a block's end and around a
+    split's end (two sets of 8 slots), NaN in the scales past each length;
+    with `rows`, the step's rows written by the launch first (over NaN
+    scales and stale bytes in their slots): cache bytes and scales equal
+    to the plain route's, every (slot, row) within 1e-2 of its max|ref|,
+    finite; two calls identical; each call counted under "i8:" + its store
+    and window (and "+rows")."""
     hq, kh, d = MODELS[model]
     dev, s, b = cuda_device, MAX_SEQ, 8
     kb, vb = STORE_BITS[store]
     g = torch.Generator(device=dev).manual_seed(
         sum(map(ord, model + store + layout)) + t + with_rows)
     width = kh * d // 2 if kb == 4 else kh * d
-    lens = _i8_lengths(da.int8_dots_block(s, width), s, t)
-    lead, extra = {"stacked": ((2,), 0), "window": ((), 64)}.get(layout,
-                                                                ((), 0))
-    kc, vc, kw = _cache(store, b, s, kh, d, lens, g, dev, lead, extra)
-    q = torch.randn(b, hq * t, d, generator=g, device=dev).to(torch.bfloat16)
+    plan = da.attention_plan(b, kh, s, hq // kh * t, d)
+    for lens in _i8_lengths(da.int8_dots_block(s, width), plan.chunk, s,
+                            t):
+        lead, extra = {"stacked": ((2,), 0), "window": ((), 64)}.get(layout,
+                                                                    ((), 0))
+        kc, vc, kw = _cache(store, b, s, kh, d, lens, g, dev, lead, extra)
+        q = torch.randn(b, hq * t, d, generator=g, device=dev).to(
+            torch.bfloat16)
+        lengths = torch.tensor(lens, device=dev)
+        new = None
+        if with_rows:
+            k_new, v_new = (torch.randn(b, t, kh * d, generator=g, device=dev)
+                            .to(torch.bfloat16) for _ in range(2))
+            pos = torch.tensor([[n - t + j if n else -1 for j in range(t)]
+                                for n in lens], device=dev, dtype=torch.int32)
+            new = da.NewRows(k_new, v_new, pos)
+            for sc in (kw["k_scale"], kw["v_scale"]):
+                sc[torch.arange(b, device=dev)[:, None].expand(b, t).clamp(
+                    0), :, pos.clamp(0).long()] = float("nan")
+        state = [kc, vc, kw["k_scale"], kw["v_scale"]]
+        ref_state = [x.clone() for x in state]
+        ref_kw = dict(kw, k_scale=ref_state[2], v_scale=ref_state[3])
+        ref = da.decode_attention_int8_dots_plain(
+            q, ref_state[0], ref_state[1], lengths, tokens=t, new=new,
+            **ref_kw)
+        key = "i8:" + (store if t == 1 else f"{store}:t{t}")
+        before = da.decode_attention.variant_launches[key]
+        rows_before = da.decode_attention.variant_launches[key + "+rows"]
+        out = da.decode_attention(q, kc, vc, lengths, tokens=t, new=new,
+                                  int8_dots=True, **kw)
+        again = da.decode_attention(q, kc, vc, lengths, tokens=t, new=new,
+                                    int8_dots=True, **kw)
+        torch.cuda.synchronize()
+        _check_rows(out, ref)
+        assert torch.equal(out, again)
+        for x, y in zip(state, ref_state):     # bytes, NaN scales included
+            bits = torch.int8 if x.dtype == torch.int8 else torch.int32
+            assert torch.equal(x.view(bits), y.view(bits))
+        assert da.decode_attention.variant_launches[key] == before + 2
+        assert da.decode_attention.variant_launches[key + "+rows"] == \
+            rows_before + (2 if with_rows else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(32, 128, "int4", 1024, 40, 5),
+                                  (32, 128, "int4", 1024, 64, 1),
+                                  (8, 128, "k8v4", 4096, 64, 4),
+                                  (8, 128, "int8", 4096, 64, 1)],
+                         ids=["7b-int4-r40", "7b-int4-r64", "mx-k8v4-r64",
+                              "mx-int8-r64"])
+def test_cuda_int8_dots_partial_keep_matches_plain(cuda_device, case):
+    """Where a group cannot keep the scores of its whole share of a block
+    (many rows a kv head: `int8_dots_keep` below the share), the second
+    pass reads K again for the rest: against the plain version at lengths
+    0, 1, around a block's end and S, NaN scales past each length, every
+    (slot, row) within 1e-2 of its max|ref|, finite."""
+    kh, d, store, s, rows, t = case
+    dev, b = cuda_device, 8
+    kb, vb = STORE_BITS[store]
+    width = kh * d // 2 if kb == 4 else kh * d
+    plan = da.attention_plan(b, kh, s, rows, d)
+    bs = da.int8_dots_block(s, width)
+    share = -(-min(plan.chunk // plan.tile, -(-bs // plan.tile)) // plan.pw)
+    assert da.int8_dots_keep(plan, rows, d, kb, vb, bs) < share
+    g = torch.Generator(device=dev).manual_seed(sum(case[:2]) + rows + t)
+    lens = [n if n == 0 else max(n, t)
+            for n in (0, 1, 17, bs - 1, bs, bs + 1, s - 300, s)]
+    kc, vc, kw = _cache(store, b, s, kh, d, lens, g, dev)
+    q = torch.randn(b, kh * rows, d, generator=g, device=dev).to(
+        torch.bfloat16)
     lengths = torch.tensor(lens, device=dev)
-    new = None
-    if with_rows:
-        k_new, v_new = (torch.randn(b, t, kh * d, generator=g, device=dev)
-                        .to(torch.bfloat16) for _ in range(2))
-        pos = torch.tensor([[n - t + j if n else -1 for j in range(t)]
-                            for n in lens], device=dev, dtype=torch.int32)
-        new = da.NewRows(k_new, v_new, pos)
-        for sc in (kw["k_scale"], kw["v_scale"]):
-            sc[torch.arange(b, device=dev)[:, None].expand(b, t).clamp(
-                0), :, pos.clamp(0).long()] = float("nan")
-    state = [kc, vc, kw["k_scale"], kw["v_scale"]]
-    ref_state = [x.clone() for x in state]
-    ref_kw = dict(kw, k_scale=ref_state[2], v_scale=ref_state[3])
-    ref = da.decode_attention_int8_dots_plain(q, ref_state[0], ref_state[1],
-                                              lengths, tokens=t, new=new,
-                                              **ref_kw)
-    key = "i8:" + (store if t == 1 else f"{store}:t{t}")
-    before = da.decode_attention.variant_launches[key]
-    rows_before = da.decode_attention.variant_launches[key + "+rows"]
-    out = da.decode_attention(q, kc, vc, lengths, tokens=t, new=new,
-                              int8_dots=True, **kw)
-    again = da.decode_attention(q, kc, vc, lengths, tokens=t, new=new,
-                                int8_dots=True, **kw)
+    out = da.decode_attention(q, kc, vc, lengths, tokens=t, int8_dots=True,
+                              **kw)
+    ref = da.decode_attention_int8_dots_plain(q, kc, vc, lengths, tokens=t,
+                                              **kw)
     torch.cuda.synchronize()
     _check_rows(out, ref)
-    assert torch.equal(out, again)
-    for x, y in zip(state, ref_state):     # bytes, NaN scales included
-        bits = torch.int8 if x.dtype == torch.int8 else torch.int32
-        assert torch.equal(x.view(bits), y.view(bits))
-    assert da.decode_attention.variant_launches[key] == before + 2
-    assert da.decode_attention.variant_launches[key + "+rows"] == \
-        rows_before + (2 if with_rows else 0)
 
 
 @pytest.mark.cuda

@@ -8,6 +8,7 @@
     python3 chip_smoke.py --slot-orders CHECKOUT
     python3 chip_smoke.py --fold-ms CHECKOUT
     python3 chip_smoke.py --i8-ms CHECKOUT
+    python3 chip_smoke.py --seg-ms CHECKOUT
 
 The second form only times the TinyLlama int8 decode step's 89 matmuls
 and its w_gu at a 1024-token prefill through #1, the Llama-2-7B W4A8 g128
@@ -28,7 +29,11 @@ orders of the slots (see `slot_order_ms`), `--fold-ms CHECKOUT` for the
 attention that writes a step's rows beside the writer + attention pair
 (see `fold_ms`; a checkout without the fold times the pair only),
 `--i8-ms CHECKOUT` for #3's int8-dot variant at I8_HEADS beside the
-bf16-dot kernel on the same caches (see `i8_ms`).
+bf16-dot kernel on the same caches (see `i8_ms`), `--seg-ms CHECKOUT` for
+9q, the a8 pre-pass of #9 and #10, at Mixtral-8x7B's 1024 routed rows
+(#9's input from #10's gate | up by 9q's GLU mode where the checkout has
+it, else by the eager GLU ops then 9q) and a 512-token Mixtral prefill's
+device busy and its 9q and eager GLU share (see `seg_ms`).
 `--kt-ms` and `--fold-ms` run with DPT_ATTN_INT8=0, so #3 is its bf16-dot
 kernel in every checkout; `--step-ms` and `--slot-orders` time each
 checkout's default (#3's int8-dot variant for int8 and k8v4 KV since it
@@ -74,9 +79,12 @@ Phases, each printing a line with its wall time:
               serve's traffic once: prefills of 256 tokens and more take
               the grouped kernels #10 and #9, the rest and every decode
               step the cat path through #1; only W4A8 g128 variants may
-              launch and every expert must take routed pairs; then a
-              profiled decode step (the row quantizer 129 times, as in
-              phase 10) and a 512-token TTFT
+              launch, every expert must take routed pairs, and each a8
+              launch of #10 / #9 follows one of 9q in plain / GLU mode;
+              then a profiled decode step (the row quantizer 129 times, as
+              in phase 10), a 512-token TTFT, and a profiled 512-token
+              prefill (device busy, launches, 9q's share; no kernel may
+              run between #10 and #9, where the GLU ran as eager ops)
  12. spec_serve  phase 6 with prompt-lookup speculation (K = 4 drafts,
               n-gram 3): serve's 8 greedy requests and one at temperature
               0.8; the bf16 verify variant of #3 (tokens = 5) and #2 must
@@ -149,7 +157,10 @@ and 512), the activation quantizer (a cluster of blocks a row) at the
 step's 129 quantizations of each model a row), and the grouped kernels #10 and
 #9 of MoE at Mixtral-8x7B's experts (1024 routed rows) in four weight
 variants too (#10 also, untimed, at mixtral-mini's, tiny-moe's and a ragged
-cat whose column blocks end inside the next expert), and #1's GEMV on one
+cat whose column blocks end inside the next expert), 9q, their a8 pre-pass,
+per a8 variant on #9's and #10's inputs and in its GLU mode from #10's
+gate | up output (bit for bit with its plain version; the GLU row timed
+beside the eager GLU ops + 9q it replaces), and #1's GEMV on one
 Mixtral-8x7B layer's cat experts at M = 8 (dequant_matmul[w4a8g, Mixtral
 layer, M=8]). #1's tensor-core route (every M above GEMV_MAX_M) is held
 at a TinyLlama 512-token prefill on the main path's own int8 weight
@@ -1607,10 +1618,8 @@ def check_grouped_kernels(torch):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 13)
     e, h, ffn = MIXTRAL_E, MIXTRAL_H, MIXTRAL_FFN
-    counts = torch.tensor(ROUTED_COUNTS, device=dev)
     pairs = int(sum(ROUTED_COUNTS))
-    sorted_e = torch.repeat_interleave(torch.arange(e, device=dev), counts)
-    dest, te, m_pad = gm.expert_tiles(sorted_e, counts)
+    te, dest, m_pad = routed_layout(torch)
     live_tiles = int((te >= 0).sum())
     live_e = sum(1 for c in ROUTED_COUNTS if c)
     xs = {}
@@ -1682,9 +1691,8 @@ def check_grouped_kernels(torch):
                 f"{err:.3e} worst_row_ratio={worst:.3e}, kernel {t_k:.4f} ms"
                 f"{old}, plain {t_p:.4f} ms, torch.bmm bf16 {t_l:.4f} ms, "
                 f"bound {bd:.4f} ms ({by})")
-            if stacked and var == GROUPED_VARIANTS[0][0]:   # the path's
-                rows.append(check_segments(torch, gm, x, group, te, dest,
-                                           var))
+            if stacked and a8:
+                rows += check_segments(torch, gm, te, dest, m_pad, var)
             rows.append({
                 "name": f"{kernel}[{var}]", "route": "cuda",
                 "source": "deeppowers_tpu_torch/csrc/dequant_matmul.cu",
@@ -1805,32 +1813,177 @@ def check_mixtral_gemv(torch):
              "launch_from": ("serve[mixtral-8x7b]", "dequant_matmul[gemv]")}]
 
 
-def check_segments(torch, gm, x, group, te, dest, var):
-    """#9's a8 pre-pass (quantize_segments) on the w_out rows of one
-    variant: every routed row's bytes and segment scales equal its plain
-    version's, bit for bit; timed beside its bound (the routed rows' bf16
-    read once, their int8 codes and f32 scales written once) and the plain
-    version. Launches from serve[mixtral-8x7b]."""
-    q, qs = gm.quantize_segments(x, group, te)
-    qp, qsp = gm.quantize_segments_plain(x, group)
-    torch.cuda.synchronize()
-    if not (torch.equal(q[dest], qp[dest])
-            and torch.equal(qs[:, dest], qsp[:, dest])):
-        fail(f"quantize_segments[{var}] differs from its plain version")
-    t_k = cuda_ms(torch, [lambda: gm.quantize_segments(x, group, te)], 20)
-    t_p = cuda_ms(torch, [lambda: gm.quantize_segments_plain(x, group)], 5,
-                  graph=False)
-    pairs, k = dest.numel(), x.shape[1]
-    bd, by = bound_ms(pairs * k * (2 + 1) + pairs * (k // group) * 4, 0)
-    log(f"  quantize_segments[{var}] {pairs} routed rows K={k} segments of "
-        f"{group}: exact, kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
-        f"{bd:.6f} ms")
-    return {"name": "quantize_segments", "route": "cuda",
-            "source": "deeppowers_tpu_torch/csrc/dequant_matmul.cu",
-            "replaces": "deeppowers_tpu/ops/pallas/dequant_matmul.py:755",
-            "max_abs_err": 0.0, "ms": t_k, "plain_ms": t_p, "bound_ms": bd,
-            "bound_by": by, "library_ms": None,
-            "launch_from": ("serve[mixtral-8x7b]", "quantize_segments")}
+# 9q at Mixtral's experts, segments of SEG_GROUP (the a8 variants' group):
+# #9's input rows (w_out, K = 14336) and #10's (w_gu, K = 4096) in plain
+# mode, and #9's input computed from #10's gate | up output in GLU mode
+SEG_GROUP = 128
+SEG_CASES = (("w_out", MIXTRAL_FFN, False), ("w_gu", MIXTRAL_H, False),
+             ("glu", MIXTRAL_FFN, True))
+SEG_SRC = "deeppowers_tpu_torch/csrc/dequant_matmul.cu"
+SEG_NOTE = ("9q is one launch for both a8 variants (segments of 128 "
+            "values); the served Mixtral is w4a8g")
+
+
+def routed_layout(torch):
+    """(te, dest, m_pad) of ROUTED_COUNTS over Mixtral's experts in tiles of
+    64 rows, as the MoE layer lays them out."""
+    from deeppowers_tpu_torch.ops.kernels import grouped_matmul as gm
+    counts = torch.tensor(ROUTED_COUNTS, device="cuda")
+    sorted_e = torch.repeat_interleave(
+        torch.arange(MIXTRAL_E, device="cuda"), counts)
+    dest, te, m_pad = gm.expert_tiles(sorted_e, counts)
+    return te, dest, m_pad
+
+
+def segment_inputs(torch, dest, m_pad, k, glu, seed):
+    """9q inputs, (M_pad, K) bf16 rows or (M_pad, 2K) gate | up, over
+    copies that keep a timed call's rows and codes out of the 50 MB L2
+    (ATTN_COLD_BYTES a turn, at least two): the routed rows random, the
+    tiles' pad rows zero, as #10 leaves them for zero rows. From a
+    generator of their own."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    width = 2 * k if glu else k
+    copies = max(2, -(-ATTN_COLD_BYTES // (m_pad * (2 * width + k))))
+    out = []
+    for _ in range(copies):
+        x = torch.zeros(m_pad, width, device="cuda", dtype=torch.bfloat16)
+        x[dest] = torch.randn(dest.numel(), width, generator=g,
+                              device="cuda").to(torch.bfloat16)
+        out.append(x)
+    return out
+
+
+def eager_glu(torch, gu):
+    """#9's input from #10's gate | up output as the MoE layer computes it
+    in eager ops where #9's pre-pass does not: bf16(silu(f32 gate) * f32
+    up), five kernels (two copies to f32, the SiLU, the product, the
+    cast)."""
+    i = gu.shape[1] // 2
+    return (torch.nn.functional.silu(gu[:, :i].float())
+            * gu[:, i:].float()).to(torch.bfloat16)
+
+
+def segment_calls(torch, gm, te, x, glu, fused):
+    """One 9q call on x: plain rows; or #9's input from gate | up, by the
+    GLU mode (`fused`, where the package has it) or by the eager GLU ops
+    then 9q in plain mode."""
+    if glu and fused:
+        return lambda: gm.quantize_segments(x, SEG_GROUP, te, glu=True)
+    if glu:
+        return lambda: gm.quantize_segments(eager_glu(torch, x), SEG_GROUP,
+                                            te)
+    return lambda: gm.quantize_segments(x, SEG_GROUP, te)
+
+
+def check_segments(torch, gm, te, dest, m_pad, var):
+    """9q, the a8 pre-pass of #9 and #10, for one a8 variant at SEG_CASES:
+    every live tile's codes and segment scales equal its plain version's,
+    bit for bit; timed over copies past the L2 beside its bound (the
+    routed rows read once, GLU's gate and up, and their codes and f32
+    scales written once) and the plain version; the GLU row also beside
+    the route it replaces (`pair_ms`: the eager GLU ops, then 9q in plain
+    mode). Launches from serve[mixtral-8x7b], by mode."""
+    live = torch.repeat_interleave(te >= 0, 64)
+    pairs = dest.numel()
+    rows = []
+    for i, (what, k, glu) in enumerate(SEG_CASES):
+        xs = segment_inputs(torch, dest, m_pad, k, glu, SEED + 90 + i)
+        q, qs = gm.quantize_segments(xs[0], SEG_GROUP, te, glu=glu)
+        qp, qsp = gm.quantize_segments_plain(xs[0], SEG_GROUP, glu)
+        torch.cuda.synchronize()
+        name = f"quantize_segments[{var}, {what} K={k}]"
+        if not (torch.equal(q[live], qp[live])
+                and torch.equal(qs[:, live], qsp[:, live])):
+            fail(f"{name} differs from its plain version")
+        del q, qs, qp, qsp
+        fns = [segment_calls(torch, gm, te, x, glu, True) for x in xs]
+        t_k = cuda_ms(torch, fns, 10 * len(xs))
+        t_p = cuda_ms(torch, [lambda: gm.quantize_segments_plain(
+            xs[0], SEG_GROUP, glu)], 3, graph=False)
+        nbytes = pairs * k * ((4 if glu else 2) + 1) + \
+            pairs * (k // SEG_GROUP) * 4
+        bd, by = bound_ms(nbytes, 0)
+        row = {"name": name, "route": "cuda", "source": SEG_SRC,
+               "replaces": "deeppowers_tpu/ops/pallas/dequant_matmul.py:"
+                           + ("911" if what == "w_gu" else "755"),
+               "max_abs_err": 0.0, "ms": t_k, "plain_ms": t_p,
+               "bound_ms": bd, "bound_by": by, "library_ms": None,
+               "launch_from": ("serve[mixtral-8x7b]", "quantize_segments"
+                               f"[{'glu' if glu else 'plain'}]")}
+        pair = ""
+        if glu:
+            row["pair_ms"] = cuda_ms(torch, [segment_calls(
+                torch, gm, te, x, True, False) for x in xs], 10 * len(xs))
+            pair = f", the eager GLU ops + 9q {row['pair_ms']:.4f} ms"
+        if var != GROUPED_VARIANTS[0][0]:
+            row["note"] = SEG_NOTE
+        log(f"  {name} {pairs} routed rows (M_pad={m_pad}) segments of "
+            f"{SEG_GROUP}{', from gate | up' if glu else ''}: exact, kernel "
+            f"{t_k:.4f} ms{pair}, plain {t_p:.4f} ms, bound {bd:.6f} ms "
+            f"({by}), {len(xs)} input copies")
+        rows.append(row)
+        del xs, fns
+        torch.cuda.empty_cache()
+    return rows
+
+
+def seg_kernel_ms(torch) -> dict:
+    """ms a call of 9q at SEG_CASES (w4a8g's inputs; #9's input from gate |
+    up by the GLU mode where the package has it, else by the eager GLU ops
+    then 9q, and by that pair in both), over copies past the L2, in turns,
+    STEP_REPS times. Only the wrapper is used, so any checkout's package
+    can be timed."""
+    import inspect
+
+    from deeppowers_tpu_torch.ops.kernels import grouped_matmul as gm
+    fused = "glu" in inspect.signature(gm.quantize_segments).parameters
+    te, dest, m_pad = routed_layout(torch)
+    calls, inputs = {}, []
+    for i, (what, k, glu) in enumerate(SEG_CASES):
+        xs = segment_inputs(torch, dest, m_pad, k, glu, SEED + 90 + i)
+        inputs.append(xs)
+        calls[f"{what}_ms"] = [segment_calls(torch, gm, te, x, glu, fused)
+                               for x in xs]
+        if glu:
+            calls["glu_pair_ms"] = [segment_calls(torch, gm, te, x, True,
+                                                  False) for x in xs]
+    out = {"glu_mode": fused}
+    for _ in range(STEP_REPS):
+        for name, fns in calls.items():
+            out.setdefault(name, []).append(cuda_ms(torch, fns,
+                                                    10 * len(fns)))
+    del calls, inputs
+    torch.cuda.empty_cache()
+    return out
+
+
+def seg_ms(torch) -> dict:
+    """`seg_kernel_ms`, then a TTFT_PROMPT-token Mixtral-8x7B prefill alone
+    on serve[mixtral-8x7b]'s engine and weights (`moe_prefill_profile`,
+    STEP_REPS times). Only the wrappers and the engine are used, so any
+    checkout's package can be timed (`--seg-ms ROOT`)."""
+    from deeppowers_tpu_torch.config import GenerationConfig, RuntimeConfig
+    from deeppowers_tpu_torch.models import transformer as T
+    from deeppowers_tpu_torch.models.presets import MIXTRAL_8X7B as cfg
+    from deeppowers_tpu_torch.runtime.engine import InferenceEngine
+    from deeppowers_tpu_torch.serving.tokenizer import ByteTokenizer
+    out = seg_kernel_ms(torch)
+    params = mixtral_params(torch, T, cfg, torch.Generator(
+        device="cuda").manual_seed(SEED + 16), "cuda")
+    tok = ByteTokenizer()
+    engine = InferenceEngine(
+        params, cfg, device="cuda", eos_token_id=tok.eos_token_id,
+        kv_cache_dtype=MIXTRAL_KV,
+        runtime=RuntimeConfig(max_batch_size=8, max_seq_len=1024,
+                              prefill_buckets=(64, 128, 256, 512, 1024),
+                              scan_layers=False))
+    engine.generate(tok.encode("warm up"), GenerationConfig(
+        max_tokens=2, temperature=0.0))
+    out["prefill"] = [moe_prefill_profile(torch, engine)
+                      for _ in range(STEP_REPS)]
+    del engine, params
+    torch.cuda.empty_cache()
+    return out
 
 
 ATTN_LENS = (48, 96, 132, 232, 332, 482, 632, 932)
@@ -3904,12 +4057,28 @@ MIXTRAL_KV = "int8"
 MIXTRAL_PROMPT = 320          # b·s >= 256: the prefill takes #10 and #9
 MIXTRAL_ON_PATH = ["grouped_dequant_matmul_ncat[w4a8g]",
                    "grouped_dequant_matmul[w4a8g]", "dequant_matmul[w4a8g]",
-                   "quantize_activations", "quantize_segments"]
+                   "quantize_activations", "quantize_segments",
+                   "quantize_segments[plain]", "quantize_segments[glu]"]
 MIXTRAL_OFF_PATH = (LLAMA2_OFF_PATH + [
     f"{k}[{v}]" for k in ("grouped_dequant_matmul",
                           "grouped_dequant_matmul_ncat")
     for v in ("w8", "w8g", "w8a8", "w8a8g", "w4", "w4g", "w4a8")])
 FLIPPED_ROUTES_MAX = 1e-2
+
+
+def check_segment_modes(phase, launches) -> None:
+    """Each a8 launch of #10 follows one 9q launch in plain mode and each
+    of #9 one in GLU mode (the pre-pass computes the layer's SiLU GLU), and
+    9q launches nowhere else."""
+    plain, glu = (launches.get(f"quantize_segments[{m}]", 0)
+                  for m in ("plain", "glu"))
+    ncat = launches.get("grouped_dequant_matmul_ncat[w4a8g]", 0)
+    grouped = launches.get("grouped_dequant_matmul[w4a8g]", 0)
+    if (plain, glu) != (ncat, grouped) or \
+            launches.get("quantize_segments", 0) != plain + glu:
+        fail(f"{phase}: 9q launched {plain} times in plain mode and {glu} in "
+             f"GLU mode ({launches.get('quantize_segments', 0)} in all) for "
+             f"{ncat} a8 launches of #10 and {grouped} of #9")
 
 
 def mixtral_params(torch, T, cfg, gen, device, dtype=None, scales=False):
@@ -3999,6 +4168,7 @@ def mixtral_path(torch, T, kvcache, counters, scan=False):
     on, off = scan_variants(MIXTRAL_KV, scan)
     check_variants(name, launches, MIXTRAL_ON_PATH + on,
                    MIXTRAL_OFF_PATH + off)
+    check_segment_modes(name, launches)
     t0 = time.perf_counter()
     with recorded_routes(T) as ref_routes:
         ref = teacher_forced(torch, T, kvcache, tree_to(params, "cpu"), cfg,
@@ -4087,6 +4257,7 @@ def serve_mixtral(torch, T, counters):
                             "step_writers"]
         + [f"{k}[{v}]" for k in ("scatter_rows", "decode_attention")
            for v in KV_CACHE_DTYPES if v != MIXTRAL_KV])
+    check_segment_modes("serve[mixtral-8x7b]", launches)
     # random weights make every token's hidden state alike after a few
     # layers (the JAX package's forward on the same draw does the same),
     # so past layer 0 the routes crowd onto two or four experts; every
@@ -4119,6 +4290,15 @@ def serve_mixtral(torch, T, counters):
         ttft.append((time.perf_counter() - t1) * 1e3)
     engine.pop_finished()
     out["ttft_512_ms"] = ttft
+    # a prefill's kernels: 9q twice a layer, and nothing between #10 and
+    # #9 (the GLU is computed in #9's pre-pass)
+    pp = out["prefill_profile"] = moe_prefill_profile(torch, engine)
+    if pp["segments"]["traced"] != 2 * cfg.num_layers or \
+            pp["between"]["traced"]:
+        fail(f"serve[mixtral-8x7b]: a profiled prefill ran 9q "
+             f"{pp['segments']['traced']} times (want {2 * cfg.num_layers}) "
+             f"and {pp['between']['traced']} kernels between #10 and #9 "
+             f"(want 0): {pp['between']['names']}")
     return out
 
 
@@ -4444,6 +4624,49 @@ def profile_prefill(torch, engine, tok, prompts):
                     for e in sorted(dev, key=lambda e: -e.self_device_time_total)
                     [:4]]
     split["wall_ms"] = walls
+    return split
+
+
+def moe_prefill_profile(torch, engine, reps: int = 2) -> dict:
+    """A TTFT_PROMPT-token prompt prefilled alone on the warm MoE engine,
+    once to warm, then `reps` times under torch.profiler: per prefill the
+    host split (device busy ms, launches, PyTorch ops); 9q's launches and
+    device ms; and the kernels between #10 and #9 of each MoE layer (after
+    the layer's first 9q launch and #10's kernel, before its second 9q
+    launch), where the layer's GLU runs as eager ops when #9's pre-pass does
+    not compute it: their launches and device ms, and their names."""
+    from deeppowers_tpu_torch.config import GenerationConfig
+    from torch.profiler import ProfilerActivity, profile
+    first = GenerationConfig(max_tokens=1, temperature=0.0)
+
+    def prefill(i):
+        ids = [4 + (j * 7 + i) % 250 for j in range(TTFT_PROMPT)]
+        slot = engine.add_request(ids, first)
+        while slot in engine.prefilling_slots:
+            engine.continue_prefill(slot)
+        torch.cuda.synchronize()
+        engine.pop_finished()
+
+    prefill(0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            prefill(i + 1)
+    split = host_split(torch, prof, reps)
+    cuda = torch.autograd.DeviceType.CUDA
+    kern = sorted((e for e in prof.events() if e.device_type == cuda),
+                  key=lambda e: e.time_range.start)
+    seg = [i for i, e in enumerate(kern) if "quantize_segments" in e.name]
+    between = [e for a, b in zip(seg[0::2], seg[1::2])
+               for e in kern[a + 2:b]]
+
+    def ms(events):
+        return sum(e.time_range.elapsed_us() for e in events) / 1e3 / reps
+    split.update(
+        segments={"traced": len(seg) / reps,
+                  "ms": ms([kern[i] for i in seg])},
+        between={"traced": len(between) / reps, "ms": ms(between),
+                 "names": sorted({e.name[:48] for e in between})})
     return split
 
 
@@ -5229,11 +5452,20 @@ def main(argv) -> int:
         log(json.dumps({"checkout": argv[1], "card": card_line(),
                         **i8_ms(torch)}))
         return 0
+    if argv[:1] == ["--seg-ms"] and len(argv) == 2:
+        # 9q's rows and a Mixtral prefill's device busy, through the
+        # package of the checkout at argv[1]
+        sys.path.insert(0, os.path.abspath(argv[1]))
+        from deeppowers_tpu_torch.ops.kernels import _build
+        _build.library()
+        log(json.dumps({"checkout": argv[1], "card": card_line(),
+                        **seg_ms(torch)}))
+        return 0
     if argv:
         sys.stderr.write("usage: chip_smoke.py [--step-ms CHECKOUT | "
                          "--ttft CHECKOUT | --kt-ms CHECKOUT | "
                          "--slot-orders CHECKOUT | --fold-ms CHECKOUT | "
-                         "--i8-ms CHECKOUT]\n")
+                         "--i8-ms CHECKOUT | --seg-ms CHECKOUT]\n")
         return 2
     from deeppowers_tpu_torch.config import QuantConfig
     from deeppowers_tpu_torch.models import transformer as T
@@ -5551,6 +5783,13 @@ def main(argv) -> int:
         f"{msrv['idle_layers']}); TTFT of a {TTFT_PROMPT}-token prompt "
         f"alone on the warm engine: p50 {tt[len(tt) // 2]:.3f} ms, max "
         f"{tt[-1]:.3f} ms, each " + json.dumps(msrv["ttft_512_ms"]))
+    pp = msrv["prefill_profile"]
+    log(f"serve[mixtral-8x7b] profiled {TTFT_PROMPT}-token prefill: device "
+        f"busy {pp['busy_ms']:.3f} ms, {pp['launches']:.1f} launches, "
+        f"{pp['ops']:.1f} PyTorch ops; 9q {pp['segments']['ms']:.4f} ms "
+        f"({pp['segments']['traced']:.1f} launches); kernels between #10 "
+        f"and #9 {pp['between']['ms']:.4f} ms "
+        f"({pp['between']['traced']:.1f} launches) card={smi_line!r}")
 
     # each row's launches: from the serve phase whose path runs it, else
     # from the teacher-forced path run of its store and layout; #1 at an odd

@@ -641,7 +641,9 @@ def _moe_grouped_cat(x, p, cfg: TransformerConfig):
     on a tile of BLOCK_M rows (`expert_tiles`: static sizes, built on the
     device), then #10 over w_gu's column blocks into bf16, act(gate) * up,
     #9 over w_out viewed as stacked (E, I[/2], H) planes (a reshape, no
-    copy) into f32, and the weighted combine."""
+    copy) into f32, and the weighted combine. An a8 w_out takes gate | up
+    itself: its pre-pass computes the same bf16 rows (9q's GLU mode); a
+    weight-only one runs act(gate) * up as ops."""
     t, k = x.shape[0], cfg.num_experts_per_tok
     cat, i_dim = p["experts_cat"], cfg.ffn_size
     qgu, qo = cat["w_gu"]["w"], cat["w_out"]["w"]
@@ -656,12 +658,18 @@ def _moe_grouped_cat(x, p, cfg: TransformerConfig):
     xs[dest] = x[sort_t]
     gu = grouped_dequant_matmul_ncat(xs, qgu, te, 2 * i_dim,
                                      out_dtype=torch.bfloat16)
-    inter = (_act(gu[:, :i_dim].float(), cfg)
-             * gu[:, i_dim:].float()).to(x.dtype)
     stacked = QuantizedTensor(qo.data.reshape(e, -1, qo.data.shape[1]),
                               cat["w_out_scales_stacked"], None, qo.bits,
                               qo.group_size, qo.act_bits)
-    y = grouped_dequant_matmul(inter, stacked, te, out_dtype=torch.float32)
+    if qo.act_bits == 8:
+        # #9's a8 pre-pass computes act(gate) * up from gu as it quantizes
+        y = grouped_dequant_matmul(gu, stacked, te, out_dtype=torch.float32,
+                                   glu=True, act=cfg.activation)
+    else:
+        inter = (_act(gu[:, :i_dim].float(), cfg)
+                 * gu[:, i_dim:].float()).to(x.dtype)
+        y = grouped_dequant_matmul(inter, stacked, te,
+                                   out_dtype=torch.float32)
     contrib = y[dest] * top_w.reshape(-1)[order][:, None]
     return _combine(contrib, order, t, k).to(x.dtype)
 

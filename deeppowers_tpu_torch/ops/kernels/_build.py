@@ -68,7 +68,8 @@ SIGNATURES: Dict[str, list] = {
                                + [_I] * 13 + [_F, _P, _P],
     "dpt_grouped_mma": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I,
                         _I, _I, _I, _P],
-    "dpt_quantize_segments": [_P, _I, _I, _I, _P, _P, _P, _P],
+    "dpt_quantize_segments": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                              _P],
     "dpt_flash_attention": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P,
                             _I, _I, _I, _I, _I, _I, _I, _F, _P, _P],
 }

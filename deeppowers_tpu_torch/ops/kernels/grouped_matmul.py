@@ -38,15 +38,35 @@ int4 in half-split nibbles, any group g dividing K):
   segment is the scale group when the group divides the Pallas kernel's
   K block (its `pre` regime), else that block (`_pick_block_k` :327,
   copied here). The CUDA path takes only weights whose segments are their
-  groups (`a8_per_group`) and raises on the others: the pre-pass
+  groups (`a8_per_group`) and raises on the others: the pre-pass 9q
   (`quantize_segments`, whose plain version composed with
   `grouped_a8_product_plain` gives `grouped_dequant_matmul_plain`'s bits)
   quantizes each (row, group) once for the product.
 
+9q's GLU mode: the MoE layer's #9 input is act(gate) * up of #10's
+output gu (M_pad, 2K), the activation in f32, rounded to bf16
+(`glu_rows_plain`). Under a8 the layer hands gu itself to #9
+(`grouped_dequant_matmul(..., glu=True, act=...)`), whose pre-pass
+computes those rows as it quantizes them, so they are never written. The
+function is the eager ops', bit for bit: csrc `act_fn` gives F.silu's and
+F.gelu(approximate="tanh")'s f32 results on every finite bf16 input (on
+an H100, PERF.md §6, PR 20), and the product and its rounding are the
+same ops.
+
+9q's design (csrc/dequant_matmul.cu `quantize_segments_kernel`): a block
+takes a 64-row tile and a chunk of each row (`segment_chunk`), every row
+read once, a thread's 16-byte loads of a pass issued before it uses any,
+five blocks an SM; each segment's max met in registers by warp shuffles;
+the correctly rounded quotient from one reciprocal a segment (Markstein's
+correction, so a zero needs no division); the scales staged so that they
+go out 64 contiguous floats a segment. Bound: bytes, the rows read once
+and the codes written once.
+
 Launch counts: `grouped_dequant_matmul.launches`,
-`grouped_dequant_matmul_ncat.launches`, `quantize_segments.launches`,
-and in the first two's `variant_launches` the launch under its weight
-variant ("w4a8g", "w4g", "w8g", "w8a8g", ...; `dequant_matmul.variant`).
+`grouped_dequant_matmul_ncat.launches`, `quantize_segments.launches`;
+in the first two's `variant_launches` the launch under its weight variant
+("w4a8g", "w4g", "w8g", "w8a8g", ...; `dequant_matmul.variant`), in 9q's
+under its mode ("plain", "glu").
 
 Bound on an H100: at a prefill's row counts the 2·rows·K·N operations over
 the int8 (a8) or bf16 tensor-core peak; the weights of each expert with
@@ -61,6 +81,7 @@ import torch
 import torch.nn.functional as F
 
 from ...quant.qtypes import QuantizedTensor, unpack_int4
+from ..activation import activation
 from . import _build
 from .dequant_matmul import MMA_BKS, variant
 
@@ -226,13 +247,27 @@ def grouped_dequant_matmul_ncat_plain(xs, qw: QuantizedTensor, tile_expert,
                           qw.act_bits, ne, out_dtype)
 
 
-def quantize_segments_plain(xs: torch.Tensor, seg: int):
+def glu_rows_plain(gu: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """#9's input from #10's output gu (M, 2K), gate | up: bf16(act(f32
+    gate) * f32 up), (M, K), act "silu" or "gelu" (tanh); the MoE layer's
+    eager GLU (models/transformer.py `_moe_grouped_cat`) as it computes it
+    on a bf16 model."""
+    i = gu.shape[1] // 2
+    return (activation(gu[:, :i].float(), act)
+            * gu[:, i:].float()).to(torch.bfloat16)
+
+
+def quantize_segments_plain(xs: torch.Tensor, seg: int, glu: bool = False,
+                            act: str = "silu"):
     """(q, qs): the expert tiles' a8 activations xs (M, K), rounded to
     bf16, quantized per (row, segment of `seg` unpacked K values) as the
     Pallas body quantizes them where its segments are the scale groups: qs =
     max(amax, 1e-30) * fl(1/127), (K / seg, M) f32, segment-major as the
     kernel's flush reads it; q = x / qs rounded half to even, clipped to
-    +-127, (M, K) int8."""
+    +-127, (M, K) int8. With `glu`, xs is #10's gate | up (M, 2K) and the
+    rows are `glu_rows_plain(xs, act)`."""
+    if glu:
+        xs = glu_rows_plain(xs, act)
     m, k = xs.shape
     a = xs.to(torch.bfloat16).float().reshape(m, k // seg, seg)
     qs = a.abs().amax(-1).clamp_min(1e-30) * _RECIP_127      # (M, G)
@@ -240,35 +275,72 @@ def quantize_segments_plain(xs: torch.Tensor, seg: int):
     return q.to(torch.int8).reshape(m, k), qs.t().contiguous()
 
 
-def quantize_segments(xs: torch.Tensor, seg: int,
-                      tile_expert: torch.Tensor):
-    """The a8 pre-pass of #9 and #10: (q, qs) as `quantize_segments_plain`
-    gives them, xs (M_pad, K) bf16 rows in tiles of BLOCK_M. A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel
-    (csrc/dequant_matmul.cu `quantize_segments_kernel`, counted in
-    `quantize_segments.launches`), which skips the rows of dead tiles
-    (their q and qs are left undefined)."""
-    if not xs.is_cuda:
-        return quantize_segments_plain(xs, seg)
-    m, k = xs.shape
-    if xs.dtype != torch.bfloat16 or not xs.is_contiguous() \
-            or xs.data_ptr() % 16 or m % BLOCK_M or k % seg or seg % 8:
+#: at most this many values of a row a block of 9q takes, for segments
+#: below 256 values (`segment_chunk`)
+SEG_CHUNK = 256
+#: the largest segment of 256 values or more: one chunk, up to four slots
+#: a row (csrc SEG_SLOTS)
+SEG_WIDE_MAX = 1024
+
+
+def segment_chunk(k: int, seg: int) -> int:
+    """Values of each row a block of the CUDA pre-pass takes: segments of
+    8-128 values (seg / 8 lanes share one, met by warp shuffles) a chunk of
+    the most whole segments dividing K up to SEG_CHUNK; segments of a
+    multiple of 256 values (up to SEG_WIDE_MAX) one segment a chunk.
+    Raises NotImplementedError for the other segment sizes, which no
+    served weight has (a per-group a8 weight's segment is a power of two
+    from 32; a per-channel one's, K, is at most 1024)."""
+    if seg % 256 == 0 and seg <= SEG_WIDE_MAX:
+        return seg
+    if seg % 8 or seg > 128 or 32 % (seg // 8):
         raise NotImplementedError(
-            f"quantize_segments takes contiguous (M, K) bf16 rows in tiles "
-            f"of {BLOCK_M} and segments of a multiple of 8 dividing K, got "
-            f"{xs.dtype} {tuple(xs.shape)}, segment {seg}")
+            f"CUDA quantize_segments takes segments of 8, 16, 32, 64 or 128 "
+            f"values or a multiple of 256 up to {SEG_WIDE_MAX}, got {seg}")
+    return max(c for c in range(seg, min(k, SEG_CHUNK) + 1, seg)
+               if k % c == 0)
+
+
+def quantize_segments(xs: torch.Tensor, seg: int,
+                      tile_expert: torch.Tensor, glu: bool = False,
+                      act: str = "silu"):
+    """9q, the a8 pre-pass of #9 and #10: (q, qs) as
+    `quantize_segments_plain` gives them, xs (M_pad, K) bf16 rows in tiles
+    of BLOCK_M, or with `glu` #10's gate | up (M_pad, 2K), whose rows
+    act(gate) * up (act "silu" or "gelu") the kernel computes itself. A
+    CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (csrc/dequant_matmul.cu `quantize_segments_kernel`, counted in
+    `quantize_segments.launches` and under "plain" or "glu" in
+    `quantize_segments.variant_launches`), which skips the rows of dead
+    tiles (their q and qs are left undefined), or raises."""
+    if not xs.is_cuda:
+        return quantize_segments_plain(xs, seg, glu, act)
+    m, width = xs.shape
+    k = width // 2 if glu else width
+    if act not in ("silu", "gelu"):
+        raise ValueError(f"act must be 'silu' or 'gelu', got {act!r}")
+    if xs.dtype != torch.bfloat16 or not xs.is_contiguous() \
+            or xs.data_ptr() % 16 or m % BLOCK_M or k % 8 or k % seg \
+            or (glu and width % 2):
+        raise NotImplementedError(
+            f"quantize_segments takes contiguous (M, K) bf16 rows (GLU: (M, "
+            f"2K)) in tiles of {BLOCK_M}, K % 8 == 0, and segments dividing "
+            f"K, got {xs.dtype} {tuple(xs.shape)}, segment {seg}, glu {glu}")
+    chunk = segment_chunk(k, seg)
     te = tile_expert.to(torch.int32).contiguous()
     q = torch.empty((m, k), dtype=torch.int8, device=xs.device)
     qs = torch.empty((k // seg, m), dtype=torch.float32, device=xs.device)
     rc = _build.library().dpt_quantize_segments(
-        xs.data_ptr(), m, k, seg, te.data_ptr(), q.data_ptr(), qs.data_ptr(),
-        _build.stream())
+        xs.data_ptr(), m, k, seg, chunk, int(glu), int(act == "gelu"),
+        te.data_ptr(), q.data_ptr(), qs.data_ptr(), _build.stream())
     _build.check(rc, "quantize_segments")
     quantize_segments.launches += 1
+    quantize_segments.variant_launches["glu" if glu else "plain"] += 1
     return q, qs
 
 
 quantize_segments.launches = 0
+quantize_segments.variant_launches = collections.Counter()
 
 
 def grouped_a8_product_plain(q: torch.Tensor, qs: torch.Tensor,
@@ -309,7 +381,7 @@ def stage_depth(group: int) -> int:
     return next(b for b in MMA_BKS if group % b == 0)
 
 
-def _check(xs, qw, te, k, out_dtype, name):
+def _check(xs, qw, te, k, out_dtype, name, glu=False):
     """What the CUDA kernels take; returns the effective group."""
     if not isinstance(qw, QuantizedTensor) or qw.zero_points is not None:
         raise NotImplementedError(f"{name} takes symmetric QuantizedTensor "
@@ -321,8 +393,12 @@ def _check(xs, qw, te, k, out_dtype, name):
         raise NotImplementedError(f"CUDA {name} takes contiguous, 16-byte "
                                   f"aligned (M, K) bf16 rows, got {xs.dtype} "
                                   f"{tuple(xs.shape)}")
-    if xs.shape[1] != k:
-        raise ValueError(f"xs width {xs.shape[1]} != K {k}")
+    if xs.shape[1] != (2 * k if glu else k):
+        raise ValueError(f"xs width {xs.shape[1]} != {'2K' if glu else 'K'} "
+                         f"for K {k}")
+    if glu and qw.act_bits != 8:
+        raise NotImplementedError(f"CUDA {name}: the GLU is computed in the "
+                                  f"a8 pre-pass, got act_bits {qw.act_bits}")
     if xs.shape[0] % BLOCK_M or te.numel() != xs.shape[0] // BLOCK_M:
         raise ValueError(f"{te.numel()} tile experts for {xs.shape[0]} rows "
                          f"in tiles of {BLOCK_M}")
@@ -370,9 +446,10 @@ def expert_map(cat: bool, rows: int, n: int, e: int):
     return (n, rows, e), (n, rows * n)
 
 
-def _launch(fn, name, xs, qw, te, k, n, e, cat, out_dtype):
+def _launch(fn, name, xs, qw, te, k, n, e, cat, out_dtype, glu=False,
+            act="silu"):
     """#9 (cat False) or #10 (cat True) on the tensor-core kernel."""
-    g = _check(xs, qw, te, k, out_dtype, name)
+    g = _check(xs, qw, te, k, out_dtype, name, glu)
     rows = k // 2 if qw.bits == 4 else k
     if any(p % 16 for p in expert_map(cat, rows, n, e)[1]):
         raise NotImplementedError(
@@ -380,7 +457,7 @@ def _launch(fn, name, xs, qw, te, k, n, e, cat, out_dtype):
             f"(TMA's pitches), got {n}")
     te = te.to(torch.int32).contiguous()
     a8 = qw.act_bits == 8
-    x, qs = quantize_segments(xs, g, te) if a8 else (xs, None)
+    x, qs = quantize_segments(xs, g, te, glu, act) if a8 else (xs, None)
     out = torch.empty((xs.shape[0], n), dtype=out_dtype, device=xs.device)
     rc = _build.library().dpt_grouped_mma(
         x.data_ptr(), None if qs is None else qs.data_ptr(),
@@ -394,20 +471,26 @@ def _launch(fn, name, xs, qw, te, k, n, e, cat, out_dtype):
 
 def grouped_dequant_matmul(xs: torch.Tensor, qw: QuantizedTensor,
                            tile_expert: torch.Tensor, *,
-                           out_dtype=torch.float32) -> torch.Tensor:
+                           out_dtype=torch.float32,
+                           glu: bool = False,
+                           act: str = "silu") -> torch.Tensor:
     """#9: xs (M_pad, K) rows, tile i of BLOCK_M rows times expert
     tile_expert[i] of the stacked qw (data (E, K[/2], N), scales (E, G,
-    N)) -> (M_pad, N). A CPU tensor takes the plain version; a CUDA tensor
-    launches the tensor-core kernel (a8: after `quantize_segments`) or
-    raises."""
+    N)) -> (M_pad, N). With `glu` xs is #10's gate | up (M_pad, 2K) and the
+    rows are `glu_rows_plain(xs, act)`, act(gate) * up. A CPU tensor takes the
+    plain version; a CUDA tensor launches the tensor-core kernel (a8:
+    after `quantize_segments`, which computes the GLU itself) or raises
+    (also for `glu` with a weight-only qw)."""
     if not xs.is_cuda:
-        return grouped_dequant_matmul_plain(xs, qw, tile_expert,
-                                            out_dtype=out_dtype)
+        return grouped_dequant_matmul_plain(
+            glu_rows_plain(xs, act) if glu else xs, qw, tile_expert,
+            out_dtype=out_dtype)
     if qw.data.dim() != 3:
         raise ValueError("grouped_dequant_matmul expects stacked (E, K, N)")
     e, _, n = qw.data.shape
     return _launch(grouped_dequant_matmul, "grouped_dequant_matmul", xs, qw,
-                   tile_expert, qw.shape[1], n, e, False, out_dtype)
+                   tile_expert, qw.shape[1], n, e, False, out_dtype, glu,
+                   act)
 
 
 grouped_dequant_matmul.launches = 0

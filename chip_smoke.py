@@ -9,6 +9,7 @@
     python3 chip_smoke.py --fold-ms CHECKOUT
     python3 chip_smoke.py --i8-ms CHECKOUT
     python3 chip_smoke.py --seg-ms CHECKOUT
+    python3 chip_smoke.py --dispatch-ms CHECKOUT
 
 The second form only times the TinyLlama int8 decode step's 89 matmuls
 and its w_gu at a 1024-token prefill through #1, the Llama-2-7B W4A8 g128
@@ -33,7 +34,9 @@ bf16-dot kernel on the same caches (see `i8_ms`), `--seg-ms CHECKOUT` for
 9q, the a8 pre-pass of #9 and #10, at Mixtral-8x7B's 1024 routed rows
 (#9's input from #10's gate | up by 9q's GLU mode where the checkout has
 it, else by the eager GLU ops then 9q) and a 512-token Mixtral prefill's
-device busy and its 9q and eager GLU share (see `seg_ms`).
+device busy and its 9q and eager GLU share (see `seg_ms`),
+`--dispatch-ms CHECKOUT` for the served `step()` at the default runtime
+(see `dispatch_ms`).
 `--kt-ms` and `--fold-ms` run with DPT_ATTN_INT8=0, so #3 is its bf16-dot
 kernel in every checkout; `--step-ms` and `--slot-orders` time each
 checkout's default (#3's int8-dot variant for int8 and k8v4 KV since it
@@ -220,6 +223,20 @@ decode steps too) and serve[mixtral-8x7b] must launch the variant, and
 each profiles a decode step again with DPT_ATTN_INT8=0, which must launch
 none (both steps' device-busy ms and #3's ms are printed); the margins
 hold both of #3's functions.
+
+Every decode dispatch of the engine is a replayed CUDA graph
+(runtime/graphs.py), so every serve phase's decode steps run inside
+graphs; the wrappers' launch counts count each replay. The dispatch
+phases (`dispatch_phase` on TinyLlama after the serve phases,
+`dispatch_model` inside serve[llama2-7b] on its scan engine and inside
+serve[mixtral-8x7b]) hold a replay of each decode step variant against
+one eager call of the same function (`InferenceEngine._run_step`, the
+graph's plain version) on copies of the state, the history, the draft
+tail and the caches, bit for bit and with every cache at its address;
+require equal greedy streams across dispatch depths and pipelining, lazy
+paging that preempts at N = 1 and 4, and a seeded sampled engine that
+repeats its stream while its replays draw anew; and print profiled steps
+at N = 1 (graph) and at the auto depth.
 
 Any failed check raises: the error goes to stderr and the exit code is 1.
 Without a CUDA device, or without the deeppowers_tpu_torch package beside
@@ -2745,7 +2762,8 @@ FOLD_LAYOUTS = (
 
 def same_bits(torch, x, y) -> bool:
     """Equal bytes (NaN included)."""
-    dt = {1: torch.int8, 2: torch.int16, 4: torch.int32}[x.element_size()]
+    dt = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+          8: torch.int64}[x.element_size()]
     return torch.equal(x.view(dt), y.view(dt))
 
 
@@ -4001,6 +4019,11 @@ def serve_llama2(torch, T, counters):
                    i8_keys(LLAMA2_KV), ["scatter_rows", "step_writers"])
     del scan
     torch.cuda.empty_cache()
+    # the dispatch phase's checks on the 7B's default (scan) engine
+    t1 = time.perf_counter()
+    out["dispatch"] = dispatch_model(torch, "llama2-7b", params, cfg,
+                                     LLAMA2_KV, scan=True)
+    out["dispatch_s"] = time.perf_counter() - t1
     out["params"] = params          # spec_serve[llama2-7b+draft] reuses them
     return out
 
@@ -4299,6 +4322,12 @@ def serve_mixtral(torch, T, counters):
              f"{pp['segments']['traced']} times (want {2 * cfg.num_layers}) "
              f"and {pp['between']['traced']} kernels between #10 and #9 "
              f"(want 0): {pp['between']['names']}")
+    del engine
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    out["dispatch"] = dispatch_model(torch, "mixtral-8x7b", params, cfg,
+                                     MIXTRAL_KV)
+    out["dispatch_s"] = time.perf_counter() - t1
     return out
 
 
@@ -4451,6 +4480,7 @@ SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx")
 ALLOC_CALLS = ("cudaMalloc", "cudaFree")
+GRAPH_CALLS = ("cudaGraphLaunch", "cuGraphLaunch")
 
 
 def host_split(torch, prof, n: int) -> dict:
@@ -4472,11 +4502,16 @@ def host_split(torch, prof, n: int) -> dict:
 
     busy = sum(e.self_device_time_total for e in avg
                if e.device_type == cuda) / 1e3 / n
+    kernels = sum(e.count for e in avg if e.device_type == cuda) / n
+    api = sum(e.count for e in avg if e.device_type == cpu
+              and e.key.startswith(("cuda", "cu"))) / n
     ops = sum(1 for e in prof.events() if e.device_type == cpu
               and e.cpu_parent is None and e.name.startswith("aten::")) / n
     top = sorted((e for e in avg if e.device_type == cpu),
                  key=lambda e: -e.self_cpu_time_total)[:6]
     return {"busy_ms": busy, "ops": ops, "launches": count(LAUNCH_CALLS),
+            "graph_launches": count(GRAPH_CALLS), "kernels": kernels,
+            "api_calls": api,
             "syncs": count(SYNC_CALLS), "sync_ms": ms(SYNC_CALLS),
             "allocs": count(ALLOC_CALLS), "alloc_ms": ms(ALLOC_CALLS),
             "host_top": [(e.key[:40], round(e.self_cpu_time_total / 1e3 / n,
@@ -5304,6 +5339,403 @@ def serve_llama2_spec(torch, T, counters, l7_params, tiny_params, tiny_cfg):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The dispatch phase: every decode dispatch a replayed CUDA graph
+# (runtime/graphs.py), held against the eager step, through the engine
+
+def clone_tree(torch, x, memo):
+    """A copy of every tensor in x (dataclasses, tuples, lists), a tensor
+    shared inside x (the paged layers' one table) copied once."""
+    import dataclasses
+    if isinstance(x, torch.Tensor):
+        if id(x) not in memo:
+            memo[id(x)] = x.clone()
+        return memo[id(x)]
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{
+            f.name: clone_tree(torch, getattr(x, f.name), memo)
+            for f in dataclasses.fields(x) if f.init})
+    if isinstance(x, (tuple, list)):
+        return type(x)(clone_tree(torch, v, memo) for v in x)
+    if isinstance(x, dict):
+        return {k: clone_tree(torch, v, memo) for k, v in x.items()}
+    return x
+
+
+def tensors_of(torch, x) -> list:
+    """Every tensor in x, in `clone_tree`'s order."""
+    import dataclasses
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return [t for f in dataclasses.fields(x) if f.init
+                for t in tensors_of(torch, getattr(x, f.name))]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in tensors_of(torch, v)]
+    if isinstance(x, dict):
+        return [t for k in sorted(x) for t in tensors_of(torch, x[k])]
+    return []
+
+
+def engine_buffers(engine) -> dict:
+    """What a decode step reads and writes: state, caches, draft caches,
+    history, draft tail."""
+    return {"state": engine.state, "caches": engine.caches,
+            "draft_caches": engine._draft_caches,
+            "history": engine._history, "tail": engine._draft_tail}
+
+
+def graph_against_eager(torch, engine, name: str) -> dict:
+    """One replay of the variant of the engine's next decode step against
+    one eager call of the same function (`InferenceEngine._run_step`, the
+    graph's plain version) on copies of the state, the caches, the history,
+    the draft tail and the output rows, from the same generator state:
+    emitted tokens, logprobs, state and every cache byte bit for bit, and
+    every cache tensor at the address it had. The engine's own step is
+    then one step ahead of its harvests: the caller drops it."""
+    from deeppowers_tpu_torch.runtime.engine import clone_state
+    key = engine._variant(True)
+    live = engine_buffers(engine)
+    ptrs = [t.data_ptr() for t in tensors_of(torch, live)]
+    copy = clone_tree(torch, live, {})
+    copy["state"] = clone_state(engine.state)
+    out, row = torch.zeros_like(engine._out), torch.zeros_like(engine._row)
+    rng = engine._rng.get_state()
+    saved = engine.caches, engine._draft_caches
+    engine.caches, engine._draft_caches = copy["caches"], copy[
+        "draft_caches"]
+    try:
+        with torch.no_grad():
+            engine._run_step(key, copy["state"], out, row, copy["history"],
+                             copy["tail"])
+    finally:
+        engine.caches, engine._draft_caches = saved
+    engine._rng.set_state(rng)
+    cap0 = engine._graphs.capture_s
+    engine._row.zero_()
+    engine._out.zero_()
+    with torch.no_grad():
+        engine._replay(key, 1)
+    torch.cuda.synchronize()
+    got = tensors_of(torch, engine_buffers(engine))
+    want = tensors_of(torch, copy)
+    moved = sum(a != t.data_ptr() for a, t in zip(ptrs, got))
+    bad = sum(not same_bits(torch, a, b) for a, b in zip(got, want))
+    rows_ok = same_bits(torch, engine._out, out)
+    if moved or bad or not rows_ok or len(got) != len(want):
+        fail(f"dispatch[{name}]: the graph of variant {key} against the "
+             f"eager step: {bad} of {len(got)} tensors differ, {moved} "
+             f"moved, output rows equal {rows_ok}")
+    return {"variant": list(key), "tensors": len(got),
+            "bytes": sum(t.numel() * t.element_size() for t in got),
+            "capture_s": round(engine._graphs.capture_s - cap0, 3)}
+
+
+def dispatch_engine(params, cfg, eos, *, kv="bf16", layout="contiguous",
+                    scan=False, pages=None, draft=None, **rt):
+    """serve's engine (8 slots of 1024 tokens), with runtime fields `rt`."""
+    from deeppowers_tpu_torch.config import RuntimeConfig
+    from deeppowers_tpu_torch.runtime.engine import InferenceEngine
+    kw = dict(max_batch_size=8, max_seq_len=1024,
+              prefill_buckets=(64, 128, 256, 512, 1024), scan_layers=scan)
+    kw.update(rt)
+    extra = {} if draft is None else dict(draft_params=draft[0],
+                                          draft_cfg=draft[1])
+    return InferenceEngine(params, cfg, device="cuda", eos_token_id=eos,
+                           kv_cache_dtype=kv, kv_layout=layout,
+                           kv_total_pages=pages, runtime=RuntimeConfig(**kw),
+                           **extra)
+
+
+def graph_check(torch, name, make, temperature=0.0) -> dict:
+    """`graph_against_eager` on a fresh engine from `make()` holding serve's
+    8 prompts (a decode step of 8 active slots)."""
+    from deeppowers_tpu_torch.config import GenerationConfig
+    from deeppowers_tpu_torch.serving.tokenizer import ByteTokenizer
+    tok = ByteTokenizer()
+    engine = make()
+    for i, n in enumerate(PROMPT_BYTES):
+        engine.add_request(tok.encode(prompt_text(n, i)), GenerationConfig(
+            max_tokens=MAX_TOKENS, temperature=temperature,
+            do_sample=temperature > 0, seed=SEED + i))
+    out = graph_against_eager(torch, engine, name)
+    engine.reset()
+    return out
+
+
+def served_tokens(engine, tok, prompts, max_tokens, temperature=0.0):
+    """Each prompt's tokens through `generate_batch` (all slots at once)."""
+    from deeppowers_tpu_torch.config import GenerationConfig
+    res = engine.generate_batch(
+        [tok.encode(p) for p in prompts], GenerationConfig(
+            max_tokens=max_tokens, temperature=temperature,
+            do_sample=temperature > 0, seed=SEED))
+    return [r.token_ids for r in res]
+
+
+DISPATCH_RUNTIMES = {"N=1 unpipelined": dict(pipelined_dispatch=False),
+                     "N=1 pipelined": {}, "N=4": dict(
+                         decode_steps_per_dispatch=4),
+                     "auto": dict(decode_steps_per_dispatch=0)}
+
+
+def greedy_streams(torch, name, make, runtimes) -> dict:
+    """serve's 8 prompts, 32 greedy tokens each, through one fresh engine
+    a runtime (`make(**fields)`): every runtime's tokens must be the
+    first's. Returns {runtime: (dispatches, transfers, depth)}."""
+    from deeppowers_tpu_torch.serving.tokenizer import ByteTokenizer
+    tok = ByteTokenizer()
+    prompts = [prompt_text(n, i) for i, n in enumerate(PROMPT_BYTES)]
+    ref, out = None, {}
+    for label in runtimes:
+        engine = make(**DISPATCH_RUNTIMES[label])
+        got = served_tokens(engine, tok, prompts, MAX_TOKENS)
+        if ref is None:
+            ref = got
+        elif got != ref:
+            diff = [i for i, (a, b) in enumerate(zip(got, ref)) if a != b]
+            fail(f"dispatch[{name}]: greedy streams at {label} differ from "
+                 f"{runtimes[0]} in requests {diff}")
+        out[label] = (engine.dispatch_count, engine.transfer_count,
+                      engine._steps_per_dispatch)
+        del engine
+    return out
+
+
+def lazy_preemption_streams(torch, params, cfg) -> dict:
+    """Lazy paging that must preempt, at N = 1 and N = 4, through the
+    engine: 2 slots over a 5-page pool of 128 rows, two requests of 300
+    tokens; the younger is preempted (sooner at N = 4, which grows 4 rows
+    ahead) and its tokens until then are a prefix of the other depth's;
+    the older completes with the same tokens at both depths."""
+    from deeppowers_tpu_torch.config import GenerationConfig
+    done = {}
+    for n in (1, 4):
+        engine = dispatch_engine(params, cfg, None, layout="paged", pages=5,
+                                 max_batch_size=2, kv_page_size=128,
+                                 kv_reserve="lazy", kv_lazy_slack=16,
+                                 decode_steps_per_dispatch=n)
+        g = GenerationConfig(max_tokens=300, temperature=0.0)
+        engine.add_request([1, 2, 3, 4], g, request_id="old")
+        engine.add_request([5, 6, 7, 8], g, request_id="young")
+        out = {}
+        for _ in range(1000):
+            engine.step()
+            for r in engine.pop_finished():
+                out[r.request_id] = (r.stop_reason, r.token_ids)
+            if engine.active_requests == 0:
+                break
+        done[n] = out
+        del engine
+    (r1, o1), (r4, o4) = done[1]["old"], done[4]["old"]
+    (y1, t1), (y4, t4) = done[1]["young"], done[4]["young"]
+    short, long_ = sorted((t1, t4), key=len)
+    if (r1, o1) != (r4, o4) or {y1, y4} != {"preempted"} or \
+            long_[:len(short)] != short:
+        fail(f"dispatch[lazy]: N = 4 against N = 1: old {r4} "
+             f"{len(o4)} tokens vs {r1} {len(o1)} (equal {o1 == o4}); "
+             f"young {y4} vs {y1}")
+    return {"old_tokens": len(o1), "young_tokens": [len(t1), len(t4)]}
+
+
+def sampled_graphs(torch, params, cfg, eos) -> dict:
+    """A seeded engine's sampled streams (temperature 1, serve's prompts)
+    are the same in two fresh engines; and two replays of the sampled
+    variant from the same state draw different tokens (the generator is
+    registered with the graph, so each replay advances it)."""
+    from deeppowers_tpu_torch.config import GenerationConfig
+    from deeppowers_tpu_torch.runtime.engine import clone_state
+    from deeppowers_tpu_torch.serving.tokenizer import ByteTokenizer
+    tok = ByteTokenizer()
+    prompts = [prompt_text(n, i) for i, n in enumerate(PROMPT_BYTES)]
+    runs = [served_tokens(dispatch_engine(params, cfg, eos), tok, prompts,
+                          MAX_TOKENS, temperature=1.0) for _ in range(2)]
+    if runs[0] != runs[1]:
+        fail("dispatch[sampled]: two seeded engines sampled different "
+             "streams")
+    engine = dispatch_engine(params, cfg, eos)
+    for i, p in enumerate(prompts):
+        engine.add_request(tok.encode(p), GenerationConfig(
+            max_tokens=MAX_TOKENS, temperature=1.0, seed=SEED + i))
+    key = engine._variant(True)
+    start = clone_state(engine.state)
+    drawn = []
+    for _ in range(2):
+        for a, b in zip(tensors_of(torch, engine.state),
+                        tensors_of(torch, start)):
+            a.copy_(b)
+        engine._row.zero_()
+        with torch.no_grad():
+            engine._replay(key, 1)
+        drawn.append(engine._out[0].clone())
+    n = len(prompts)
+    same = int((drawn[0][:n] == drawn[1][:n]).sum())
+    if key[2] is not True or same == n:
+        fail(f"dispatch[sampled]: variant {key}: two replays from one state "
+             f"drew the same {same} tokens")
+    return {"variant": list(key), "same_tokens": same,
+            "distinct_streams": len({tuple(t) for t in runs[0]})}
+
+
+def dispatch_profile(torch, engine, tok, settle: bool = False) -> dict:
+    """`profile_decode` of the engine's served step, a token of each slot
+    a row: wall, device busy, idle share, kernels, host API calls and graph
+    launches a dispatch and a token; the graphs' capture seconds and pool
+    bytes. With `settle`, the auto depth settles first (8 requests of 160
+    tokens)."""
+    from deeppowers_tpu_torch.config import GenerationConfig
+    if settle:
+        engine.generate_batch(
+            [tok.encode(prompt_text(64, i)) for i in range(engine.num_slots)],
+            GenerationConfig(max_tokens=160, temperature=0.0))
+        if not engine._auto_done:
+            fail("dispatch: the auto depth did not settle in 160 tokens")
+    n = engine._steps_per_dispatch
+    pr = profile_decode(torch, engine, tok, tokens_per_step=n)
+    out = {"depth": n, "pipelined": bool(engine.runtime.pipelined_dispatch),
+           "wall_ms": pr["wall_ms"], "busy_ms": pr["busy_ms"],
+           "idle_share": pr["idle_share"], "kernels": pr["kernels"],
+           "launches": pr["launches"], "graph_launches":
+           pr["graph_launches"], "api_calls": pr["api_calls"],
+           "ops": pr["ops"], "syncs": pr["syncs"],
+           "per_token": {k: pr[k] / n for k in ("wall_ms", "busy_ms",
+                                                "kernels", "api_calls")},
+           "quantizer": pr["quantizer"], "top": pr["top"]}
+    g = engine._graphs
+    out.update(variants=[list(k) for k in g.variants],
+               capture_s=round(g.capture_s, 3), pool_bytes=g.pool_bytes())
+    return out
+
+
+def dispatch_model(torch, name, params, cfg, kv, scan=False) -> dict:
+    """A model's dispatch checks: graph against eager, greedy streams at
+    N = 1 pipelined and auto, and the profiled step at N = 1 (graph) and
+    at the auto depth."""
+    from deeppowers_tpu_torch.serving.tokenizer import ByteTokenizer
+    tok = ByteTokenizer()
+
+    def make(**rt):
+        return dispatch_engine(params, cfg, tok.eos_token_id, kv=kv,
+                               scan=scan, **rt)
+
+    out = {"graph": graph_check(torch, name, make)}
+    out["streams"] = greedy_streams(torch, name, make,
+                                    ["N=1 pipelined", "auto"])
+    out["profile_n1"] = dispatch_profile(torch, make(), tok)
+    out["profile_auto"] = dispatch_profile(
+        torch, make(decode_steps_per_dispatch=0), tok, settle=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def dispatch_phase(torch, params, cfg) -> dict:
+    """The dispatch phase on TinyLlama int8 per-channel: graph against
+    eager on the contiguous and the paged layout, with prompt-lookup and
+    draft speculation (the model as its own draft) and a sampled variant;
+    greedy streams at N = 1 unpipelined and pipelined, N = 4 and auto;
+    lazy paging with preemption at N = 4; the sampled graphs; the profiled
+    step at N = 1 and auto."""
+    from deeppowers_tpu_torch.serving.tokenizer import ByteTokenizer
+    tok = ByteTokenizer()
+    eos = tok.eos_token_id
+
+    def make(**kw):
+        return lambda **rt: dispatch_engine(params, cfg, eos, **kw, **rt)
+
+    out = {"graph": {
+        "contiguous": graph_check(torch, "contiguous", make()),
+        "paged": graph_check(torch, "paged", make(layout="paged")),
+        "lookup": graph_check(torch, "lookup", make(
+            speculative_tokens=SPEC_K, speculative_ngram=3)),
+        "draft": graph_check(torch, "draft", make(
+            draft=(params, cfg), speculative_tokens=SPEC_K)),
+        "sampled": graph_check(torch, "sampled", make(), temperature=1.0)}}
+    out["streams"] = greedy_streams(torch, "tinyllama", make(),
+                                    list(DISPATCH_RUNTIMES))
+    out["lazy"] = lazy_preemption_streams(torch, params, cfg)
+    out["sampled"] = sampled_graphs(torch, params, cfg, eos)
+    out["profile_n1"] = dispatch_profile(torch, make()(), tok)
+    out["profile_auto"] = dispatch_profile(
+        torch, make()(decode_steps_per_dispatch=0), tok, settle=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+DISPATCH_MS_STEPS = 50
+
+
+def dispatch_ms(torch) -> dict:
+    """The served step() at the default runtime of the package on the
+    path, for a paired run of two checkouts: TinyLlama int8 and the 7B
+    W4A8 g128 + k8v4, 8 slots of 64-byte prompts, 10 warm steps, then
+    DISPATCH_MS_STEPS steps timed one by one (each one token a slot at
+    N = 1, pipelined where the checkout pipelines)."""
+    from deeppowers_tpu_torch.config import GenerationConfig, QuantConfig
+    from deeppowers_tpu_torch.models import transformer as T
+    from deeppowers_tpu_torch.models.presets import LLAMA2_7B, TINYLLAMA_1_1B
+    from deeppowers_tpu_torch.runtime.engine import InferenceEngine
+    from deeppowers_tpu_torch.serving.tokenizer import ByteTokenizer
+    from deeppowers_tpu_torch.config import RuntimeConfig
+
+    tok = ByteTokenizer()
+    out = {}
+    for name, cfg, kv in (("tinyllama", TINYLLAMA_1_1B, "bf16"),
+                          ("llama2-7b", LLAMA2_7B, LLAMA2_KV)):
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        if name == "tinyllama":
+            params = T.init_params(cfg, gen, dtype=torch.bfloat16,
+                                   device="cuda")
+            params = T.quantize_params(params, QuantConfig())
+        else:
+            params = llama2_params(torch, T, cfg, gen, "cuda")
+        engine = InferenceEngine(
+            params, cfg, device="cuda", eos_token_id=None,
+            kv_cache_dtype=kv,
+            runtime=RuntimeConfig(max_batch_size=8, max_seq_len=1024,
+                                  prefill_buckets=(64, 128, 256, 512,
+                                                   1024)))
+        for i in range(8):
+            engine.add_request(tok.encode(prompt_text(64, i)),
+                               GenerationConfig(max_tokens=200,
+                                                temperature=0.0))
+        for _ in range(10):
+            engine.step()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(DISPATCH_MS_STEPS):
+            t1 = time.perf_counter()
+            engine.step()
+            times.append((time.perf_counter() - t1) * 1e3)
+        torch.cuda.synchronize()
+        times.sort()
+        out[name] = {"step_ms_p50": times[len(times) // 2],
+                     "step_ms_mean": sum(times) / len(times),
+                     "step_ms_min": times[0], "steps": len(times),
+                     "scan": bool(engine.scan_layers)}
+        del engine, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def report_dispatch(name, t0, out, smi_line) -> None:
+    """The dispatch phase lines of one model."""
+    phase_line(name, t0, graphs=json.dumps(out.get("graph")),
+               streams=json.dumps(out.get("streams")), card=repr(smi_line))
+    for k in ("lazy", "sampled"):
+        if k in out:
+            log(f"{name} {k} " + json.dumps(out[k]))
+    for k in ("profile_n1", "profile_auto"):
+        pr = out[k]
+        log(f"{name} {k}: depth {pr['depth']}, a dispatch wall "
+            f"{pr['wall_ms']:.3f} ms, device busy {pr['busy_ms']:.3f} ms, "
+            f"idle share {pr['idle_share']:.3f}; a token "
+            + json.dumps({a: round(b, 4) for a, b in pr["per_token"].items()})
+            + "; " + json.dumps({a: pr[a] for a in (
+                "kernels", "launches", "graph_launches", "api_calls", "ops",
+                "syncs", "variants", "capture_s", "pool_bytes")})
+            + f" card={smi_line!r}")
+
+
 def report_serve(name, t0, out, smi_line, n_requests) -> None:
     """The phase line of a serve phase and its launches, prefix and
     profiler lines."""
@@ -5461,11 +5893,21 @@ def main(argv) -> int:
         log(json.dumps({"checkout": argv[1], "card": card_line(),
                         **seg_ms(torch)}))
         return 0
+    if argv[:1] == ["--dispatch-ms"] and len(argv) == 2:
+        # the served step() at the default runtime, through the package of
+        # the checkout at argv[1]
+        sys.path.insert(0, os.path.abspath(argv[1]))
+        from deeppowers_tpu_torch.ops.kernels import _build
+        _build.library()
+        log(json.dumps({"checkout": argv[1], "card": card_line(),
+                        **dispatch_ms(torch)}))
+        return 0
     if argv:
         sys.stderr.write("usage: chip_smoke.py [--step-ms CHECKOUT | "
                          "--ttft CHECKOUT | --kt-ms CHECKOUT | "
                          "--slot-orders CHECKOUT | --fold-ms CHECKOUT | "
-                         "--i8-ms CHECKOUT | --seg-ms CHECKOUT]\n")
+                         "--i8-ms CHECKOUT | --seg-ms CHECKOUT | "
+                         "--dispatch-ms CHECKOUT]\n")
         return 2
     from deeppowers_tpu_torch.config import QuantConfig
     from deeppowers_tpu_torch.models import transformer as T
@@ -5720,11 +6162,20 @@ def main(argv) -> int:
     report_serve("spec_paged_serve[k8v4]", t0, spsrv, smi_line,
                  len(paged_prompts()))
 
+    # 9b. every decode dispatch a replayed CUDA graph (TinyLlama): graph
+    # against eager, greedy streams across depths and pipelining, lazy
+    # paging with preemption, sampled graphs, profiled steps
+    t0 = time.perf_counter()
+    dsp = dispatch_phase(torch, params, cfg)
+    report_dispatch("dispatch[tinyllama]", t0, dsp, smi_line)
+
     # 10. Llama-2-7B, all 32 layers, W4A8 g128 + k8v4, serve's traffic once
     t0 = time.perf_counter()
     lsrv = serve_llama2(torch, T, counters)
     report_serve("serve[llama2-7b]", t0, lsrv, smi_line, len(PROMPT_BYTES))
     log_dots("serve[llama2-7b]", lsrv, smi_line)
+    report_dispatch("dispatch[llama2-7b]", time.perf_counter()
+                    - lsrv["dispatch_s"], lsrv["dispatch"], smi_line)
     l7_served = {"launches": lsrv["launches"]}
     l7_scan_launches = lsrv["launches_scan"]
     tt = sorted(lsrv["ttft_512_ms"])
@@ -5774,6 +6225,8 @@ def main(argv) -> int:
     msrv = serve_mixtral(torch, T, counters)
     report_serve("serve[mixtral-8x7b]", t0, msrv, smi_line, len(PROMPT_BYTES))
     log_dots("serve[mixtral-8x7b]", msrv, smi_line)
+    report_dispatch("dispatch[mixtral-8x7b]", time.perf_counter()
+                    - msrv["dispatch_s"], msrv["dispatch"], smi_line)
     tt = sorted(msrv["ttft_512_ms"])
     log(f"serve[mixtral-8x7b] params {msrv['param_bytes']} bytes (drawn and "
         f"fused in {msrv['init_s']:.2f} s), KV {msrv['kv_bytes']} bytes; "

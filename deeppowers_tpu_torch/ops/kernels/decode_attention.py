@@ -23,7 +23,9 @@ store and of the stacked route); `int8_dots=` overrides, as on
 `decode_attention_mxu`. Its plain version is
 `decode_attention_int8_dots_plain`, the function held against Pallas in
 interpret mode. A CPU tensor keeps the JAX package's CPU function
-(`decode_attention_plain`, which never takes the Pallas kernel) unless
+(`decode_attention_plain(xla=True)`: int4 and k8v4 values dequantized
+into q's dtype, q * scale rounded to it; it never takes the Pallas
+kernel) unless
 `cpu_attention_function("kernel")` gives it the card's. Its launches
 count under the store's keys and under "i8:" + the key ("i8:int8",
 "i8:k8v4:t5+rows"). The bf16-dot kernel described below stays the path
@@ -223,17 +225,23 @@ def _masks(q, s, lengths, tokens):
     return pos[None, :] < lens[:, None], pos[None, None, :] < bound[:, :, None]
 
 
-def _dense_plain(q, k, v, lengths, scale, tokens=1):
+def _dense_plain(q, k, v, lengths, scale, tokens=1, round_q=False):
     """attention_decode over (B, S, Kh, D) float K/V for query rows q
     (B, O, D), O = H*T. Unread V rows are zeroed by a select first, so NaN
-    there cannot reach the output through a zero probability."""
+    there cannot reach the output through a zero probability. `round_q`:
+    q * scale in q's dtype, as JAX multiplies by a weakly typed scalar
+    (its off-TPU `attention_decode` / `attention_verify`); else in f32."""
     b, o, d = q.shape
     s, kh = k.shape[1], k.shape[2]
     rows = o // kh
     valid, seen = _masks(q, s, lengths, tokens)
     v = torch.where(valid[:, :, None, None], v.float(),
                     torch.zeros((), device=v.device))
-    qg = q.reshape(b, kh, rows, d).float() * scale
+    if round_q:
+        sc = torch.tensor(scale, dtype=q.dtype).float()
+        qg = (q.reshape(b, kh, rows, d).float() * sc).to(q.dtype).float()
+    else:
+        qg = q.reshape(b, kh, rows, d).float() * scale
     scores = torch.einsum("bkrd,bskd->bkrs", qg, k.float())
     scores = torch.where(seen.reshape(b, kh, rows, s), scores,
                          torch.full((), NEG_INF, device=q.device))
@@ -294,12 +302,18 @@ def _write_plain(k_cache, v_cache, new: NewRows, **store):
 def decode_attention_plain(q, k_cache, v_cache, lengths, *, k_scale=None,
                            v_scale=None, kv_bits: int = 8, v_bits: int = 0,
                            scale: Optional[float] = None, tokens: int = 1,
-                           new: Optional[NewRows] = None) -> torch.Tensor:
+                           new: Optional[NewRows] = None,
+                           xla: bool = False) -> torch.Tensor:
     """q: (B, H*T, D) query rows (T = tokens, folded as `fold_tokens`
     folds them); caches: (B, S, F') flat stores; scales (B, R, S) when
     quantized; lengths: (B,), including the T window rows. The JAX
     package's CPU numerics per variant (module docstring). `new`: first
-    `scatter_rows_plain` writes the step's rows (in place)."""
+    `scatter_rows_plain` writes the step's rows (in place). `xla`: the
+    JAX package's off-TPU function in q's dtype, which `decode_attention`
+    takes for a CPU tensor under `cpu_attention_function("xla")`: int4 and
+    k8v4 values dequantized into q's dtype (`kvcache.read(cache, dtype)`)
+    and q * scale rounded to it; without it (the default) both stay f32,
+    the function the kernels are held to."""
     if new is not None:
         _write_plain(k_cache, v_cache, new, k_scale=k_scale, v_scale=v_scale,
                      kv_bits=kv_bits, v_bits=v_bits)
@@ -312,16 +326,17 @@ def decode_attention_plain(q, k_cache, v_cache, lengths, *, k_scale=None,
         kh = k_cache.shape[2] // d
         return _dense_plain(q, k_cache.reshape(b, s, kh, d),
                             v_cache.reshape(b, s, kh, d), lengths, scale,
-                            tokens)
+                            tokens, round_q=xla)
     kh = scale_heads(k_scale, kb)
     k4 = k_cache.reshape(b, s, kh, -1)
     v4 = v_cache.reshape(b, s, kh, -1)
     if name == "int8":
         return attention_decode_quantized(q, k4, v4, k_scale, v_scale,
                                           lengths, scale=scale, tokens=tokens)
-    return _dense_plain(q, dequant_side(k4, k_scale, kb, torch.float32),
-                        dequant_side(v4, v_scale, vb, torch.float32), lengths,
-                        scale, tokens)
+    dt = q.dtype if xla else torch.float32
+    return _dense_plain(q, dequant_side(k4, k_scale, kb, dt),
+                        dequant_side(v4, v_scale, vb, dt), lengths, scale,
+                        tokens, round_q=xla)
 
 
 #: what `decode_attention` computes for a CPU tensor: "xla" or "kernel"
@@ -329,20 +344,32 @@ _cpu_function = "xla"
 
 
 def cpu_attention_function(name: str) -> str:
-    """Choose what `decode_attention` computes for a CPU tensor, and return
-    the former choice. "xla" (the default): `decode_attention_plain`, the
-    JAX package's CPU function, which never takes the Pallas kernel.
-    "kernel": the card's function, the int8-dot plain version wherever
-    the card takes the int8-dot variant (`int8_dots_default`), for a CPU
-    reference that is held against the card's results (the path phases of
-    chip_smoke.py, beside ops/matmul.py's `cpu_weight_only_function`).
-    CUDA tensors take the kernels either way."""
+    """Choose what `decode_attention` and `decode_attention_paged` compute
+    for a CPU tensor, and return the former choice. "xla" (the default):
+    the JAX package's CPU function, which never takes the Pallas kernel:
+    `decode_attention_plain(xla=True)`, int4 and k8v4 values dequantized
+    into q's dtype as JAX's `kvcache.read(cache, dtype)` does, q * scale
+    rounded to it. "kernel": the card's function, f32 throughout and the
+    int8-dot plain version
+    wherever the card takes the int8-dot variant (`int8_dots_default`),
+    for a CPU reference that is held against the card's results (the path
+    phases of chip_smoke.py, beside ops/matmul.py's
+    `cpu_weight_only_function`). CUDA tensors take the kernels either
+    way."""
     global _cpu_function
     if name not in ("xla", "kernel"):
         raise ValueError(f"cpu_attention_function: {name!r} is neither "
                          f"'xla' nor 'kernel'")
     old, _cpu_function = _cpu_function, name
     return old
+
+
+def int8_dots_switch() -> bool:
+    """The JAX package's switch DPT_ATTN_INT8, read at each call ("0"
+    turns the int8-dot path off; anything else, or unset, on). A captured
+    decode step keys its graph by it (runtime/graphs.py), as JAX's jit
+    cache keys its kernel."""
+    return os.environ.get("DPT_ATTN_INT8", "1") != "0"
 
 
 def int8_dots_default(name: str, s: int, stacked: bool = False) -> bool:
@@ -354,7 +381,7 @@ def int8_dots_default(name: str, s: int, stacked: bool = False) -> bool:
     :1179-1183, :1236-1250, :1309-1323): a stacked cache (`layer=`) of S
     >= 128, the int8 store (`attention_decode_auto`, ops/attention.py
     :283-287, and `_verify_attn`) at S >= 128, int4 and k8v4 at any S."""
-    if name == "bf16" or os.environ.get("DPT_ATTN_INT8", "1") == "0":
+    if name == "bf16" or not int8_dots_switch():
         return False
     return s >= 128 if stacked or name == "int8" else True
 
@@ -628,12 +655,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     name = store_variant(k_scale, kv_bits, v_bits)
     dots = _resolve_dots(int8_dots, name, k_cache.shape[1])
     if not q.is_cuda:
-        plain = (decode_attention_int8_dots_plain
-                 if dots and _cpu_function == "kernel"
-                 else decode_attention_plain)
-        return plain(q, k_cache, v_cache, lengths, k_scale=k_scale,
-                     v_scale=v_scale, kv_bits=kv_bits, v_bits=v_bits,
-                     scale=scale, tokens=tokens, new=new)
+        kw = dict(k_scale=k_scale, v_scale=v_scale, kv_bits=kv_bits,
+                  v_bits=v_bits, scale=scale, tokens=tokens, new=new)
+        if _cpu_function == "kernel":
+            plain = (decode_attention_int8_dots_plain if dots
+                     else decode_attention_plain)
+            return plain(q, k_cache, v_cache, lengths, **kw)
+        return decode_attention_plain(q, k_cache, v_cache, lengths,
+                                      xla=True, **kw)
     out = _launch(q, k_cache, v_cache, lengths, k_scale=k_scale,
                   v_scale=v_scale, kv_bits=kv_bits, v_bits=v_bits,
                   scale=scale, tokens=tokens, new=new, int8_dots=dots)
@@ -708,8 +737,8 @@ def decode_attention_paged_plain(q, k_pool, v_pool, table, lengths, *,
                                  v_bits: int = 0,
                                  scale: Optional[float] = None,
                                  tokens: int = 1,
-                                 new: Optional[NewRows] = None
-                                 ) -> torch.Tensor:
+                                 new: Optional[NewRows] = None,
+                                 xla: bool = False) -> torch.Tensor:
     """q: (B, H*T, D); pools: (P, page, F'); scale pools (P, R, page) when
     quantized; table: (B, WP); lengths: (B,). `new`: first
     `scatter_pool_rows_plain` writes the step's rows (in place). Gathers
@@ -733,7 +762,7 @@ def decode_attention_paged_plain(q, k_pool, v_pool, table, lengths, *,
                       v_scale=gather_scale(v_scale, table))
     return decode_attention_plain(q, gather(k_pool), gather(v_pool), lengths,
                                   kv_bits=kv_bits, v_bits=v_bits, scale=scale,
-                                  tokens=tokens, **scales)
+                                  tokens=tokens, xla=xla, **scales)
 
 
 def decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
@@ -750,13 +779,14 @@ def decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
     (including the current token, or all T window tokens), at most WP *
     page; `new`: the step's rows with their pool rows, written by the same
     launch before it reads them. Returns (B, H*T, D). A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel or raises."""
+    the plain version of `cpu_attention_function`'s choice; a CUDA tensor
+    launches the kernel or raises."""
     name = store_variant(k_scale, kv_bits, v_bits)
     if not q.is_cuda:
         return decode_attention_paged_plain(
             q, k_pool, v_pool, table, lengths, k_scale=k_scale,
             v_scale=v_scale, kv_bits=kv_bits, v_bits=v_bits, scale=scale,
-            tokens=tokens, new=new)
+            tokens=tokens, new=new, xla=_cpu_function == "xla")
     b, o, d = q.shape
     p, ps = k_pool.shape[0], k_pool.shape[1]
     wp = table.shape[1]

@@ -4,7 +4,10 @@ The same chain per slot: penalties -> logit bias -> (greedy argmax |
 temperature -> top-k / top-p -> categorical draw), as plain torch ops on
 the logits' device. Random draws come from an explicit torch.Generator;
 JAX's threefry streams cannot be reproduced, so sampled paths are compared
-by distribution, greedy ones token for token.
+by distribution, greedy ones token for token. The categorical draw is
+JAX's Gumbel-max over log(p + 1e-30) (`draw`): it never reads the device
+back, so a sampled decode step can be captured in a CUDA graph
+(runtime/graphs.py), where torch.multinomial's checks would wait.
 
 Shapes: logits (B, V); per-slot params (B,).
 """
@@ -18,6 +21,10 @@ import torch
 
 NEG_INF = -1e30
 LOGIT_BIAS_SLOTS = 64
+#: floor added to probabilities before a draw, as JAX's log(p + 1e-30):
+#: an all-zero row (a greedy slot's speculative residual) then draws
+#: uniformly instead of failing; such a draw is never used
+_TINY = 1e-30
 
 
 @dataclass
@@ -102,6 +109,16 @@ def top_k_top_p_mask(logits: torch.Tensor, top_k: torch.Tensor,
                        torch.full_like(logits, NEG_INF))
 
 
+def draw(probs: torch.Tensor, generator: Optional[torch.Generator]
+         ) -> torch.Tensor:
+    """One token a row from (B, V) probabilities: JAX's categorical over
+    log(p + 1e-30), by the same Gumbel-max draw (argmax of log p plus
+    Gumbel noise)."""
+    u = torch.rand(probs.shape, generator=generator, device=probs.device)
+    gumbel = -torch.log(-torch.log(u.clamp_(min=_TINY)))
+    return torch.argmax(torch.log(probs + _TINY) + gumbel, dim=-1)
+
+
 def sample(logits: torch.Tensor, params: SamplingParams,
            generator: Optional[torch.Generator] = None, *,
            token_counts: Optional[torch.Tensor] = None,
@@ -122,7 +139,7 @@ def sample(logits: torch.Tensor, params: SamplingParams,
     temp = params.temperature.clamp(min=1e-6)[:, None]
     filtered = top_k_top_p_mask(logits / temp, params.top_k, params.top_p)
     probs = torch.softmax(filtered, dim=-1)
-    tok = torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+    tok = draw(probs, generator).to(torch.int32)
     return torch.where(params.temperature > 0, tok, greedy_tok)
 
 

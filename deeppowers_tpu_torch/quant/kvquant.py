@@ -183,8 +183,8 @@ def quant_for(rows: torch.Tensor, scale: torch.Tensor, bits: int
     declares (JAX `_quant_for` :252, `_quant_side`). Returns ((N, F')
     stored rows, (N, R) scales)."""
     kh = scale_heads(scale, bits)
-    return quant_side(rows.reshape(rows.shape[0], kh, -1), bits,
-                      scale.shape[-2] // kh)
+    return quant_side(rows.reshape(rows.shape[0], kh, rows.shape[1] // kh),
+                      bits, scale.shape[-2] // kh)
 
 
 def store_args(cache) -> dict:

@@ -7,14 +7,21 @@ max_tokens, and the capacity guard that retires a slot once
 lengths >= max_seq - 1 (engine.py:370-381), so an append never runs past
 the cache.
 
-Eager PyTorch needs none of the JAX engine's compile machinery (jit caches,
-donation, window buckets): each step() runs one decode forward over all
-slots and one host transfer of the per-slot results. Multi-step dispatch
-and pipelined harvests are not ported yet (`decode_steps_per_dispatch`
-raises; `pipelined_dispatch` is kept and not read, config.py): the host
-is most of a step's time on the card (PERF.md §5), so they come with the
-CUDA-graph decode step. Decode attention bounds its reads per slot by length in
-the kernel. The KV cache is contiguous or paged (`kv_layout="paged"`, JAX
+Dispatch, as in the JAX engine (`step` :1512-1613): one step() runs a
+dispatch of N = `decode_steps_per_dispatch` decode steps and harvests it
+in one host transfer (emitted tokens and logprobs (N, B), then a snapshot
+of active, lengths and EOS ids). N = 0 picks the depth itself
+(`_auto_observe`: 7 dispatches at 4, 7 at 12, a fit of the fixed cost D
+and the step time s, a ladder depth). With `pipelined_dispatch` (the
+default) a plain decode enqueues dispatch n + 1 before it harvests
+dispatch n; slot epochs keep a harvest from touching a slot whose
+occupant changed while its dispatch was in flight. Every step updates the
+state and the caches in place (`decode_step`), so on the card each step
+of a dispatch is a replay of one CUDA graph (runtime/graphs.py), captured
+once per variant of the host branches; on the CPU it runs eagerly. Eager
+PyTorch needs none of the JAX engine's other compile machinery (jit
+caches, donation, window buckets). Decode attention bounds its reads per
+slot by length in the kernel. The KV cache is contiguous or paged (`kv_layout="paged"`, JAX
 engine.py:635-665). `RuntimeConfig.scan_layers` decides as in JAX
 (:615-630): "auto" (the default) stacks the layers of a model with 16 or
 more homogeneous layers on the contiguous layout, a mixed-precision model
@@ -56,17 +63,19 @@ layout and store: each step drafts K tokens a slot by prompt lookup over a
 device token history, or with a draft model (`draft_params` /
 `draft_cfg`, its own contiguous cache in the target's store, prefilled at
 activation), verifies the window in one forward and emits 1..K+1 tokens a
-slot, with one host transfer a step. Pages are reserved K rows further
-ahead, and the engine falls back to plain decode when the mean accepted
-window stays below `speculative_min_accepted` (scaled by a draft's cost).
-Not ported yet (ROADMAP.md): structured decoding, multi-step dispatch, top
-logprobs, sequence-parallel prefill and meshes (tensor and expert
-parallelism); the RuntimeConfig fields that ask for them raise
-NotImplementedError.
+slot; a dispatch runs N such steps as plain decode runs them (never
+pipelined, as in JAX), the rows of its harvest ordered (step, window
+position). Pages are reserved K rows further ahead, and the engine falls
+back to plain decode when the mean accepted window stays below
+`speculative_min_accepted` (scaled by a draft's cost).
+Not ported yet (ROADMAP.md): structured decoding, top logprobs,
+sequence-parallel prefill and meshes (tensor and expert parallelism); the
+RuntimeConfig fields that ask for them raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 import zlib
 from contextlib import contextmanager
@@ -84,8 +93,10 @@ from ..models.transformer import (TransformerConfig, forward_decode,
                                   forward_prefill_chunk_scan,
                                   forward_prefill_scan_batch, fuse_params,
                                   param_nbytes, stack_layer_params)
+from ..ops.kernels.decode_attention import int8_dots_switch
 from ..ops.sampling import SamplingParams, logprobs_of, sample
 from . import kvcache, kvcache_paged, kvcache_stacked, speculative
+from .graphs import StepGraphs
 from .prefix_index import SlotPrefixIndex
 
 NEG_INF = -1e30
@@ -131,6 +142,83 @@ def init_state(batch_slots: int, vocab_size: int, device) -> DecodeState:
     )
 
 
+def record_rows(out: torch.Tensor, row: torch.Tensor, emitted: torch.Tensor,
+                lps: torch.Tensor, st: DecodeState) -> None:
+    """A step's results into a dispatch's output rows, in place: `out` is
+    (2 R + 3, B) f64, emitted tokens in rows [0, R), logprobs in [R, 2 R),
+    then active, lengths and EOS ids as they stand after the step; `row`
+    (1,) int64 counts the steps written so far. A step of T rows (T =
+    K + 1 for a speculative window) fills rows row·T .. row·T + T - 1 of
+    each half, so a dispatch's rows run (step, window position), as JAX
+    reshapes its (N, B, T) emissions (engine.py:1592-1598)."""
+    rmax = (out.shape[0] - 3) // 2
+    t = emitted.shape[0]
+    idx = row * t + torch.arange(t, device=out.device)
+    out.index_copy_(0, idx, emitted.double())
+    out.index_copy_(0, idx + rmax, lps.double())
+    out[2 * rmax:].copy_(torch.stack([st.active.double(), st.lengths.double(),
+                                      st.eos_id.double()]))
+    row.add_(1)
+
+
+def decode_step(params, cfg: TransformerConfig, caches, st: DecodeState,
+                out: torch.Tensor, row: torch.Tensor, *, scan: bool,
+                max_seq: int, dtype, need_pen: bool, any_sampled: bool,
+                generator: Optional[torch.Generator]) -> None:
+    """One decode step of every slot (JAX `_decode_core`), all in place:
+    the forward appends each active slot's token to the caches, the next
+    tokens are sampled, the state advances (EOS, max_tokens and the
+    capacity guard, as the JAX engine's :370-381, retire slots on the
+    device) and `record_rows` writes the step's row of the dispatch. The
+    host branches are arguments (a CUDA graph's variant). This is the
+    function the card captures and replays (runtime/graphs.py); eager, it
+    is the graph's plain version."""
+    fwd = forward_decode_scan if scan else forward_decode
+    logits, _ = fwd(params, cfg, st.tokens, caches, st.lengths, dtype=dtype,
+                    active=st.active)
+    sp = st.sampling
+    b = logits.shape[0]
+    rows = torch.arange(b, device=logits.device)
+    suppress = (st.generated < sp.min_tokens) & (st.eos_id >= 0)
+    eos_col = st.eos_id.clamp(0, logits.shape[1] - 1).long()
+    logits[rows, eos_col] += torch.where(
+        suppress, torch.full_like(logits[:, 0], NEG_INF),
+        torch.zeros_like(logits[:, 0]))
+    nxt = sample(logits, sp, generator,
+                 token_counts=st.token_counts if need_pen else None,
+                 any_sampled=any_sampled)
+    lp = logprobs_of(logits, nxt)
+    active = st.active
+    new_lengths = torch.where(active, st.lengths + 1, st.lengths)
+    new_generated = torch.where(active, st.generated + 1, st.generated)
+    hit_eos = (nxt == st.eos_id) & (st.eos_id >= 0) & (
+        new_generated >= sp.min_tokens.clamp(min=1))
+    hit_max = new_generated >= st.max_tokens
+    # capacity guard, as the JAX engine's: cap - 1 keeps every append
+    # inside the cache
+    hit_cap = new_lengths >= max_seq - 1
+    still_active = active & ~hit_eos & ~hit_max & ~hit_cap
+    if need_pen:
+        st.token_counts[rows, nxt.long()] += active.to(torch.int32)
+    emitted = torch.where(active, nxt, torch.full_like(nxt, -1))
+    st.tokens.copy_(torch.where(active, nxt, st.tokens))
+    st.lengths.copy_(new_lengths)
+    st.active.copy_(still_active)
+    st.generated.copy_(new_generated)
+    st.last_logprob.copy_(lp)
+    record_rows(out, row, emitted[None], lp[None], st)
+
+
+def clone_state(st: DecodeState) -> DecodeState:
+    """A copy of every tensor of the state (the warm-up of a graph's
+    capture and chip_smoke.py's eager step run on such copies)."""
+    sp = SamplingParams(**{f.name: getattr(st.sampling, f.name).clone()
+                           for f in dataclasses.fields(SamplingParams)})
+    return DecodeState(**{f.name: getattr(st, f.name).clone()
+                          for f in dataclasses.fields(DecodeState)
+                          if f.name != "sampling"}, sampling=sp)
+
+
 @dataclass
 class _PendingPrefill:
     """Host-side state of an in-progress chunked prefill."""
@@ -168,8 +256,10 @@ class SlotResult:
 #: RuntimeConfig fields the JAX engine acts on and the port does not yet,
 #: with their defaults: a run that sets one raises instead of ignoring it
 UNPORTED_RUNTIME_DEFAULTS = {"emit_top_logprobs": 0,
-                             "decode_steps_per_dispatch": 1,
                              "seq_parallel_prefill": False}
+
+#: the depths the auto dispatch depth picks from (JAX engine.py:1794)
+AUTO_LADDER = (1, 2, 4, 6, 8, 12, 16, 24, 32)
 
 
 def _scan_policy(params, cfg: TransformerConfig, scan, kv_layout: str):
@@ -254,7 +344,31 @@ class InferenceEngine:
         self._defer_admission = False
         self._pending_batch: List[Dict] = []
         self.steps = 0
+        # multi-step dispatch (JAX engine.py:738-755): 0 asks for the auto
+        # depth, which probes at 4 steps, then 12 (`_auto_observe`)
+        spd = self.runtime.decode_steps_per_dispatch
+        self._auto_dispatch = spd == 0
+        self._steps_per_dispatch = 4 if self._auto_dispatch else max(1, spd)
+        self._auto_times: Dict[int, List[float]] = {}
+        self._auto_done = not self._auto_dispatch
+        self._inflight: Optional[Dict] = None      # the pipelined dispatch
+        # a slot's occupancy epoch: a harvest touches a slot only while its
+        # occupant is the one its dispatch ran (JAX :751-755)
+        self._slot_epoch = np.zeros((b,), dtype=np.int64)
+        self.dispatch_count = 0
+        self.transfer_count = 0
         self._init_speculation(draft_params, draft_cfg, fuse_projections)
+        # a dispatch's output rows (`record_rows`) at the deepest dispatch,
+        # the steps' row counter, and two host buffers for its transfer
+        rmax = max(AUTO_LADDER[-1], self._steps_per_dispatch) * (
+            self._spec_k + 1)
+        cuda = self.device.type == "cuda"
+        self._out = torch.zeros((2 * rmax + 3, b), dtype=torch.float64,
+                                device=self.device)
+        self._row = torch.zeros((1,), dtype=torch.int64, device=self.device)
+        self._host = [torch.zeros(self._out.shape, dtype=torch.float64,
+                                  pin_memory=cuda) for _ in range(2)]
+        self._graphs = StepGraphs(self._rng) if cuda else None
 
     def _init_speculation(self, draft_params, draft_cfg,
                           fuse_projections: bool) -> None:
@@ -266,7 +380,8 @@ class InferenceEngine:
         self._draft = None           # (params, cfg) for draft-model drafting
         self._draft_caches = None
         # the last drafts and whole-window slots of the previous step, and
-        # whether any window was whole (speculative.spec_decode_draft_core)
+        # whether any window of the last harvested step was whole
+        # (speculative.spec_decode_draft_core)
         self._draft_tail = None
         self._tail_due = False
         # forward-equivalents of one speculative step against one plain
@@ -299,6 +414,9 @@ class InferenceEngine:
                     param_nbytes(draft_params)
                     / max(param_nbytes(self.params), 1))
                 self._draft_caches = self._new_draft_caches()
+                self._draft_tail = (
+                    torch.zeros((b,), dtype=torch.int32, device=self.device),
+                    torch.zeros((b,), dtype=torch.bool, device=self.device))
             else:
                 self._history = speculative.init_history(b, self.max_seq,
                                                          self.device)
@@ -493,6 +611,8 @@ class InferenceEngine:
         self._slots[slot] = SlotResult(request_id=request_id, prompt_len=n,
                                        start_time=t0)
         if n - matched > self.runtime.prefill_chunk_size or matched:
+            # a new occupant: a dispatch in flight must not harvest it
+            self._slot_epoch[slot] += 1
             self._prefilling[slot] = _PendingPrefill(
                 ids=np.asarray(token_ids, dtype=np.int32), gen=gen,
                 request_id=request_id, pos=matched)
@@ -501,6 +621,7 @@ class InferenceEngine:
                 "rid": request_id, "t0": t0, "bucket": self._bucket(n)}
         if (self._defer_admission and self.runtime.batched_admission
                 and self._page_alloc is None and self._draft is None):
+            self._slot_epoch[slot] += 1
             self._pending_batch.append(item)
             return slot
         self._prefill_group([item])
@@ -543,6 +664,9 @@ class InferenceEngine:
         for i, it in enumerate(items):
             ids[i, :it["n"]] = it["ids"]
             lens[i] = it["n"]
+        # the group's slots, checked once on the host (write_prompts then
+        # reads nothing back)
+        in_range = all(0 <= it["slot"] < self.num_slots for it in items)
         dev = self.device
         lengths = torch.from_numpy(lens).to(dev)
         n = len(items)
@@ -564,7 +688,7 @@ class InferenceEngine:
                                              items[0]["slot"])
                     else:
                         kvcache.write_prompts(cache, k[:n], v[:n],
-                                              slots[:n])
+                                              slots[:n], in_range=in_range)
         for i, it in enumerate(items):
             self._activate_slot(it, last[i])
 
@@ -599,6 +723,7 @@ class InferenceEngine:
                         res = self._slots[it["slot"]]
                         if res is not None and res.request_id == it["rid"]:
                             self._slots[it["slot"]] = None
+                            self._slot_epoch[it["slot"]] += 1
                     raise
 
     @contextmanager
@@ -653,6 +778,7 @@ class InferenceEngine:
         self._penalty_host[slot] = bool(penalties)
         self._active_host[slot] = True
         self._lengths_host[slot] = n
+        self._slot_epoch[slot] += 1
         if self._page_alloc is not None and self.runtime.enable_prefix_cache:
             self._page_alloc.register_prefix(slot, it["ids"],
                                              self.runtime.kv_page_size)
@@ -666,8 +792,7 @@ class InferenceEngine:
             self._history[slot, n] = tok[0]
         if self._draft is not None:
             self._prefill_draft(slot, it["ids"])
-            if self._draft_tail is not None:
-                self._draft_tail[1][slot] = False     # a new occupant
+            self._draft_tail[1][slot] = False         # a new occupant
         res = self._slots[slot]
         res.prompt_len = n
         res.max_tokens = gen.max_tokens
@@ -708,107 +833,170 @@ class InferenceEngine:
 
     # -- decode -------------------------------------------------------------
     def step(self) -> Dict[int, List[int]]:
-        """One decode step for every active slot (a speculative step with
-        speculative_tokens > 0); returns {slot: [tokens]}. Retires finished
-        slots (EOS / stop id / max_tokens / cache full)."""
+        """Run one decode dispatch (N steps of every active slot, N =
+        `decode_steps_per_dispatch`; speculative steps with
+        speculative_tokens > 0) and harvest it; returns {slot: [tokens]}.
+        Retires finished slots (EOS / stop id / max_tokens / cache full).
+
+        Pipelined (JAX engine.py:1512-1560: plain decode, no lazy paging,
+        the auto depth settled, `pipelined_dispatch`): dispatch n + 1 is
+        enqueued before dispatch n is harvested, so the harvest's wait
+        overlaps the next dispatch's device work. The device state is
+        always current; the host's bookkeeping runs one dispatch behind,
+        at the cost of at most one wasted dispatch when the batch
+        drains."""
         if not self._active_host.any():
+            if self._inflight is not None:
+                # the final harvest: the batch went idle with a dispatch
+                # in flight
+                h, self._inflight = self._inflight, None
+                return self._harvest(h)
             return {}
-        if self._page_alloc is not None and self.runtime.kv_reserve == "lazy":
+        lazy = (self._page_alloc is not None
+                and self.runtime.kv_reserve == "lazy")
+        pipelined = (self._spec_k == 0 and not lazy and self._auto_done
+                     and self.runtime.pipelined_dispatch)
+        if pipelined:
+            h_new = self._dispatch()
+            prev, self._inflight = self._inflight, h_new
+            if prev is None:
+                # prime the pipeline: one more dispatch in flight, then
+                # the first one's tokens
+                self._inflight = self._dispatch()
+                return self._harvest(h_new)
+            out = self._harvest(prev)
+            if not out and self._active_host.any():
+                # the harvested dispatch predates every live occupant:
+                # harvest the fresh one too, so that a step with active
+                # requests returns tokens
+                h, self._inflight = self._inflight, self._dispatch()
+                out = self._harvest(h)
+            return out
+        if self._inflight is not None:     # the mode switched
+            h, self._inflight = self._inflight, None
+            out = self._harvest(h)
+            if out:
+                return out
+        if lazy:
             self._grow_pages()
             if not self._active_host.any():
                 return {}
-        if self._spec_k > 0:
-            return self._spec_step()
-        st = self.state
-        fwd = forward_decode_scan if self.scan_layers else forward_decode
-        with torch.no_grad():
-            logits, self.caches = fwd(
-                self.params, self.cfg, st.tokens, self.caches, st.lengths,
-                dtype=self.act_dtype, active=st.active)
-            sp = st.sampling
-            b = logits.shape[0]
-            rows = torch.arange(b, device=logits.device)
-            suppress = (st.generated < sp.min_tokens) & (st.eos_id >= 0)
-            eos_col = st.eos_id.clamp(0, logits.shape[1] - 1).long()
-            logits[rows, eos_col] += torch.where(
-                suppress, torch.full_like(logits[:, 0], NEG_INF),
-                torch.zeros_like(logits[:, 0]))
-            need_pen = self._need_penalties()
-            nxt = sample(logits, sp, self._rng,
-                         token_counts=st.token_counts if need_pen else None,
-                         any_sampled=bool(
-                             (self._temp_host[self._active_host] > 0).any()))
-            lp = logprobs_of(logits, nxt)
-            active = st.active
-            new_lengths = torch.where(active, st.lengths + 1, st.lengths)
-            new_generated = torch.where(active, st.generated + 1, st.generated)
-            hit_eos = (nxt == st.eos_id) & (st.eos_id >= 0) & (
-                new_generated >= sp.min_tokens.clamp(min=1))
-            hit_max = new_generated >= st.max_tokens
-            # capacity guard, as the JAX engine's: cap - 1 keeps every
-            # append inside the cache
-            hit_cap = new_lengths >= self.max_seq - 1
-            still_active = active & ~hit_eos & ~hit_max & ~hit_cap
-            if need_pen:
-                st.token_counts[rows, nxt.long()] += active.to(torch.int32)
-            emitted = torch.where(active, nxt, torch.full_like(nxt, -1))
-            st.tokens = torch.where(active, nxt, st.tokens)
-            st.lengths = new_lengths.to(torch.int32)
-            st.active = still_active
-            st.generated = new_generated.to(torch.int32)
-            st.last_logprob = lp
-            packed = self._pack(emitted[None], lp[None])
-        self.steps += 1
-        return self._harvest(packed.cpu().numpy(), 1)
+        t0 = time.perf_counter()
+        out = self._harvest(self._dispatch())
+        if not self._auto_done:
+            self._auto_observe(time.perf_counter() - t0)
+        return out
 
     def _need_penalties(self) -> bool:
         return bool(self._penalty_host[self._active_host].any())
 
-    def _pack(self, emitted: torch.Tensor, lps: torch.Tensor) -> torch.Tensor:
-        """A step's results for the one host transfer: emitted and logprob
-        rows (R, B) each, then active, lengths and EOS ids (B,)."""
-        st = self.state
-        return torch.cat([emitted.double(), lps.double(),
-                          torch.stack([st.active.double(),
-                                       st.lengths.double(),
-                                       st.eos_id.double()])])
+    def _variant(self, first: bool) -> tuple:
+        """The host branches of a dispatch's next step, as a key: ("plain",
+        penalties, any sampled slot), ("lookup", K, penalties) or
+        ("draft", K, penalties, tail), then #3's int8-dot switch
+        (`int8_dots_switch`, read at each call as JAX reads it at trace
+        time). A draft dispatch's first step writes the tail when the last
+        harvested step held a whole window; its later steps always run it,
+        the mask choosing the slots."""
+        pen = self._need_penalties()
+        dots = int8_dots_switch()
+        if self._spec_k == 0:
+            return ("plain", pen,
+                    bool((self._temp_host[self._active_host] > 0).any()),
+                    dots)
+        if self._draft is None:
+            return ("lookup", self._spec_k, pen, dots)
+        return ("draft", self._spec_k, pen, self._tail_due or not first,
+                dots)
 
-    def _spec_step(self) -> Dict[int, List[int]]:
-        """One speculative step (JAX engine.py:1565-1595): draft K tokens a
-        slot, verify them in one forward, emit 1..K+1 tokens a slot; one
-        host transfer."""
-        st, k = self.state, self._spec_k
-        common = dict(k_draft=k, max_cache_len=self.max_seq,
-                      generator=self._rng, penalties=self._need_penalties(),
+    def _run_step(self, key: tuple, st: DecodeState, out: torch.Tensor,
+                  row: torch.Tensor, history, tail) -> None:
+        """Variant `key` of one step, over the engine's caches and the
+        given state, output rows, history and draft tail (in place)."""
+        if key[0] == "plain":
+            decode_step(self.params, self.cfg, self.caches, st, out, row,
+                        scan=self.scan_layers, max_seq=self.max_seq,
+                        dtype=self.act_dtype, need_pen=key[1],
+                        any_sampled=key[2], generator=self._rng)
+            return
+        common = dict(k_draft=key[1], max_cache_len=self.max_seq,
+                      generator=self._rng, penalties=key[2],
                       dtype=self.act_dtype)
-        with torch.no_grad():
-            if self._draft is not None:
-                (self.caches, self._draft_caches, emitted, lps,
-                 self._draft_tail) = speculative.spec_decode_draft_core(
-                    self.params, self._draft[0], self.cfg, self._draft[1],
-                    self.caches, self._draft_caches, st,
-                    tail=self._draft_tail if self._tail_due else None,
-                    **common)
-            else:
-                self.caches, emitted, lps = speculative.spec_decode_core(
-                    self.params, self.cfg, self.caches, st, self._history,
-                    ngram=self.runtime.speculative_ngram, **common)
-            packed = self._pack(emitted.t(), lps.t())
-        self.steps += 1
-        self.spec_steps += 1
-        return self._harvest(packed.cpu().numpy(), k + 1, spec=True)
+        if key[0] == "lookup":
+            _, emitted, lps = speculative.spec_decode_core(
+                self.params, self.cfg, self.caches, st, history,
+                ngram=self.runtime.speculative_ngram, **common)
+        else:
+            _, _, emitted, lps, last = speculative.spec_decode_draft_core(
+                self.params, self._draft[0], self.cfg, self._draft[1],
+                self.caches, self._draft_caches, st,
+                tail=tail if key[3] else None, **common)
+            tail[0].copy_(last[0])
+            tail[1].copy_(last[1])
+        record_rows(out, row, emitted.t(), lps.t(), st)
 
-    def _spec_observe(self, emitted_np: np.ndarray) -> None:
-        """Acceptance counters of one speculative step and the auto-disable
+    def _dispatch(self) -> Dict:
+        """Enqueue one dispatch of N steps and its host transfer; returns
+        the handle its harvest reads. On the card each step replays its
+        variant's CUDA graph, and the rows go to a pinned buffer of two
+        (one dispatch may fly while the other is read) behind an event;
+        on the CPU the steps run eagerly."""
+        n = self._steps_per_dispatch
+        t = self._spec_k + 1
+        runs = [(self._variant(True), 1)]
+        if n > 1:
+            runs.append((self._variant(False), n - 1))
+        self.dispatch_count += 1
+        self._row.zero_()
+        with torch.no_grad():
+            for key, reps in runs:
+                if self._graphs is not None:
+                    self._replay(key, reps)
+                    continue
+                for _ in range(reps):
+                    self._run_step(key, self.state, self._out, self._row,
+                                   self._history, self._draft_tail)
+        host = self._host[self.dispatch_count % 2]
+        host.copy_(self._out, non_blocking=True)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        self.steps += n
+        if t > 1:
+            self.spec_steps += n
+        return {"host": host, "event": event, "rows": n * t, "t": t,
+                "epoch": self._slot_epoch.copy()}
+
+    def _replay(self, key: tuple, n: int) -> None:
+        """Variant `key` n times as CUDA graph replays (runtime/graphs.py;
+        captured at its first use, after one run on copies of the state,
+        the output rows, the history and the draft tail)."""
+        def run():
+            self._run_step(key, self.state, self._out, self._row,
+                           self._history, self._draft_tail)
+
+        def warm():
+            tail = self._draft_tail
+            self._run_step(
+                key, clone_state(self.state), self._out.clone(),
+                self._row.clone(),
+                None if self._history is None else self._history.clone(),
+                None if tail is None else (tail[0].clone(), tail[1].clone()))
+
+        self._graphs.replay(key, run, warm, n)
+
+    def _spec_observe(self, emitted_np: np.ndarray, t: int) -> None:
+        """Acceptance counters of one speculative dispatch (its rows
+        (N·T, B), ordered (step, window position)) and the auto-disable
         policy (JAX engine.py:1668-1691): below the break-even window mean
         (speculative_min_accepted, times a draft model's cost ratio) after
         speculative_probe_steps windows, fall back to plain decode."""
         valid = emitted_np >= 0
         self.spec_emitted += int(valid.sum())
-        wins = valid.sum(axis=0)
-        self._tail_due = bool((wins == self._spec_k + 1).any())
-        np.add.at(self.spec_accept_hist,
-                  np.clip(wins[wins > 0], 0, self._spec_k + 1), 1)
+        wins = valid.reshape(-1, t, valid.shape[1]).sum(axis=1)   # (N, B)
+        self._tail_due = bool((wins[-1] == t).any())
+        np.add.at(self.spec_accept_hist, np.clip(wins[wins > 0], 0, t), 1)
         thresh = self.runtime.speculative_min_accepted * self._spec_cost_ratio
         if (thresh > 0 and self.spec_accept_hist.sum()
                 >= self.runtime.speculative_probe_steps
@@ -818,25 +1006,43 @@ class InferenceEngine:
             self._spec_k = 0
             self.spec_disabled = True
 
-    def _harvest(self, got: np.ndarray, r: int,
-                 spec: bool = False) -> Dict[int, List[int]]:
-        """Host bookkeeping of one step from its packed results (`_pack`,
-        r emitted rows): emissions in order, stop ids (a stop id inside a
-        window cuts the tokens after it), retires, speculative counters."""
+    def _harvest(self, h: Dict) -> Dict[int, List[int]]:
+        """Host bookkeeping of one dispatch from its one transfer
+        (`record_rows`' layout): emissions in order, stop ids (a stop id
+        cuts the tokens after it), retires, speculative counters. A slot
+        whose occupant changed since the dispatch (its epoch) is left to
+        a later harvest, and keeps its current host mirror (JAX
+        engine.py:1642-1770)."""
+        if h["event"] is not None:
+            h["event"].synchronize()
+        got = h["host"].numpy()
+        self.transfer_count += 1
+        r, rmax = h["rows"], (got.shape[0] - 3) // 2
         emitted_np = got[:r].astype(np.int64)
-        lp_np = got[r:2 * r]
-        active_np = got[2 * r] > 0.5
-        lengths_np = got[2 * r + 1].astype(np.int64)
-        eos_np = got[2 * r + 2].astype(np.int64)
-        if spec:
-            self._spec_observe(emitted_np)
+        lp_np = got[rmax:rmax + r]
+        active_np = got[2 * rmax] > 0.5
+        lengths_np = got[2 * rmax + 1].astype(np.int64)
+        eos_np = got[2 * rmax + 2].astype(np.int64)
+        if h["t"] > 1:
+            self._spec_observe(emitted_np, h["t"])
+        epoch = h["epoch"]
+        fresh = epoch == self._slot_epoch
+        if not fresh.all():
+            active_np = np.where(fresh, active_np, self._active_host)
+            lengths_np = np.where(fresh, lengths_np, self._lengths_host)
         self._lengths_host = lengths_np
         self._active_host = active_np.copy()
         out: Dict[int, List[int]] = {}
         for slot in range(len(self._slots)):
             res = self._slots[slot]
+            if res is None or not fresh[slot]:
+                continue
             keep = emitted_np[:, slot] >= 0
-            if res is None or not keep.any():
+            if not keep.any():
+                if not active_np[slot] and slot not in self._prefilling:
+                    # deactivated without a token (JAX :1716-1722)
+                    res.stop_reason = res.stop_reason or "max_tokens"
+                    self._retire(slot)
                 continue
             toks = [int(t) for t in emitted_np[keep, slot]]
             lps = [float(x) for x in lp_np[keep, slot]]
@@ -865,18 +1071,44 @@ class InferenceEngine:
                 self._retire(slot)
         return out
 
+    def _auto_observe(self, dt: float) -> None:
+        """The auto dispatch depth (`decode_steps_per_dispatch` = 0; JAX
+        engine.py:1772-1797): 7 dispatches at 4 steps, then 7 at 12; from
+        the fastest of each but the first, the step time s and the fixed
+        cost D a dispatch; the ladder depth nearest the one that keeps D
+        under 8% of the device time, at most 100 ms of steps and 32."""
+        n = self._steps_per_dispatch
+        times = self._auto_times.setdefault(n, [])
+        times.append(dt)
+        probe = 7                      # the first sample is dropped
+        if n == 4 and len(times) >= probe:
+            self._steps_per_dispatch = 12
+        elif n == 12 and len(times) >= probe:
+            t4 = min(self._auto_times[4][1:])
+            t12 = min(times[1:])
+            step_s = max((t12 - t4) / 8.0, 1e-6)
+            fixed = max(t4 - 4.0 * step_s, 0.0)
+            want = fixed / (0.08 * step_s)
+            cap = 0.1 / step_s
+            n_star = max(1.0, min(want, cap, 32.0))
+            self._steps_per_dispatch = min(AUTO_LADDER,
+                                           key=lambda x: abs(x - n_star))
+            self._auto_done = True
+
     def _grow_pages(self) -> None:
         """Lazy paged mode: before each decode step, extend every active
         slot's pages to cover the step; when the pool is exhausted, preempt
         the youngest other request (old requests never starve). A slot that
         cannot grow and has no victim stops at its current length
-        (stop_reason "kv_pages"). JAX engine.py:1799-1834, one step per
-        dispatch; a speculative step writes K + 1 rows and may overrun by
-        K, so it grows (K + 1) + K rows ahead."""
+        (stop_reason "kv_pages"). JAX engine.py:1799-1834: a dispatch of N
+        steps grows N rows ahead; a speculative step writes K + 1 rows and
+        may overrun by K, so N of them grow N (K + 1) + K rows ahead."""
         ps = self.runtime.kv_page_size
         alloc = self._page_alloc
         shared = getattr(alloc, "shared_per_slot", None)
-        steps = 1 + 2 * self._spec_k
+        steps = self._steps_per_dispatch
+        if self._spec_k:
+            steps = steps * (self._spec_k + 1) + self._spec_k
         changed = False
         for slot in range(self.num_slots):
             res = self._slots[slot]
@@ -946,6 +1178,9 @@ class InferenceEngine:
         self._lengths_host[slot] = 0
         self._temp_host[slot] = 0.0
         self._penalty_host[slot] = False
+        # occupancy changed: a dispatch in flight neither touches this slot
+        # nor brings back its active / length mirror
+        self._slot_epoch[slot] += 1
         self.state.lengths[slot] = 0
         if self._prefix_idx is not None and len(res.token_ids) > 1:
             # rows [n, n + g - 1) hold the generated tokens but the last
@@ -961,9 +1196,14 @@ class InferenceEngine:
 
     def reset(self) -> None:
         """Drop all in-flight state: fresh caches (and page pool, draft
-        cache, drafting history) and decode state, slots freed, speculative
+        cache, drafting history) and decode state, slots freed, the
+        dispatch in flight and the captured graphs dropped, speculative
         counters cleared (the scheduler's failure recovery)."""
         b = self.num_slots
+        self._inflight = None
+        if self._graphs is not None:
+            # the graphs hold the old caches' and state's addresses
+            self._graphs = StepGraphs(self._rng)
         self.caches = self._new_caches()
         self.state = init_state(b, self.cfg.vocab_size, self.device)
         self._active_host = np.zeros((b,), dtype=bool)
@@ -981,7 +1221,9 @@ class InferenceEngine:
                                                      self.device)
         if self._draft is not None:
             self._draft_caches = self._new_draft_caches()
-        self._draft_tail, self._tail_due = None, False
+        if self._draft_tail is not None:
+            self._draft_tail[1].zero_()
+        self._tail_due = False
         self.spec_steps = 0
         self.spec_emitted = 0
         self.spec_accept_hist = np.zeros_like(self.spec_accept_hist)

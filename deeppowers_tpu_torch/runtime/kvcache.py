@@ -178,12 +178,16 @@ def _is_paged(cache) -> bool:
 
 
 def write_prompts(cache: LayerKVCache, k_new: torch.Tensor,
-                  v_new: torch.Tensor, slots: torch.Tensor) -> LayerKVCache:
+                  v_new: torch.Tensor, slots: torch.Tensor, *,
+                  in_range: bool = False) -> LayerKVCache:
     """B prompts' K/V (B, S_pad, K, D) into the first S_pad rows of `slots`
     (B,), quantized with their scale columns for a quantized cache (in the
     kv_append kernel, one launch for K, V and both scale columns).
-    Out-of-range slots are dropped, as JAX's scatter drops them.
-    Contiguous caches only (batched admission runs on that layout only)."""
+    Out-of-range slots are dropped, as JAX's scatter drops them; a bf16
+    cache finds them by reading the slots back, unless the caller checked
+    them on the host (`in_range`, the engine's prefill group: once a group,
+    not once a layer). Contiguous caches only (batched admission runs on
+    that layout only)."""
     if _is_paged(cache):
         raise NotImplementedError("write_prompts: contiguous caches only")
     b, s_pad = k_new.shape[:2]
@@ -198,9 +202,10 @@ def write_prompts(cache: LayerKVCache, k_new: torch.Tensor,
             _kt_write_prompts(cache, slots, s_pad)
         return cache
     slots = slots.long()
-    keep = (slots >= 0) & (slots < cache.k.shape[0])
-    if not bool(keep.all()):
-        slots, k_new, v_new = slots[keep], k_new[keep], v_new[keep]
+    if not in_range:
+        keep = (slots >= 0) & (slots < cache.k.shape[0])
+        if not bool(keep.all()):
+            slots, k_new, v_new = slots[keep], k_new[keep], v_new[keep]
     cache.k[slots, :s_pad] = flat_heads(k_new).to(cache.k.dtype)
     cache.v[slots, :s_pad] = flat_heads(v_new).to(cache.v.dtype)
     return cache
@@ -211,8 +216,10 @@ def write_prompt(cache, k_new: torch.Tensor, v_new: torch.Tensor,
     """One padded prompt's K/V (S_pad, K, D) into `slot`."""
     if _is_paged(cache):
         return kvcache_paged.write_prompt(cache, k_new, v_new, slot)
+    b = cache.k.shape[0]
     slots = torch.tensor([int(slot)], device=cache.k.device)
-    return write_prompts(cache, k_new[None], v_new[None], slots)
+    return write_prompts(cache, k_new[None], v_new[None], slots,
+                         in_range=0 <= int(slot) < b)
 
 
 def write_chunk(cache, k_new: torch.Tensor, v_new: torch.Tensor, slot: int,

@@ -26,8 +26,13 @@ Ported from deeppowers_tpu/runtime/speculative.py (`init_history` :47,
 Random numbers come from the engine's torch.Generator (the JAX package
 folds its step key per window position; the two streams cannot agree, so
 sampled runs are compared by distribution, greedy ones token for token).
-Not ported: structured-output guide tables and the multi-step (`*_multi`)
-variants, whose engine features raise in the port.
+Not ported: structured-output guide tables. JAX's multi-step cores
+(`spec_decode_multi_core`, `spec_decode_draft_multi_core` :451-532, a
+`lax.scan` of N steps) are the engine's dispatch loop over one step
+(runtime/engine.py `_dispatch`), which the card replays as a CUDA graph
+(runtime/graphs.py): every step updates the state, the history and the
+caches in place, and the draft tail passes from step to step on the
+device.
 
 Cache discipline as in JAX: position lengths + t holds window input t's
 K/V; emission is a prefix of the window, so rows of rejected drafts lie
@@ -43,13 +48,8 @@ import torch
 
 from ..models.transformer import (forward_decode, forward_verify,
                                   forward_verify_scan)
-from ..ops.sampling import logprobs_of, processed_probs
+from ..ops.sampling import draw, logprobs_of, processed_probs
 from .kvcache_stacked import StackedKVCache
-
-#: floor added to probabilities before a draw, as JAX's log(p + 1e-30):
-#: an all-zero residual (a greedy slot whose draft was its argmax) then
-#: draws uniformly instead of failing; the draw is never used
-_TINY = 1e-30
 
 
 def init_history(batch_slots: int, max_seq: int, device=None
@@ -88,17 +88,6 @@ def draft_ngram(history: torch.Tensor, hist_len: torch.Tensor, ngram: int,
     return torch.where(found[:, None], cand, last)
 
 
-def _draw(probs: torch.Tensor, generator: Optional[torch.Generator]
-          ) -> torch.Tensor:
-    """One token a row from (B, V) probabilities: JAX's categorical over
-    log(p + 1e-30), by the same Gumbel-max draw (argmax of log p plus
-    Gumbel noise), which, unlike torch.multinomial, never waits for the
-    device."""
-    u = torch.rand(probs.shape, generator=generator, device=probs.device)
-    gumbel = -torch.log(-torch.log(u.clamp_(min=_TINY)))
-    return torch.argmax(torch.log(probs + _TINY) + gumbel, dim=-1)
-
-
 def _accept_window(logits, drafts, state, generator, counts,
                    max_cache_len: int, q_probs=None):
     """Accept or reject the K drafts in order and draw the bonus token
@@ -135,11 +124,11 @@ def _accept_window(logits, drafts, state, generator, counts,
                 acc = u * q[rows, d].clamp(min=1e-20) < pd
                 p_res = (p - q).clamp(min=0.0)
             p_res = p_res / p_res.sum(-1, keepdim=True).clamp(min=1e-20)
-            tok = torch.where(acc, d, _draw(p_res, generator))
+            tok = torch.where(acc, d, draw(p_res, generator))
         else:
             # the bonus position: every draft accepted, draw from p
             acc = torch.zeros_like(emitting)
-            tok = _draw(p, generator)
+            tok = draw(p, generator)
         tok = tok.to(torch.int32)
         emit = emitting & ~terminated
         emitted_cols.append(torch.where(emit, tok, torch.full_like(tok, -1)))
@@ -158,8 +147,9 @@ def _accept_window(logits, drafts, state, generator, counts,
 
 
 def _finish(state, emitted, lps, counts, gen, terminated):
-    """The state after a window (JAX :258-283): lengths advance by the
-    tokens emitted, the last one becomes the next input."""
+    """The state after a window (JAX :258-283), written into its tensors
+    in place: lengths advance by the tokens emitted, the last one becomes
+    the next input."""
     t = emitted.shape[1]
     valid = emitted >= 0
     n_new = valid.sum(1).to(torch.int32)
@@ -167,13 +157,14 @@ def _finish(state, emitted, lps, counts, gen, terminated):
     last_tok = torch.gather(emitted, 1, last_idx)[:, 0]
     last_lp = torch.gather(lps, 1, last_idx)[:, 0]
     got_any = state.active & (n_new > 0)
-    state.tokens = torch.where(got_any, last_tok, state.tokens)
-    state.lengths = state.lengths + n_new
-    state.active = state.active & ~terminated
-    state.generated = gen
+    state.tokens.copy_(torch.where(got_any, last_tok, state.tokens))
+    state.lengths.add_(n_new)
+    state.active.copy_(state.active & ~terminated)
+    state.generated.copy_(gen)
     if counts is not None:
-        state.token_counts = counts
-    state.last_logprob = torch.where(got_any, last_lp, state.last_logprob)
+        state.token_counts.copy_(counts)
+    state.last_logprob.copy_(torch.where(got_any, last_lp,
+                                         state.last_logprob))
     return valid
 
 
@@ -234,8 +225,11 @@ def spec_decode_draft_core(params, draft_params, cfg, draft_cfg, caches,
     leaves it stale). `tail` is (tokens (B,), mask (B,) bool): the last
     drafts of the previous step and the slots whose window accepted them
     all; given, one draft decode step first writes those rows, at the
-    position before each slot's length. The returned tail is this step's;
-    the caller passes it on when any window was whole."""
+    position before each slot's length, and the mask chooses the slots
+    (none, for a mask of False). The returned tail is this step's: the
+    engine keeps it in the same two tensors, hands it to the next step of
+    a dispatch on the device, and across dispatches passes it on when the
+    last step's windows held a whole one."""
     sp = state.sampling
     if tail is not None:
         _, draft_caches = forward_decode(
@@ -248,7 +242,7 @@ def spec_decode_draft_core(params, draft_params, cfg, draft_cfg, caches,
             draft_params, draft_cfg, tok, draft_caches, lengths, dtype=dtype,
             active=state.active)
         q = processed_probs(logits, sp)
-        tok = _draw(q, generator).to(torch.int32)
+        tok = draw(q, generator).to(torch.int32)
         drafts.append(tok)
         qs.append(q)
         lengths = lengths + 1

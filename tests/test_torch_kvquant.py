@@ -405,9 +405,9 @@ def test_decode_attention_quantized_plain_matches_pallas(dtype):
     args = [jnp.asarray(a) for a in (qk.reshape(b, s, kh, -1),
                                      qv.reshape(b, s, kh, -1))]
     lens = jnp.asarray(LENS, jnp.int32)
-    got = da.decode_attention(q_t, _t(qk), _t(qv), torch.tensor(LENS),
-                              k_scale=_t(sk), v_scale=_t(sv), kv_bits=kb,
-                              v_bits=vb).float().numpy()
+    got = da.decode_attention_plain(q_t, _t(qk), _t(qv), torch.tensor(LENS),
+                                    k_scale=_t(sk), v_scale=_t(sv),
+                                    kv_bits=kb, v_bits=vb).float().numpy()
     for dots, tol in ((False, 1e-2), (True, 8e-2)):
         ref = decode_attention_mxu(q, *args, lens, jnp.asarray(sk),
                                    jnp.asarray(sv), kv_bits=kb, v_bits=vb,
@@ -416,9 +416,10 @@ def test_decode_attention_quantized_plain_matches_pallas(dtype):
         assert _row_ratio(got, ref).max() <= tol, dots
     wrong_sv = sv.copy()
     wrong_sv[-1] *= 2.0
-    wrong = da.decode_attention(q_t, _t(qk), _t(qv), torch.tensor(LENS),
-                                k_scale=_t(sk), v_scale=_t(wrong_sv),
-                                kv_bits=kb, v_bits=vb).float().numpy()
+    wrong = da.decode_attention_plain(q_t, _t(qk), _t(qv),
+                                      torch.tensor(LENS), k_scale=_t(sk),
+                                      v_scale=_t(wrong_sv), kv_bits=kb,
+                                      v_bits=vb).float().numpy()
     ref = decode_attention_mxu(q, *args, lens, jnp.asarray(sk),
                                jnp.asarray(sv), kv_bits=kb, v_bits=vb,
                                int8_dots=False).astype(jnp.float32)

@@ -205,8 +205,7 @@ def test_dequant_matmul_width_variant(n, variant):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("emit_top_logprobs", 5), ("decode_steps_per_dispatch", 4),
-    ("seq_parallel_prefill", True)])
+    ("emit_top_logprobs", 5), ("seq_parallel_prefill", True)])
 def test_unported_runtime_fields_raise(tiny, field, value):
     """The JAX engine acts on each of these fields; the port does not yet,
     so a non-default value raises and names the field instead of being

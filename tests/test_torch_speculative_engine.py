@@ -423,11 +423,10 @@ def test_configuration_checks_raise(tiny, draft, case):
         InferenceEngine(tparams, cfg, runtime=trt, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("field, value", [("emit_top_logprobs", 2),
-                                          ("decode_steps_per_dispatch", 4)])
+@pytest.mark.parametrize("field, value", [("emit_top_logprobs", 2)])
 def test_speculation_with_unported_fields_raises(tiny, field, value):
-    """Speculation is ported; top logprobs and multi-step dispatch are not,
-    so either beside it still raises and names the field."""
+    """Speculation is ported; top logprobs are not, so they beside it
+    still raise and name the field."""
     _, _, cfg, tparams = tiny
     _, trt = _runtime(**{field: value})
     with pytest.raises(NotImplementedError, match=field):

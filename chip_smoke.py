@@ -238,6 +238,21 @@ paging that preempts at N = 1 and 4, and a seeded sampled engine that
 repeats its stream while its replays draw anew; and print profiled steps
 at N = 1 (graph) and at the auto depth.
 
+After the Mixtral path phases, `trained` loads the repo's trained MoE
+checkpoint moelm_ckpt (6 layers, hidden 256, 8 experts top-2, heads of 32
+dims, which #3, 3i and #4 compute at 64 over zero-padded heads) with the
+port's loader straight onto the card, and scores its own text at bf16:
+prefill perplexity over 8 x 512 tokens for the float weights (float
+experts through the stacked grouped branch), int8 per-channel and W4A8
+g128 (#10 / #9 behind 9q), and decode-path perplexity over 8 x 128 tokens
+for W4A8 g128 + k8v4 KV (the GEMV's cat experts, 3i) and float weights +
+int8 KV (3i); each row's launches counted from 0 and its perplexity held
+within 1e-2 of the same function on the CPU (the kernels' plain
+versions). It prints the experts' share of routed pairs on the text and
+serves 8 requests of the text with and without prompt lookup (K = 4,
+n-gram 3): equal greedy tokens, the acceptance mean and histogram. The
+checkpoint travels with the chip run; the phase fails without it.
+
 Any failed check raises: the error goes to stderr and the exit code is 1.
 Without a CUDA device, or without the deeppowers_tpu_torch package beside
 it, the script exits non-zero and prints no result. A watchdog ends the
@@ -4331,6 +4346,336 @@ def serve_mixtral(torch, T, counters):
     return out
 
 
+# ---------------------------------------------------------------------------
+# trained: the repo's trained MoE checkpoint, loaded by the port and scored
+# ---------------------------------------------------------------------------
+
+TRAINED_CKPT = "moelm_ckpt"
+TRAINED_SEQS = 8                # sequences a perplexity row scores
+TRAINED_LEN = 512               # prefill rows' tokens a sequence
+TRAINED_CACHED_LEN = 128        # cached rows' (S = 128: #3 takes 3i)
+TRAINED_REL = 1e-2              # |ppl_card / ppl_cpu - 1|
+TRAINED_SPEC_BYTES = 300        # served requests' prompts, from the text
+TRAINED_SPEC_TOKENS = 32
+#: a greedy stream with prompt lookup may leave the one without it only
+#: where the latter's top two logits lie this close: bf16 verify steps of
+#: 40 rows round otherwise than decode steps of 8 (a split at a gap of
+#: 0.083 was seen on the card), where a wrong verify step leaves it at a
+#: confident token
+TRAINED_TIE_GAP = 0.25
+TRAINED_WEIGHTS = {"bf16": None, "int8": {},
+                   "w4a8 g128": dict(mode="int4", group_size=128,
+                                     act_bits=8)}
+#: (row, weights, KV store or None for the prefill) and the kernel
+#: counts that row must raise
+TRAINED_ROWS = (
+    ("bf16", "bf16", None, ["flash_attention_prefill"]),
+    ("int8", "int8", None, ["flash_attention_prefill", "dequant_matmul[w8]",
+                            "dequant_matmul[mma]"]),
+    ("w4a8 g128", "w4a8 g128", None,
+     ["flash_attention_prefill", "dequant_matmul[mma]"] + MIXTRAL_ON_PATH),
+    ("w4a8 g128 + k8v4 KV", "w4a8 g128", "k8v4",
+     ["dequant_matmul[gemv]", "dequant_matmul[w4a8g]", "quantize_activations",
+      "decode_attention[k8v4+rows]", "decode_attention[i8:k8v4+rows]"]),
+    ("bf16 + int8 KV", "bf16", "int8",
+     ["decode_attention[int8+rows]", "decode_attention[i8:int8+rows]"]),
+)
+
+
+def trained_text(root: str) -> str:
+    path = os.path.join(root, TRAINED_CKPT, "ppl_eval.txt")
+    with open(path, encoding="utf-8") as f:
+        return f.read()
+
+
+def trained_weights(torch, T, params, cfg):
+    """{name: params}: the float weights as loaded (f32), and each
+    quantized recipe made from them on their device and fused as the
+    engine fuses them (wqkv, w_gu; W4A8 g128 experts in the cat layout,
+    per-channel int8 experts stacked)."""
+    from deeppowers_tpu_torch.config import QuantConfig, QuantMode
+    out = {}
+    for name, q in TRAINED_WEIGHTS.items():
+        if q is None:
+            out[name] = params
+            continue
+        q = dict(q)
+        mode = QuantMode(q.pop("mode", "int8"))
+        out[name] = T.fuse_params(T.quantize_params(
+            params, QuantConfig(mode=mode, **q)), cfg)
+    return out
+
+
+def trained_ppl(torch, weights, cfg, seqs, cached, row):
+    """One row's perplexity at bf16 on the weights' device: the prefill
+    over `seqs`, or the decode path over `cached` through the row's KV
+    store."""
+    from deeppowers_tpu_torch.runtime.evaluate import (cached_perplexity,
+                                                       perplexity)
+    _, wname, store, _ = row
+    if store is None:
+        return perplexity(weights[wname], cfg, seqs,
+                          batch_size=TRAINED_SEQS, dtype=torch.bfloat16)
+    return cached_perplexity(weights[wname], cfg, cached,
+                             kv_cache_dtype=store, batch_size=TRAINED_SEQS,
+                             dtype=torch.bfloat16)
+
+
+def expert_share(torch, routes, num_experts: int) -> dict:
+    """The share of routed (token, expert) pairs each expert took, over
+    all layers and per layer (min and max over experts)."""
+    per_layer = [torch.bincount(r.reshape(-1).cpu(), minlength=num_experts)
+                 for r in routes]
+    total = torch.stack(per_layer).sum(0)
+    shares = [c.double() / c.sum() for c in per_layer]
+    return {"all": [round(float(x), 4) for x in total.double()
+                    / total.sum()],
+            "layer_min": [round(float(s.min()), 4) for s in shares],
+            "layer_max": [round(float(s.max()), 4) for s in shares],
+            "idle_expert_layers": sum(int((c == 0).any()) for c in per_layer)}
+
+
+def first_split(a, b) -> int:
+    """The first index where two token lists differ (len of the shorter
+    when one is the other's prefix)."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def tie_gap(torch, T, params, cfg, ids, pair):
+    """The top-2 gap of the logits after `ids` (one bf16 prefill on the
+    weights' device), or None unless the two tokens of `pair` are the top
+    two."""
+    dev = params["embedding"].device
+    x = torch.tensor([ids], device=dev)
+    lens = torch.tensor([len(ids)], device=dev, dtype=torch.int32)
+    with torch.no_grad():
+        logits, _ = T.forward_prefill(params, cfg, x, lens,
+                                      dtype=torch.bfloat16, logits_at=lens - 1)
+    top = logits[0].float().topk(2)
+    if set(top.indices.tolist()) != set(pair):
+        return None
+    return float(top.values[0] - top.values[1])
+
+
+def trained_spec(torch, T, params, cfg, counters, text):
+    """8 served requests whose prompts are TRAINED_SPEC_BYTES-byte windows
+    of the trained text, greedy, TRAINED_SPEC_TOKENS tokens: first on an
+    engine without speculation, then with prompt lookup (K = SPEC_K,
+    n-gram 3). The greedy streams must be equal, or part only where the
+    plain engine's next token is a near tie: the two tokens there its top
+    two after the common prefix, within TRAINED_TIE_GAP (a bf16 prefill of
+    prompt and prefix on the card). Returns the acceptance mean and
+    histogram, the streams' agreement and the speculative run's
+    launches."""
+    from deeppowers_tpu_torch.config import GenerationConfig, RuntimeConfig
+    from deeppowers_tpu_torch.runtime.engine import InferenceEngine
+    from deeppowers_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    raw = text.encode("utf-8")
+    step = len(raw) // 8
+    prompts = [raw[i * step:i * step + TRAINED_SPEC_BYTES].decode(
+        "utf-8", errors="ignore") for i in range(8)]
+    streams = []
+    for spec in (0, SPEC_K):
+        engine = InferenceEngine(
+            params, cfg, device="cuda", eos_token_id=tok.eos_token_id,
+            runtime=RuntimeConfig(max_batch_size=8, max_seq_len=512,
+                                  prefill_buckets=(64, 128, 256, 512),
+                                  speculative_tokens=spec,
+                                  speculative_ngram=3))
+        engine.generate(tok.encode("warm up"), GenerationConfig(
+            max_tokens=2, temperature=0.0))
+        results, launches, wall, sched = run_requests(
+            torch, engine, prompts, TRAINED_SPEC_TOKENS, counters, tok)
+        streams.append([r["tokens"] for r in results])
+        if spec:
+            stats = sched.stats()["speculative"]
+            check_variants("trained[spec]", launches,
+                           [f"decode_attention[bf16:t{SPEC_T}]"],
+                           ["decode_attention[bf16]"])
+        del engine
+    fused = T.fuse_params(params, cfg)
+    splits = []
+    for i, (plain, spec) in enumerate(zip(*streams)):
+        if plain == spec:
+            continue
+        j = first_split(plain, spec)
+        if j >= min(len(plain), len(spec)):
+            fail(f"trained[spec]: request {i} stopped at {len(spec)} tokens "
+                 f"with prompt lookup, {len(plain)} without")
+        gap = tie_gap(torch, T, fused, cfg, tok.encode(prompts[i])
+                      + plain[:j], (plain[j], spec[j]))
+        splits.append({"request": i, "at": j, "gap": gap})
+        if gap is None or not gap <= TRAINED_TIE_GAP:
+            fail(f"trained[spec]: request {i} with prompt lookup leaves the "
+                 f"greedy stream without it at token {j} ({spec[j]} for "
+                 f"{plain[j]}), where the top-2 gap is {gap} (a near tie "
+                 f"is <= {TRAINED_TIE_GAP}): {spec} against {plain}")
+    same = sum(a == b for p, q in zip(*streams) for a, b in zip(p, q))
+    return {"window_mean_accepted": stats["window_mean_accepted"],
+            "accept_hist": stats["accept_hist"],
+            "tokens": sum(len(x) for x in streams[1]),
+            "equal_tokens": same, "splits": splits, "wall_s": wall,
+            "launches": launches}
+
+
+def check_narrow_heads(torch, cfg) -> dict:
+    """#4, #3 and 3i at the trained model's heads of 32 dims (computed at
+    64 over zero padding), on the card against their plain versions on the
+    same inputs: the prefill rows' (8 x 512 tokens) flash attention, and
+    the cached rows' decode attention over 8 slots of 128 positions (bf16,
+    int8 and k8v4; tokens 1 and 5). Each (position or slot, row) within
+    1e-2 of its max|ref|. Returns the worst ratio of each."""
+    from deeppowers_tpu_torch.ops.kernels import decode_attention as da
+    from deeppowers_tpu_torch.ops.kernels import flash_attention as fa
+    from deeppowers_tpu_torch.quant.kvquant import quant_side
+    hq, kh, d = cfg.num_heads, cfg.kv_heads, cfg.dim_head
+    g = torch.Generator().manual_seed(SEED + 22)
+    out = {}
+
+    def worst(name, got, ref):
+        err = (got.float().cpu() - ref.float()).abs().amax(-1)
+        top = ref.float().abs().amax(-1).clamp_min(1e-30)
+        ratio = float((err / top).max())
+        if not torch.isfinite(got).all() or not ratio <= 1e-2:
+            fail(f"trained: {name} at heads of {d}: worst row {ratio:.3e} "
+                 f"of its max|ref| > 1e-2")
+        out[name] = float(f"{ratio:.3e}")
+
+    b, s = TRAINED_SEQS, TRAINED_LEN
+    q, k, v = (torch.randn(b, s, h, d, generator=g).to(torch.bfloat16)
+               for h in (hq, kh, kh))
+    lens = torch.full((b,), s)
+    got = fa.flash_attention_prefill(q.cuda(), k.cuda(), v.cuda(),
+                                     lens.cuda())
+    worst("flash_attention_prefill", got, fa.flash_attention_plain(
+        q, k, v, lens))
+    s = TRAINED_CACHED_LEN
+    lens = torch.tensor([1, 17, 64, 65, 100, 127, 128, 128])
+    for store, dots in (("bf16", False), ("int8", True), ("k8v4", True)):
+        kb, vb = (16, 16) if store == "bf16" else (
+            (8, 8) if store == "int8" else (8, 4))
+        sides = []
+        for bits in (kb, vb):
+            x = torch.randn(b, s, kh, d, generator=g)
+            if bits == 16:
+                sides.append((x.reshape(b, s, kh * d).to(torch.bfloat16),
+                              None))
+            else:
+                st, sc = quant_side(x, bits, 2 if bits == 4 else 1)
+                sides.append((st.reshape(b, s, -1),
+                              sc.transpose(-1, -2).contiguous()))
+        (kc, ks), (vc, vs) = sides
+        kw = {} if store == "bf16" else dict(k_scale=ks, v_scale=vs,
+                                            kv_bits=kb, v_bits=vb)
+        ckw = {n: (x.cuda() if torch.is_tensor(x) else x)
+               for n, x in kw.items()}
+        plain = (da.decode_attention_int8_dots_plain if dots
+                 else da.decode_attention_plain)
+        for t in (1, 5):
+            qd = torch.randn(b, hq * t, d, generator=g).to(torch.bfloat16)
+            lt = lens.clamp_min(t)      # a window's lengths hold its rows
+            got = da.decode_attention(qd.cuda(), kc.cuda(), vc.cuda(),
+                                      lt.cuda(), tokens=t, int8_dots=dots,
+                                      **ckw)
+            worst(f"decode_attention[{'i8:' if dots else ''}{store}"
+                  f"{'' if t == 1 else f':t{t}'}]", got,
+                  plain(qd, kc, vc, lt, tokens=t, **kw))
+    return out
+
+
+def trained_phase(torch, T, counters):
+    """`moelm_ckpt` (6 layers, hidden 256, 8 experts top-2, byte vocabulary,
+    trained) loaded by the port's loader straight onto the card, then
+    perplexity at bf16 on its own text through each TRAINED_ROWS row: the
+    prefill over TRAINED_SEQS sequences of TRAINED_LEN tokens for the float
+    weights (float experts, the stacked grouped branch: T = 4096 routed
+    tokens), int8 per-channel and W4A8 g128 (#10 / #9 behind 9q); the
+    decode path over TRAINED_SEQS sequences of TRAINED_CACHED_LEN tokens
+    through W4A8 g128 + k8v4 KV (the GEMV's cat experts, 3i) and float
+    weights + int8 KV (3i). Each row's launch counts are set to 0 just
+    before it and read just after, and it is held against the same function
+    on the CPU (the kernels' plain versions, same weights) within
+    TRAINED_REL. Then the experts' share of routed tokens on the text and
+    prompt-lookup speculation served over it (`trained_spec`). Returns
+    (launches by row, phase info)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(root, TRAINED_CKPT)
+    if not os.path.exists(os.path.join(path, "manifest.json")):
+        fail(f"trained: {path} is missing (the chip run must carry it)")
+    from deeppowers_tpu_torch.runtime.checkpoint import load_checkpoint
+    from deeppowers_tpu_torch.scripts.eval_ppl import sequences
+    from deeppowers_tpu_torch.serving.tokenizer import ByteTokenizer
+    t0 = time.perf_counter()
+    params, cfg, extra = load_checkpoint(path, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if extra.get("trained", {}).get("tokenizer") != "byte":
+        fail(f"trained: {TRAINED_CKPT} is not a byte-tokenizer checkpoint")
+    text = trained_text(root)
+    ids = ByteTokenizer().encode(text)
+    seqs = sequences(ids, TRAINED_LEN)[:TRAINED_SEQS]
+    cached = sequences(ids, TRAINED_CACHED_LEN)[:TRAINED_SEQS]
+    narrow = check_narrow_heads(torch, cfg)
+    weights = trained_weights(torch, T, params, cfg)
+    cpu_weights = {k: tree_to(v, "cpu") for k, v in weights.items()}
+    launches, rows, card_s, cpu_s = {}, {}, 0.0, 0.0
+    share = None
+    for row in TRAINED_ROWS:
+        name, on = row[0], row[3]
+        t1 = time.perf_counter()
+        reset_counts(counters)
+        if name == "bf16":
+            with recorded_routes(T) as routes:
+                got = trained_ppl(torch, weights, cfg, seqs, cached, row)
+            share = expert_share(torch, routes, cfg.num_experts)
+        else:
+            got = trained_ppl(torch, weights, cfg, seqs, cached, row)
+        torch.cuda.synchronize()
+        launches[name] = read_counts(counters)
+        check_variants(f"trained[{name}]", launches[name], on, [])
+        t2 = time.perf_counter()
+        ref = trained_ppl(torch, cpu_weights, cfg, seqs, cached, row)
+        t3 = time.perf_counter()
+        card_s += t2 - t1
+        cpu_s += t3 - t2
+        rel = abs(got / ref - 1)
+        rows[name] = {"ppl": got, "cpu_ppl": ref, "rel": rel,
+                      "card_s": round(t2 - t1, 3), "cpu_s": round(t3 - t2, 3)}
+        log(f"trained[{name}] ppl card {got!r} cpu {ref!r} relative "
+            f"{rel:.3e}, card {t2 - t1:.2f} s, cpu {t3 - t2:.2f} s")
+        if not (rel <= TRAINED_REL):
+            fail(f"trained[{name}]: card ppl {got} against the CPU's {ref}: "
+                 f"relative {rel:.3e} > {TRAINED_REL}")
+    # the KV rows' Δ against the float weights' prefill over their windows
+    from deeppowers_tpu_torch.runtime.evaluate import perplexity
+    kv_base = perplexity(weights["bf16"], cfg, cached,
+                         batch_size=TRAINED_SEQS, dtype=torch.bfloat16)
+    for name, r in rows.items():
+        r["delta"] = r["ppl"] - (kv_base if "KV" in name
+                                 else rows["bf16"]["ppl"])
+    spec = trained_spec(torch, T, params, cfg, counters, text)
+    launches["spec"] = spec.pop("launches")
+    del weights, cpu_weights, params
+    torch.cuda.empty_cache()
+    return launches, {
+        "checkpoint": TRAINED_CKPT, "layers": cfg.num_layers,
+        "hidden": cfg.hidden_size,
+        "experts": f"{cfg.num_experts} top-{cfg.num_experts_per_tok}",
+        "load_s": f"{load_s:.2f}", "card_s": f"{card_s:.2f}",
+        "cpu_ref_s": f"{cpu_s:.2f}",
+        "prefill": f"{TRAINED_SEQS}x{TRAINED_LEN}",
+        "cached": f"{TRAINED_SEQS}x{TRAINED_CACHED_LEN}",
+        "narrow_heads_worst_row": json.dumps(narrow),
+        "rows": json.dumps(rows), "expert_share": json.dumps(share),
+        "launches": json.dumps({row[0]: {k: launches[row[0]].get(k, 0)
+                                         for k in row[3]}
+                                for row in TRAINED_ROWS}),
+        "spec": json.dumps(spec)}
+
+
 def spec_path(torch, T, params, cfg, counters):
     """The teacher-forced verify window on the card: a 40-token prompt, then
     forward_verify over T = 5 forced tokens, through each store on each
@@ -6110,6 +6455,12 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     mxs_launches, mxs = mixtral_path(torch, T, kvcache, counters, scan=True)
     phase_line("scan_path[mixtral-8x7b]", t0, **mxs)
+
+    # 5g. the trained MoE checkpoint, loaded by the port onto the card and
+    # scored at bf16 on its own text against the CPU's plain function
+    t0 = time.perf_counter()
+    _, tr = trained_phase(torch, T, counters)
+    phase_line("trained", t0, **tr)
 
     # 6. serve, contiguous KV
     t0 = time.perf_counter()

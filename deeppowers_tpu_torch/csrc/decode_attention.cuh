@@ -36,6 +36,11 @@
 // k8v4 (8, 4). Scales are head-major: (B, R, S) contiguous, (P, R, page)
 // paged, R = Kh or 2*Kh.
 //
+// Head dims: 64 and 128, and on the contiguous layout a narrow head of 32
+// computed at 64 (template DR = 32, `stored_feature`): the tiles hold each
+// stored head's bytes followed by as many zeros, q and the output go
+// through the same feature map, and no absmax, code, sum or scale moves.
+//
 // What bounds it on an H100: bytes, the live K and V rows read once
 // (2 * sum_b(lengths[b]) * F * 2 for bf16; F and F/2 bytes a row for int8
 // and int4) plus their scales, q and the output; a verify window reads the
@@ -525,6 +530,27 @@ __device__ __forceinline__ unsigned bf16x2_bytes(unsigned a, unsigned b,
   return pack_bf16(f0, f1);
 }
 
+// The stored feature that feature f of a head computed at width D reads,
+// or -1 for a zero. D = DR but for a narrow head (DR = 32, computed at D =
+// 64): its stored bytes are followed in the tile by as many zero bytes
+// (`copy_side`), so bf16 and int8 features keep their order below DR, and
+// a packed int4 byte j, which holds features j and j + D/2 of the wide
+// head, holds the stored features j and j + DR/2: the wide head's
+// [0, DR/2) and [D/2, D/2 + DR/2) are the stored ones. Zeros change no
+// absmax, no code and no sum, so the narrow head's function is unchanged.
+template <int BITS, int D, int DR>
+__device__ __forceinline__ int stored_feature(int f) {
+  if constexpr (DR == D) {
+    return f;
+  } else if constexpr (BITS == 4) {
+    return f < DR / 2 ? f
+                      : (f >= D / 2 && f < D / 2 + DR / 2 ? f - D / 2 + DR / 2
+                                                          : -1);
+  } else {
+    return f < DR ? f : -1;
+  }
+}
+
 // The feature of q.K^T's k index 2c + (i & 1) + 8 (i >> 1) in k-step ks,
 // per K store: ldmatrix's order for bf16; for int8 thread c's D/4
 // contiguous bytes, four a k-step; for int4 (k-steps 0..D/32-1 the low
@@ -591,8 +617,10 @@ __device__ __forceinline__ int slot_by_length(const int* lens, int B, int r,
 // The n live rows (of TL) of one side from virtual row t0 of slot b into a
 // tile of CPR-chunk rows, this thread's share of the 16-byte copies: rows
 // at the row stride from (major0, minor0) when `whole`, else each row
-// through `rows`; the rest zero-filled.
-template <int CPR, typename Rows>
+// through `rows`; the rest zero-filled. A stored head of RCPR < CPR chunks
+// (a narrow head computed at twice its width, `stored_feature`) fills the
+// first RCPR chunks of each tile row and zeros the rest.
+template <int CPR, int RCPR, typename Rows>
 __device__ __forceinline__ void copy_side(
     unsigned char* dst, const void* data, long long msb, int width, int esz,
     int hoff, const Rows& rows, bool whole, int b, int t0, int n, int TL,
@@ -604,7 +632,7 @@ __device__ __forceinline__ void copy_side(
   const unsigned char* base = row_at(major0, minor0);
   for (int x = tid; x < TL * CPR; x += nthr) {
     const int r = x / CPR, q = x % CPR;
-    const bool ok = r < n;
+    const bool ok = r < n && q < RCPR;
     const unsigned char* src = base + (long long)r * width * esz;
     if (ok && !whole) {
       long long major;
@@ -785,14 +813,18 @@ __device__ __forceinline__ void v_operands(const unsigned char* vt, int rb,
 // and kept scores are `i8_smem`'s, its exchange and q's codes follow.
 // The kernels below launch it: `attention_kernel`, and the int8-dot path's
 // `attention_kernel_i8`.
-template <int D, int KB, int VB, typename Rows, bool I8>
+template <int D, int KB, int VB, typename Rows, bool I8, int DR>
 __device__ __forceinline__ void attention_body(const Args a, const Side k,
                                                const Side v, const Rows rows,
                                                const NewRows nr) {
   static_assert(!I8 || (KB != 16 && !Rows::kMirror),
                 "the int8-dot path takes contiguous int8-byte K");
+  static_assert(DR == D || !Rows::kMirror, "narrow heads: no kt mirror");
   constexpr int KHB = head_bytes<KB, D>(), VHB = head_bytes<VB, D>();
   constexpr int KCPR = KHB / 16, VCPR = VHB / 16;
+  // the stored head's chunks a row (DR < D: a narrow head, zero-padded)
+  constexpr int KRC = head_bytes<KB, DR>() / 16;
+  constexpr int VRC = head_bytes<VB, DR>() / 16;
   constexpr int NK = n_scales<KB>(), NV = n_scales<VB>();
   constexpr int KE = KB == 16 ? 2 : 1, VE = VB == 16 ? 2 : 1;
   constexpr int KS = D / 16;   // k-steps of q.K^T
@@ -820,8 +852,8 @@ __device__ __forceinline__ void attention_body(const Args a, const Side k,
       for (int t = 0; t < a.T; ++t)
         owns |= owns_new(nr, b * a.T + t, a.S, a.chunk, split);
       if (owns) {
-        write_new_rows<D, KB, VB>(nr, k, v, rows, b, kh, a.T, a.S, a.chunk,
-                                  split);
+        write_new_rows<DR, KB, VB>(nr, k, v, rows, b, kh, a.T, a.S, a.chunk,
+                                   split);
         __syncthreads();
       }
     }
@@ -860,8 +892,9 @@ __device__ __forceinline__ void attention_body(const Args a, const Side k,
     int minor0 = 0;
     if (whole) rows(b, t0, major0, minor0);
     auto k_rows = [&] {
-      copy_side<KCPR>(kd, k.data, k.msb, k.width, KE, kh * KHB, rows, whole,
-                      b, t0, n, TL, major0, minor0, gtid, gthr);
+      copy_side<KCPR, KRC>(kd, k.data, k.msb, k.width, KE,
+                           kh * head_bytes<KB, DR>(), rows, whole, b, t0, n,
+                           TL, major0, minor0, gtid, gthr);
     };
     if (!I8 || kd != nullptr) {
       if constexpr (Rows::kMirror) {
@@ -874,8 +907,9 @@ __device__ __forceinline__ void attention_body(const Args a, const Side k,
       }
     }
     if (!I8 || vd != nullptr)
-      copy_side<VCPR>(vd, v.data, v.msb, v.width, VE, kh * VHB, rows, whole,
-                      b, t0, n, TL, major0, minor0, gtid, gthr);
+      copy_side<VCPR, VRC>(vd, v.data, v.msb, v.width, VE,
+                           kh * head_bytes<VB, DR>(), rows, whole, b, t0, n,
+                           TL, major0, minor0, gtid, gthr);
     if constexpr (NK + NV > 0) {
       const int per = a.svec ? TL / 4 : TL;
       for (int x = gtid + (I8 ? hf0 * per : 0); x < (NK + NV) * per;
@@ -1011,12 +1045,13 @@ __device__ __forceinline__ void attention_body(const Args a, const Side k,
     float* qhs = qsr + R;
     {
       constexpr int PL = D / 32;   // features a lane
-      const bf16* qb = a.q + (long long)b * a.q_sb + (long long)kh * R * D;
+      const bf16* qb = a.q + (long long)b * a.q_sb + (long long)kh * R * DR;
       for (int r = warp; r < R; r += a.mg * a.pw) {
         float x[PL], am = 0.f;
 #pragma unroll
         for (int i = 0; i < PL; ++i) {
-          x[i] = bf2f(qb[r * D + lane * PL + i]) * a.scale;
+          const int rf = stored_feature<KB, D, DR>(lane * PL + i);
+          x[i] = rf < 0 ? 0.f : bf2f(qb[r * DR + rf]) * a.scale;
           am = fmaxf(am, fabsf(x[i]));
         }
         const float qsv = fmaxf(warp_max(am), 1e-30f) * (1.f / 127.f);
@@ -1345,10 +1380,11 @@ __device__ __forceinline__ void attention_body(const Args a, const Side k,
     // q * scale in bf16, as A fragments in K's feature order
     unsigned qa[KS][4];
     {
-      const bf16* qb = a.q + (long long)b * a.q_sb + (long long)kh * a.R * D;
+      const bf16* qb = a.q + (long long)b * a.q_sb + (long long)kh * a.R * DR;
       auto qv = [&](int r, int ks, int i) {
-        const int f = k_feature<KB, D>(ks, c, i);
-        return r < a.R ? round_bf16(bf2f(qb[r * D + f]) * a.scale) : 0.f;
+        const int f = stored_feature<KB, D, DR>(k_feature<KB, D>(ks, c, i));
+        return r < a.R && f >= 0 ? round_bf16(bf2f(qb[r * DR + f]) * a.scale)
+                                 : 0.f;
       };
       // bf16 against bf16 K; f16 against int8 or int4 K (the bf16 value
       // again, exactly, in f16's normal range)
@@ -1597,7 +1633,12 @@ __device__ __forceinline__ void attention_body(const Args a, const Side k,
   }
   __syncthreads();
   // the groups' partials merged, in group order
-  bf16* out = a.out + ((long long)b * a.Kh + kh) * R * D;
+  // output feature i - r * D of row r, in the stored head's order (-1: a
+  // narrow head's padding, not written)
+  bf16* out = a.out + ((long long)b * a.Kh + kh) * R * DR;
+  auto out_at = [&](int i, int r) {
+    return stored_feature<VB, D, DR>(i - r * D);
+  };
   for (int i = tid; i < R * D; i += blockDim.x) {
     const int r = i / D;
     float M = DPT_NEG_INF;
@@ -1609,7 +1650,8 @@ __device__ __forceinline__ void attention_body(const Args a, const Side k,
       A += pacc[p * R * D + i] * wt;
     }
     if (a.nsplit == 1) {
-      out[i] = f2bf(A / fmaxf(L, 1e-30f));
+      const int f = out_at(i, r);
+      if (f >= 0) out[r * DR + f] = f2bf(A / fmaxf(L, 1e-30f));
     } else {
       pacc[i] = A;
       if (i - r * D == 0) {
@@ -1648,30 +1690,33 @@ __device__ __forceinline__ void attention_body(const Args a, const Side k,
       L += pl_[s] * wt;
       A += pa_[s] * wt;
     }
-    out[i] = f2bf(A / fmaxf(L, 1e-30f));
+    const int f = out_at(i, r);
+    if (f >= 0) out[r * DR + f] = f2bf(A / fmaxf(L, 1e-30f));
   }
   cluster_sync();  // no block leaves while its partials are read
 }
 
-template <int D, int KB, int VB, typename Rows>
+template <int D, int KB, int VB, typename Rows, int DR>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
     attention_kernel(const Args a, const Side k, const Side v,
                      const Rows rows, const NewRows nr) {
-  attention_body<D, KB, VB, Rows, false>(a, k, v, rows, nr);
+  attention_body<D, KB, VB, Rows, false, DR>(a, k, v, rows, nr);
 }
 
 // At D = 64 the int8-dot path is held to two blocks an SM, as the plan
 // counts (SM_WARPS): unbounded, ptxas gave its int4 instantiation 151
 // registers a thread, and the bf16-dot kernels more than 128 when every
 // instantiation was bounded by one block (both slower).
-template <int D, int KB, int VB, typename Rows>
+template <int D, int KB, int VB, typename Rows, int DR>
 __global__ void __launch_bounds__(MAX_WARPS * 32, D == 64 ? 2 : 1)
     attention_kernel_i8(const Args a, const Side k, const Side v,
                         const Rows rows, const NewRows nr) {
-  attention_body<D, KB, VB, Rows, true>(a, k, v, rows, nr);
+  attention_body<D, KB, VB, Rows, true, DR>(a, k, v, rows, nr);
 }
 
-template <int D, int KB, int VB, bool I8 = false, typename Rows>
+// D: the width the kernel computes at; DR: the stored head's (DR < D for
+// a narrow head, `stored_feature`)
+template <int D, int KB, int VB, bool I8, int DR, typename Rows>
 int launch(const Args& a, const Side& k, const Side& v, Rows rows,
            const NewRows& nr, int B) {
   constexpr int NK = n_scales<KB>(), NV = n_scales<VB>();
@@ -1695,9 +1740,9 @@ int launch(const Args& a, const Side& k, const Side& v, Rows rows,
            (size_t)a.R * (D + 3 * 4);
   void (*kern)(Args, Side, Side, Rows, NewRows);
   if constexpr (I8)
-    kern = attention_kernel_i8<D, KB, VB, Rows>;
+    kern = attention_kernel_i8<D, KB, VB, Rows, DR>;
   else
-    kern = attention_kernel<D, KB, VB, Rows>;
+    kern = attention_kernel<D, KB, VB, Rows, DR>;
   static size_t sized = 48 * 1024;
   if (smem > sized) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -1720,21 +1765,30 @@ int launch(const Args& a, const Side& k, const Side& v, Rows rows,
   return (int)cudaLaunchKernelEx(&cfg, kern, a, k, v, rows, nr);
 }
 
-template <int D, bool I8, typename Rows>
+template <int D, bool I8, int DR, typename Rows>
 int by_bits(const Args& a, const Side& k, const Side& v, Rows rows,
             const NewRows& nr, int B, int kb, int vb) {
   if constexpr (I8) {   // contiguous stores whose K is int8 bytes
-    if (kb == 8 && vb == 8) return launch<D, 8, 8, true>(a, k, v, rows, nr, B);
-    if (kb == 4 && vb == 4) return launch<D, 4, 4, true>(a, k, v, rows, nr, B);
-    if (kb == 8 && vb == 4) return launch<D, 8, 4, true>(a, k, v, rows, nr, B);
+    if (kb == 8 && vb == 8)
+      return launch<D, 8, 8, true, DR>(a, k, v, rows, nr, B);
+    if (kb == 4 && vb == 4)
+      return launch<D, 4, 4, true, DR>(a, k, v, rows, nr, B);
+    if (kb == 8 && vb == 4)
+      return launch<D, 8, 4, true, DR>(a, k, v, rows, nr, B);
   } else if constexpr (Rows::kMirror) {   // int8 K: int8 or int4 V
-    if (kb == 8 && vb == 8) return launch<D, 8, 8>(a, k, v, rows, nr, B);
-    if (kb == 8 && vb == 4) return launch<D, 8, 4>(a, k, v, rows, nr, B);
+    if (kb == 8 && vb == 8)
+      return launch<D, 8, 8, false, DR>(a, k, v, rows, nr, B);
+    if (kb == 8 && vb == 4)
+      return launch<D, 8, 4, false, DR>(a, k, v, rows, nr, B);
   } else {
-    if (kb == 16 && vb == 16) return launch<D, 16, 16>(a, k, v, rows, nr, B);
-    if (kb == 8 && vb == 8) return launch<D, 8, 8>(a, k, v, rows, nr, B);
-    if (kb == 4 && vb == 4) return launch<D, 4, 4>(a, k, v, rows, nr, B);
-    if (kb == 8 && vb == 4) return launch<D, 8, 4>(a, k, v, rows, nr, B);
+    if (kb == 16 && vb == 16)
+      return launch<D, 16, 16, false, DR>(a, k, v, rows, nr, B);
+    if (kb == 8 && vb == 8)
+      return launch<D, 8, 8, false, DR>(a, k, v, rows, nr, B);
+    if (kb == 4 && vb == 4)
+      return launch<D, 4, 4, false, DR>(a, k, v, rows, nr, B);
+    if (kb == 8 && vb == 4)
+      return launch<D, 8, 4, false, DR>(a, k, v, rows, nr, B);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1768,8 +1822,11 @@ int dispatch(Args a, const Side& k, const Side& v, Rows rows,
                       (uintptr_t)v.scale % 16 == 0 && k.ssb % 4 == 0 &&
                       v.ssb % 4 == 0 && k.srs % 4 == 0 && v.srs % 4 == 0 &&
                       scale_step % 4 == 0);
-  if (D == 64) return by_bits<64, I8>(a, k, v, rows, nr, B, kb, vb);
-  if (D == 128) return by_bits<128, I8>(a, k, v, rows, nr, B, kb, vb);
+  if (D == 64) return by_bits<64, I8, 64>(a, k, v, rows, nr, B, kb, vb);
+  if (D == 128) return by_bits<128, I8, 128>(a, k, v, rows, nr, B, kb, vb);
+  // a narrow head (moelm_ckpt's 32) computed at 64, contiguous caches only
+  if constexpr (std::is_same<Rows, ContiguousRows>::value)
+    if (D == 32) return by_bits<64, I8, 32>(a, k, v, rows, nr, B, kb, vb);
   return (int)cudaErrorInvalidValue;
 }
 

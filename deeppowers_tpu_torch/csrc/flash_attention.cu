@@ -38,6 +38,10 @@
 // - Keys past a length are read with zero weight, as the plain version
 //   reads them, so they must be finite; a chunk's view is cut at start + C
 //   by the host, so rows past it are zero-filled, not read.
+// - A head of 32 dims (moelm_ckpt's) runs the D = 64 kernel: its tensor
+//   maps are 32 dims wide and their 64-dim boxes come zero-filled past
+//   them, so Q K^T is unchanged and O's last 32 columns are 0 and not
+//   written (DO, the stored width).
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -81,7 +85,7 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-template <int D>
+template <int D, int DO>
 __global__ void __launch_bounds__(F_THREADS, 1)
     flash_kernel(const __grid_constant__ CUtensorMap qmap,
                  const __grid_constant__ CUtensorMap kmap,
@@ -251,9 +255,9 @@ __global__ void __launch_bounds__(F_THREADS, 1)
     const int row = row0 + 8 * e;
     if (row >= p.Sq) continue;
     const float inv = e ? inv1 : inv0;
-    bf16* op = p.out + (((long long)b * p.Sq + row) * p.H + h) * D + 2 * q;
+    bf16* op = p.out + (((long long)b * p.Sq + row) * p.H + h) * DO + 2 * q;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c)
+    for (int c = 0; c < DO / 8; ++c)
       *reinterpret_cast<unsigned*>(op + 8 * c) =
           pack_bf16(o[4 * c + 2 * e] * inv, o[4 * c + 2 * e + 1] * inv);
   }
@@ -272,7 +276,8 @@ bool view_map(CUtensorMap* m, const void* ptr, int d, int heads, int rows,
                     box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-template <int D>
+// D: the width the kernel computes at; DO: the stored head's (32 under 64)
+template <int D, int DO>
 int launch(const void* q, long long q_sb, long long q_ss, const void* k,
            long long k_sb, long long k_ss, const void* v, long long v_sb,
            long long v_ss, int B, const FlashArgs& a, cudaStream_t st) {
@@ -280,17 +285,18 @@ int launch(const void* q, long long q_sb, long long q_ss, const void* k,
   static bool sized = false;
   if (!sized) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+        flash_kernel<D, DO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SMEM);
     if (e != cudaSuccess) return (int)e;
     sized = true;
   }
   CUtensorMap qm, km, vm;
-  if (!view_map(&qm, q, D, a.H, a.Sq, B, q_ss, q_sb) ||
-      !view_map(&km, k, D, a.Kh, a.Skv, B, k_ss, k_sb) ||
-      !view_map(&vm, v, D, a.Kh, a.Skv, B, v_ss, v_sb))
+  if (!view_map(&qm, q, DO, a.H, a.Sq, B, q_ss, q_sb) ||
+      !view_map(&km, k, DO, a.Kh, a.Skv, B, k_ss, k_sb) ||
+      !view_map(&vm, v, DO, a.Kh, a.Skv, B, v_ss, v_sb))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(a.H, B, (a.Sq + FBQ - 1) / FBQ);
-  flash_kernel<D><<<grid, F_THREADS, SMEM, st>>>(qm, km, vm, a);
+  flash_kernel<D, DO><<<grid, F_THREADS, SMEM, st>>>(qm, km, vm, a);
   return (int)cudaGetLastError();
 }
 
@@ -301,7 +307,7 @@ int launch(const void* q, long long q_sb, long long q_ss, const void* k,
 // contiguous, bases 16-byte aligned. Query row i sits at position start +
 // i and sees key j iff j <= start + i and j < lens[b] (lens: (B,) int32 on
 // the device, or null for Skv). out: (B, Sq, H, D) bf16 contiguous. D is
-// 64 or 128.
+// 32, 64 or 128.
 extern "C" int dpt_flash_attention(const void* q, long long q_sb, long long q_ss,
                                    const void* k, long long k_sb, long long k_ss,
                                    const void* v, long long v_sb, long long v_ss,
@@ -313,9 +319,14 @@ extern "C" int dpt_flash_attention(const void* q, long long q_sb, long long q_ss
     return (int)cudaErrorInvalidValue;
   const FlashArgs a{(const int*)lens, (bf16*)out, Sq, Skv, H, Kh, start,
                     scale * 1.4426950408889634f};
+  if (D == 32)
+    return launch<64, 32>(q, q_sb, q_ss, k, k_sb, k_ss, v, v_sb, v_ss, B, a,
+                          st);
   if (D == 64)
-    return launch<64>(q, q_sb, q_ss, k, k_sb, k_ss, v, v_sb, v_ss, B, a, st);
+    return launch<64, 64>(q, q_sb, q_ss, k, k_sb, k_ss, v, v_sb, v_ss, B, a,
+                          st);
   if (D == 128)
-    return launch<128>(q, q_sb, q_ss, k, k_sb, k_ss, v, v_sb, v_ss, B, a, st);
+    return launch<128, 128>(q, q_sb, q_ss, k, k_sb, k_ss, v, v_sb, v_ss, B, a,
+                            st);
   return (int)cudaErrorInvalidValue;
 }

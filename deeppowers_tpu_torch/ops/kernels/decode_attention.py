@@ -156,6 +156,15 @@ SMEM_BLOCK = 232_448
 #: about 128 / 165-210 registers a thread
 SM_WARPS = {64: 16, 128: 8}
 
+
+def compute_dim(d: int) -> int:
+    """The head width the kernel computes at: D, or 64 for a narrow head
+    of 32 (moelm_ckpt's), whose stored bytes the kernel reads followed by
+    as many zeros (csrc `stored_feature`; the contiguous kernel and its
+    int8-dot variant only). Its plan and shared memory are the wide
+    head's."""
+    return 64 if d == 32 else d
+
 #: The launch of #3 / #5: `nsplit` splits of `chunk` positions for each
 #: (slot, kv head), a cluster; ring stages of `tile` positions, `stages`
 #: of them a position group; a block of `pw` position groups of `mg` warps
@@ -594,9 +603,11 @@ def _new_args(new: Optional[NewRows], b: int, tokens: int, f: int):
             new.pos.data_ptr()]
 
 
-def _check_common(q, o, d, kh, tokens, name, caches, scales, wrapper):
-    if d not in (64, 128):
-        raise NotImplementedError(f"head_dim {d} not supported")
+def _check_common(q, o, d, kh, tokens, name, caches, scales, wrapper,
+                  dims=(64, 128)):
+    if d not in dims:
+        raise NotImplementedError(f"head_dim {d} not supported by "
+                                  f"{wrapper}")
     rows = o // max(kh, 1)
     if kh < 1 or tokens < 1 or rows * kh != o or rows % tokens or \
             rows > MAX_ROWS:
@@ -685,7 +696,8 @@ def _launch(q, k_cache, v_cache, lengths, *, k_scale, v_scale, kv_bits,
         _build.require_cuda(t, "decode_attention operand")
     kh = _kv_heads(name, k_cache.shape[2], k_scale, d)
     rows = _check_common(q, o, d, kh, tokens, name, (k_cache, v_cache),
-                         (k_scale, v_scale), "decode_attention")
+                         (k_scale, v_scale), "decode_attention",
+                         dims=(32, 64, 128))
     kw, vw = _widths(kh, d, kb, vb)
     for c, w in ((k_cache, kw), (v_cache, vw)):
         if c.dim() != 3 or c.shape[:2] != (b, s) or c.shape[2] != w or \
@@ -711,7 +723,7 @@ def _launch(q, k_cache, v_cache, lengths, *, k_scale, v_scale, kv_bits,
         q = q.contiguous()
     lens = lengths.to(torch.int32).contiguous()
     scale = scale if scale is not None else d ** -0.5
-    plan = attention_plan(b, kh, s, rows, d)
+    plan = attention_plan(b, kh, s, rows, compute_dim(d))
     out = torch.empty((b, o, d), dtype=torch.bfloat16, device=q.device)
     lib = _build.library()
     args = [q.data_ptr(), q.stride(0), k_cache.data_ptr(), k_cache.stride(0),
@@ -720,7 +732,7 @@ def _launch(q, k_cache, v_cache, lengths, *, k_scale, v_scale, kv_bits,
             out.data_ptr(), *_new_args(new, b, tokens, kh * d)]
     if int8_dots:
         blk = int8_dots_block(s, kw)
-        keep = int8_dots_keep(plan, rows, d, kb, vb, blk)
+        keep = int8_dots_keep(plan, rows, compute_dim(d), kb, vb, blk)
         rc = lib.dpt_decode_attention_i8(*args, blk, keep, _build.stream())
     else:
         rc = lib.dpt_decode_attention(*args, _build.stream())

@@ -3,7 +3,8 @@ versions and launch counts.
 
 Replaces the Pallas TPU kernel deeppowers_tpu/ops/pallas/flash_attention.py
 (`flash_attention_prefill` :79, pallas_call :140, body `_kernel` :33).
-CUDA source: csrc/flash_attention.cu (one wgmma kernel, D = 64 or 128).
+CUDA source: csrc/flash_attention.cu (one wgmma kernel, D = 64 or 128; a
+head of 32 runs at 64 over zero-filled boxes).
 
 Query row i of slot b sits at position start + i and attends keys j <=
 start + i with j < lengths[b]; K/V may have fewer heads than Q (GQA reads
@@ -27,8 +28,8 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
-#: head dims the kernel is built for
-HEAD_DIMS = (64, 128)
+#: head dims the kernel takes (32 computed at 64)
+HEAD_DIMS = (32, 64, 128)
 
 
 def flash_attention_plain(q, k, v, lengths, *,

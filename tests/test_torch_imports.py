@@ -46,6 +46,9 @@ def test_importing_the_port_loads_no_jax():
             "import deeppowers_tpu_torch.runtime.kvcache_stacked\n"
             "import deeppowers_tpu_torch.serving.server\n"
             "import deeppowers_tpu_torch.models.convert\n"
+            "import deeppowers_tpu_torch.runtime.checkpoint\n"
+            "import deeppowers_tpu_torch.runtime.evaluate\n"
+            "import deeppowers_tpu_torch.scripts.eval_ppl\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deeppowers_tpu')]\n"
             "assert not bad, bad\n")

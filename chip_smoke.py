@@ -4462,7 +4462,9 @@ def trained_spec(torch, T, params, cfg, counters, text):
     """8 served requests whose prompts are TRAINED_SPEC_BYTES-byte windows
     of the trained text, greedy, TRAINED_SPEC_TOKENS tokens: first on an
     engine without speculation, then with prompt lookup (K = SPEC_K,
-    n-gram 3). The greedy streams must be equal, or part only where the
+    n-gram 3), each admitted in one round (`run_requests`'
+    `admit_together`: the two runs prefill alike, whatever the requests'
+    arrival times). The greedy streams must be equal, or part only where the
     plain engine's next token is a near tie: the two tokens there its top
     two after the common prefix, within TRAINED_TIE_GAP (a bf16 prefill of
     prompt and prefix on the card). Returns the acceptance mean and
@@ -4488,7 +4490,8 @@ def trained_spec(torch, T, params, cfg, counters, text):
         engine.generate(tok.encode("warm up"), GenerationConfig(
             max_tokens=2, temperature=0.0))
         results, launches, wall, sched = run_requests(
-            torch, engine, prompts, TRAINED_SPEC_TOKENS, counters, tok)
+            torch, engine, prompts, TRAINED_SPEC_TOKENS, counters, tok,
+            admit_together=True)
         streams.append([r["tokens"] for r in results])
         if spec:
             stats = sched.stats()["speculative"]
@@ -5165,12 +5168,17 @@ def check_variants(phase, launches, want, zero) -> None:
 
 
 def run_requests(torch, engine, prompts, max_tokens, counters, tok,
-                 on_engine=None, profiled=False, temps=None):
+                 on_engine=None, profiled=False, temps=None,
+                 admit_together=False):
     """Serve `prompts` as concurrent HTTP requests through the scheduler and
     the server, in-process: greedy, or at `temps[i]`. Every launch count is
     set to 0 just before and read just after. With `profiled`, the
-    scheduler's thread runs under torch.profiler (`sched.prof`). Returns
-    (results, launches, wall s, scheduler)."""
+    scheduler's thread runs under torch.profiler (`sched.prof`). With
+    `admit_together`, the scheduler starts once every request is queued,
+    so that one admission round prefills them all and the prefill groups
+    (whose token counts pick an MoE layer's branch) do not depend on the
+    requests' arrival times. Returns (results, launches, wall s,
+    scheduler)."""
     from deeppowers_tpu_torch.serving.scheduler import Scheduler
     from deeppowers_tpu_torch.serving.server import APIServer
 
@@ -5192,7 +5200,8 @@ def run_requests(torch, engine, prompts, max_tokens, counters, tok,
     sched = cls(engine, encode=tok.encode, decode=tok.decode)
     server = APIServer(sched, host="127.0.0.1", port=0)
     reset_counts(counters)
-    sched.start()
+    if not admit_together:
+        sched.start()
     server.start()
     results = [None] * len(prompts)
     errors = []
@@ -5211,6 +5220,12 @@ def run_requests(torch, engine, prompts, max_tokens, counters, tok,
                    for i in range(len(prompts))]
         for t in threads:
             t.start()
+        if admit_together:
+            deadline = time.perf_counter() + 60.0
+            while len(sched.queue) < len(prompts) and \
+                    time.perf_counter() < deadline:
+                time.sleep(0.005)
+            sched.start()
         for t in threads:
             t.join(250)
         wall = time.perf_counter() - t0
@@ -6062,6 +6077,357 @@ def dispatch_ms(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# api_serve: the HTTP surface (OpenAI routes, streams, batch, async,
+# structured output, top logprobs) on TinyLlama int8
+
+API_TOP_K = 5
+API_MERGES = 300                 # BPE merges trained in the phase
+API_CORPUS_BYTES = 4096          # of moelm_ckpt/ppl_eval.txt
+API_REGEX = r"(yes|no|maybe), [a-z]{3,8}\."
+API_CHOICES = ["alpha", "beta", "gamma"]
+API_SCHEMA = {"type": "object", "properties": {
+    "ok": {"type": "boolean"}, "color": {"enum": ["red", "green", "blue"]}},
+    "required": ["ok", "color"]}
+
+
+def api_tokenizer():
+    """The port's BPE tokenizer trained on the head of the trained
+    checkpoint's text, so that guides walk multi-byte tokens."""
+    from deeppowers_tpu_torch.serving.tokenizer import BPETokenizer
+    text = trained_text(os.path.dirname(os.path.abspath(__file__)))
+    return BPETokenizer.train([text[:API_CORPUS_BYTES]],
+                              vocab_size=260 + API_MERGES)
+
+
+def http_call(port: int, method: str, path: str, body=None,
+              timeout: float = 120.0):
+    """(status, JSON payload, or the text of an event stream)."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    conn.request(method, path, body=None if body is None
+                 else json.dumps(body).encode(),
+                 headers={"Content-Type": "application/json"})
+    r = conn.getresponse()
+    text = r.read().decode()
+    conn.close()
+    if r.getheader("Content-Type") == "text/event-stream":
+        return r.status, text
+    return r.status, json.loads(text)
+
+
+def sse_payloads(name: str, text: str) -> list:
+    """The `data:` payloads of an event stream, each framed
+    "data: ...\\n\\n"."""
+    parts = text[:-2].split("\n\n") if text.endswith("\n\n") else []
+    if not parts or not all(p.startswith("data: ") for p in parts):
+        fail(f"api_serve: {name}: not an event stream: {text[:200]!r}")
+    return [p[len("data: "):] for p in parts]
+
+
+def guide_misfit(kind: str, text: str):
+    """None when a guided output fits its guide, else what is wrong."""
+    import re
+    if kind == "regex":
+        return None if re.fullmatch(API_REGEX, text) else "no match"
+    if kind == "choice":
+        return None if text in API_CHOICES else "not a choice"
+    try:
+        obj = json.loads(text)
+    except ValueError as e:
+        return f"not JSON: {e}"
+    props = API_SCHEMA["properties"]
+    if not isinstance(obj, dict) or set(obj) != set(props):
+        return f"keys {sorted(obj) if isinstance(obj, dict) else obj}"
+    if not isinstance(obj["ok"], bool) or \
+            obj["color"] not in props["color"]["enum"]:
+        return "types"
+    return None
+
+
+def heads_its_top(tokens, logprobs, tops) -> int:
+    """How many greedy tokens neither head their top list nor tie its head
+    (the lower id first among equals, as JAX orders them) with their
+    logprob within 1e-4 of the top value."""
+    bad = 0
+    for tok, lp, top in zip(tokens, logprobs, tops):
+        tied = [i for i, v in top if v == top[0][1]]
+        if tok not in tied or abs(lp - top[0][1]) > 1e-4 or \
+                len(top) != API_TOP_K:
+            bad += 1
+    return bad + abs(len(tokens) - len(tops))
+
+
+def api_guides(tok):
+    from deeppowers_tpu_torch.serving import structured as S
+    return [S.compile_guide(API_REGEX, tok),
+            S.guide_for_choice(API_CHOICES, tok),
+            S.guide_for_json(API_SCHEMA, tok)]
+
+
+def api_graph_check(torch, name, make, tok, guided: bool) -> dict:
+    """`graph_against_eager` on a fresh engine holding serve's 8 prompts,
+    every other one under a guide when `guided`: the variant must be the
+    top-k one (guided or not)."""
+    import dataclasses
+    from deeppowers_tpu_torch.config import GenerationConfig
+    engine = make()
+    guides = api_guides(tok)
+    for i, n in enumerate(PROMPT_BYTES):
+        g = GenerationConfig(max_tokens=MAX_TOKENS, temperature=0.0)
+        if guided and i % 2 == 0:
+            g = dataclasses.replace(g, guide=guides[(i // 2) % 3])
+        engine.add_request(tok.encode(prompt_text(n, i)), g)
+    out = graph_against_eager(torch, engine, name)
+    if out["variant"][-1] != API_TOP_K or out["variant"][-2] is not guided:
+        fail(f"api_serve[{name}]: variant {out['variant']} is not the top-k "
+             f"{'guided' if guided else 'unguided'} one")
+    engine.reset()
+    return out
+
+
+def topk_ms(torch) -> dict:
+    """The top-k of a step's logits (`top_logprobs`: k argmax passes)
+    beside a stable descending sort of the vocabulary, the other way to
+    JAX's tie order, at 8 rows (decode) and 40 (a window of 5 over 8
+    slots), TinyLlama's vocabulary."""
+    from deeppowers_tpu_torch.ops.sampling import top_logprobs
+    out = {}
+    for rows in (8, 40):
+        x = torch.randn(rows, 32000, device="cuda").to(torch.bfloat16).float()
+
+        def argmax_passes():
+            top_logprobs(x, API_TOP_K)
+
+        def stable():
+            lp = x - torch.logsumexp(x, -1, keepdim=True)
+            v, i = torch.sort(lp, dim=-1, descending=True, stable=True)
+            v[:, :API_TOP_K].clone(), i[:, :API_TOP_K].int()
+
+        out[rows] = {"argmax_passes_ms": cuda_ms(torch, [argmax_passes], 50),
+                     "stable_sort_ms": cuda_ms(torch, [stable], 50)}
+    return out
+
+
+def api_serve(torch, params, cfg, counters) -> dict:
+    """The HTTP surface on TinyLlama int8 per-channel, bf16 contiguous KV,
+    8 slots of 1024, emit_top_logprobs 5 at the auto depth, pipelined: the
+    OpenAI routes plain and streamed, the generate stream, batch and async
+    routes, /metrics, /v1/models, a guided request of each kind, a 404;
+    then a prompt-lookup engine (K = 4) serving a guided and a top-k
+    request. Gates: guided outputs fit their guides, streamed deltas equal
+    the plain text, greedy tokens head their top lists; the top-k, guided
+    and guided prompt-lookup graphs equal their eager steps bit for bit.
+    Also the phase's launches, the profiled step at N = 1 with top-k on
+    and off, and `topk_ms`."""
+    from deeppowers_tpu_torch.serving.scheduler import Scheduler
+    from deeppowers_tpu_torch.serving.server import APIServer
+    t_tok = time.perf_counter()
+    tok = api_tokenizer()
+    out = {"tokenizer_s": round(time.perf_counter() - t_tok, 3),
+           "vocab": tok.vocab_size}
+
+    def make(**rt):
+        return dispatch_engine(params, cfg, tok.eos_token_id, **rt)
+
+    def serving(engine):
+        sched = Scheduler(engine, encode=tok.encode, decode=tok.decode,
+                          tokenizer=tok, model_name="tinyllama-1.1b")
+        srv = APIServer(sched, port=0)
+        sched.start()
+        srv.start()
+        return sched, srv
+
+    gates = []
+
+    def gate(ok: bool, what: str) -> None:
+        if not ok:
+            gates.append(what)
+
+    engine = make(emit_top_logprobs=API_TOP_K, decode_steps_per_dispatch=0)
+    sched, srv = serving(engine)
+    reset_counts(counters)
+    port = srv.port
+    greedy = {"temperature": 0.0}
+    texts = {}
+    try:
+        prompt = prompt_text(300, 1)
+        for route, body in (
+                ("/v1/completions", {"prompt": prompt, "max_tokens": 24}),
+                ("/v1/chat/completions", {"messages": [
+                    {"role": "system", "content": "answer briefly"},
+                    {"role": "user", "content": prompt_text(200, 2)}],
+                    "max_tokens": 24})):
+            status, plain = http_call(port, "POST", route, {**body, **greedy})
+            gate(status == 200, f"{route} answered {status}")
+            c = plain["choices"][0]
+            want = c["message"]["content"] if "message" in c else c["text"]
+            status, text = http_call(port, "POST", route,
+                                     {**body, **greedy, "stream": True})
+            evs = sse_payloads(route, text)
+            gate(evs[-1] == "[DONE]", f"{route} stream without [DONE]")
+            objs = [json.loads(e) for e in evs[:-1]]
+            joined = "".join(o["choices"][0]["delta"].get("content", "")
+                             if "delta" in o["choices"][0]
+                             else o["choices"][0]["text"] for o in objs)
+            gate(joined == want, f"{route}: streamed deltas {joined!r} != "
+                 f"plain {want!r}")
+            texts[route] = want
+        body = {"prompt": prompt_text(450, 3), "max_tokens": 32,
+                "temperature": 0.0, "do_sample": False}
+        status, plain = http_call(port, "POST", "/api/v1/generate", body)
+        status, text = http_call(port, "POST", "/api/v1/generate_stream",
+                                 body)
+        evs = [json.loads(e) for e in sse_payloads("generate_stream", text)]
+        done = evs[-1]
+        joined = "".join(e["text"] for e in evs[:-1])
+        gate(done.get("done") is True and joined == done["text"]
+             == plain["text"], "generate_stream: deltas, result and the "
+             "plain request differ")
+        gate(done["tokens"] == plain["tokens"], "generate_stream: tokens "
+             "differ from the plain request's")
+        out["top_misses"] = heads_its_top(done["tokens"], done["logprobs"],
+                                          done["top_tokens"])
+        gate(out["top_misses"] == 0, f"{out['top_misses']} greedy tokens do "
+             f"not head their top lists")
+        status, batch = http_call(port, "POST", "/api/v1/generate_batch", {
+            "prompts": [prompt_text(64, 4), prompt_text(1400, 5),
+                        prompt_text(600, 6)],
+            "max_tokens": 8, "temperature": 0.0, "do_sample": False})
+        gate(status == 200 and len(batch["results"]) == 3 and all(
+            len(r["tokens"]) == 8 for r in batch["results"]),
+            f"generate_batch answered {status}")
+        status, acc = http_call(port, "POST", "/api/v1/generate_async", {
+            "prompt": prompt_text(100, 7), "max_tokens": 16,
+            "temperature": 0.0, "do_sample": False})
+        gate(status == 202, f"generate_async answered {status}")
+        codes = []
+        for _ in range(1000):
+            status, res = http_call(port, "GET", acc["result_url"])
+            codes.append(status)
+            if status != 202:
+                break
+            time.sleep(0.005)
+        gate(status == 200 and len(res["tokens"]) == 16,
+             f"result route answered {status}")
+        out["async_polls"] = len(codes)
+        guided = {}
+        for kind, extra in (
+                ("regex", {"guided_regex": API_REGEX}),
+                ("choice", {"guided_choice": API_CHOICES}),
+                ("json", {"response_format": {"type": "json_schema",
+                                              "json_schema": {
+                                                  "schema": API_SCHEMA}}})):
+            status, res = http_call(port, "POST", "/v1/completions", {
+                "prompt": prompt_text(120, 8), "max_tokens": 64, **greedy,
+                **extra})
+            text = res["choices"][0]["text"] if status == 200 else ""
+            misfit = guide_misfit(kind, text)
+            gate(status == 200 and misfit is None and
+                 res["choices"][0]["finish_reason"] == "stop",
+                 f"guided {kind}: {status} {text!r}: {misfit}")
+            guided[kind] = text
+        out["guided"] = guided
+        status, metrics = http_call(port, "GET", "/metrics")
+        gate(status == 200 and metrics["requests_completed"] >= 10,
+             f"/metrics answered {status}")
+        status, models = http_call(port, "GET", "/v1/models")
+        gate(status == 200 and models["data"][0]["id"] == "tinyllama-1.1b",
+             f"/v1/models answered {status}")
+        status, _ = http_call(port, "POST", "/api/v1/nowhere",
+                              {"prompt": "x"})
+        gate(status == 404, f"an unknown route answered {status}")
+        torch.cuda.synchronize()
+        la = read_counts(counters)
+        out["launches"] = {
+            "#1 gemv": la.get("dequant_matmul[gemv]", 0),
+            "#1 mma": la.get("dequant_matmul[mma]", 0),
+            "#3": la.get("decode_attention", 0),
+            "3i": sum(v for k, v in la.items()
+                      if k.startswith("decode_attention[i8:")),
+            "#2 rows inside #3": la.get(fold_key("decode_attention",
+                                                 "bf16"), 0),
+            "#2": la.get("scatter_rows", 0),
+            "#4 prefill": la.get("flash_attention_prefill", 0),
+            "#4 chunk": la.get("flash_attention_chunk", 0)}
+        out["requests"] = metrics["requests_completed"]
+        out["depth"] = engine._steps_per_dispatch
+        out["variants"] = [list(k) for k in (
+            engine._graphs.variants if engine._graphs else [])]
+    finally:
+        srv.stop()
+        sched.stop()
+    la = out["launches"]
+    for key in ("#1 gemv", "#1 mma", "#2 rows inside #3"):
+        gate(la[key] > 0, f"{key} did not launch")
+    gate(la["#4 prefill"] + la["#4 chunk"] > 0, "#4 did not launch")
+    del engine, sched, srv
+    # the prompt-lookup engine: a guided and a top-k request
+    spec = make(emit_top_logprobs=API_TOP_K, speculative_tokens=SPEC_K,
+                speculative_ngram=3, decode_steps_per_dispatch=0)
+    sched, srv = serving(spec)
+    try:
+        status, res = http_call(srv.port, "POST", "/v1/completions", {
+            "prompt": prompt_text(300, 9), "max_tokens": 64,
+            "guided_regex": API_REGEX, **greedy})
+        text = res["choices"][0]["text"] if status == 200 else ""
+        misfit = guide_misfit("regex", text)
+        gate(status == 200 and misfit is None,
+             f"lookup guided: {status} {text!r}: {misfit}")
+        status, res = http_call(srv.port, "POST", "/api/v1/generate", {
+            "prompt": prompt_text(300, 10), "max_tokens": 48,
+            "temperature": 0.0, "do_sample": False})
+        miss = heads_its_top(res["tokens"], res["logprobs"],
+                             res["top_tokens"])
+        gate(status == 200 and miss == 0,
+             f"lookup top-k: {status}, {miss} tokens off their top lists")
+        out["lookup"] = {"guided": text, "spec_steps": spec.spec_steps,
+                         "window_mean": round(spec.spec_window_mean, 3),
+                         "variants": [list(k) for k in (
+                             spec._graphs.variants if spec._graphs else [])]}
+        gate(spec.spec_steps > 0, "the prompt-lookup engine ran no window")
+    finally:
+        srv.stop()
+        sched.stop()
+    del spec, sched, srv
+    if gates:
+        fail("api_serve: " + "; ".join(gates))
+    out["graph"] = {
+        "top-k": api_graph_check(torch, "top-k", lambda: make(
+            emit_top_logprobs=API_TOP_K), tok, False),
+        "guided": api_graph_check(torch, "guided", lambda: make(
+            emit_top_logprobs=API_TOP_K), tok, True),
+        "guided+lookup": api_graph_check(torch, "guided+lookup", lambda: make(
+            emit_top_logprobs=API_TOP_K, speculative_tokens=SPEC_K,
+            speculative_ngram=3), tok, True)}
+    out["profile_topk"] = dispatch_profile(
+        torch, make(emit_top_logprobs=API_TOP_K), tok)
+    out["profile_plain"] = dispatch_profile(torch, make(), tok)
+    out["topk_ms"] = topk_ms(torch)
+    torch.cuda.empty_cache()
+    return out
+
+
+def report_api(t0, out, smi_line) -> None:
+    """The api_serve phase lines."""
+    phase_line("api_serve", t0, requests=out["requests"], depth=out["depth"],
+               tokenizer_s=out["tokenizer_s"], vocab=out["vocab"],
+               graphs=json.dumps(out["graph"]), card=repr(smi_line))
+    log("api_serve launches (bf16 KV: #2's decode rows are written inside "
+        "#3, prompts by indexing; 3i takes int8-byte K only) "
+        + json.dumps(out["launches"]))
+    log("api_serve guided outputs " + json.dumps(out["guided"])
+        + "; prompt lookup " + json.dumps(out["lookup"]))
+    on, off = out["profile_topk"], out["profile_plain"]
+    log(f"api_serve profiled step at N = 1, top-k {API_TOP_K} on: wall "
+        f"{on['wall_ms']:.4f} ms, device busy {on['busy_ms']:.4f} ms; off: "
+        f"wall {off['wall_ms']:.4f} ms, device busy {off['busy_ms']:.4f} ms;"
+        f" kernels a step {on['kernels']:.1f} vs {off['kernels']:.1f} "
+        f"card={smi_line!r}")
+    log("api_serve top-k of a step's logits, ms (k argmax passes vs a "
+        "stable sort) " + json.dumps(out["topk_ms"]) + f" card={smi_line!r}")
+
+
 def report_dispatch(name, t0, out, smi_line) -> None:
     """The dispatch phase lines of one model."""
     phase_line(name, t0, graphs=json.dumps(out.get("graph")),
@@ -6519,6 +6885,11 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     dsp = dispatch_phase(torch, params, cfg)
     report_dispatch("dispatch[tinyllama]", t0, dsp, smi_line)
+
+    # 9c. the HTTP surface: OpenAI routes plain and streamed, the stream,
+    # batch and async routes, structured output, top logprobs
+    t0 = time.perf_counter()
+    report_api(t0, api_serve(torch, params, cfg, counters), smi_line)
 
     # 10. Llama-2-7B, all 32 layers, W4A8 g128 + k8v4, serve's traffic once
     t0 = time.perf_counter()

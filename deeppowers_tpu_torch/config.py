@@ -3,17 +3,11 @@
 Same dataclasses, fields, defaults and JSON round-trip as the JAX package.
 The JAX module imported jax.numpy only for a default dtype, which the
 port does not need. RuntimeConfig keeps every field so configs round-trip
-unchanged; three of them name machinery not ported yet
-(`emit_top_logprobs`, `decode_steps_per_dispatch`,
-`seq_parallel_prefill`), and the port's engine raises NotImplementedError
-when one differs from its default (runtime/engine.py
-`UNPORTED_RUNTIME_DEFAULTS`). A fourth, `pipelined_dispatch`, is kept and
-not read yet: the port's engine harvests each decode step before it
-dispatches the next, where JAX's default dispatches step n + 1 first
-(deeppowers_tpu/runtime/engine.py:1512-1537). The tokens are the same
-either way (the device math does not change); only the host's timing
-differs. The field takes effect with the CUDA-graph decode step and
-multi-step dispatch (ROADMAP.md, queue 1 item 1).
+unchanged; one of them names machinery not ported yet
+(`seq_parallel_prefill`), and the port's engine raises NotImplementedError
+when it differs from its default (runtime/engine.py
+`UNPORTED_RUNTIME_DEFAULTS`). `GenerationConfig.guide` carries a compiled
+structured-output guide (serving/structured.py), which the engine honours.
 """
 
 from __future__ import annotations
@@ -109,7 +103,7 @@ class GenerationConfig:
     stream: bool = False
     # OpenAI-style additive logit bias {token_id: bias}
     logit_bias: Mapping[int, float] | None = None
-    # structured-output guide; not ported in this slice (see ROADMAP.md)
+    # compiled structured-output guide (serving/structured.py `Guide`)
     guide: Any | None = None
 
     def __post_init__(self):
@@ -153,7 +147,7 @@ class RuntimeConfig:
     kv_lazy_slack: int = 64
     enable_prefix_cache: bool = False
     decode_steps_per_dispatch: int = 1
-    # Kept and not read yet (module docstring).
+    # Enqueue decode dispatch n + 1 before harvesting dispatch n.
     pipelined_dispatch: bool = True
     # Batch the prefills of an admission round into per-bucket groups.
     batched_admission: bool = True

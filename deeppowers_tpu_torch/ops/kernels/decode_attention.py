@@ -24,8 +24,9 @@ store and of the stacked route); `int8_dots=` overrides, as on
 `decode_attention_int8_dots_plain`, the function held against Pallas in
 interpret mode. A CPU tensor keeps the JAX package's CPU function
 (`decode_attention_plain(xla=True)`: int4 and k8v4 values dequantized
-into q's dtype, q * scale rounded to it; it never takes the Pallas
-kernel) unless
+into q's dtype, q * scale rounded to it; a verify window's rows in
+XLA's order, ops/xla_cpu.py, bit for bit with JAX's; it never takes the
+Pallas kernel) unless
 `cpu_attention_function("kernel")` gives it the card's. Its launches
 count under the store's keys and under "i8:" + the key ("i8:int8",
 "i8:k8v4:t5+rows"). The bf16-dot kernel described below stays the path
@@ -132,6 +133,7 @@ from typing import Optional
 
 import torch
 
+from ..xla_cpu import dot4, xla_softmax
 from ...quant.kvquant import (STORE_BITS, dequant_side, gather_scale,
                               scale_heads, store_variant, unpack4)
 from . import _build
@@ -251,11 +253,23 @@ def _dense_plain(q, k, v, lengths, scale, tokens=1, round_q=False):
         qg = (q.reshape(b, kh, rows, d).float() * sc).to(q.dtype).float()
     else:
         qg = q.reshape(b, kh, rows, d).float() * scale
-    scores = torch.einsum("bkrd,bskd->bkrs", qg, k.float())
+    xla_rows = round_q and tokens > 1 and q.device.type == "cpu"
+    if xla_rows:
+        # XLA's verify order (its einsums' operands swapped, four-sum
+        # dots) and its softmax: JAX's bf16 rows bit for bit
+        kf = k.float().permute(0, 2, 1, 3)
+        scores = dot4(kf, qg.transpose(-1, -2)).transpose(-1, -2)
+    else:
+        scores = torch.einsum("bkrd,bskd->bkrs", qg, k.float())
     scores = torch.where(seen.reshape(b, kh, rows, s), scores,
                          torch.full((), NEG_INF, device=q.device))
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkrs,bskd->bkrd", probs, v)
+    if xla_rows:
+        probs = xla_softmax(scores)
+        out = dot4(v.permute(0, 2, 3, 1), probs.transpose(-1, -2)
+                   ).transpose(-1, -2)
+    else:
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bkrs,bskd->bkrd", probs, v)
     return out.reshape(b, o, d).to(q.dtype)
 
 

@@ -15,7 +15,7 @@ Shapes: logits (B, V); per-slot params (B,).
 from __future__ import annotations
 
 from dataclasses import dataclass, fields
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -109,6 +109,22 @@ def top_k_top_p_mask(logits: torch.Tensor, top_k: torch.Tensor,
                        torch.full_like(logits, NEG_INF))
 
 
+def guide_mask(logits: torch.Tensor, rows: torch.Tensor, guided: torch.Tensor,
+               allow: torch.Tensor):
+    """The structured-output mask of a step (JAX engine.py:337-346,
+    speculative.py:142-147): a guided slot's logits outside the allowed
+    tokens of its DFA row (`rows` (B,) into `allow` (R, V) bool) become
+    -1e30. Returns (masked logits, the allowed set (B, V) bool, no_move
+    (B,) bool: a guided slot with no legal token, an accept-only state
+    without an EOS id, which must stop rather than emit)."""
+    ok = allow[rows] | ~guided[:, None]
+    no_move = guided & ~ok.any(-1)
+    return (torch.where(ok, logits, torch.full((), NEG_INF,
+                                               dtype=logits.dtype,
+                                               device=logits.device)),
+            ok, no_move)
+
+
 def draw(probs: torch.Tensor, generator: Optional[torch.Generator]
          ) -> torch.Tensor:
     """One token a row from (B, V) probabilities: JAX's categorical over
@@ -179,3 +195,28 @@ def logprobs_of(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     logits = logits.float()
     chosen = torch.gather(logits, 1, tokens.long()[:, None])[:, 0]
     return chosen - torch.logsumexp(logits, dim=-1)
+
+
+def top_logprobs(logits: torch.Tensor, k: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest log-probabilities of each row of `logits` (..., V) and
+    their ids, as JAX's engine computes them (engine.py:407-411, 479-482):
+    `jax.lax.top_k(logits - logsumexp(logits), k)`, in f32. Values (..., k)
+    f32 in descending order, ids (..., k) int32; among equal values the
+    lower id comes first, as `jax.lax.top_k` orders them.
+
+    torch.topk leaves the order of ties unspecified (and it differs
+    between devices), so the k ids are taken by k passes of argmax, which
+    returns the first of equal maxima on every device, each pass striking
+    out the id it took: no sort of the vocabulary, nothing read back, only
+    ops the decode graphs already capture."""
+    x = logits.float()
+    logp = x - torch.logsumexp(x, dim=-1, keepdim=True)
+    rest = logp.clone()
+    ids = []
+    for _ in range(k):
+        i = rest.argmax(-1, keepdim=True)
+        ids.append(i)
+        rest.scatter_(-1, i, float("-inf"))
+    tid = torch.cat(ids, -1)
+    return torch.gather(logp, -1, tid), tid.to(torch.int32)

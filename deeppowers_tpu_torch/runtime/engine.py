@@ -68,9 +68,26 @@ pipelined, as in JAX), the rows of its harvest ordered (step, window
 position). Pages are reserved K rows further ahead, and the engine falls
 back to plain decode when the mean accepted window stays below
 `speculative_min_accepted` (scaled by a draft's cost).
-Not ported yet (ROADMAP.md): structured decoding, top logprobs,
-sequence-parallel prefill and meshes (tensor and expert parallelism); the
-RuntimeConfig fields that ask for them raise NotImplementedError.
+Structured output (`GenerationConfig.guide`, a compiled guide of
+serving/structured.py; JAX :337-346, 392-395, 1099-1153, 1347-1397): every
+registered guide's DFA rows are stacked into two device tables (allow
+(R, V) bool, next (R, V) int32), the EOS column rewritten from the DFA's
+accept states; the first token is masked to the initial row and walked on
+the host, each decode step (and each speculative window position) masks a
+guided slot's logits to its row and advances the row on the device, and a
+guided slot with no legal token (an accept-only state without an EOS id)
+stops with "guide_complete". `min_tokens` is 0 under a guide. Top log
+probabilities (`RuntimeConfig.emit_top_logprobs` = k > 0, JAX :407-411,
+479-482): the first token's top k over the raw prefill logits, a decode
+step's over its logits after EOS suppression and the guide mask, a
+speculative position's over the raw verify logits, in `jax.lax.top_k`'s
+order (ops/sampling.py `top_logprobs`); they ride in the dispatch's output
+rows and land in `SlotResult.top_tokens`, cut with the tokens at a stop id.
+Both run inside the captured decode graphs: the guided variants read the
+tables and are dropped and captured anew when a guide registers.
+Not ported yet (ROADMAP.md): sequence-parallel prefill and meshes (tensor
+and expert parallelism); the RuntimeConfig field that asks for the first
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -94,7 +111,8 @@ from ..models.transformer import (TransformerConfig, forward_decode,
                                   forward_prefill_scan_batch, fuse_params,
                                   param_nbytes, stack_layer_params)
 from ..ops.kernels.decode_attention import int8_dots_switch
-from ..ops.sampling import SamplingParams, logprobs_of, sample
+from ..ops.sampling import (SamplingParams, guide_mask, logprobs_of, sample,
+                             top_logprobs)
 from . import kvcache, kvcache_paged, kvcache_stacked, speculative
 from .graphs import StepGraphs
 from .prefix_index import SlotPrefixIndex
@@ -120,6 +138,9 @@ class DecodeState:
     eos_id: torch.Tensor          # int32 (-1 => no EOS check)
     token_counts: torch.Tensor    # (B, V) int32, for penalties
     last_logprob: torch.Tensor    # f32
+    # int32, the structured-output DFA row in the engine's stacked guide
+    # tables (`_register_guide`); -1 = unguided
+    guide_state: torch.Tensor
     sampling: SamplingParams
 
 
@@ -137,42 +158,61 @@ def init_state(batch_slots: int, vocab_size: int, device) -> DecodeState:
         token_counts=torch.zeros((b, vocab_size), dtype=torch.int32,
                                  device=device),
         last_logprob=torch.zeros((b,), dtype=torch.float32, device=device),
+        guide_state=torch.full((b,), -1, dtype=torch.int32, device=device),
         sampling=SamplingParams.from_config(
             GenerationConfig(do_sample=False, top_k=0, top_p=1.0), b, device),
     )
 
 
 def record_rows(out: torch.Tensor, row: torch.Tensor, emitted: torch.Tensor,
-                lps: torch.Tensor, st: DecodeState) -> None:
+                lps: torch.Tensor, st: DecodeState,
+                topk: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> None:
     """A step's results into a dispatch's output rows, in place: `out` is
-    (2 R + 3, B) f64, emitted tokens in rows [0, R), logprobs in [R, 2 R),
-    then active, lengths and EOS ids as they stand after the step; `row`
-    (1,) int64 counts the steps written so far. A step of T rows (T =
-    K + 1 for a speculative window) fills rows row·T .. row·T + T - 1 of
-    each half, so a dispatch's rows run (step, window position), as JAX
-    reshapes its (N, B, T) emissions (engine.py:1592-1598)."""
-    rmax = (out.shape[0] - 3) // 2
+    (rows, B) f64, emitted tokens in rows [0, R), logprobs in
+    [R, 2 R), then active, lengths and EOS ids as they stand after the
+    step, then with top-k (k candidates a row, `topk` = (values, ids)
+    each (T, B, k)) the values of emission row r in rows 2 R + 3 + r·k ..
+    + k - 1 and the ids R·k rows further (2 R + 3 + 2 R·k rows in all);
+    `row` (1,) int64 counts the steps written so far. A step of T rows (T = K + 1 for a speculative
+    window) fills rows row·T .. row·T + T - 1, so a dispatch's rows run
+    (step, window position), as JAX reshapes its (N, B, T) emissions and
+    (N, B, T, k) top-k (engine.py:1592-1598, 1658-1663)."""
+    k = 0 if topk is None else topk[0].shape[-1]
+    rmax = (out.shape[0] - 3) // (2 + 2 * k)
     t = emitted.shape[0]
     idx = row * t + torch.arange(t, device=out.device)
     out.index_copy_(0, idx, emitted.double())
     out.index_copy_(0, idx + rmax, lps.double())
-    out[2 * rmax:].copy_(torch.stack([st.active.double(), st.lengths.double(),
-                                      st.eos_id.double()]))
+    out[2 * rmax:2 * rmax + 3].copy_(torch.stack(
+        [st.active.double(), st.lengths.double(), st.eos_id.double()]))
+    if k:
+        kidx = (idx[:, None] * k + torch.arange(k, device=out.device)
+                ).reshape(-1) + 2 * rmax + 3
+        b = emitted.shape[1]
+        for j, part in enumerate(topk):
+            out.index_copy_(0, kidx + j * rmax * k, part.permute(0, 2, 1)
+                            .reshape(t * k, b).double())
     row.add_(1)
 
 
 def decode_step(params, cfg: TransformerConfig, caches, st: DecodeState,
                 out: torch.Tensor, row: torch.Tensor, *, scan: bool,
                 max_seq: int, dtype, need_pen: bool, any_sampled: bool,
-                generator: Optional[torch.Generator]) -> None:
+                generator: Optional[torch.Generator], guide_tables=None,
+                top_k: int = 0) -> None:
     """One decode step of every slot (JAX `_decode_core`), all in place:
     the forward appends each active slot's token to the caches, the next
     tokens are sampled, the state advances (EOS, max_tokens and the
     capacity guard, as the JAX engine's :370-381, retire slots on the
-    device) and `record_rows` writes the step's row of the dispatch. The
-    host branches are arguments (a CUDA graph's variant). This is the
-    function the card captures and replays (runtime/graphs.py); eager, it
-    is the graph's plain version."""
+    device) and `record_rows` writes the step's row of the dispatch. With
+    `guide_tables` (allow (R, V) bool, next (R, V) int32) guided slots are
+    masked to their DFA row and advance it on the device (:337-346,
+    392-395); with `top_k` the step also records the top_k
+    log-probabilities of its logits after the EOS suppression and the
+    guide mask (:407-411). The host branches are arguments (a CUDA graph's
+    variant). This is the function the card captures and replays
+    (runtime/graphs.py); eager, it is the graph's plain version."""
     fwd = forward_decode_scan if scan else forward_decode
     logits, _ = fwd(params, cfg, st.tokens, caches, st.lengths, dtype=dtype,
                     active=st.active)
@@ -184,11 +224,17 @@ def decode_step(params, cfg: TransformerConfig, caches, st: DecodeState,
     logits[rows, eos_col] += torch.where(
         suppress, torch.full_like(logits[:, 0], NEG_INF),
         torch.zeros_like(logits[:, 0]))
+    active = st.active
+    if guide_tables is not None:
+        guided = st.guide_state >= 0
+        g_rows = st.guide_state.clamp(0, guide_tables[0].shape[0] - 1).long()
+        logits, _, no_move = guide_mask(logits, g_rows, guided,
+                                        guide_tables[0])
+        active = active & ~no_move
     nxt = sample(logits, sp, generator,
                  token_counts=st.token_counts if need_pen else None,
                  any_sampled=any_sampled)
     lp = logprobs_of(logits, nxt)
-    active = st.active
     new_lengths = torch.where(active, st.lengths + 1, st.lengths)
     new_generated = torch.where(active, st.generated + 1, st.generated)
     hit_eos = (nxt == st.eos_id) & (st.eos_id >= 0) & (
@@ -201,12 +247,20 @@ def decode_step(params, cfg: TransformerConfig, caches, st: DecodeState,
     if need_pen:
         st.token_counts[rows, nxt.long()] += active.to(torch.int32)
     emitted = torch.where(active, nxt, torch.full_like(nxt, -1))
+    if guide_tables is not None:
+        nxt_row = guide_tables[1][g_rows, nxt.long()]
+        st.guide_state.copy_(torch.where(guided & active, nxt_row,
+                                         st.guide_state))
     st.tokens.copy_(torch.where(active, nxt, st.tokens))
     st.lengths.copy_(new_lengths)
     st.active.copy_(still_active)
     st.generated.copy_(new_generated)
     st.last_logprob.copy_(lp)
-    record_rows(out, row, emitted[None], lp[None], st)
+    topk = None
+    if top_k:
+        tv, ti = top_logprobs(logits, top_k)
+        topk = (tv[None], ti[None])
+    record_rows(out, row, emitted[None], lp[None], st, topk)
 
 
 def clone_state(st: DecodeState) -> DecodeState:
@@ -239,7 +293,11 @@ class SlotResult:
     stop_token_ids: Tuple[int, ...] = ()
     token_ids: List[int] = field(default_factory=list)
     logprobs: List[float] = field(default_factory=list)
-    stop_reason: str = ""           # "eos" | "max_tokens" | "max_seq" | ...
+    # a token's [(candidate id, logprob), ...] with emit_top_logprobs > 0
+    top_tokens: List[List[Tuple[int, float]]] = field(default_factory=list)
+    guided: bool = False            # under a structured-output guide
+    stop_reason: str = ""           # "eos" | "max_tokens" | "max_seq" |
+    #                                 "guide_complete" | ...
     start_time: float = 0.0
     first_token_time: float = 0.0
     end_time: float = 0.0
@@ -255,8 +313,7 @@ class SlotResult:
 
 #: RuntimeConfig fields the JAX engine acts on and the port does not yet,
 #: with their defaults: a run that sets one raises instead of ignoring it
-UNPORTED_RUNTIME_DEFAULTS = {"emit_top_logprobs": 0,
-                             "seq_parallel_prefill": False}
+UNPORTED_RUNTIME_DEFAULTS = {"seq_parallel_prefill": False}
 
 #: the depths the auto dispatch depth picks from (JAX engine.py:1794)
 AUTO_LADDER = (1, 2, 4, 6, 8, 12, 16, 24, 32)
@@ -358,13 +415,21 @@ class InferenceEngine:
         self.dispatch_count = 0
         self.transfer_count = 0
         self._init_speculation(draft_params, draft_cfg, fuse_projections)
+        # structured-output guides (JAX :711-718): every registered guide's
+        # DFA rows stacked into two device tables (`_register_guide`)
+        self._guides: Dict[str, Tuple[int, object]] = {}
+        self._guide_allow_host: Optional[np.ndarray] = None
+        self._guide_next_host: Optional[np.ndarray] = None
+        self._guide_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._guided_host = np.zeros((b,), dtype=bool)
+        self._top_k = self.runtime.emit_top_logprobs
         # a dispatch's output rows (`record_rows`) at the deepest dispatch,
         # the steps' row counter, and two host buffers for its transfer
         rmax = max(AUTO_LADDER[-1], self._steps_per_dispatch) * (
             self._spec_k + 1)
         cuda = self.device.type == "cuda"
-        self._out = torch.zeros((2 * rmax + 3, b), dtype=torch.float64,
-                                device=self.device)
+        self._out = torch.zeros((2 * rmax + 3 + 2 * rmax * self._top_k, b),
+                                dtype=torch.float64, device=self.device)
         self._row = torch.zeros((1,), dtype=torch.int64, device=self.device)
         self._host = [torch.zeros(self._out.shape, dtype=torch.float64,
                                   pin_memory=cuda) for _ in range(2)]
@@ -547,8 +612,14 @@ class InferenceEngine:
         by `continue_prefill` (JAX engine.py:900-998)."""
         gen.validate()
         if gen.guide is not None:
-            raise NotImplementedError(
-                "structured output is not ported yet (ROADMAP.md)")
+            # a guide of another vocabulary raises here, before a slot is
+            # taken (registration is idempotent: activation finds it)
+            self._register_guide(gen.guide)
+            if gen.min_tokens:
+                # min_tokens suppresses EOS, which can conflict with an
+                # accept-only DFA state: the guide decides termination
+                # (JAX :897-904)
+                gen = dataclasses.replace(gen, min_tokens=0)
         free = self.free_slots
         if not free:
             raise RuntimeError("no free slots")
@@ -752,6 +823,12 @@ class InferenceEngine:
         adj = last_logits.float().clone()
         if gen.min_tokens > 0 and eos_suppress >= 0:
             adj[eos_suppress] += NEG_INF
+        guide = gen.guide
+        g_offset = self._register_guide(guide) if guide is not None else 0
+        if guide is not None:
+            # the initial state's mask (JAX `_first_token_core` :474-475)
+            row0 = self._guide_tables[0][g_offset]
+            adj = torch.where(row0, adj, torch.full((), NEG_INF, device=dev))
         temp = gen.temperature if gen.do_sample else 0.0
         penalties = (gen.repetition_penalty != 1.0 or gen.presence_penalty
                      or gen.frequency_penalty)
@@ -760,7 +837,17 @@ class InferenceEngine:
                          token_counts=counts if penalties else None,
                          any_sampled=temp > 0)
             lp = logprobs_of(last_logits[None], tok)
+            if self._top_k:
+                # over the raw prefill logits, as JAX's first token (:479-482)
+                tv, ti = top_logprobs(last_logits[None], self._top_k)
         counts[0, tok.long()] += 1
+        first = int(tok[0])
+        g_state = -1
+        if guide is not None:
+            # the DFA walks the first token on the host (JAX :1127-1131)
+            vt = guide.allow.shape[1]
+            if first < vt and guide.allow[0, first]:
+                g_state = g_offset + int(guide.next_state[0, first])
         eos = self.eos_token_id if self.eos_token_id is not None else -1
         if gen.stop_token_ids and eos == -1:
             eos = gen.stop_token_ids[0]
@@ -773,7 +860,9 @@ class InferenceEngine:
         st.eos_id[slot] = eos
         st.token_counts[slot] = counts[0]
         st.last_logprob[slot] = lp[0]
+        st.guide_state[slot] = g_state
         st.sampling.set_row(slot, sp1)
+        self._guided_host[slot] = g_state >= 0
         self._temp_host[slot] = temp
         self._penalty_host[slot] = bool(penalties)
         self._active_host[slot] = True
@@ -797,10 +886,13 @@ class InferenceEngine:
         res.prompt_len = n
         res.max_tokens = gen.max_tokens
         res.stop_token_ids = tuple(gen.stop_token_ids)
-        first = int(tok[0])
+        res.guided = guide is not None
         res.first_token_time = time.perf_counter()
         res.token_ids.append(first)
         res.logprobs.append(float(lp[0]))
+        if self._top_k:
+            res.top_tokens.append([(int(i), float(v)) for i, v in
+                                   zip(ti[0].tolist(), tv[0].tolist())])
         hit_stop = first == eos or first in gen.stop_token_ids
         if (hit_stop and gen.min_tokens < 1) or gen.max_tokens <= 1:
             st.active[slot] = False
@@ -823,6 +915,46 @@ class InferenceEngine:
                 logits_at=torch.tensor([n - 1], device=dev))
             for cache, (k, v) in zip(self._draft_caches, kv):
                 kvcache.write_prompt(cache, k[0], v[0], slot)
+
+    def _register_guide(self, guide) -> int:
+        """Append a compiled guide's (allow, next_state) rows to the stacked
+        tables and return its row offset (JAX :1347-1397). Idempotent per
+        grammar (keyed on the guide's key). The EOS column is rewritten
+        from the DFA's accept states; ids past the guide's vocabulary (a
+        padded model vocabulary) are never allowed. The tables are
+        rebuilt, so the captured graph variants that read them (the guided
+        ones) are dropped and captured anew at their next use; no other
+        variant reads them."""
+        key = guide.key or str(id(guide))
+        hit = self._guides.get(key)
+        if hit is not None:
+            return hit[0]
+        v = self.cfg.vocab_size
+        s, vt = guide.allow.shape
+        if vt > v:
+            raise ValueError(
+                f"guide vocab {vt} exceeds model vocab {v}: compile the "
+                "guide with the model's tokenizer")
+        offset = 0 if self._guide_allow_host is None else len(
+            self._guide_allow_host)
+        allow = np.zeros((s, v), dtype=bool)
+        allow[:, :vt] = guide.allow
+        nxt = np.zeros((s, v), dtype=np.int32)
+        nxt[:, :vt] = guide.next_state.astype(np.int32) + offset
+        eos = self.eos_token_id if self.eos_token_id is not None else -1
+        if 0 <= eos < v:
+            allow[:, eos] = guide.eos_allowed
+            nxt[:, eos] = offset        # unused: the slot retires on EOS
+        if self._guide_allow_host is not None:
+            allow = np.concatenate([self._guide_allow_host, allow])
+            nxt = np.concatenate([self._guide_next_host, nxt])
+        self._guide_allow_host, self._guide_next_host = allow, nxt
+        if self._graphs is not None:
+            self._graphs.drop(lambda k: k[-2])
+        self._guide_tables = (torch.from_numpy(allow).to(self.device),
+                              torch.from_numpy(nxt).to(self.device))
+        self._guides[key] = (offset, guide)
+        return offset
 
     def synchronize(self) -> None:
         """Wait for the work queued on the card (a prefill chunk returns
@@ -895,45 +1027,57 @@ class InferenceEngine:
         penalties, any sampled slot), ("lookup", K, penalties) or
         ("draft", K, penalties, tail), then #3's int8-dot switch
         (`int8_dots_switch`, read at each call as JAX reads it at trace
-        time). A draft dispatch's first step writes the tail when the last
-        harvested step held a whole window; its later steps always run it,
-        the mask choosing the slots."""
+        time), whether an active slot is guided (only then does the step
+        read the guide tables) and the top-k width. A draft dispatch's
+        first step writes the tail when the last harvested step held a
+        whole window; its later steps always run it, the mask choosing the
+        slots."""
         pen = self._need_penalties()
-        dots = int8_dots_switch()
+        tail = (int8_dots_switch(),
+                bool(self._guided_host[self._active_host].any()), self._top_k)
         if self._spec_k == 0:
             return ("plain", pen,
-                    bool((self._temp_host[self._active_host] > 0).any()),
-                    dots)
+                    bool((self._temp_host[self._active_host] > 0).any())
+                    ) + tail
         if self._draft is None:
-            return ("lookup", self._spec_k, pen, dots)
-        return ("draft", self._spec_k, pen, self._tail_due or not first,
-                dots)
+            return ("lookup", self._spec_k, pen) + tail
+        return ("draft", self._spec_k, pen, self._tail_due or not first
+                ) + tail
 
     def _run_step(self, key: tuple, st: DecodeState, out: torch.Tensor,
                   row: torch.Tensor, history, tail) -> None:
         """Variant `key` of one step, over the engine's caches and the
         given state, output rows, history and draft tail (in place)."""
+        tables = self._guide_tables if key[-2] else None
+        top_k = key[-1]
         if key[0] == "plain":
             decode_step(self.params, self.cfg, self.caches, st, out, row,
                         scan=self.scan_layers, max_seq=self.max_seq,
                         dtype=self.act_dtype, need_pen=key[1],
-                        any_sampled=key[2], generator=self._rng)
+                        any_sampled=key[2], generator=self._rng,
+                        guide_tables=tables, top_k=top_k)
             return
         common = dict(k_draft=key[1], max_cache_len=self.max_seq,
                       generator=self._rng, penalties=key[2],
-                      dtype=self.act_dtype)
+                      dtype=self.act_dtype, guide_tables=tables,
+                      top_k_out=top_k)
         if key[0] == "lookup":
-            _, emitted, lps = speculative.spec_decode_core(
+            got = speculative.spec_decode_core(
                 self.params, self.cfg, self.caches, st, history,
                 ngram=self.runtime.speculative_ngram, **common)
+            emitted, lps = got[1], got[2]
         else:
-            _, _, emitted, lps, last = speculative.spec_decode_draft_core(
+            got = speculative.spec_decode_draft_core(
                 self.params, self._draft[0], self.cfg, self._draft[1],
                 self.caches, self._draft_caches, st,
                 tail=tail if key[3] else None, **common)
+            emitted, lps, last = got[2], got[3], got[4]
             tail[0].copy_(last[0])
             tail[1].copy_(last[1])
-        record_rows(out, row, emitted.t(), lps.t(), st)
+        topk = None
+        if top_k:
+            topk = tuple(a.transpose(0, 1) for a in got[-1])   # (T, B, k)
+        record_rows(out, row, emitted.t(), lps.t(), st, topk)
 
     def _dispatch(self) -> Dict:
         """Enqueue one dispatch of N steps and its host transfer; returns
@@ -1017,12 +1161,18 @@ class InferenceEngine:
             h["event"].synchronize()
         got = h["host"].numpy()
         self.transfer_count += 1
-        r, rmax = h["rows"], (got.shape[0] - 3) // 2
+        k = self._top_k
+        r, rmax = h["rows"], (got.shape[0] - 3) // (2 + 2 * k)
         emitted_np = got[:r].astype(np.int64)
         lp_np = got[rmax:rmax + r]
         active_np = got[2 * rmax] > 0.5
         lengths_np = got[2 * rmax + 1].astype(np.int64)
         eos_np = got[2 * rmax + 2].astype(np.int64)
+        if k:
+            base = 2 * rmax + 3
+            top_v = got[base:base + r * k].reshape(r, k, -1)
+            top_i = got[base + rmax * k:base + rmax * k + r * k].reshape(
+                r, k, -1).astype(np.int64)
         if h["t"] > 1:
             self._spec_observe(emitted_np, h["t"])
         epoch = h["epoch"]
@@ -1040,22 +1190,32 @@ class InferenceEngine:
             keep = emitted_np[:, slot] >= 0
             if not keep.any():
                 if not active_np[slot] and slot not in self._prefilling:
-                    # deactivated without a token (JAX :1716-1722)
-                    res.stop_reason = res.stop_reason or "max_tokens"
+                    # deactivated without a token: a guided slot reached an
+                    # accept-only DFA state with no EOS id (JAX :1716-1722)
+                    res.stop_reason = res.stop_reason or (
+                        "guide_complete" if res.guided else "max_tokens")
                     self._retire(slot)
                 continue
             toks = [int(t) for t in emitted_np[keep, slot]]
             lps = [float(x) for x in lp_np[keep, slot]]
+            tops = []
+            if k:
+                tops = [[(int(i), float(v)) for i, v in
+                         zip(top_i[row, :, slot], top_v[row, :, slot])]
+                        for row in np.flatnonzero(keep)]
             stop = next((i for i, t in enumerate(toks)
                          if t in res.stop_token_ids), None)
             if stop is not None and (active_np[slot] or stop < len(toks) - 1):
-                # the device tracks one EOS id; the others stop here
+                # the device tracks one EOS id; the others stop here, and
+                # cut the tokens, logprobs and top tokens after them
                 toks, lps = toks[:stop + 1], lps[:stop + 1]
+                tops = tops[:stop + 1]
                 self.state.active[slot] = False
                 active_np[slot] = False
                 res.stop_reason = "eos"
             res.token_ids.extend(toks)
             res.logprobs.extend(lps)
+            res.top_tokens.extend(tops)
             out[slot] = toks
             cache_full = lengths_np[slot] >= self.max_seq - 1
             if not active_np[slot] or cache_full:
@@ -1066,6 +1226,12 @@ class InferenceEngine:
                     res.stop_reason = res.stop_reason or "eos"
                 elif cache_full:
                     res.stop_reason = res.stop_reason or "max_seq"
+                elif (res.guided and res.max_tokens
+                      and len(res.token_ids) < res.max_tokens):
+                    # deactivated short of max_tokens without EOS: the DFA
+                    # reached an accept-only state inside a speculative
+                    # window (JAX :1761-1766)
+                    res.stop_reason = res.stop_reason or "guide_complete"
                 else:
                     res.stop_reason = res.stop_reason or "max_tokens"
                 self._retire(slot)
@@ -1178,6 +1344,7 @@ class InferenceEngine:
         self._lengths_host[slot] = 0
         self._temp_host[slot] = 0.0
         self._penalty_host[slot] = False
+        self._guided_host[slot] = False
         # occupancy changed: a dispatch in flight neither touches this slot
         # nor brings back its active / length mirror
         self._slot_epoch[slot] += 1
@@ -1210,6 +1377,7 @@ class InferenceEngine:
         self._lengths_host = np.zeros((b,), dtype=np.int64)
         self._temp_host = np.zeros((b,), dtype=np.float32)
         self._penalty_host = np.zeros((b,), dtype=bool)
+        self._guided_host = np.zeros((b,), dtype=bool)
         self._slots = [None] * b
         self._finished = []
         self._pending_batch = []

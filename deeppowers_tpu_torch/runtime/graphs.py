@@ -7,15 +7,20 @@ cores). PyTorch's counterpart is a CUDA graph: the engine's decode step
 once per variant and replayed N times a dispatch, with no host wait
 between replays. A variant is one set of the host branches the step takes:
 plain, prompt-lookup or draft speculation, penalties or not, any sampled
-slot or not, the window K, the draft tail, and #3's int8-dot switch
-(DPT_ATTN_INT8, which JAX reads at trace time). `StepGraphs` keeps one
+slot or not, the window K, the draft tail, #3's int8-dot switch
+(DPT_ATTN_INT8, which JAX reads at trace time), whether a slot is guided
+(only then does the step read the structured-output tables) and the
+top-k width (`emit_top_logprobs`, whose values and ids the step writes
+into the dispatch's output rows). `StepGraphs` keeps one
 graph a variant for one engine, all in one memory pool.
 
 What a graph needs of the step it captures:
 - every tensor it reads or writes stays where it is: the decode state, the
   caches (contiguous, paged, stacked, the kt mirror, the draft's), the
   prompt-lookup history, the page table and the dispatch's output rows are
-  updated in place, never rebound;
+  updated in place, never rebound; the guide tables are rebuilt when a
+  guide registers, and the engine then drops the guided variants
+  (`drop`), which are captured anew;
 - nothing reads the device back (the sampling draw is a Gumbel-max, the
   host branches are the variant's);
 - its random numbers come from the engine's generator, registered with
@@ -122,6 +127,18 @@ class StepGraphs:
         pool = tuple(self._pool)
         return sum(s["total_size"] for s in segs
                    if tuple(s["segment_pool_id"]) == pool)
+
+    def drop(self, which: Callable[[tuple], bool]) -> List[tuple]:
+        """Drop the captured variants whose key `which` accepts (they read
+        tensors that were replaced, such as the guide tables) after the
+        work queued on the card, which may be replaying them, has ended;
+        they are captured anew at their next use. Returns their keys."""
+        gone = [k for k in self._graphs if which(k)]
+        if gone:
+            torch.cuda.current_stream().synchronize()
+            for k in gone:
+                del self._graphs[k]
+        return gone
 
     def replay(self, key: tuple, step: Callable[[], None],
                warm: Callable[[], None], n: int = 1) -> None:

@@ -26,7 +26,13 @@ Ported from deeppowers_tpu/runtime/speculative.py (`init_history` :47,
 Random numbers come from the engine's torch.Generator (the JAX package
 folds its step key per window position; the two streams cannot agree, so
 sampled runs are compared by distribution, greedy ones token for token).
-Not ported: structured-output guide tables. JAX's multi-step cores
+With structured-output guide tables (runtime/engine.py `_register_guide`)
+each window position's target logits are masked to the slot's DFA row
+and the row advances per accepted token; a guided slot with no legal
+token stops there; a draft model masks its proposals to the grammar along
+the all-accepted path. With `top_k_out` a step also returns the top-k
+log-probabilities of every window position's raw target logits
+(ops/sampling.py `top_logprobs`). JAX's multi-step cores
 (`spec_decode_multi_core`, `spec_decode_draft_multi_core` :451-532, a
 `lax.scan` of N steps) are the engine's dispatch loop over one step
 (runtime/engine.py `_dispatch`), which the card replays as a CUDA graph
@@ -48,7 +54,8 @@ import torch
 
 from ..models.transformer import (forward_decode, forward_verify,
                                   forward_verify_scan)
-from ..ops.sampling import draw, logprobs_of, processed_probs
+from ..ops.sampling import (draw, guide_mask, logprobs_of, processed_probs,
+                             top_logprobs)
 from .kvcache_stacked import StackedKVCache
 
 
@@ -89,15 +96,20 @@ def draft_ngram(history: torch.Tensor, hist_len: torch.Tensor, ngram: int,
 
 
 def _accept_window(logits, drafts, state, generator, counts,
-                   max_cache_len: int, q_probs=None):
+                   max_cache_len: int, q_probs=None, guide_tables=None):
     """Accept or reject the K drafts in order and draw the bonus token
-    (JAX :82-181, no guide tables). logits: (B, T, V) target logits, T =
-    K + 1; drafts (B, K); q_probs (B, K, V) draft-model distributions, or
-    None for prompt-lookup drafts (q a point mass at the draft). `counts`
-    is the (B, V) token counts when a slot uses penalties, else None.
+    (JAX :82-181). logits: (B, T, V) target logits, T = K + 1; drafts
+    (B, K); q_probs (B, K, V) draft-model distributions, or None for
+    prompt-lookup drafts (q a point mass at the draft). `counts` is the
+    (B, V) token counts when a slot uses penalties, else None.
+    `guide_tables` (allow (R, V), next (R, V)): a guided slot's logits at
+    each position are masked to its DFA row before the sampling chain, and
+    the row advances per emitted token; a guided slot with no legal token
+    terminates there (the decode step's no_move).
 
     Returns (emitted (B, T) int32, -1 past each slot's accepted prefix;
-    lps (B, T) f32; counts; generated (B,); terminated (B,) bool)."""
+    lps (B, T) f32; counts; generated (B,); terminated (B,) bool; the DFA
+    rows (B,) int64 after the window, or None without tables)."""
     b, t, _ = logits.shape
     k_draft = t - 1
     sp = state.sampling
@@ -107,8 +119,17 @@ def _accept_window(logits, drafts, state, generator, counts,
     gen = state.generated
     new_counts = None if counts is None else counts.clone()
     emitted_cols, lp_cols = [], []
+    g_row = None
+    if guide_tables is not None:
+        g_allow, g_next = guide_tables
+        guided = state.guide_state >= 0
+        g_row = state.guide_state.clamp(0, g_allow.shape[0] - 1).long()
     for j in range(t):
         logits_j = logits[:, j]
+        no_move = torch.zeros_like(emitting)
+        if guide_tables is not None:
+            logits_j, _, no_move = guide_mask(logits_j.float(), g_row,
+                                              guided, g_allow)
         p = processed_probs(logits_j, sp, token_counts=new_counts,
                             generated_counts=gen, eos_ids=state.eos_id)
         if j < k_draft:
@@ -130,12 +151,16 @@ def _accept_window(logits, drafts, state, generator, counts,
             acc = torch.zeros_like(emitting)
             tok = draw(p, generator)
         tok = tok.to(torch.int32)
-        emit = emitting & ~terminated
+        emit = emitting & ~terminated & ~no_move
+        terminated = terminated | (emitting & no_move)
         emitted_cols.append(torch.where(emit, tok, torch.full_like(tok, -1)))
         lp_cols.append(logprobs_of(logits_j, tok))
         if new_counts is not None:
             new_counts[rows, tok.long()] += emit.to(torch.int32)
         gen = gen + emit.to(torch.int32)
+        if guide_tables is not None:
+            g_row = torch.where(emit & guided, g_next[g_row, tok.long()].long(),
+                                g_row)
         hit_eos = (tok == state.eos_id) & (state.eos_id >= 0)
         hit_max = gen >= state.max_tokens
         # stop before the engine's cache-full frontier (max_seq - 1)
@@ -143,13 +168,13 @@ def _accept_window(logits, drafts, state, generator, counts,
         terminated = terminated | (emit & (hit_eos | hit_max | hit_cap))
         emitting = emitting & acc
     return (torch.stack(emitted_cols, 1), torch.stack(lp_cols, 1),
-            new_counts, gen, terminated)
+            new_counts, gen, terminated, g_row)
 
 
-def _finish(state, emitted, lps, counts, gen, terminated):
+def _finish(state, emitted, lps, counts, gen, terminated, g_row):
     """The state after a window (JAX :258-283), written into its tensors
     in place: lengths advance by the tokens emitted, the last one becomes
-    the next input."""
+    the next input, a guided slot's DFA row is the window's last."""
     t = emitted.shape[1]
     valid = emitted >= 0
     n_new = valid.sum(1).to(torch.int32)
@@ -165,6 +190,10 @@ def _finish(state, emitted, lps, counts, gen, terminated):
         state.token_counts.copy_(counts)
     state.last_logprob.copy_(torch.where(got_any, last_lp,
                                          state.last_logprob))
+    if g_row is not None:
+        state.guide_state.copy_(torch.where(state.guide_state >= 0,
+                                            g_row.to(torch.int32),
+                                            state.guide_state))
     return valid
 
 
@@ -182,12 +211,14 @@ def _verify(params, cfg, inputs, caches, state, dtype):
 def spec_decode_core(params, cfg, caches, state, history: torch.Tensor, *,
                      k_draft: int, ngram: int, max_cache_len: int,
                      generator: Optional[torch.Generator] = None,
-                     penalties: bool = False, dtype=torch.bfloat16):
+                     penalties: bool = False, dtype=torch.bfloat16,
+                     guide_tables=None, top_k_out: int = 0):
     """One prompt-lookup speculative step for every slot (JAX :184-294).
     Updates `state` and `history` (its sink column included) in place and
-    returns (caches, emitted (B, T) int32 with -1 padding, lps (B, T)).
-    An inactive slot writes and reads no cache rows (`forward_verify`'s
-    `active`)."""
+    returns (caches, emitted (B, T) int32 with -1 padding, lps (B, T)),
+    with `top_k_out` also (values, ids) each (B, T, k) of the raw verify
+    logits. An inactive slot writes and reads no cache rows
+    (`forward_verify`'s `active`). `guide_tables`: `_accept_window`."""
     s_hist = history.shape[1] - 1
     t = k_draft + 1
     hist_len = state.lengths + 1     # cached tokens + the pending last token
@@ -196,7 +227,7 @@ def spec_decode_core(params, cfg, caches, state, history: torch.Tensor, *,
     logits, caches = _verify(params, cfg, inputs, caches, state, dtype)
     out = _accept_window(logits, drafts, state, generator,
                          state.token_counts if penalties else None,
-                         max_cache_len)
+                         max_cache_len, guide_tables=guide_tables)
     emitted, lps = out[0], out[1]
     valid = _finish(state, *out)
     # emitted token j lands at history position hist_len + j; the rest go
@@ -204,6 +235,8 @@ def spec_decode_core(params, cfg, caches, state, history: torch.Tensor, *,
     pos = hist_len.long()[:, None] + torch.arange(t, device=history.device)
     pos = torch.where(valid, pos, torch.full_like(pos, s_hist))
     history.scatter_(1, pos, emitted.clamp(min=0))
+    if top_k_out:
+        return caches, emitted, lps, top_logprobs(logits, top_k_out)
     return caches, emitted, lps
 
 
@@ -212,13 +245,16 @@ def spec_decode_draft_core(params, draft_params, cfg, draft_cfg, caches,
                            max_cache_len: int,
                            generator: Optional[torch.Generator] = None,
                            penalties: bool = False, dtype=torch.bfloat16,
-                           tail=None):
+                           tail=None, guide_tables=None, top_k_out: int = 0):
     """One draft-model speculative step for every slot (JAX :314-448): K
     sequential draft decode steps (the draft's own cache, the shared
     lengths), each token drawn from the draft's penalty-free chain q, then
     one target verify forward accepting against q. Updates `state` in
     place; returns (caches, draft_caches, emitted (B, T), lps (B, T),
-    tail).
+    tail), with `top_k_out` also the verify logits' top-k (values, ids)
+    each (B, T, k). With `guide_tables` each draft step masks its
+    proposal to a guided slot's DFA row and walks the row along the
+    drafts (all accepted), and the verify masks as `_accept_window` does.
 
     The K draft steps feed back all drafts but the last, so after a window
     that accepts every draft the draft cache lacks the last one's row (JAX
@@ -236,13 +272,23 @@ def spec_decode_draft_core(params, draft_params, cfg, draft_cfg, caches,
             draft_params, draft_cfg, tail[0], draft_caches,
             state.lengths - 1, dtype=dtype, active=tail[1] & state.active)
     tok, lengths = state.tokens, state.lengths
+    if guide_tables is not None:
+        g_allow, g_next = guide_tables
+        guided = state.guide_state >= 0
+        d_row = state.guide_state.clamp(0, g_allow.shape[0] - 1).long()
     drafts, qs = [], []
     for _ in range(k_draft):
         logits, draft_caches = forward_decode(
             draft_params, draft_cfg, tok, draft_caches, lengths, dtype=dtype,
             active=state.active)
+        if guide_tables is not None:
+            logits, ok, _ = guide_mask(logits.float(), d_row, guided, g_allow)
         q = processed_probs(logits, sp)
         tok = draw(q, generator).to(torch.int32)
+        if guide_tables is not None:
+            d_ok = ok.gather(1, tok.long()[:, None])[:, 0]
+            d_row = torch.where(guided & d_ok, g_next[d_row, tok.long()].long(),
+                                d_row)
         drafts.append(tok)
         qs.append(q)
         lengths = lengths + 1
@@ -251,8 +297,12 @@ def spec_decode_draft_core(params, draft_params, cfg, draft_cfg, caches,
     logits, caches = _verify(params, cfg, inputs, caches, state, dtype)
     out = _accept_window(logits, drafts, state, generator,
                          state.token_counts if penalties else None,
-                         max_cache_len, q_probs=torch.stack(qs, 1))
+                         max_cache_len, q_probs=torch.stack(qs, 1),
+                         guide_tables=guide_tables)
     whole = _finish(state, *out).all(1)
+    if top_k_out:
+        return (caches, draft_caches, out[0], out[1], (drafts[:, -1], whole),
+                top_logprobs(logits, top_k_out))
     return caches, draft_caches, out[0], out[1], (drafts[:, -1], whole)
 
 

@@ -7,9 +7,11 @@ prefill per loop turn interleaved with decode (JAX :171-176), per-request
 streaming with incremental detokenization and stop-string scanning,
 admission control (queue capacity + max active), requeueing on an
 exhausted page pool (NoFreePages, :292-297), resumption of preempted
-requests from prompt + generated prefix (:273-285, :368), and failure
-recovery (reset the engine and requeue in-flight requests; fail them after
-repeated failures).
+requests from prompt + generated prefix, their logprobs and top tokens
+(:273-285, :368-415), and failure recovery (reset the engine and requeue
+in-flight requests; fail them after repeated failures). `tokenizer` and
+`model_name` are what the server reads for chat templates, structured
+output and /v1/models.
 """
 
 from __future__ import annotations
@@ -32,10 +34,16 @@ class Scheduler:
                  encode: Callable[[str], List[int]],
                  decode: Callable[[List[int]], str],
                  config: Optional[SchedulerConfig] = None,
-                 monitor: Optional[Monitor] = None):
+                 monitor: Optional[Monitor] = None, tokenizer=None,
+                 model_name: str = "deeppowers"):
         self.engine = engine
         self.encode = encode
         self.decode = decode
+        #: read by the server: chat templates and structured-output guides
+        #: need the tokenizer; /v1/models names the model (JAX sets both on
+        #: the scheduler, examples/serve.py:163-164)
+        self.tokenizer = tokenizer
+        self.model_name = model_name
         self.config = config or SchedulerConfig()
         self.monitor = monitor or Monitor()
         self.queue = RequestQueue(self.config.max_queue_size)
@@ -327,9 +335,10 @@ class Scheduler:
         st = req.resume
         if st is None:
             st = req.resume = {"prompt_ids": self.encode(req.prompt),
-                               "tokens": [], "logprobs": []}
+                               "tokens": [], "logprobs": [], "top": []}
         st["tokens"] += list(res.token_ids)
         st["logprobs"] += list(res.logprobs)
+        st["top"] += list(res.top_tokens)
         st["emitted"] = emitted
         self.preempted_requests += 1
         req.status = RequestStatus.PENDING
@@ -348,6 +357,7 @@ class Scheduler:
         st = req.resume
         all_tokens = self._full_tokens(req, res.token_ids)
         all_logprobs = (st["logprobs"] if st else []) + list(res.logprobs)
+        all_top = (st["top"] if st else []) + list(res.top_tokens)
         if st is not None:
             emitted = emitted or st.get("emitted", "")
         text = self.decode(all_tokens)
@@ -363,6 +373,7 @@ class Scheduler:
         r.text = text
         r.token_ids = all_tokens
         r.logprobs = all_logprobs
+        r.top_tokens = all_top
         r.stop_reason = req.result.stop_reason or res.stop_reason
         r.prompt_tokens = len(st["prompt_ids"]) if st else res.prompt_len
         r.completion_tokens = len(all_tokens)

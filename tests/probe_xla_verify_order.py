@@ -1,7 +1,8 @@
-"""Probe of the f32 order of XLA's CPU verify attention, which the port's
-CPU function for bf16 verify rows (`decode_attention_plain(xla=True)`
-over folded window rows) does not follow bit for bit (ROADMAP.md, queue 3
-item 1). Not collected by pytest; run it on the CPU:
+"""Probe of the f32 order of XLA's CPU verify attention, which found the
+dot order the port's CPU function for bf16 verify rows
+(`decode_attention_plain(xla=True)`) now follows, with XLA's exp and
+softmax from deeppowers_tpu_torch/ops/xla_cpu.py (held bit for bit by
+tests/test_torch_xla_cpu.py). Not collected by pytest; run it on the CPU:
 
     JAX_PLATFORMS=cpu python tests/probe_xla_verify_order.py
 

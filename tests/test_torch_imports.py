@@ -49,6 +49,13 @@ def test_importing_the_port_loads_no_jax():
             "import deeppowers_tpu_torch.runtime.checkpoint\n"
             "import deeppowers_tpu_torch.runtime.evaluate\n"
             "import deeppowers_tpu_torch.scripts.eval_ppl\n"
+            "import deeppowers_tpu_torch.scripts.serve\n"
+            "import deeppowers_tpu_torch.serving.structured\n"
+            "import deeppowers_tpu_torch.serving.tokenizer\n"
+            "import deeppowers_tpu_torch.ops.xla_cpu\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('tokenizers', 'transformers', 'jinja2')]\n"
+            "assert not bad, bad\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deeppowers_tpu')]\n"
             "assert not bad, bad\n")

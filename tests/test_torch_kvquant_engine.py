@@ -1,8 +1,9 @@
 """Greedy token streams of the port's engine with a quantized KV cache
 (int8, int4, k8v4) against the JAX engine, on both layouts, with chunked
 prefill, prefix hits and (paged) preemption; and the repairs that came
-with this slice: RuntimeConfig fields the port does not act on raise, and
-an int8 engine over the trained checkpoint's untied 260-wide head runs.
+with this slice: a RuntimeConfig field the port does not act on raises,
+top logprobs over each store match JAX's, and an int8 engine over the
+trained checkpoint's untied 260-wide head runs.
 
 Tiny sizes, f32 activations, the setups of tests/test_paged_kv.py:
 tiny_llama_config (max_seq_len=256), page 32, chunk 32; and lm124_ckpt,
@@ -204,11 +205,10 @@ def test_dequant_matmul_width_variant(n, variant):
     assert dm.width_variant(n) == variant
 
 
-@pytest.mark.parametrize("field,value", [
-    ("emit_top_logprobs", 5), ("seq_parallel_prefill", True)])
+@pytest.mark.parametrize("field,value", [("seq_parallel_prefill", True)])
 def test_unported_runtime_fields_raise(tiny, field, value):
-    """The JAX engine acts on each of these fields; the port does not yet,
-    so a non-default value raises and names the field instead of being
+    """The JAX engine acts on this field; the port does not yet, so a
+    non-default value raises and names the field instead of being
     ignored."""
     assert field in UNPORTED_RUNTIME_DEFAULTS
     _, _, cfg, tparams = tiny
@@ -217,6 +217,26 @@ def test_unported_runtime_fields_raise(tiny, field, value):
                         runtime=RuntimeConfig(max_batch_size=2,
                                               max_seq_len=64,
                                               **{field: value}))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_emit_top_logprobs_over_quantized_kv_matches_jax(tiny, dtype):
+    """emit_top_logprobs = 5, once refused, runs: over each quantized store
+    the greedy tokens and every token's top-5 ids equal the JAX engine's,
+    the values within 1e-5 (f32), one list a token."""
+    jeng, teng = _engines(tiny, dtype, "contiguous", emit_top_logprobs=5)
+    assert "emit_top_logprobs" not in UNPORTED_RUNTIME_DEFAULTS
+    gj, gt = _gen(12)
+    want = jeng.generate_batch(PROMPTS, gj)
+    got = teng.generate_batch(PROMPTS, gt)
+    for w, g in zip(want, got):
+        assert g.token_ids == w.token_ids
+        assert len(g.top_tokens) == len(g.token_ids)
+        assert [[i for i, _ in t] for t in g.top_tokens] == \
+            [[i for i, _ in t] for t in w.top_tokens]
+        np.testing.assert_allclose([[v for _, v in t] for t in g.top_tokens],
+                                   [[v for _, v in t] for t in w.top_tokens],
+                                   atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)

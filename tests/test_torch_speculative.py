@@ -225,7 +225,7 @@ def test_accept_window_output_is_the_target_distribution(draft):
             1).astype(np.int32))
         q = torch.from_numpy(np.broadcast_to(qd, (n, k, v)).copy())
     gen = torch.Generator().manual_seed(5)
-    emitted, lps, _, _, term = tspec._accept_window(logits, drafts, state,
+    emitted, lps, _, _, term, _ = tspec._accept_window(logits, drafts, state,
                                                     gen, None, 10_000,
                                                     q_probs=q)
     e = emitted.numpy()
@@ -254,7 +254,7 @@ def test_accept_window_greedy_is_the_argmax_chain():
     state = _window_state(b, v, 0.0)
     state.eos_id[2] = int(am[2, 0])
     state.sampling.min_tokens[2] = 10           # slot 2 may not emit EOS
-    emitted, _, _, gen, term = tspec._accept_window(
+    emitted, _, _, gen, term, _ = tspec._accept_window(
         logits, drafts, state, torch.Generator().manual_seed(0), None, 1000)
     assert emitted[0].tolist() == am[0].tolist()
     assert emitted[1].tolist() == am[1, :2].tolist() + [-1, -1]

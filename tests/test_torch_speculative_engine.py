@@ -423,14 +423,26 @@ def test_configuration_checks_raise(tiny, draft, case):
         InferenceEngine(tparams, cfg, runtime=trt, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("field, value", [("emit_top_logprobs", 2)])
-def test_speculation_with_unported_fields_raises(tiny, field, value):
-    """Speculation is ported; top logprobs are not, so they beside it
-    still raise and name the field."""
-    _, _, cfg, tparams = tiny
-    _, trt = _runtime(**{field: value})
-    with pytest.raises(NotImplementedError, match=field):
-        InferenceEngine(tparams, cfg, runtime=trt, device="cpu")
+@pytest.mark.parametrize("drafting", ["lookup", "draft"])
+def test_speculation_with_top_logprobs_matches_jax(tiny, draft, drafting):
+    """emit_top_logprobs = 2 beside speculation, once refused, runs: with
+    prompt lookup and with a draft model every token's top-2 ids equal
+    the JAX engine's (rows (step, window position)), values within 1e-5,
+    and the tokens are JAX's."""
+    jeng, teng = _engines(tiny, draft=draft if drafting == "draft" else None,
+                          rt=dict(emit_top_logprobs=2))
+    gj, gt = _gen(20)
+    want = jeng.generate_batch(PROMPTS, gj)
+    got = teng.generate_batch(PROMPTS, gt)
+    assert teng.spec_steps > 0
+    for w, g in zip(want, got):
+        assert g.token_ids == w.token_ids
+        assert len(g.top_tokens) == len(g.token_ids)
+        assert [[i for i, _ in t] for t in g.top_tokens] == \
+            [[i for i, _ in t] for t in w.top_tokens]
+        np.testing.assert_allclose([[v for _, v in t] for t in g.top_tokens],
+                                   [[v for _, v in t] for t in w.top_tokens],
+                                   atol=1e-5, rtol=0)
 
 
 def test_reset_clears_speculation(tiny, draft):

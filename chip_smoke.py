@@ -371,7 +371,7 @@ def check_dm(what, got, ref, limit=2e-2):
 # take the tensor-core kernel, decode steps the GEMV; their sources
 ROUTES_ON = ["dequant_matmul[gemv]", "dequant_matmul[mma]"]
 GEMV_SRC = "deeppowers_tpu_torch/csrc/gemv.cu"
-MMA_SRC = "deeppowers_tpu_torch/csrc/dequant_matmul.cu"
+MMA_SRC = "deeppowers_tpu_torch/csrc/mma_kernel.cuh"
 
 
 def tree_to(tree, device):
@@ -4363,9 +4363,12 @@ TRAINED_SPEC_TOKENS = 32
 #: 0.083 was seen on the card), where a wrong verify step leaves it at a
 #: confident token
 TRAINED_TIE_GAP = 0.25
+TRAINED_CALIB = 16               # GPTQ's calibration sequences (MoE)
 TRAINED_WEIGHTS = {"bf16": None, "int8": {},
                    "w4a8 g128": dict(mode="int4", group_size=128,
-                                     act_bits=8)}
+                                     act_bits=8),
+                   "w4a8 g128 gptq": dict(mode="int4", group_size=128,
+                                          act_bits=8, gptq=True)}
 #: (row, weights, KV store or None for the prefill) and the kernel
 #: counts that row must raise
 TRAINED_ROWS = (
@@ -4379,6 +4382,11 @@ TRAINED_ROWS = (
       "decode_attention[k8v4+rows]", "decode_attention[i8:k8v4+rows]"]),
     ("bf16 + int8 KV", "bf16", "int8",
      ["decode_attention[int8+rows]", "decode_attention[i8:int8+rows]"]),
+    ("w4a8 g128 gptq", "w4a8 g128 gptq", None,
+     ["flash_attention_prefill", "dequant_matmul[mma]"] + MIXTRAL_ON_PATH),
+    ("w4a8 g128 gptq + int8 KV", "w4a8 g128 gptq", "int8",
+     ["dequant_matmul[gemv]", "dequant_matmul[w4a8g]", "quantize_activations",
+      "decode_attention[int8+rows]", "decode_attention[i8:int8+rows]"]),
 )
 
 
@@ -4388,12 +4396,15 @@ def trained_text(root: str) -> str:
         return f.read()
 
 
-def trained_weights(torch, T, params, cfg):
+def trained_weights(torch, T, params, cfg, calib=None):
     """{name: params}: the float weights as loaded (f32), and each
     quantized recipe made from them on their device and fused as the
     engine fuses them (wqkv, w_gu; W4A8 g128 experts in the cat layout,
-    per-channel int8 experts stacked)."""
+    per-channel int8 experts stacked); a "gptq" recipe by GPTQ over the
+    `calib` sequences (quant/gptq.py, on the weights' device), its seconds
+    under "gptq_s"."""
     from deeppowers_tpu_torch.config import QuantConfig, QuantMode
+    from deeppowers_tpu_torch.quant.gptq import gptq_quantize
     out = {}
     for name, q in TRAINED_WEIGHTS.items():
         if q is None:
@@ -4401,8 +4412,17 @@ def trained_weights(torch, T, params, cfg):
             continue
         q = dict(q)
         mode = QuantMode(q.pop("mode", "int8"))
-        out[name] = T.fuse_params(T.quantize_params(
-            params, QuantConfig(mode=mode, **q)), cfg)
+        qcfg = QuantConfig(mode=mode, **{k: v for k, v in q.items()
+                                         if k != "gptq"})
+        if q.get("gptq"):
+            t0 = time.perf_counter()
+            qp = gptq_quantize(params, cfg, calib, qcfg)
+            if qp["embedding"].is_cuda:
+                torch.cuda.synchronize()
+            out["gptq_s"] = round(time.perf_counter() - t0, 3)
+        else:
+            qp = T.quantize_params(params, qcfg)
+        out[name] = T.fuse_params(qp, cfg)
     return out
 
 
@@ -4598,9 +4618,11 @@ def trained_phase(torch, T, counters):
     tokens), int8 per-channel and W4A8 g128 (#10 / #9 behind 9q); the
     decode path over TRAINED_SEQS sequences of TRAINED_CACHED_LEN tokens
     through W4A8 g128 + k8v4 KV (the GEMV's cat experts, 3i) and float
-    weights + int8 KV (3i). Each row's launch counts are set to 0 just
-    before it and read just after, and it is held against the same function
-    on the CPU (the kernels' plain versions, same weights) within
+    weights + int8 KV (3i); and W4A8 g128 + GPTQ, made on the card over
+    TRAINED_CALIB windows from beyond the scored ones, through the prefill
+    and the cat decode with int8 KV. Each row's launch counts are set to 0
+    just before it and read just after, and it is held against the same
+    function on the CPU (the kernels' plain versions, same weights) within
     TRAINED_REL. Then the experts' share of routed tokens on the text and
     prompt-lookup speculation served over it (`trained_spec`). Returns
     (launches by row, phase info)."""
@@ -4619,10 +4641,15 @@ def trained_phase(torch, T, counters):
         fail(f"trained: {TRAINED_CKPT} is not a byte-tokenizer checkpoint")
     text = trained_text(root)
     ids = ByteTokenizer().encode(text)
-    seqs = sequences(ids, TRAINED_LEN)[:TRAINED_SEQS]
+    windows = sequences(ids, TRAINED_LEN)
+    seqs = windows[:TRAINED_SEQS]
+    # GPTQ's calibration from beyond the scored windows, as the gate script
+    # draws it
+    calib = windows[TRAINED_SEQS:TRAINED_SEQS + TRAINED_CALIB]
     cached = sequences(ids, TRAINED_CACHED_LEN)[:TRAINED_SEQS]
     narrow = check_narrow_heads(torch, cfg)
-    weights = trained_weights(torch, T, params, cfg)
+    weights = trained_weights(torch, T, params, cfg, calib)
+    gptq_s = weights.pop("gptq_s")
     cpu_weights = {k: tree_to(v, "cpu") for k, v in weights.items()}
     launches, rows, card_s, cpu_s = {}, {}, 0.0, 0.0
     share = None
@@ -4668,6 +4695,7 @@ def trained_phase(torch, T, counters):
         "hidden": cfg.hidden_size,
         "experts": f"{cfg.num_experts} top-{cfg.num_experts_per_tok}",
         "load_s": f"{load_s:.2f}", "card_s": f"{card_s:.2f}",
+        "gptq": f"{len(calib)}x{TRAINED_LEN} tokens, {gptq_s} s",
         "cpu_ref_s": f"{cpu_s:.2f}",
         "prefill": f"{TRAINED_SEQS}x{TRAINED_LEN}",
         "cached": f"{TRAINED_SEQS}x{TRAINED_CACHED_LEN}",
@@ -4677,6 +4705,348 @@ def trained_phase(torch, T, counters):
                                          for k in row[3]}
                                 for row in TRAINED_ROWS}),
         "spec": json.dumps(spec)}
+
+
+# ---------------------------------------------------------------------------
+# calibrated: zero-point weights through #1, and GPTQ on the card
+# ---------------------------------------------------------------------------
+
+#: TinyLlama-1.1B's matrices as an asymmetric decode step takes them (the
+#: fuse keeps zero-point parts apart: wq, wk, wv and w_gate, w_in unfused):
+#: (name, K, N, fold, matrices a step)
+ZP_MATS = (("wq", 2048, 2048, "plain", 22), ("wk|wv", 2048, 256, "plain", 44),
+           ("wo+res", 2048, 2048, "res", 22),
+           ("w_gate|w_in", 2048, 5632, "plain", 44),
+           ("w_out", 5632, 2048, "plain", 22),
+           ("lm_head", 2048, 32000, "f32", 1))
+#: the zero-point variants timed: (variant, bits, group) and their
+#: symmetric twins' keys
+ZP_VARIANTS = (("w8z", 8, 0, "w8"), ("w4gz", 4, 128, "w4g"))
+#: every symmetric weight variant: none may launch where weights are
+#: asymmetric
+SYM_VARIANTS = [f"dequant_matmul[w{b}{a}{g}]" for b in (8, 4)
+                for a in ("", "a8") for g in ("", "g")]
+#: the GPTQ calibration: sequences x tokens, random ids from the seed
+GPTQ_CALIB = (4, 512)
+GPTQ_KINDS = ("qkv", "wo", "mlp_in", "mlp_out", "lm_head")
+
+
+def zp_weight(torch, g, k, n, bits, group, device="cuda"):
+    """An asymmetric QuantizedTensor of a random (K, N) float matrix whose
+    first 64 columns are all positive (zero points far below the codes,
+    |q - z| past 256 for int8: bf16(q - z) rounds) and next 64 all
+    negative, quantized on `device`."""
+    from deeppowers_tpu_torch.quant.quantize import quantize
+    w = torch.randn(k, n, generator=g, device=device) * 0.02
+    w[:, :64] = w[:, :64].abs() + 0.05
+    w[:, 64:128] = -w[:, 64:128].abs() - 0.03
+    return quantize(w, bits=bits, group_size=group, symmetric=False)
+
+
+def check_zp_kernels(torch):
+    """#1's zero-point variants (w8z: int8 per-channel, w4gz: int4 g128,
+    asymmetric) at TinyLlama-1.1B's matrices, M = 8 (the GEMV: a decode
+    step of 8 slots) and M = 512 (the tensor-core kernel: a 512-token
+    prefill), each against `dequant_matmul_plain` with the same zero points
+    (#1's gate, 2e-2 of a row's max|ref|), timed beside its bound (weight,
+    scale and zero-point bytes), the plain version, torch.matmul on the
+    bf16 dequantized weight and its symmetric twin (the same codes and
+    scales without zero points, "sym_ms"). Rows: a step's matrices
+    (ZP_MATS) per variant and M."""
+    from deeppowers_tpu_torch.ops.kernels import dequant_matmul as dm
+    from deeppowers_tpu_torch.quant.qtypes import QuantizedTensor
+    from deeppowers_tpu_torch.quant.quantize import dequantize
+    g = torch.Generator(device="cuda").manual_seed(SEED + 31)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    rows = []
+    for var, bits, group, twin in ZP_VARIANTS:
+        for m in (8, 512):
+            tot = dict(ms=0.0, sym=0.0, plain=0.0, lib=0.0, bytes=0.0,
+                       ops=0.0)
+            err_max = 0.0
+            for name, k, n, mode, per in ZP_MATS:
+                if m == 512 and mode == "f32":
+                    per = 0          # a prefill takes logits at one row
+                q0 = zp_weight(torch, g, k, n, bits, group)
+                w_bytes = q0.data.numel()
+                copies = max(1, -(-200_000_000 // w_bytes)) if m == 8 else 1
+                qws = [q0] + [QuantizedTensor(
+                    q0.data.clone(), q0.scales.clone(),
+                    q0.zero_points.clone(), bits, group)
+                    for _ in range(copies - 1)]
+                syms = [QuantizedTensor(q.data, q.scales, None, bits, group)
+                        for q in qws]
+                x = rn(m, k)
+                kw = {"residual": rn(m, n)} if mode == "res" else {}
+                out_dtype = torch.float32 if mode == "f32" else torch.bfloat16
+
+                def plain(q=q0):
+                    return dm.dequant_matmul_plain(
+                        x, q.data, q.scales, bits=bits,
+                        zero_points=q.zero_points, out_dtype=out_dtype, **kw)
+
+                got = dm.dequant_matmul(x, q0, out_dtype=out_dtype, **kw)
+                ref = plain()
+                torch.cuda.synchronize()
+                err, ratio = check_dm(f"dequant_matmul[{var}] {name} M={m}",
+                                      got, ref)
+                err_max = max(err_max, err)
+                iters = 50 if m == 8 else 10
+                t_k = cuda_ms(torch, [lambda q=q: dm.dequant_matmul(
+                    x, q, out_dtype=out_dtype, **kw) for q in qws], iters)
+                t_s = cuda_ms(torch, [lambda q=q: dm.dequant_matmul(
+                    x, q, out_dtype=out_dtype, **kw) for q in syms], iters)
+                t_p = cuda_ms(torch, [lambda q=q: plain(q) for q in qws[:2]],
+                              3, graph=False)
+                wbf = [dequantize(q, torch.bfloat16) for q in qws[:2]]
+                t_l = cuda_ms(torch, [lambda w=w: torch.matmul(x, w)
+                                      for w in wbf], iters)
+                nbytes = (w_bytes + q0.scales.numel() * 4
+                          + q0.zero_points.numel() * 4 + x.numel() * 2
+                          + m * n * (4 if mode == "f32" else 2)
+                          + (m * n * 2 if mode == "res" else 0))
+                ops = 2 * m * k * n
+                bd, by = bound_ms(nbytes, ops)
+                log(f"  dequant_matmul[{var}] {name} M={m} K={k} N={n}: "
+                    f"max_abs_err={err:.3e} worst row ratio {ratio:.3e}, "
+                    f"kernel {t_k:.4f} ms, symmetric twin [{twin}] "
+                    f"{t_s:.4f} ms, plain {t_p:.4f} ms, torch.matmul bf16 "
+                    f"{t_l:.4f} ms, bound {bd:.4f} ms ({by}), x{per}")
+                for key, v in (("ms", t_k), ("sym", t_s), ("plain", t_p),
+                               ("lib", t_l), ("bytes", nbytes), ("ops", ops)):
+                    tot[key] += per * v
+                del qws, syms, wbf
+            bd, by = bound_ms(tot["bytes"], tot["ops"])
+            rows.append({
+                "name": f"dequant_matmul[{var}, M={m}]", "route": "cuda",
+                "source": GEMV_SRC if m == 8 else MMA_SRC,
+                "replaces": "deeppowers_tpu/ops/pallas/dequant_matmul.py:528",
+                "max_abs_err": err_max, "ms": tot["ms"],
+                "plain_ms": tot["plain"], "bound_ms": bd, "bound_by": by,
+                "library_ms": tot["lib"], "variant": var,
+                "sym_ms": tot["sym"], "sym_variant": twin,
+                "shape": ("TinyLlama-1.1B asymmetric decode step, 8 slots: "
+                          "22 layers x (wq, wk, wv, wo, w_gate, w_in, "
+                          "w_out) + lm_head" if m == 8 else
+                          "TinyLlama-1.1B asymmetric 512-token prefill: 22 "
+                          "layers x (wq, wk, wv, wo, w_gate, w_in, w_out)")})
+            torch.cuda.empty_cache()
+    return rows
+
+
+def asym_params(torch, T, cfg, gen, device):
+    """TinyLlama's random bf16 weights quantized asymmetrically: the
+    attention int8 per-channel (w8z), the MLP and the lm_head int4 g128
+    (w4gz), then fused as the engine fuses them (zero-point parts stay
+    apart)."""
+    from deeppowers_tpu_torch.config import QuantConfig, QuantMode
+    params = T.init_params(cfg, gen, dtype=torch.bfloat16, device=device)
+    qa = T.quantize_params(params, QuantConfig(mode=QuantMode.INT8,
+                                               symmetric=False))
+    qb = T.quantize_params(params, QuantConfig(
+        mode=QuantMode.INT4, group_size=128, symmetric=False))
+    out = dict(qb)
+    out["layers"] = [dict(lb, attn=la["attn"])
+                     for la, lb in zip(qa["layers"], qb["layers"])]
+    return T.fuse_params(out, cfg)
+
+
+def served_run(torch, params, cfg, counters, phase, want, zero,
+               device="cuda"):
+    """serve's 8 requests once through the scheduler and the HTTP server,
+    on an engine at the default runtime (a 22-layer model stacks its
+    layers: scan_layers "auto"), every launch count from 0; `want` must
+    launch, `zero` must not. Returns (summary, launches)."""
+    from deeppowers_tpu_torch.config import GenerationConfig, RuntimeConfig
+    from deeppowers_tpu_torch.runtime.engine import InferenceEngine
+    from deeppowers_tpu_torch.serving.tokenizer import ByteTokenizer
+    tok = ByteTokenizer()
+    engine = InferenceEngine(
+        params, cfg, device=device, eos_token_id=tok.eos_token_id,
+        runtime=RuntimeConfig(max_batch_size=8, max_seq_len=1024,
+                              prefill_buckets=(64, 128, 256, 512, 1024)))
+    engine.generate(tok.encode("warm up"), GenerationConfig(
+        max_tokens=2, temperature=0.0))
+    prompts = [prompt_text(n, i) for i, n in enumerate(PROMPT_BYTES)]
+    results, launches, wall, sched = run_requests(
+        torch, engine, prompts, MAX_TOKENS, counters, tok)
+    check_variants(phase, launches, want, zero)
+    out = summary(results, wall, sched, launches)
+    out["scan_layers"] = bool(engine.scan_layers)
+    return out, launches
+
+
+def ulp_moved(torch, e):
+    """bf16 `e` with a third of its values (a seeded draw) one ulp up: the
+    CPU's own spread of a path under rounding-sized input changes."""
+    bits = e.view(torch.int16).clone()
+    pick = torch.rand(e.shape, generator=torch.Generator().manual_seed(
+        SEED + 44)) < 1 / 3
+    bits[pick] += 1
+    return bits.view(torch.bfloat16)
+
+
+def kind_weights(params, i, kind):
+    """The matrices of layer i (or the lm_head) that share a Hessian."""
+    if kind == "lm_head":
+        return [params["lm_head"]["w"]]
+    layer = params["layers"][i]
+    names = {"qkv": ("attn", ("wq", "wk", "wv")), "wo": ("attn", ("wo",)),
+             "mlp_in": ("mlp", ("w_gate", "w_in")),
+             "mlp_out": ("mlp", ("w_out",))}[kind]
+    return [layer[names[0]][nm]["w"] for nm in names[1]]
+
+
+def output_errors(torch, fparams, qparams, stats, cfg) -> dict:
+    """Per matrix kind, ||X (W - W_q)|| over the calibration inputs X,
+    from the Hessians H = X^T X: sqrt(sum over layers and matrices of
+    tr(D^T H D)), D = W - dequant(W_q), in f64 on the weights' device."""
+    from deeppowers_tpu_torch.quant.quantize import dequantize
+    out = {}
+    for kind in GPTQ_KINDS:
+        tot = 0.0
+        layers = [None] if kind == "lm_head" else range(cfg.num_layers)
+        for i in layers:
+            h = (stats[-1] if i is None else stats[i])[kind].double()
+            for w, q in zip(kind_weights(fparams, i, kind),
+                            kind_weights(qparams, i, kind)):
+                d = w.double() - dequantize(q).double()
+                tot += float((d * (h @ d)).sum())
+        out[kind] = tot ** 0.5
+    return out
+
+
+def gptq_weights(torch, T, cfg, gen, device):
+    """TinyLlama's random bf16 weights and W4A8 g128 + GPTQ made from
+    them on `device`, calibrated over GPTQ_CALIB random sequences: (float
+    params, GPTQ params, RTN params, Hessians, seconds {xtx, gptq})."""
+    from deeppowers_tpu_torch.config import QuantConfig, QuantMode
+    from deeppowers_tpu_torch.quant.gptq import collect_xtx, gptq_quantize
+    fparams = T.init_params(cfg, gen, dtype=torch.bfloat16, device=device)
+    rng = torch.Generator().manual_seed(SEED + 41)
+    n, s = GPTQ_CALIB
+    calib = torch.randint(0, cfg.vocab_size, (n, s), generator=rng).tolist()
+    qcfg = QuantConfig(mode=QuantMode.INT4, group_size=128, act_bits=8)
+    t0 = time.perf_counter()
+    stats = collect_xtx(fparams, cfg, calib)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    gq = gptq_quantize(fparams, cfg, calib, qcfg, stats=stats)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return fparams, gq, T.quantize_params(fparams, qcfg), stats, {
+        "xtx_s": round(t1 - t0, 3), "gptq_s": round(t2 - t1, 3)}
+
+
+def calibrated_phase(torch, T, kvcache, counters):
+    """TinyLlama-1.1B at full width through asymmetric weights and GPTQ.
+    (a) Asymmetric weights (`asym_params`): teacher-forced logits
+    against the CPU's kernel function (rel L2 <= 5e-2), then serve's 8
+    requests, the zero-point launch counts of both routes above 0 and no
+    symmetric variant launched. (b) W4A8 g128 + GPTQ made on the card
+    over GPTQ_CALIB tokens (`gptq_weights`), its seconds; per matrix kind
+    GPTQ's output error against round-to-nearest's, GPTQ lower on every
+    kind; then its teacher-forced logits against the CPU (its first
+    LLAMA2_PATH_LAYERS layers, rel L2 <= 5e-2, beside the CPU's own
+    spread under one-ulp input changes) and serve's 8 requests at full
+    depth. Returns (launches by run, phase info)."""
+    import dataclasses
+    from deeppowers_tpu_torch.models.presets import TINYLLAMA_1_1B as cfg
+    rng = torch.Generator().manual_seed(SEED + 42)
+    ids = torch.randint(0, cfg.vocab_size, (40,), generator=rng).tolist()
+    forced = torch.randint(0, cfg.vocab_size, (3,), generator=rng).tolist()
+    info, launches = {}, {}
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 43)
+    params = asym_params(torch, T, cfg, gen, "cuda")
+    zp_on = ["dequant_matmul[w8z]", "dequant_matmul[w4gz]"] + ROUTES_ON
+    reset_counts(counters)
+    got = forced_logits(torch, T, kvcache, params, cfg, ids, forced, "cuda")
+    torch.cuda.synchronize()
+    launches["calibrated[asym,path]"] = read_counts(counters)
+    check_variants("calibrated[asym,path]", launches["calibrated[asym,path]"],
+                   zp_on, SYM_VARIANTS)
+    ref = forced_logits(torch, T, kvcache, tree_to(params, "cpu"), cfg, ids,
+                        forced, "cpu")
+    rel = max(((g - r).norm() / r.norm()).item() for g, r in zip(got, ref))
+    if not all(torch.isfinite(g).all() for g in got) or not rel <= 5e-2:
+        fail(f"calibrated[asym]: kernel vs plain logits rel L2 {rel} > 5e-2")
+    srv, launches["calibrated[asym]"] = served_run(
+        torch, params, cfg, counters, "calibrated[asym]", zp_on,
+        SYM_VARIANTS)
+    info["asym"] = {"logits_rel_l2": f"{rel:.3e}",
+                    "tok_per_s": round(srv["tok_per_s"], 1),
+                    "ttft_ms_p50": srv["ttft_ms_p50"],
+                    "decode_step_ms_p50": srv["decode_step_ms_p50"],
+                    "scan_layers": srv["scan_layers"],
+                    "launches": {k: launches["calibrated[asym]"].get(k, 0)
+                                 for k in zp_on}}
+    del params
+    torch.cuda.empty_cache()
+
+    fparams, gq, rtn, stats, secs = gptq_weights(torch, T, cfg, gen, "cuda")
+    errs = {"gptq": output_errors(torch, fparams, gq, stats, cfg),
+            "rtn": output_errors(torch, fparams, rtn, stats, cfg)}
+    log(f"calibrated[gptq] W4A8 g128 over {GPTQ_CALIB[0]}x{GPTQ_CALIB[1]} "
+        f"tokens on the card: Hessians {secs['xtx_s']} s, GPTQ "
+        f"{secs['gptq_s']} s; ||X(W - Wq)|| per kind, GPTQ "
+        + json.dumps(errs["gptq"]) + ", RTN " + json.dumps(errs["rtn"]))
+    worse = [k for k in GPTQ_KINDS if not errs["gptq"][k] < errs["rtn"][k]]
+    if worse:
+        fail(f"calibrated[gptq]: GPTQ's output error is not below RTN's "
+             f"for {worse}: {errs}")
+    del fparams, rtn, stats
+    torch.cuda.empty_cache()
+    params = T.fuse_params(gq, cfg)
+    gptq_on = ["dequant_matmul[w4a8g]", "quantize_activations"] + ROUTES_ON
+    # teacher-forced over its first LLAMA2_PATH_LAYERS layers, rel L2 <=
+    # 5e-2 (the TinyLlama paths' limit). Random TinyLlama weights behind the
+    # a8 row quantizer are chaotic: on the CPU alone a one-ulp change of a
+    # third of the embedding moves these logits by 7.6e-2 (4 layers; 1.9e-2
+    # for int8 weight-only), and over 22 layers the card parted from the
+    # CPU by 6.1e-2. The CPU's own one-ulp spread is measured beside it.
+    cut_cfg = dataclasses.replace(cfg, num_layers=LLAMA2_PATH_LAYERS)
+    cut = dict(params, layers=params["layers"][:LLAMA2_PATH_LAYERS])
+    reset_counts(counters)
+    got = forced_logits(torch, T, kvcache, cut, cut_cfg, ids, forced, "cuda")
+    torch.cuda.synchronize()
+    launches["calibrated[gptq,path]"] = read_counts(counters)
+    check_variants("calibrated[gptq,path]",
+                   launches["calibrated[gptq,path]"], gptq_on, [])
+    cpu_cut = tree_to(cut, "cpu")
+    ref = forced_logits(torch, T, kvcache, cpu_cut, cut_cfg, ids, forced,
+                        "cpu")
+    rel_g = max(((g - r).norm() / r.norm()).item() for g, r in zip(got, ref))
+    if not all(torch.isfinite(g).all() for g in got) or not rel_g <= 5e-2:
+        fail(f"calibrated[gptq]: kernel vs plain logits over "
+             f"{LLAMA2_PATH_LAYERS} layers rel L2 {rel_g} > 5e-2")
+    ulp = forced_logits(torch, T, kvcache, dict(cpu_cut, embedding=ulp_moved(
+        torch, cpu_cut["embedding"])), cut_cfg, ids, forced, "cpu")
+    ulp_rel = max(((g - r).norm() / r.norm()).item()
+                  for g, r in zip(ulp, ref))
+    srv, launches["calibrated[gptq]"] = served_run(
+        torch, params, cfg, counters, "calibrated[gptq]", gptq_on, [])
+    info["gptq"] = {"calibration": f"{GPTQ_CALIB[0]}x{GPTQ_CALIB[1]}",
+                    **secs, "output_error": errs,
+                    "gain": {k: round(1 - errs["gptq"][k] / errs["rtn"][k], 4)
+                             for k in GPTQ_KINDS},
+                    "logits_rel_l2": f"{rel_g:.3e}",
+                    "path_layers": LLAMA2_PATH_LAYERS,
+                    "cpu_one_ulp_rel_l2": f"{ulp_rel:.3e}",
+                    "tok_per_s": round(srv["tok_per_s"], 1),
+                    "decode_step_ms_p50": srv["decode_step_ms_p50"]}
+    del params, gq
+    torch.cuda.empty_cache()
+    order = ("calibrated[asym]", "calibrated[asym,path]", "calibrated[gptq]",
+             "calibrated[gptq,path]")     # the served runs count first
+    return ({k: launches[k] for k in order},
+            {k: json.dumps(v) for k, v in info.items()})
 
 
 def spec_path(torch, T, params, cfg, counters):
@@ -6686,6 +7056,7 @@ def main(argv) -> int:
         rows += check_mixtral_gemv(torch)
         rows += check_scan_kt_kernels(torch, cfg)
         rows += check_fold_kernels(torch)
+        rows += check_zp_kernels(torch)
     rows += check_i8_kernels(torch)
     phase_line("kernels", t0, checked=len(rows))
 
@@ -6827,6 +7198,13 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     _, tr = trained_phase(torch, T, counters)
     phase_line("trained", t0, **tr)
+
+    # 5h. the quantization recipes: asymmetric weights through #1's
+    # zero-point GEMV and tensor-core kernel, and W4A8 g128 + GPTQ made on
+    # the card, each teacher-forced against the CPU and served
+    t0 = time.perf_counter()
+    cal_launches, cal = calibrated_phase(torch, T, kvcache, counters)
+    phase_line("calibrated", t0, **cal)
 
     # 6. serve, contiguous KV
     t0 = time.perf_counter()
@@ -6988,6 +7366,7 @@ def main(argv) -> int:
     runs["scan_serve[spec]"] = scsrv["speculative"]["launches"]
     runs.update({f"scan_path[{v}]": c for v, c in scan_launches.items()})
     runs["kt_path[llama2-7b]"] = kt_launches
+    runs.update(cal_launches)
     runs["serve[llama2-7b,scan]"] = l7_scan_launches
     paged_kernels = ("scatter_pool_rows", "decode_attention_paged")
     for row in rows:

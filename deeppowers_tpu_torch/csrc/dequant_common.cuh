@@ -63,14 +63,18 @@ __device__ __forceinline__ int wt_offset(int r, int c) {
 }
 
 // Two sign-extended bytes (lo, hi) of u as a bf16 pair, exactly: each byte,
-// biased to 0..255, becomes the low byte of the f32 2^23 + b.
+// biased to 0..255, becomes the low byte of the f32 2^23 + b. With a zero
+// point z, c = 2^23 + 128 + z (zp_sub) makes the pair bf16(q - z): the f32
+// difference is exact while |z| < 2^23 - 256, so the one rounding is the
+// bf16 conversion's, that of JAX's (q - z).astype(bfloat16).
 __device__ __forceinline__ unsigned bf16x2_of(unsigned u, unsigned lo,
-                                              unsigned hi) {
+                                              unsigned hi,
+                                              float c = 8388736.f) {
   const unsigned b = u ^ 0x80808080u;
-  const float f0 = __int_as_float(__byte_perm(b, 0x4B000000u, 0x7440u | lo)) -
-                   8388736.f;
-  const float f1 = __int_as_float(__byte_perm(b, 0x4B000000u, 0x7440u | hi)) -
-                   8388736.f;
+  const float f0 =
+      __int_as_float(__byte_perm(b, 0x4B000000u, 0x7440u | lo)) - c;
+  const float f1 =
+      __int_as_float(__byte_perm(b, 0x4B000000u, 0x7440u | hi)) - c;
   const __nv_bfloat162 h = __floats2bfloat162_rn(f0, f1);
   return *reinterpret_cast<const unsigned*>(&h);
 }
@@ -87,6 +91,11 @@ __device__ __forceinline__ unsigned bf16x2_nibbles(unsigned u, int sh) {
   return d;
 }
 
+// bf16x2_of's subtrahend for zero point z: 2^23 + 128 + z, exact in f32
+__device__ __forceinline__ float zp_sub(int z) {
+  return __fadd_rn(8388736.f, __int2float_rn(z));
+}
+
 // sign-extend the four nibbles (0..15, one per byte) of v to int8 bytes
 __device__ __forceinline__ unsigned sext_nibbles(unsigned v) {
   return __vsub4(v ^ 0x08080808u, 0x08080808u);
@@ -96,11 +105,22 @@ __device__ __forceinline__ unsigned sext_nibbles(unsigned v) {
 
 // The GEMV route of dpt_dequant_matmul (gemv.cu): x bf16 (M, K) rows, or
 // (M, 2K) gate|up with mode MODE_GLU, or a8's int8 rows when xs is given;
-// w (rows, N) int8 or packed int4; kchunk stored rows a split, sub rows
-// staged at once.
+// w (rows, N) int8 or packed int4; zp null, or the (K / group, N) int32
+// zero points of an asymmetric weight-only weight; kchunk stored rows a
+// split, sub rows staged at once.
 cudaError_t gemv_route(const void* x, long long x_sm, const float* xs,
-                       const int8_t* w, const float* scales, bool int4,
-                       int group, const bf16* g, const float* bias,
-                       const bf16* res, long long res_sm, void* out,
-                       int out_f32, int M, int K, int N, int kchunk, int sub,
-                       int mode, int gelu, float eps, cudaStream_t st);
+                       const int8_t* w, const float* scales, const int* zp,
+                       bool int4, int group, const bf16* g,
+                       const float* bias, const bf16* res, long long res_sm,
+                       void* out, int out_f32, int M, int K, int N,
+                       int kchunk, int sub, int mode, int gelu, float eps,
+                       cudaStream_t st);
+// The tensor-core route of an asymmetric weight-only weight
+// (dequant_matmul_zp.cu): dpt_dequant_matmul's MMA route with zp, the
+// (K / group, N) int32 zero points, beside the scales.
+cudaError_t mma_zp_route(const void* x, long long x_sm, const int8_t* w,
+                         const float* scales, const int* zp, const float* rf,
+                         const float* bias, const bf16* res, long long res_sm,
+                         void* out, int out_f32, float* ws, int M, int K,
+                         int N, int group, int kchunk, bool int4, int bn,
+                         int bk, int splits, cudaStream_t st);

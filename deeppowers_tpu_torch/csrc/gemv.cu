@@ -34,6 +34,7 @@ struct GemvArgs {
   const bf16* g;        // (K,) RMSNorm weight or null
   const int8_t* w;      // (rows, N): int8, or packed int4 (rows = K / 2)
   const float* scales;  // (K / group, N)
+  const int* zp;        // (K / group, N) int32 zero points (ZP) or null
   const float* bias;    // (N,) or null
   const bf16* res;      // (M, N) rows res_sm apart, or null
   long long res_sm;
@@ -240,9 +241,11 @@ __device__ __forceinline__ void gv_store(const GemvArgs& p, int m, int n,
 // int8 activations (the row quantizer's) and s8 atoms; else bf16
 // activations, staged folded, and bf16 atoms. INT4: packed rows, both
 // nibble planes of each byte (plane 1 against the activations K / 2 on).
-template <bool A8, bool INT4>
+// ZP (weight-only): zero points, each weight operand bf16(q - z).
+template <bool A8, bool INT4, bool ZP = false>
 __global__ void __launch_bounds__(GV_THREADS, 2)
     gemv_kernel(const __grid_constant__ CUtensorMap wmap, const GemvArgs p) {
+  static_assert(!(ZP && A8), "zero points are weight-only");
   constexpr int NP = INT4 ? 2 : 1;        // nibble planes
   constexpr int MT = 8 * GV_NT;           // staged token rows
   constexpr int ES = A8 ? 1 : 2;          // bytes an activation
@@ -341,16 +344,20 @@ __global__ void __launch_bounds__(GV_THREADS, 2)
 #pragma unroll
       for (int pl = 0; pl < NP; ++pl) acc[pl][t][i] = 0;
     }
-  // the segment's column scales (na, na + 1) per plane; columns past N
-  // read column N - 1 and are never stored
-  float sc[NP][2];
+  // the segment's column scales (na, na + 1) per plane, and under ZP
+  // bf16x2_of's subtrahends of their zero points; columns past N read
+  // column N - 1 and are never stored
+  float sc[NP][2], zc[NP][2];
   auto load_scales = [&](int r) {
 #pragma unroll
     for (int pl = 0; pl < NP; ++pl) {
-      const float* sr =
-          p.scales + (long long)((pl * (p.K / 2) + r) / p.group) * p.N;
-      sc[pl][0] = __ldg(sr + min(na, p.N - 1));
-      sc[pl][1] = __ldg(sr + min(na + 1, p.N - 1));
+      const long long o = (long long)((pl * (p.K / 2) + r) / p.group) * p.N;
+      sc[pl][0] = __ldg(p.scales + o + min(na, p.N - 1));
+      sc[pl][1] = __ldg(p.scales + o + min(na + 1, p.N - 1));
+      if constexpr (ZP) {
+        zc[pl][0] = zp_sub(__ldg(p.zp + o + min(na, p.N - 1)));
+        zc[pl][1] = zp_sub(__ldg(p.zp + o + min(na + 1, p.N - 1)));
+      }
     }
   };
   // the segment's sums, times their scales, into the f32 totals
@@ -398,9 +405,10 @@ __global__ void __launch_bounds__(GV_THREADS, 2)
       unsigned r[4];
       ldmatrix_x4_trans(wa + s * GV_WTILE + u * 32 * MMA_NT, r);
       // f[pl][h]: the A fragment of plane pl's rows 16 h.. of the unit
+      // (under ZP built just before its atoms, after the flush before them)
       unsigned f[NP][2][4];
 #pragma unroll
-      for (int pl = 0; pl < NP; ++pl) {
+      for (int pl = 0; pl < NP && !ZP; ++pl) {
         if constexpr (A8) {
           unsigned c[4];
 #pragma unroll
@@ -433,6 +441,20 @@ __global__ void __launch_bounds__(GV_THREADS, 2)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {      // 16 rows: one atom a plane, tile
         const int j = 2 * u + h;         // the stage's k16 step
+        if constexpr (ZP) {
+#pragma unroll
+          for (int pl = 0; pl < NP; ++pl) {
+            unsigned c0 = r[2 * h], c1 = r[2 * h + 1];
+            if constexpr (INT4) {
+              c0 = sext_nibbles((c0 >> (4 * pl)) & 0x0F0F0F0Fu);
+              c1 = sext_nibbles((c1 >> (4 * pl)) & 0x0F0F0F0Fu);
+            }
+            f[pl][h][0] = bf16x2_of(c0, 0, 2, zc[pl][0]);
+            f[pl][h][1] = bf16x2_of(c0, 1, 3, zc[pl][1]);
+            f[pl][h][2] = bf16x2_of(c1, 0, 2, zc[pl][0]);
+            f[pl][h][3] = bf16x2_of(c1, 1, 3, zc[pl][1]);
+          }
+        }
 #pragma unroll
         for (int pl = 0; pl < NP; ++pl)
 #pragma unroll
@@ -528,7 +550,7 @@ int gcd_int(int a, int b) {
 // staged activations' pitch and the shared memory follow from the rows
 // staged at once; TMA takes the weight when its rows are 16-byte aligned
 // (else cp.async, as wide as N allows).
-template <bool A8, bool INT4>
+template <bool A8, bool INT4, bool ZP = false>
 cudaError_t launch_gemv(GemvArgs a, int splits, cudaStream_t st) {
   constexpr int NP = INT4 ? 2 : 1;
   const int rows = INT4 ? a.K / 2 : a.K;
@@ -540,7 +562,7 @@ cudaError_t launch_gemv(GemvArgs a, int splits, cudaStream_t st) {
   static int sized = 0;
   if (smem > sized) {
     const cudaError_t e = cudaFuncSetAttribute(
-        gemv_kernel<A8, INT4>,
+        gemv_kernel<A8, INT4, ZP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     sized = smem;
@@ -565,17 +587,18 @@ cudaError_t launch_gemv(GemvArgs a, int splits, cudaStream_t st) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, gemv_kernel<A8, INT4>, wmap, a);
+  return cudaLaunchKernelEx(&cfg, gemv_kernel<A8, INT4, ZP>, wmap, a);
 }
 
 }  // namespace
 
 cudaError_t gemv_route(const void* x, long long x_sm, const float* xs,
-                       const int8_t* w, const float* scales, bool int4,
-                       int group, const bf16* g, const float* bias,
-                       const bf16* res, long long res_sm, void* out,
-                       int out_f32, int M, int K, int N, int kchunk, int sub,
-                       int mode, int gelu, float eps, cudaStream_t st) {
+                       const int8_t* w, const float* scales, const int* zp,
+                       bool int4, int group, const bf16* g,
+                       const float* bias, const bf16* res, long long res_sm,
+                       void* out, int out_f32, int M, int K, int N,
+                       int kchunk, int sub, int mode, int gelu, float eps,
+                       cudaStream_t st) {
   const int rows = int4 ? K / 2 : K;
   if (kchunk <= 0 || kchunk % 16 || sub <= 0 || sub % GV_BK ||
       (uintptr_t)w % 16 || (rows + kchunk - 1) / kchunk > GV_SPLITS)
@@ -587,6 +610,7 @@ cudaError_t gemv_route(const void* x, long long x_sm, const float* xs,
   a.g = g;
   a.w = w;
   a.scales = scales;
+  a.zp = zp;
   a.bias = bias;
   a.res = res;
   a.res_sm = res_sm;
@@ -606,9 +630,12 @@ cudaError_t gemv_route(const void* x, long long x_sm, const float* xs,
   a.out_f32 = out_f32;
   a.eps = eps;
   if (a.seg % 16) return cudaErrorInvalidValue;
-  auto gemv = xs ? (int4 ? launch_gemv<true, true>
-                         : launch_gemv<true, false>)
-                 : (int4 ? launch_gemv<false, true>
-                         : launch_gemv<false, false>);
+  if (xs && zp) return cudaErrorInvalidValue;
+  auto gemv = xs   ? (int4 ? launch_gemv<true, true>
+                           : launch_gemv<true, false>)
+              : zp ? (int4 ? launch_gemv<false, true, true>
+                           : launch_gemv<false, false, true>)
+                   : (int4 ? launch_gemv<false, true>
+                           : launch_gemv<false, false>);
   return gemv(a, (rows + kchunk - 1) / kchunk, st);
 }

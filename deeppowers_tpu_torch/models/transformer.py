@@ -246,10 +246,10 @@ def quantize_params(params: Params, qcfg: QuantConfig) -> Params:
     """Quantize the weight matrices ("w" under attn / mlp / moe / lm_head)
     per QuantConfig; embeddings, norms and biases stay float. Every mode
     the JAX package makes (int8 or int4, per-channel or per-group, act_bits
-    0 or 8, MIXED per layer kind) runs end to end; asymmetric weights are
-    made but the matmul raises on them. Stacked experts (E, K, N) quantize
-    per expert, always symmetric, and the router as an "mlp" matrix, as
-    JAX `quantize_params` (:297-343) does."""
+    0 or 8, MIXED per layer kind) runs end to end, asymmetric weights
+    (`symmetric=False`: zero points, weight-only) too. Stacked experts
+    (E, K, N) quantize per expert, always symmetric, and the router as an
+    "mlp" matrix, as JAX `quantize_params` (:297-343) does."""
 
     def kind_of(path):
         for fragment, kind in _LAYER_KIND_BY_PATH:

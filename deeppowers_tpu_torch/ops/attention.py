@@ -39,8 +39,19 @@ def attention_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         lengths = torch.full((b,), s, dtype=torch.int32, device=q.device)
     if q.is_cuda and s >= FLASH_MIN_S:
         return flash_attention_prefill(q, k, v, lengths, scale=scale)
-    # the dense masked softmax below the threshold (XLA fused it on the TPU)
-    # and on the CPU; GQA-aware: grouped queries against the unrepeated K/V
+    return attention_dense(q, k, v, lengths=lengths, scale=scale)
+
+
+def attention_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    lengths: Optional[torch.Tensor] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """`attention_prefill`'s dense masked softmax on any device (JAX's
+    `use_flash=False`, which its calibration forwards pass), f32 inside:
+    below the flash threshold and on the CPU the prefill itself; GQA-aware,
+    grouped queries against the unrepeated K/V."""
+    b, s, h, d = q.shape
+    if lengths is None:
+        lengths = torch.full((b,), s, dtype=torch.int32, device=q.device)
     kh = k.shape[2]
     rep = h // kh
     scale = scale if scale is not None else d ** -0.5

@@ -28,12 +28,12 @@ import torch
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "deeppowers_tpu_torch"
-SOURCES = ("dequant_matmul.cu", "gemv.cu", "kv_append.cu",
-           "decode_attention.cu", "decode_attention_kt.cu",
+SOURCES = ("dequant_matmul.cu", "dequant_matmul_zp.cu", "gemv.cu",
+           "kv_append.cu", "decode_attention.cu", "decode_attention_kt.cu",
            "decode_attention_i8.cu",
            "flash_attention.cu")
 HEADERS = ("common.cuh", "decode_attention.cuh", "wgmma.cuh",
-           "dequant_common.cuh", "kv_store.cuh")
+           "dequant_common.cuh", "mma_kernel.cuh", "kv_store.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -41,9 +41,9 @@ NVCC_TIMEOUT_S = 600
 
 _P, _LL, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 SIGNATURES: Dict[str, list] = {
-    "dpt_dequant_matmul": [_P, _LL, _P, _P, _P, _I, _I, _P, _P, _P, _LL, _P,
-                           _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                           _F, _P],
+    "dpt_dequant_matmul": [_P, _LL, _P, _P, _P, _P, _I, _I, _P, _P, _P, _LL,
+                           _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _F, _P],
     "dpt_quantize_rows": [_P, _LL, _P, _I, _I, _F, _I, _I, _P, _LL, _P, _I,
                           _I, _P],
     "dpt_stage_rows": [_P, _LL, _P, _I, _I, _F, _I, _I, _P, _LL, _P, _P],

@@ -4,15 +4,22 @@ Replaces the Pallas TPU kernel deeppowers_tpu/ops/pallas/dequant_matmul.py
 (`dequant_matmul` :554 and `dequant_matmul_fused` :582, both through
 `_dispatch` :351 to the pallas_call at :528, body `_make_kernel` :152);
 this one wrapper covers both entry points. CUDA sources:
-csrc/dequant_matmul.cu (the tensor-core kernel, the launcher of both
-routes, and the activation quantizer) and csrc/gemv.cu (the decode GEMV),
-each kernel taking every weight variant, the group size a runtime value.
+csrc/dequant_matmul.cu (the launcher of both routes, and the activation
+quantizer), csrc/mma_kernel.cuh (the tensor-core kernel, its zero-point
+instantiations in csrc/dequant_matmul_zp.cu) and csrc/gemv.cu (the decode
+GEMV), each kernel taking every weight variant, the group size a runtime
+value.
 
-Takes every symmetric 2-D weight the JAX package makes: int8 or int4
-(half-split nibbles, quant/qtypes.py), per-channel scales (1, N) or
-per-group scales (K/g, N), and act_bits 0 (bf16 activations) or 8
-(dynamic per-row int8 activations, W8A8 / W4A8). Asymmetric weights (zero
-points) raise, as they do in the Pallas kernel.
+Takes every 2-D weight the JAX package makes: int8 or int4 (half-split
+nibbles, quant/qtypes.py), per-channel scales (1, N) or per-group scales
+(K/g, N), and act_bits 0 (bf16 activations) or 8 (dynamic per-row int8
+activations, W8A8 / W4A8). Asymmetric weights (int32 zero points shaped as
+the scales) are weight-only whatever their act_bits, as the JAX package's
+route makes them (deeppowers_tpu/ops/matmul.py:92, :106-116; its Pallas
+kernel never takes them, :199-222): each weight operand is bf16(q - z),
+the value `_dequant_weights` (:28-41) converts, times the group's scale in
+f32 (the device route's Decision in ROADMAP.md: JAX's XLA path rounds
+bf16(q - z) * bf16(s)).
 
 Weight-only (act_bits 0) computes y = a @ (q * s) [* rsqrt(mean(x^2) +
 eps)] [+ bias] [+ residual] with f32 accumulation and one final cast,
@@ -40,7 +47,8 @@ Launch counts: `dequant_matmul.launches`, and in
 N % 8 == 0, "n4" N % 4 == 0 otherwise, "n1" any other N: the load width
 of the kernel's instantiation), under its weight variant (`variant`:
 "w8", "w8g", "w8a8", "w8a8g", "w4", "w4g", "w4a8", "w4a8g") and under its
-route ("gemv" for M <= GEMV_MAX_M, "mma" above: `route`). The tensor-core
+route ("gemv" for M <= GEMV_MAX_M, "mma" above: `route`); an asymmetric
+weight's variant ends in "z" ("w8z", "w4gz"). The tensor-core
 route's weight-only prologue is counted in `stage_activations.launches`,
 the a8 quantizer in `quantize_activations.launches`.
 
@@ -144,14 +152,29 @@ def _int_dot(xq, q, scales, rows, bits):
     return (acc * scales.reshape(rows, 1, n)).sum(0)
 
 
+def _codes(q, zero_points, rows, dtype):
+    """The weight operand of a weight-only product, (K, N) f32: q, or
+    bf16(q - z) with zero points (each row's group's), as the kernels
+    build it from bf16 activations (f32 q - z for others)."""
+    if zero_points is None:
+        return q.float()
+    k, n = q.shape
+    qz = (q.int().reshape(rows, k // rows, n)
+          - zero_points.int().reshape(rows, 1, n)).reshape(k, n)
+    return qz.to(torch.bfloat16 if dtype == torch.bfloat16
+                 else torch.float32).float()
+
+
 def dequant_matmul_plain(x, data, scales, *, bits=8, act_bits=0,
-                         rms_weight=None, rms_eps=1e-6, glu=False, act="silu",
-                         residual=None, bias=None,
+                         zero_points=None, rms_weight=None, rms_eps=1e-6,
+                         glu=False, act="silu", residual=None, bias=None,
                          out_dtype=torch.bfloat16) -> torch.Tensor:
     """The kernels' arithmetic in plain PyTorch, for weight data (K, N)
-    int8 or (K/2, N) packed int4 and scales (G, N). Weight-only: the
-    activation block is rounded to x's dtype before the product, as both
-    kernels round it to bf16; for f32 inputs everything stays f32. a8:
+    int8 or (K/2, N) packed int4 and scales (G, N), zero points (G, N) or
+    None. Weight-only: the activation block is rounded to x's dtype before
+    the product, as both kernels round it to bf16; for f32 inputs
+    everything stays f32; with zero points each weight is bf16(q - z)
+    (f32 for f32 inputs) times its scale, whatever act_bits says. a8:
     JAX's `_w8a8_matmul` behind its unfused norm or GLU."""
     q = unpack_int4(data) if bits == 4 else data
     k, n = q.shape
@@ -159,7 +182,7 @@ def dequant_matmul_plain(x, data, scales, *, bits=8, act_bits=0,
     s = scales.float().reshape(rows, n)
     lead = x.shape[:-1]
     xf = x.float()
-    if act_bits == 8:
+    if act_bits == 8 and zero_points is None:
         xq, xs = quantize_rows(_unfused_input(x, k, rms_weight, rms_eps, glu,
                                               act).reshape(-1, k))
         y = (_int_dot(xq, q, s, rows, bits) * xs).reshape(*lead, n)
@@ -171,10 +194,11 @@ def dequant_matmul_plain(x, data, scales, *, bits=8, act_bits=0,
         else:
             a = xf
         a = a.to(x.dtype).float()
+        qf = _codes(q, zero_points, rows, x.dtype)
         if rows == 1:
-            y = (a @ q.float()) * s
+            y = (a @ qf) * s
         else:
-            y = a @ (q.float().reshape(rows, g, n) * s[:, None]).reshape(k, n)
+            y = a @ (qf.reshape(rows, g, n) * s[:, None]).reshape(k, n)
         if rms_weight is not None:
             y = y * torch.rsqrt((xf * xf).sum(-1, keepdim=True) / k + rms_eps)
     if bias is not None:
@@ -191,12 +215,20 @@ def width_variant(n: int) -> str:
     return "n8" if n % 8 == 0 else "n4" if n % 4 == 0 else "n1"
 
 
+def weight_only(qw: QuantizedTensor) -> bool:
+    """Whether a product with qw takes bf16 activations: act_bits 0, or
+    zero points (asymmetric weights are weight-only, as JAX routes them)."""
+    return qw.act_bits == 0 or qw.zero_points is not None
+
+
 def variant(qw: QuantizedTensor) -> str:
     """The weight variant a launch is counted under: bits, "a8" for int8
-    activations, "g" for per-group scales (of a 2-D or a stacked weight)."""
+    activations, "g" for per-group scales (of a 2-D or a stacked weight),
+    "z" for zero points."""
     grouped = qw.scales.shape[-2] > 1
-    return (f"w{qw.bits}" + ("a8" if qw.act_bits == 8 else "")
-            + ("g" if grouped else ""))
+    return (f"w{qw.bits}" + ("" if weight_only(qw) else "a8")
+            + ("g" if grouped else "")
+            + ("z" if qw.zero_points is not None else ""))
 
 
 def launch_keys(m: int, qw: QuantizedTensor, path: Optional[str] = None):
@@ -209,12 +241,12 @@ def launch_keys(m: int, qw: QuantizedTensor, path: Optional[str] = None):
 def _check_weight(qw: QuantizedTensor) -> None:
     if not isinstance(qw, QuantizedTensor):
         raise TypeError("dequant_matmul needs a QuantizedTensor weight")
-    if qw.zero_points is not None:
-        raise NotImplementedError(
-            f"dequant_matmul takes symmetric weights only, got {qw!r}")
     if qw.bits not in (4, 8) or qw.act_bits not in (0, 8) \
             or qw.data.dim() != 2:
         raise ValueError(f"not a weight the JAX package makes: {qw!r}")
+    if qw.zero_points is not None \
+            and qw.zero_points.numel() != qw.scales.numel():
+        raise ValueError(f"zero points must be shaped as the scales: {qw!r}")
 
 
 def _padded_rows(m: int, k: int, dtype, device) -> torch.Tensor:
@@ -318,21 +350,23 @@ def stage_activations_plain(x, k, *, rms_weight=None, rms_eps=1e-6,
     return a.to(x.dtype), rf
 
 
-def dequant_product_plain(a, data, scales, *, bits=8, rf=None, bias=None,
-                          residual=None,
+def dequant_product_plain(a, data, scales, *, bits=8, zero_points=None,
+                          rf=None, bias=None, residual=None,
                           out_dtype=torch.bfloat16) -> torch.Tensor:
     """The weight-only product behind `stage_activations_plain`: a @ (q *
-    s) with each group's scale, times the row factor rf, plus bias and
-    residual, cast once; with it, the same bits as `dequant_matmul_plain`."""
+    s) with each group's scale (bf16(q - z) with zero points), times the
+    row factor rf, plus bias and residual, cast once; with it, the same
+    bits as `dequant_matmul_plain`."""
     q = unpack_int4(data) if bits == 4 else data
     k, n = q.shape
     rows, g = _groups(scales, k, n)
     s = scales.float().reshape(rows, n)
     af = a.float()
+    qf = _codes(q, zero_points, rows, a.dtype)
     if rows == 1:
-        y = (af @ q.float()) * s
+        y = (af @ qf) * s
     else:
-        y = af @ (q.float().reshape(rows, g, n) * s[:, None]).reshape(k, n)
+        y = af @ (qf.reshape(rows, g, n) * s[:, None]).reshape(k, n)
     if rf is not None:
         y = y * rf
     if bias is not None:
@@ -475,8 +509,9 @@ def dequant_matmul(x: torch.Tensor, qw: QuantizedTensor, *,
     if not x.is_cuda:
         return dequant_matmul_plain(
             x, qw.data, qw.scales, bits=qw.bits, act_bits=qw.act_bits,
-            rms_weight=rms_weight, rms_eps=rms_eps, glu=glu, act=act,
-            residual=residual, bias=bias, out_dtype=out_dtype)
+            zero_points=qw.zero_points, rms_weight=rms_weight,
+            rms_eps=rms_eps, glu=glu, act=act, residual=residual, bias=bias,
+            out_dtype=out_dtype)
     m = x.numel() // x.shape[-1] if x.shape[-1] else 0
     return dequant_matmul_via(route(m), x, qw, rms_weight=rms_weight,
                               rms_eps=rms_eps, glu=glu, act=act,
@@ -519,7 +554,13 @@ def dequant_matmul_via(path: str, x: torch.Tensor, qw: QuantizedTensor, *,
     if scales.dtype != torch.float32 or rows_g * n != scales.numel() \
             or rows_g * group != k:
         raise ValueError("scales must be (1, N) or (K/g, N) f32")
-    a8 = qw.act_bits == 8
+    zp = qw.zero_points
+    if zp is not None:
+        zp = zp.reshape(-1)
+        if zp.dtype != torch.int32 or not zp.is_contiguous():
+            zp = zp.to(torch.int32).contiguous()
+        _build.require_cuda(zp, "zero points")
+    a8 = not weight_only(qw)
     rows = k // 2 if qw.bits == 4 else k
     if rows_g > 1 and group % GROUP_ALIGN:
         raise NotImplementedError(
@@ -581,7 +622,8 @@ def dequant_matmul_via(path: str, x: torch.Tensor, qw: QuantizedTensor, *,
         g, glu = None, False
     rc = lib.dpt_dequant_matmul(
         x2.data_ptr(), x2.stride(0), ptr(xs), data.data_ptr(),
-        scales.data_ptr(), qw.bits, group if rows_g > 1 else 0, ptr(g),
+        scales.data_ptr(), ptr(zp), qw.bits, group if rows_g > 1 else 0,
+        ptr(g),
         ptr(bias_f), ptr(res2), 0 if res2 is None else res2.stride(0),
         out.data_ptr(), int(out_dtype == torch.float32), ptr(ws), m, k, n,
         ROUTES.index(path), kchunk, bn, bk, int(a8), int(glu),

@@ -15,6 +15,11 @@ dtype, or the GLU with its activation op by op in that dtype and the
 product with up in f32, then int8 per row over the whole K (ROADMAP.md,
 Decisions); residual and bias are added in f32 before the one cast.
 
+Asymmetric weights (zero points) are weight-only whatever their act_bits,
+as JAX routes them (:92, :106-116): the kernels take them on the card,
+`_xla_matmul` on the CPU, where q - z (int32) is converted to the dtype
+of the dequantized weight, as `_dequant_weights` converts it.
+
 Weight-only weights (act_bits = 0) take a route chosen by the device, as
 the JAX package's do (its Pallas kernel only on a TPU, `_pallas_eligible`
 :199-206, its XLA path elsewhere). A CUDA tensor launches the kernel,
@@ -49,7 +54,7 @@ import torch
 
 from ..quant.qtypes import QuantizedTensor, unpack_int4
 from .activation import activation
-from .kernels.dequant_matmul import _check_weight, dequant_matmul
+from .kernels.dequant_matmul import _check_weight, dequant_matmul, weight_only
 from .normalization import rms_norm
 
 Weight = Union[QuantizedTensor, torch.Tensor]
@@ -79,9 +84,9 @@ def cpu_weight_only_function(name: str) -> str:
 
 
 def _xla_route(x: torch.Tensor, w: Weight) -> bool:
-    """A weight-only QuantizedTensor on a CPU tensor, while the CPU's
-    function is "xla": JAX's XLA function."""
-    return (isinstance(w, QuantizedTensor) and w.act_bits == 0
+    """A weight-only QuantizedTensor (act_bits 0, or zero points) on a CPU
+    tensor, while the CPU's function is "xla": JAX's XLA function."""
+    return (isinstance(w, QuantizedTensor) and weight_only(w)
             and not x.is_cuda and _cpu_function == "xla")
 
 
@@ -98,20 +103,25 @@ def _xla_matmul(x, w: QuantizedTensor, out_dtype, cast: bool = True):
     """JAX `quantized_matmul`'s XLA path (:120-123) behind
     `_dequant_weights` (:28-41): the weight dequantized into bf16 for a
     bf16 output (each product rounded), else f32, x cast to that dtype,
-    f32 sums, one cast. At one row with per-channel scales the fused dot
-    keeps each q * bf16(s) in f32 instead (grouped weights still round).
+    f32 sums, one cast; with zero points q - z in int32, then converted.
+    At one row with per-channel scales the fused dot keeps each q * bf16(s)
+    (bf16(q - z) * bf16(s)) in f32 instead (grouped weights still round; a
+    probe of the jitted JAX function, asymmetric as symmetric).
     `cast=False` dots x as it comes (the one-row GLU's f32 product)."""
     _check_weight(w)
     dt = torch.bfloat16 if out_dtype == torch.bfloat16 else torch.float32
     q = unpack_int4(w.data) if w.bits == 4 else w.data
     k, n = q.shape
     rows = w.scales.numel() // n
+    q = q.reshape(rows, k // rows, n)
+    if w.zero_points is not None:
+        q = q.int() - w.zero_points.int().reshape(rows, 1, n)
+    q = q.to(dt)
     one = _one_row(x)
     if one and rows == 1:
-        wd = q.float() * w.scales.reshape(1, n).to(dt).float()
+        wd = q.reshape(k, n).float() * w.scales.reshape(1, n).to(dt).float()
     else:
-        wd = (q.to(dt).reshape(rows, k // rows, n)
-              * w.scales.reshape(rows, 1, n).to(dt)).reshape(k, n)
+        wd = (q * w.scales.reshape(rows, 1, n).to(dt)).reshape(k, n)
     return torch.matmul((x.to(dt) if cast else x).float(),
                         wd.float()).to(out_dtype)
 

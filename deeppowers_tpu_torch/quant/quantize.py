@@ -91,8 +91,11 @@ def _quantize_values(w, scales, zps, *, bits: int, group_size: int) -> torch.Ten
 
 def quantize(w: torch.Tensor, config: Optional[QuantConfig] = None, *,
              bits: Optional[int] = None, group_size: Optional[int] = None,
-             symmetric: Optional[bool] = None) -> QuantizedTensor:
-    """Quantize a 2-D (K, N) float matrix to a QuantizedTensor."""
+             symmetric: Optional[bool] = None,
+             scales: Optional[torch.Tensor] = None) -> QuantizedTensor:
+    """Quantize a 2-D (K, N) float matrix to a QuantizedTensor. Symmetric
+    scales may be given, as AWQ's clip search finds them (JAX `quantize`
+    :77-123); else min / max of the data."""
     if config is not None:
         bits = {QuantMode.INT8: 8, QuantMode.INT4: 4}[config.mode]
         group_size = config.group_size
@@ -105,8 +108,12 @@ def quantize(w: torch.Tensor, config: Optional[QuantConfig] = None, *,
     if bits == 4 and w.shape[0] % 2 != 0:
         raise ValueError(f"INT4 needs even K for nibble packing, got K={w.shape[0]}")
     w = w.float()
-    scales, zps = compute_scales(w, bits=bits, group_size=group_size,
-                                 symmetric=symmetric)
+    if scales is None:
+        scales, zps = compute_scales(w, bits=bits, group_size=group_size,
+                                     symmetric=symmetric)
+    else:
+        scales = scales.float()
+        zps = torch.zeros_like(scales, dtype=torch.int32)
     q = _quantize_values(w, scales, zps, bits=bits, group_size=group_size)
     return QuantizedTensor(
         data=pack_int4(q) if bits == 4 else q, scales=scales,
@@ -154,3 +161,4 @@ def dequantize_stacked(qt: QuantizedTensor, dtype=torch.float32) -> torch.Tensor
     return torch.stack([dequantize(QuantizedTensor(d, s, None, qt.bits,
                                                    qt.group_size), dtype)
                         for d, s in zip(qt.data, qt.scales)])
+

@@ -13,12 +13,14 @@ for a model with experts the served MoE layouts (the cat experts of
 script's: the worst Δppl of the gated rows against an absolute 0.1 on a
 checkpoint, or `max(gate, 1e-3 * ppl_ref)` under `--synthetic` (random
 weights, whose perplexity is near the vocabulary's size); exit code 1
-above it.
-
-The port has no calibrated quantizers (GPTQ, AWQ) and no expert
-parallelism yet (ROADMAP.md, queue 1 items 6 and 9): those rows print as
-not ported, and the rows JAX runs on GPTQ weights (W4A8 + KV, the MoE
-layouts) run here on round-to-nearest weights and are diagnostic.
+above it. The gated rows are JAX's: the shipped recipes int8, W8A8, int4
+g128 + GPTQ and W4A8 g128 + GPTQ, the KV rows over the W4A8 GPTQ weights
+(but int4 KV) and the MoE layouts over them; round-to-nearest int4 and
+AWQ are diagnostic. GPTQ and AWQ calibrate on `--calib-seqs` sequences
+(0: 4, or 16 for a model with experts) drawn from beyond the evaluated
+ones where the text allows, as JAX's script draws them; GPTQ runs on the
+evaluation device (quant/gptq.py). The port has no expert parallelism
+yet (ROADMAP.md, queue 1 item 9): the EP row prints as not ported.
 
 `--device` is `cuda` by default (it raises where no card is found): there
 the hand-written kernels run, on bf16 activations (`--dtype bf16`, the
@@ -42,16 +44,15 @@ import torch
 from ..config import QuantConfig, QuantMode
 from ..device import resolve_device
 from ..models import transformer as T
+from ..quant.gptq import collect_xtx, gptq_quantize
+from ..quant.smooth import awq_quantize
 from ..runtime.checkpoint import load_checkpoint
 from ..runtime.evaluate import cached_perplexity, perplexity
 from ..serving.tokenizer import ByteTokenizer
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
-NOT_PORTED = {"gptq": "not ported (ROADMAP.md queue 1 item 6: GPTQ)",
-              "awq": "not ported (ROADMAP.md queue 1 item 6: AWQ)",
-              "ep": "not ported (ROADMAP.md queue 1 item 9: expert "
+NOT_PORTED = {"ep": "not ported (ROADMAP.md queue 1 item 9: expert "
                     "parallelism)"}
-RTN_NOTE = "diagnostic: round-to-nearest weights (JAX runs GPTQ here)"
 
 
 def sequences(token_ids: List[int], seq_len: int) -> List[List[int]]:
@@ -113,6 +114,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--seq-len", type=int, default=512)
     ap.add_argument("--max-seqs", type=int, default=16)
     ap.add_argument("--group-size", type=int, default=128)
+    ap.add_argument("--calib-seqs", type=int, default=0,
+                    help="calibration sequences for GPTQ / AWQ (0: 4 "
+                         "dense, 16 with experts, whose per-expert "
+                         "Hessians see about 1/E of the tokens)")
     ap.add_argument("--gate", type=float, default=0.1,
                     help="max allowed delta_ppl (exit 1 above)")
     ap.add_argument("--device", default="cuda",
@@ -136,9 +141,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         params, cfg, ids, args.text = load(args.checkpoint, args.text, device)
         print(f"checkpoint {args.checkpoint}: {cfg.num_layers} layers, "
               f"vocab {cfg.vocab_size}")
-    seqs = sequences(ids, args.seq_len)[:args.max_seqs]
+    all_seqs = sequences(ids, args.seq_len)
+    seqs = all_seqs[:args.max_seqs]
+    ncal = args.calib_seqs or (16 if cfg.num_experts else 4)
+    # calibration from beyond the evaluated sequences where the text
+    # allows (no overlap), else from them (JAX's script :164-173)
+    calib = all_seqs[args.max_seqs:args.max_seqs + ncal]
+    if len(calib) < ncal:
+        calib = (calib + seqs)[:ncal]
     print(f"{len(seqs)} sequences of <= {args.seq_len} tokens on {device} "
-          f"({dname} activations)")
+          f"({dname} activations; +{len(calib)} calibration)")
     rows = []
 
     def row(name, ppl, ref, gated, path, note=None, width=22):
@@ -149,10 +161,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"{name:<{width}} ppl {ppl:8.4f}  delta {d:+.4f}{tag}",
               flush=True)
 
-    def not_ported(name, why):
+    def not_ported(name, why, width=22):
         rows.append({"name": name, "ppl": None, "delta": None,
                      "gated": False, "note": NOT_PORTED[why]})
-        print(f"{name:<22} {NOT_PORTED[why]}", flush=True)
+        print(f"{name:<{width}} {NOT_PORTED[why]}", flush=True)
 
     ref_name = "fp32 reference" if dtype == torch.float32 else \
         "bf16 reference"
@@ -161,25 +173,44 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     g = args.group_size
 
+    def qcfg(mode, group=0, act_bits=0):
+        return QuantConfig(mode=mode, group_size=group, act_bits=act_bits)
+
     def quantized(mode, group=0, act_bits=0):
-        return T.quantize_params(params, QuantConfig(
-            mode=mode, group_size=group, act_bits=act_bits))
+        return T.quantize_params(params, qcfg(mode, group, act_bits))
+
+    xtx, gptq_s, ship = [], [], []
+
+    def gptq(act_bits):
+        # both GPTQ rows walk the same Hessians of the float model
+        t0 = time.perf_counter()
+        if not xtx:
+            xtx.append(collect_xtx(params, cfg, calib))
+        out = gptq_quantize(params, cfg, calib,
+                            qcfg(QuantMode.INT4, g, act_bits), stats=xtx[0])
+        gptq_s.append(time.perf_counter() - t0)
+        return out
+
+    def shipped(qp):
+        # the W4A8 GPTQ weights: the KV and MoE rows run on them too
+        ship.append(qp)
+        return qp
 
     weight_rows = [
         ("int8 per-channel", lambda: quantized(QuantMode.INT8), True),
         (f"int4 g{g}", lambda: quantized(QuantMode.INT4, g), False),
-        (f"int4 g{g} + AWQ", "awq", False),
-        (f"int4 g{g} + GPTQ", "gptq", False),
+        (f"int4 g{g} + AWQ", lambda: awq_quantize(
+            params, cfg, calib, qcfg(QuantMode.INT4, g)), False),
+        (f"int4 g{g} + GPTQ", lambda: gptq(0), True),
         (f"W4A8 g{g}", lambda: quantized(QuantMode.INT4, g, 8), False),
-        (f"W4A8 g{g} + GPTQ", "gptq", False),
+        (f"W4A8 g{g} + GPTQ", lambda: shipped(gptq(8)), True),
         ("W8A8", lambda: quantized(QuantMode.INT8, 0, 8), True),
     ]
     for name, build, gated in weight_rows:
-        if isinstance(build, str):
-            not_ported(name, build)
-            continue
+        note = None if gated else ("diagnostic: AWQ" if "AWQ" in name
+                                   else "diagnostic: round-to-nearest")
         row(name, perplexity(build(), cfg, seqs, dtype=dtype), ppl_ref,
-            gated, "prefill")
+            gated, "prefill", note)
 
     print("--- KV-cache gate (decode path, cached forward) ---")
     kv_ref_name = "fp32 KV (control)" if dtype == torch.float32 else \
@@ -187,40 +218,39 @@ def main(argv: Optional[List[str]] = None) -> int:
     ppl_kv_ref = cached_perplexity(params, cfg, seqs, dtype=dtype)
     print(f"{kv_ref_name:<22} ppl {ppl_kv_ref:8.4f}  delta "
           f"{ppl_kv_ref - ppl_ref:+.4f} vs prefill", flush=True)
-    w4a8 = quantized(QuantMode.INT4, g, 8)
+    qp_ship = ship[0]                   # the W4A8 g128 + GPTQ weights
     kv_rows = [
-        ("bf16 weights + int8 KV", params, "int8", True),
-        ("bf16 weights + int4 KV", params, "int4", False),
-        ("bf16 weights + k8v4 KV", params, "k8v4", True),
-        (f"W4A8 g{g} + int8 KV", w4a8, "int8", False),
-        (f"W4A8 g{g} + k8v4 KV", w4a8, "k8v4", False),
-        (f"W4A8 g{g} + int4 KV", w4a8, "int4", False),
+        ("bf16 weights + int8 KV", params, "int8"),
+        ("bf16 weights + int4 KV", params, "int4"),
+        ("bf16 weights + k8v4 KV", params, "k8v4"),
+        (f"W4A8 g{g} GPTQ + int8 KV", qp_ship, "int8"),
+        (f"W4A8 g{g} GPTQ + k8v4 KV", qp_ship, "k8v4"),
+        (f"W4A8 g{g} GPTQ + int4 KV", qp_ship, "int4"),
     ]
     if args.synthetic:
         # the harness self-check runs one bf16-weight and one combined row
         kv_rows = [kv_rows[2], kv_rows[4]]
-    for name, p, kvd, gated in kv_rows:
-        note = None
-        if not gated:
-            note = RTN_NOTE if p is w4a8 else "diagnostic: int4 KV"
+    for name, p, kvd in kv_rows:
+        # int4 KV is diagnostic (JAX's gate fired on it; k8v4 ships)
+        gated = kvd != "int4"
         row(name, cached_perplexity(p, cfg, seqs, kv_cache_dtype=kvd,
                                     dtype=dtype),
-            ppl_kv_ref, gated, f"decode, {kvd} KV", note, width=26)
+            ppl_kv_ref, gated, f"decode, {kvd} KV",
+            None if gated else "diagnostic: int4 KV", width=26)
 
     if cfg.num_experts:
         print("--- MoE paths: grouped-cat prefill / cat decode / EP ---")
-        fused = T.fuse_params(w4a8, cfg)
+        fused = T.fuse_params(qp_ship, cfg)
         if "experts_cat" not in fused["layers"][0].get("moe", {}):
             raise RuntimeError("cat fuse did not apply")
-        row(f"W4A8 g{g} grouped-cat prefill",
-            perplexity(fused, cfg, seqs, dtype=dtype), ppl_ref, False,
-            "prefill, cat experts", RTN_NOTE, width=34)
-        row(f"W4A8 g{g} cat decode + int8 KV",
+        row(f"W4A8 g{g} GPTQ grouped-cat prefill",
+            perplexity(fused, cfg, seqs, dtype=dtype), ppl_ref, True,
+            "prefill, cat experts", width=34)
+        row(f"W4A8 g{g} GPTQ cat decode + int8 KV",
             cached_perplexity(fused, cfg, seqs, kv_cache_dtype="int8",
                               dtype=dtype),
-            ppl_kv_ref, False, "decode, cat experts, int8 KV", RTN_NOTE,
-            width=34)
-        not_ported(f"W4A8 g{g} EP=2 prefill", "ep")
+            ppl_kv_ref, True, "decode, cat experts, int8 KV", width=34)
+        not_ported(f"W4A8 g{g} GPTQ EP=2 prefill", "ep", width=34)
 
     worst = max([r["delta"] for r in rows if r["gated"]], default=0.0)
     worst = max(worst, 0.0)
@@ -238,6 +268,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         "reference": {"name": ref_name, "ppl": ppl_ref},
         "kv_reference": {"name": kv_ref_name, "ppl": ppl_kv_ref},
         "rows": rows, "gate": gate, "worst_delta": worst, "status": status,
+        "calibration": len(calib), "gptq_seconds": gptq_s,
         "seconds": time.perf_counter() - t_start}), flush=True)
     return 1 if status == "FAIL" else 0
 

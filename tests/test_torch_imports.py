@@ -53,6 +53,10 @@ def test_importing_the_port_loads_no_jax():
             "import deeppowers_tpu_torch.serving.structured\n"
             "import deeppowers_tpu_torch.serving.tokenizer\n"
             "import deeppowers_tpu_torch.ops.xla_cpu\n"
+            "import deeppowers_tpu_torch.quant.calibration\n"
+            "import deeppowers_tpu_torch.quant.validate\n"
+            "import deeppowers_tpu_torch.quant.smooth\n"
+            "import deeppowers_tpu_torch.quant.gptq\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('tokenizers', 'transformers', 'jinja2')]\n"
             "assert not bad, bad\n"

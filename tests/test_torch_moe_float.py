@@ -114,7 +114,8 @@ def test_cuda_float_grouped_branch_matches_plain(cuda_device, moelm, t,
 
 def test_chip_smoke_trained_helpers_run_on_cpu():
     """chip_smoke.py's trained phase rehearsed on the CPU at a small size:
-    its weights (float, int8, W4A8 g128 fused), every row's perplexity
+    its weights (float, int8, W4A8 g128 and W4A8 g128 + GPTQ over two
+    windows, fused), every row's perplexity
     through `trained_ppl` (2 windows of 64 tokens, cached rows 2 of 16),
     the experts' share of the routed pairs, and the stream helpers."""
     sys.path.insert(0, REPO)
@@ -125,9 +126,12 @@ def test_chip_smoke_trained_helpers_run_on_cpu():
     seqs = sequences(ids, 64)[:2]
     cached = sequences(ids, 16)[:2]
     assert [len(x) for x in seqs] == [64, 64] and seqs[1][0] == ids[64]
-    weights = cs.trained_weights(torch, T, params, cfg)
+    weights = cs.trained_weights(torch, T, params, cfg,
+                                 sequences(ids, 64)[2:4])
+    assert weights.pop("gptq_s") > 0
     assert set(weights) == {name for _, name, _, _ in cs.TRAINED_ROWS}
     assert "experts_cat" in weights["w4a8 g128"]["layers"][0]["moe"]
+    assert "experts_cat" in weights["w4a8 g128 gptq"]["layers"][0]["moe"]
     assert "experts" in weights["int8"]["layers"][0]["moe"]
     for row in cs.TRAINED_ROWS:
         with cs.recorded_routes(T) as routes:

@@ -308,12 +308,25 @@ def test_variant_names(bits, group, act_bits, name):
 
 
 def test_asymmetric_weight_raises():
-    """Zero points: the JAX XLA path computes them, neither kernel takes
-    them; the wrapper raises on every device, and a CPU tensor's raise is
-    the one a CUDA tensor meets first."""
-    qw = quantize(torch.randn(64, 32), bits=4, group_size=32, symmetric=False)
-    with pytest.raises(NotImplementedError, match="symmetric"):
-        dm.dequant_matmul(torch.randn(2, 64), qw)
+    """Zero points (once refused here): the JAX XLA path computes them, and
+    so does the wrapper now. On a CPU tensor its plain version (each
+    operand q - z, f32 here) equals JAX's `quantized_matmul` on the same
+    codes within f32 sums, and JAX's and the port's asymmetric codes are
+    the same. (tests/test_torch_asymmetric.py holds the rest.)"""
+    rng = np.random.default_rng(9)
+    w = rng.standard_normal((64, 32)).astype(np.float32)
+    w[:, :4] += 2.0                     # all-positive columns
+    qw = quantize(torch.from_numpy(w), bits=4, group_size=32,
+                  symmetric=False)
+    jw = jax_quantize(jnp.asarray(w), bits=4, group_size=32, symmetric=False)
+    np.testing.assert_array_equal(qw.data.numpy(), np.asarray(jw.data))
+    np.testing.assert_array_equal(qw.zero_points.numpy(),
+                                  np.asarray(jw.zero_points))
+    x = rng.standard_normal((2, 64)).astype(np.float32)
+    got = dm.dequant_matmul(torch.from_numpy(x), qw, out_dtype=torch.float32)
+    ref = np.asarray(jmm.quantized_matmul(jnp.asarray(x), jw))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5,
+                               atol=1e-5 * np.abs(ref).max())
 
 
 # (K, N) of the matrices a served model's decode step takes through #1's
@@ -638,11 +651,20 @@ def test_cuda_quantize_activations_bit_exact(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_asymmetric_and_unaligned_groups_raise(cuda_device):
-    x = torch.randn(2, 64, device=cuda_device).to(torch.bfloat16)
+    """Asymmetric weights (once refused) run on the card: the GEMV and the
+    tensor-core kernel against the plain version; groups of 16 rows still
+    raise."""
     asym = quantize(torch.randn(64, 32, device=cuda_device), bits=8,
                     symmetric=False)
-    with pytest.raises(NotImplementedError, match="symmetric"):
-        dm.dequant_matmul(x, asym)
+    for m in (2, 40):
+        x = torch.randn(m, 64, device=cuda_device).to(torch.bfloat16)
+        got = dm.dequant_matmul(x, asym, out_dtype=torch.float32)
+        ref = dm.dequant_matmul_plain(x, asym.data, asym.scales,
+                                      zero_points=asym.zero_points,
+                                      out_dtype=torch.float32)
+        diff = (got - ref).abs().amax(-1)
+        assert (diff <= 2e-2 * ref.abs().amax(-1)).all()
+    x = torch.randn(2, 64, device=cuda_device).to(torch.bfloat16)
     g16 = quantize(torch.randn(64, 32, device=cuda_device), bits=8,
                    group_size=16)
     with pytest.raises(NotImplementedError, match="groups"):

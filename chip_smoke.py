@@ -4401,11 +4401,11 @@ def trained_weights(torch, T, params, cfg, calib=None):
     quantized recipe made from them on their device and fused as the
     engine fuses them (wqkv, w_gu; W4A8 g128 experts in the cat layout,
     per-channel int8 experts stacked); a "gptq" recipe by GPTQ over the
-    `calib` sequences (quant/gptq.py, on the weights' device), its seconds
-    under "gptq_s"."""
+    `calib` sequences (quant/gptq.py, on the weights' device). Returns
+    (weights, GPTQ's seconds)."""
     from deeppowers_tpu_torch.config import QuantConfig, QuantMode
     from deeppowers_tpu_torch.quant.gptq import gptq_quantize
-    out = {}
+    out, gptq_s = {}, None
     for name, q in TRAINED_WEIGHTS.items():
         if q is None:
             out[name] = params
@@ -4419,11 +4419,11 @@ def trained_weights(torch, T, params, cfg, calib=None):
             qp = gptq_quantize(params, cfg, calib, qcfg)
             if qp["embedding"].is_cuda:
                 torch.cuda.synchronize()
-            out["gptq_s"] = round(time.perf_counter() - t0, 3)
+            gptq_s = round(time.perf_counter() - t0, 3)
         else:
             qp = T.quantize_params(params, qcfg)
         out[name] = T.fuse_params(qp, cfg)
-    return out
+    return out, gptq_s
 
 
 def trained_ppl(torch, weights, cfg, seqs, cached, row):
@@ -4648,8 +4648,7 @@ def trained_phase(torch, T, counters):
     calib = windows[TRAINED_SEQS:TRAINED_SEQS + TRAINED_CALIB]
     cached = sequences(ids, TRAINED_CACHED_LEN)[:TRAINED_SEQS]
     narrow = check_narrow_heads(torch, cfg)
-    weights = trained_weights(torch, T, params, cfg, calib)
-    gptq_s = weights.pop("gptq_s")
+    weights, gptq_s = trained_weights(torch, T, params, cfg, calib)
     cpu_weights = {k: tree_to(v, "cpu") for k, v in weights.items()}
     launches, rows, card_s, cpu_s = {}, {}, 0.0, 0.0
     share = None
@@ -4795,16 +4794,23 @@ def check_zp_kernels(torch):
                 err, ratio = check_dm(f"dequant_matmul[{var}] {name} M={m}",
                                       got, ref)
                 err_max = max(err_max, err)
-                iters = 50 if m == 8 else 10
+                # at M = 8 the kernel and the library each stream at least
+                # 200 MB of weight copies a timed replay, past the 50 MB L2
+                w0 = dequantize(q0, torch.bfloat16)
+                lib_copies = (max(1, -(-200_000_000 // (w0.numel() * 2)))
+                              if m == 8 else 1)
+                wbf = [w0] + [w0.clone() for _ in range(lib_copies - 1)]
                 t_k = cuda_ms(torch, [lambda q=q: dm.dequant_matmul(
-                    x, q, out_dtype=out_dtype, **kw) for q in qws], iters)
+                    x, q, out_dtype=out_dtype, **kw) for q in qws],
+                    max(50, copies) if m == 8 else 10)
                 t_s = cuda_ms(torch, [lambda q=q: dm.dequant_matmul(
-                    x, q, out_dtype=out_dtype, **kw) for q in syms], iters)
+                    x, q, out_dtype=out_dtype, **kw) for q in syms],
+                    max(50, copies) if m == 8 else 10)
                 t_p = cuda_ms(torch, [lambda q=q: plain(q) for q in qws[:2]],
                               3, graph=False)
-                wbf = [dequantize(q, torch.bfloat16) for q in qws[:2]]
                 t_l = cuda_ms(torch, [lambda w=w: torch.matmul(x, w)
-                                      for w in wbf], iters)
+                                      for w in wbf],
+                              max(50, lib_copies) if m == 8 else 10)
                 nbytes = (w_bytes + q0.scales.numel() * 4
                           + q0.zero_points.numel() * 4 + x.numel() * 2
                           + m * n * (4 if mode == "f32" else 2)
@@ -4819,7 +4825,7 @@ def check_zp_kernels(torch):
                 for key, v in (("ms", t_k), ("sym", t_s), ("plain", t_p),
                                ("lib", t_l), ("bytes", nbytes), ("ops", ops)):
                     tot[key] += per * v
-                del qws, syms, wbf
+                del qws, syms, wbf, w0
             bd, by = bound_ms(tot["bytes"], tot["ops"])
             rows.append({
                 "name": f"dequant_matmul[{var}, M={m}]", "route": "cuda",
@@ -4920,6 +4926,42 @@ def output_errors(torch, fparams, qparams, stats, cfg) -> dict:
     return out
 
 
+def quantized_matrices(tree, path=""):
+    """(path, QuantizedTensor) of every quantized matrix in a params tree."""
+    from deeppowers_tpu_torch.quant.qtypes import QuantizedTensor
+    if isinstance(tree, QuantizedTensor):
+        return [(path, tree)]
+    items = (tree.items() if isinstance(tree, dict) else
+             enumerate(tree) if isinstance(tree, list) else ())
+    return [m for k, v in items
+            for m in quantized_matrices(v, f"{path}/{k}" if path else str(k))]
+
+
+def check_matrices(torch, params, what):
+    """#1 on every quantized matrix of `params` (all layers and the lm_head,
+    fused as the engine runs them) at M = 8 (the GEMV) and M = 512 (the
+    tensor-core kernel), random bf16 activations, each against
+    `dequant_matmul_plain` on the same weights under #1's gate (2e-2 of a
+    row's max|ref|): a comparison that stays tight at full depth, where
+    teacher-forced logits through the a8 row quantizer do not. Returns
+    (matrices, worst row ratio)."""
+    from deeppowers_tpu_torch.ops.kernels import dequant_matmul as dm
+    g = torch.Generator(device="cuda").manual_seed(SEED + 45)
+    mats = quantized_matrices(params)
+    worst = 0.0
+    for name, q in mats:
+        k = q.shape[0]
+        for m in (8, 512):
+            x = (torch.randn(m, k, generator=g, device="cuda")
+                 .to(torch.bfloat16))
+            got = dm.dequant_matmul(x, q)
+            ref = dm.dequant_matmul_plain(
+                x, q.data, q.scales, bits=q.bits, act_bits=q.act_bits,
+                zero_points=q.zero_points, out_dtype=torch.bfloat16)
+            worst = max(worst, check_dm(f"{what} {name} M={m}", got, ref)[1])
+    return len(mats), worst
+
+
 def gptq_weights(torch, T, cfg, gen, device):
     """TinyLlama's random bf16 weights and W4A8 g128 + GPTQ made from
     them on `device`, calibrated over GPTQ_CALIB random sequences: (float
@@ -4952,10 +4994,11 @@ def calibrated_phase(torch, T, kvcache, counters):
     symmetric variant launched. (b) W4A8 g128 + GPTQ made on the card
     over GPTQ_CALIB tokens (`gptq_weights`), its seconds; per matrix kind
     GPTQ's output error against round-to-nearest's, GPTQ lower on every
-    kind; then its teacher-forced logits against the CPU (its first
-    LLAMA2_PATH_LAYERS layers, rel L2 <= 5e-2, beside the CPU's own
-    spread under one-ulp input changes) and serve's 8 requests at full
-    depth. Returns (launches by run, phase info)."""
+    kind; #1 on each of its matrices at full depth against the plain
+    version (`check_matrices`); then its teacher-forced logits against the
+    CPU (its first LLAMA2_PATH_LAYERS layers, rel L2 <= 5e-2, beside the
+    CPU's own spread under one-ulp input changes) and serve's 8 requests
+    at full depth. Returns (launches by run, phase info)."""
     import dataclasses
     from deeppowers_tpu_torch.models.presets import TINYLLAMA_1_1B as cfg
     rng = torch.Generator().manual_seed(SEED + 42)
@@ -5004,13 +5047,17 @@ def calibrated_phase(torch, T, kvcache, counters):
     del fparams, rtn, stats
     torch.cuda.empty_cache()
     params = T.fuse_params(gq, cfg)
+    n_mats, mat_ratio = check_matrices(torch, params, "calibrated[gptq]")
+    log(f"calibrated[gptq] #1 on all {n_mats} GPTQ matrices at M = 8 and "
+        f"512 against the plain version: worst row ratio {mat_ratio:.3e}")
     gptq_on = ["dequant_matmul[w4a8g]", "quantize_activations"] + ROUTES_ON
     # teacher-forced over its first LLAMA2_PATH_LAYERS layers, rel L2 <=
     # 5e-2 (the TinyLlama paths' limit). Random TinyLlama weights behind the
-    # a8 row quantizer are chaotic: on the CPU alone a one-ulp change of a
-    # third of the embedding moves these logits by 7.6e-2 (4 layers; 1.9e-2
-    # for int8 weight-only), and over 22 layers the card parted from the
-    # CPU by 6.1e-2. The CPU's own one-ulp spread is measured beside it.
+    # a8 row quantizer are chaotic: a one-ulp change of a third of the
+    # embedding moves these logits on the CPU alone about as far as the
+    # card's rounding does, so this limit holds the path's wiring, and
+    # check_matrices above holds the kernels at full depth. The CPU's own
+    # one-ulp spread is measured beside it.
     cut_cfg = dataclasses.replace(cfg, num_layers=LLAMA2_PATH_LAYERS)
     cut = dict(params, layers=params["layers"][:LLAMA2_PATH_LAYERS])
     reset_counts(counters)
@@ -5036,6 +5083,8 @@ def calibrated_phase(torch, T, kvcache, counters):
                     **secs, "output_error": errs,
                     "gain": {k: round(1 - errs["gptq"][k] / errs["rtn"][k], 4)
                              for k in GPTQ_KINDS},
+                    "matrices": n_mats,
+                    "matrix_worst_row_ratio": f"{mat_ratio:.3e}",
                     "logits_rel_l2": f"{rel_g:.3e}",
                     "path_layers": LLAMA2_PATH_LAYERS,
                     "cpu_one_ulp_rel_l2": f"{ulp_rel:.3e}",

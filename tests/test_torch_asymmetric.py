@@ -503,8 +503,9 @@ def test_chip_smoke_calibrated_helpers_run_on_cpu(monkeypatch):
     size: the asymmetric weights (zero points on every matrix, attention
     int8 and the rest int4) through the teacher-forced path with both CPU
     functions; GPTQ from `gptq_weights` (2 x 64 calibration tokens) below
-    round-to-nearest's output error on every matrix kind; the served run
-    of the asymmetric weights (its launch gates need the card)."""
+    round-to-nearest's output error on every matrix kind, and the list of
+    its fused matrices that `check_matrices` walks on the card; the served
+    run of the asymmetric weights (its launch gates need the card)."""
     import os
     import sys
     sys.path.insert(0, os.path.dirname(os.path.dirname(
@@ -538,6 +539,10 @@ def test_chip_smoke_calibrated_helpers_run_on_cpu(monkeypatch):
         assert errs["gptq"][kind] < errs["rtn"][kind], (kind, errs)
     assert {q.act_bits for q in _qleaves(gq)} == {8}
     assert secs["gptq_s"] > 0
+    # check_matrices' list: every fused matrix of every layer, and the head
+    mats = cs.quantized_matrices(T.fuse_params(gq, cfg))
+    assert len(mats) == 4 * cfg.num_layers + 1
+    assert mats[0][0] == "layers/0/attn/wqkv/w" and mats[-1][0] == "lm_head/w"
     out, launches = cs.served_run(
         torch, params, cfg, {"dequant_matmul": dm.dequant_matmul},
         "calibrated[asym]", [], [], device="cpu")

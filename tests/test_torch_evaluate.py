@@ -126,21 +126,26 @@ def _last_json(text):
 def test_eval_ppl_synthetic_runs_on_the_cpu(capsys):
     """The harness self-check: the JAX script's rows, every one run (GPTQ
     and AWQ too) and gated as JAX gates them, and the last line a JSON
-    object with every row, the device and the dtype; the exit code follows
-    the verdict. (On the port's random draw at this size the GPTQ rows'
-    noise-level deltas pass the 0.1% limit, as JAX's own GPTQ does on the
-    same weights: tests/test_torch_quant_recipes.py holds the rows against
-    JAX's on one model.)"""
+    object with every row, the device and the dtype. The shipped
+    round-to-nearest and KV rows (int8, W8A8, bf16 + k8v4, W4A8 GPTQ +
+    k8v4) stay within the gate. On the port's seeded draw (its own random
+    tiny-llama, not JAX's) the GPTQ prefill rows land at +0.509 (int4) and
+    +0.589 (W4A8) against the 0.516 limit, so the verdict is FAIL and the
+    exit code 1 (JAX's gptq_quantize gives the same two deltas on these
+    weights); on JAX's draw both scripts pass
+    (tests/test_torch_quant_recipes.py holds those rows against JAX's)."""
     rc = eval_ppl.main(["--synthetic", "--device", "cpu", "--seq-len", "48",
                         "--max-seqs", "3"])
     out = capsys.readouterr().out
     res = _last_json(out)
     assert {"rows", "device", "dtype", "gate", "worst_delta", "status",
             "reference", "kv_reference", "sequences"} <= set(res)
-    assert (res["device"], res["dtype"]) == ("cpu", "f32")
-    assert res["status"] == ("PASS" if res["worst_delta"] <= res["gate"]
-                             else "FAIL")
-    assert rc == (0 if res["status"] == "PASS" else 1)
+    assert (res["device"], res["dtype"], res["status"]) == ("cpu", "f32",
+                                                            "FAIL")
+    assert rc == 1
+    over = [r["name"] for r in res["rows"]
+            if r["gated"] and r["delta"] > res["gate"]]
+    assert over == ["W4A8 g128 + GPTQ"]
     names = [r["name"] for r in res["rows"]]
     assert names == ["int8 per-channel", "int4 g128", "int4 g128 + AWQ",
                      "int4 g128 + GPTQ", "W4A8 g128", "W4A8 g128 + GPTQ",
